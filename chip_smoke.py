@@ -24,11 +24,17 @@ Phases:
            post-local SGD, mean sync, 12 steps; launch counts.
   B        the same with EF-sign sync; the compressor kernels launch once
            per global sync.
+  L        the same with LARS (the paper's Table 5 optimizer) and telemetry:
+           the two LARS kernels every step, their stats form feeding the
+           round statistics, grad_clip set and ignored (no sq_sum launch);
+           the last round's summary.
   P        torch.profiler over two full-width local steps and one EF-sign
-           sync: device busy time by kernel family and the idle share
-           (profiler overhead included; not a timing of record).
+           sync, for SGD (phase B's run) and for LARS with telemetry
+           (phase L's): device busy time by kernel family and the idle
+           share (profiler overhead included; not a timing of record).
   C        the trainer on the card against the trainer on the CPU (the
-           kernels' plain versions) at smoke size, from the same weights.
+           kernels' plain versions) at smoke size, from the same weights:
+           SGD + EF-sign, and LARS with telemetry, mean and EF-sign sync.
 """
 from __future__ import annotations
 
@@ -53,7 +59,14 @@ REPLACES = {
     "sq_sum": "src/repro/kernels/fused_bucket.py:153",
     "row_abs_sum": "src/repro/kernels/fused_bucket.py:177",
     "scale_sign_rows": "src/repro/kernels/fused_bucket.py:304",
+    "lars_row_norms": "src/repro/kernels/fused_bucket.py:204",
+    "fused_lars_bucket": "src/repro/kernels/fused_bucket.py:258",
 }
+# phase L: LARS step size; the update of a layer is about lr * trust * ||w||
+LARS_LR, LARS_TRUST = 0.3, 0.02
+# round_summary fields computed from ||mean_k x_k||^2 (post_sync_sq)
+SYNC_MEAN_KEYS = ("post_sync_sq", "dispersion", "diversity", "signal_sq",
+                  "noise_sq", "noise_ratio")
 SOURCE = "src/repro_torch/kernels/csrc/fused_bucket.cu"
 
 
@@ -176,6 +189,44 @@ def check_kernels(rows: int, bw: float, flops_peak: float, timed: bool):
             plain_ms=time_ms(lambda: fb.scale_sign_rows_plain(x, s)),
             library_ms=None)
     del x
+
+    # LARS: row norms, then the update with a per-worker, per-row ratio
+    p, g, u = mk(), mk(), 0.1 * mk()
+    ratio = 0.01 + 2 * torch.rand((W, rows), generator=gen, device=dev)
+    a, b = (fb.lars_row_norms(p, g, wd_row, weight_decay=1e-4),
+            fb.lars_row_norms_plain(p, g, wd_row, weight_decay=1e-4))
+    errs = [rel_err(x, y) for x, y in zip(a, b)]
+    res["lars_row_norms"] = dict(
+        max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+        tol=TOL["reduction"], ok=all(e[1] <= TOL["reduction"] for e in errs),
+        bytes=2 * nbytes + 4 * rows + 2 * 4 * W * rows, flops=6 * n)
+    kw = dict(momentum=0.9, weight_decay=1e-4, nesterov=True, stats=True)
+    pk, uk, pp, up = p.clone(), u.clone(), p.clone(), u.clone()
+    sk = fb.fused_lars_bucket(pk, g, uk, 0.05, wd_row, ratio, **kw)
+    sp = fb.fused_lars_bucket_plain(pp, g, up, 0.05, wd_row, ratio, **kw)
+    torch.cuda.synchronize()
+    errs = [rel_err(pk, pp), rel_err(uk, up)]
+    serr = [rel_err(x, y) for x, y in zip(sk, sp)]
+    res["fused_lars_bucket"] = dict(
+        max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+        stats_rel_err=max(e[1] for e in serr), tol=TOL["elementwise"],
+        stats_tol=TOL["reduction"],
+        ok=(all(e[1] <= TOL["elementwise"] for e in errs)
+            and all(e[1] <= TOL["reduction"] for e in serr)),
+        bytes=5 * nbytes + 4 * rows + 4 * W * rows, flops=12 * n)
+    if timed:
+        res["lars_row_norms"].update(
+            ms=time_ms(lambda: fb.lars_row_norms(p, g, wd_row, weight_decay=1e-4)),
+            plain_ms=time_ms(lambda: fb.lars_row_norms_plain(p, g, wd_row,
+                                                             weight_decay=1e-4)),
+            library_ms=None)
+        res["fused_lars_bucket"].update(
+            ms=time_ms(lambda: fb.fused_lars_bucket(pk, g, uk, 0.05, wd_row,
+                                                    ratio, **kw)),
+            plain_ms=time_ms(lambda: fb.fused_lars_bucket_plain(
+                pp, g, up, 0.05, wd_row, ratio, **kw)),
+            library_ms=None)
+    del p, g, u, pk, uk, pp, up
     for name, r in res.items():
         r["bound_ms"] = 1e3 * max(r["bytes"] / bw, r["flops"] / flops_peak)
         r["bound_by"] = "bytes" if r["bytes"] / bw >= r["flops"] / flops_peak \
@@ -218,8 +269,9 @@ def train_run(run, *, device, steps, params0=None, seed=0):
     return state, hist, summ, [b - a for a, b in zip(step_s, step_s[1:])]
 
 
-BUCKET_KERNELS = ("sgd_kernel", "sq_sum_kernel", "reduce_rows_kernel",
-                  "row_abs_sum_kernel", "scale_sign_rows_kernel")
+BUCKET_KERNELS = ("update_kernel", "sq_sum_kernel", "reduce_rows_kernel",
+                  "row_abs_sum_kernel", "scale_sign_rows_kernel",
+                  "lars_row_norms_kernel")
 
 
 def kernel_family(name: str) -> str:
@@ -269,7 +321,9 @@ def profile_phase(run):
         f = kernel_family(e.key)
         fam[f] = fam.get(f, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
-    emit({"phase": "P", "window": "2 local steps + 1 ef_sign sync",
+    emit({"phase": "P", "optimizer": run.optim.optimizer,
+          "telemetry": run.controller.wants_telemetry,
+          "window": "2 local steps + 1 ef_sign sync",
           "wall_ms_under_profiler": wall_ms,
           "device_busy_ms": busy_ms if kern else None,
           "idle_share": 1 - busy_ms / wall_ms if kern else None,
@@ -279,16 +333,20 @@ def profile_phase(run):
     del state
 
 
-def phase_run(mode: str, cfg, seq: int, local_batch: int, *, device="cuda",
-              steps=STEPS, params0=None):
-    from repro_torch.configs.base import (InputShape, LocalSGDConfig,
-                                          OptimConfig, RunConfig)
+def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
+              lars: bool = False):
+    """The phases' RunConfig; ``lars`` switches to LARS with telemetry
+    (grad_clip stays set: LARS ignores it)."""
+    from repro_torch.configs.base import (ControllerConfig, InputShape,
+                                          LocalSGDConfig, OptimConfig, RunConfig)
+    opt = (dict(optimizer="lars", base_lr=LARS_LR, lars_trust=LARS_TRUST)
+           if lars else dict(base_lr=0.3))
     return RunConfig(
         model=cfg, shape=InputShape("chip", seq, W * local_batch, "train"),
         local_sgd=LocalSGDConfig(local_steps=4, post_local_switch=4,
                                  sync_compression=mode),
-        optim=OptimConfig(base_lr=0.3, base_batch=32, lr_warmup_steps=2,
-                          grad_clip=1.0),
+        optim=OptimConfig(base_batch=32, lr_warmup_steps=2, grad_clip=1.0, **opt),
+        controller=ControllerConfig(telemetry=lars),
         steps=steps)
 
 
@@ -330,12 +388,13 @@ def main() -> int:
     check_kernels(RAGGED_ROWS, bw, flops_peak, timed=False)
     full = check_kernels(FULL_ROWS, bw, flops_peak, timed=True)
 
-    # ---- the main path: phases A (mean) and B (EF-sign) at full width ----
+    # ---- the main path: phases A (mean), B (EF-sign), L (LARS) ----
+    from repro_torch.telemetry.stats import round_summary
     cfg = configs.get("paper-lm")
     launches = {k: 0 for k in fb.LAUNCHES}
-    expect_syncs = None
-    for phase, mode in (("A", "none"), ("B", "ef_sign")):
-        run = phase_run(mode, cfg, seq=512, local_batch=8)
+    for phase, mode, lars in (("A", "none", False), ("B", "ef_sign", False),
+                              ("L", "ef_sign", True)):
+        run = phase_run(mode, cfg, seq=512, local_batch=8, lars=lars)
         torch.cuda.reset_peak_memory_stats()
         fb.reset_launches()
         state, hist, summ, step_s = train_run(run, device="cuda", steps=STEPS)
@@ -343,58 +402,104 @@ def main() -> int:
         losses = [h["loss"] for h in hist]
         syncs = summ["comm_rounds"]["global"]
         tokens = run.shape.global_batch * run.shape.seq_len
-        emit({"phase": phase, "model": cfg.name, "W": W, "local_batch": 8,
-              "seq": 512, "sync_compression": mode, "steps": STEPS,
-              "loss": losses, "comm_rounds": summ["comm_rounds"],
-              "step_s": step_s, "step_s_median": statistics.median(step_s[1:]),
-              "tokens_per_s": tokens / statistics.median(step_s[1:]),
-              "wall_s": summ["wall_s"],
-              "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
-              "launches": counts})
+        rec = {"phase": phase, "model": cfg.name, "W": W, "local_batch": 8,
+               "seq": 512, "sync_compression": mode,
+               "optimizer": run.optim.optimizer, "base_lr": run.optim.base_lr,
+               "lars_trust": run.optim.lars_trust if lars else None,
+               "grad_clip": run.optim.grad_clip, "steps": STEPS,
+               "loss": losses, "comm_rounds": summ["comm_rounds"],
+               "step_s": step_s, "step_s_median": statistics.median(step_s[1:]),
+               "tokens_per_s": tokens / statistics.median(step_s[1:]),
+               "wall_s": summ["wall_s"],
+               "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts}
+        summary = round_summary(state.stats) if lars else None
+        if lars:
+            rec["round_summary"] = summary
+        emit(rec)
         if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
             raise AssertionError(f"phase {phase}: loss not finite or not "
                                  f"falling: {losses}")
-        want = {"fused_sgd_bucket": STEPS, "sq_sum": STEPS,
-                "row_abs_sum": syncs if mode != "none" else 0,
-                "scale_sign_rows": syncs if mode != "none" else 0}
+        if syncs != 6:
+            raise AssertionError(f"phase {phase}: {syncs} global syncs, want 6")
+        comp = syncs if mode != "none" else 0
+        want = {k: 0 for k in fb.LAUNCHES}
+        want.update(row_abs_sum=comp, scale_sign_rows=comp)
+        if lars:
+            want.update(lars_row_norms=STEPS, fused_lars_bucket=STEPS)
+        else:
+            want.update(fused_sgd_bucket=STEPS, sq_sum=STEPS)
         if counts != want:
             raise AssertionError(f"phase {phase}: launches {counts}, want {want}")
-        expect_syncs = syncs if expect_syncs is None else expect_syncs
-        if syncs != expect_syncs or syncs != 6:
-            raise AssertionError(f"phase {phase}: {syncs} global syncs, want 6")
+        if lars:
+            floats = [v for k, v in summary.items() if isinstance(v, float)]
+            floats += summary["comp_rel_err"]
+            if (summary["rounds"] != syncs or not summary["comp_measured"]
+                    or not all(math.isfinite(v) for v in floats)):
+                raise AssertionError(f"phase {phase}: telemetry {summary}")
         for k, v in counts.items():
             launches[k] += v
         del state
         torch.cuda.empty_cache()
 
-    profile_phase(phase_run("ef_sign", cfg, seq=512, local_batch=8))
-    torch.cuda.empty_cache()
+    for lars in (False, True):
+        profile_phase(phase_run("ef_sign", cfg, seq=512, local_batch=8, lars=lars))
+        torch.cuda.empty_cache()
 
     # ---- C: the trainer on the card vs on the CPU (plain versions) ----
+    # Loss 1e-4 relative per step; params: all but frac_tol of the elements
+    # within 1e-4 x the largest; summary floats 1e-4 relative.  Under
+    # EF-sign a delta within rounding of 0 may take the other sign on the
+    # other device and move its element by a whole scale.  LARS + EF-sign
+    # flips more of them than SGD + EF-sign (on the CPU, rounding-level
+    # changes of the starting weights alone flip more than 1e-4 of the
+    # elements), so it takes frac_tol 1e-3, and the summary fields read
+    # from ||mean_k x_k||^2, which each flip moves by about one element's
+    # share, take 1e-2.  LARS + mean sync has no flips and takes them all.
     from repro_torch.models import base as mbase
     from repro_torch.models import lm
-    smoke = configs.get_smoke("paper-lm")
-    run = phase_run("ef_sign", smoke, seq=64, local_batch=2, steps=6)
     from repro_torch.utils import tree_map
+    smoke = configs.get_smoke("paper-lm")
     p0 = mbase.materialize(lm.param_specs(smoke),
                            torch.Generator().manual_seed(0), "cpu")
-    sg, hg, _, _ = train_run(run, device="cuda", steps=6,
-                             params0=tree_map(lambda t: t.to("cuda"), p0))
-    sc, hc, _, _ = train_run(run, device="cpu", steps=6,
-                             params0=tree_map(lambda t: t.clone(), p0))
-    lg, lc = [h["loss"] for h in hg], [h["loss"] for h in hc]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
-    pg, pc = sg.params.buckets[0].cpu(), sc.params.buckets[0]
-    d = (pg - pc).abs()
-    frac = float((d > 1e-4 * pc.abs().max()).float().mean())
-    emit({"phase": "C", "model": smoke.name, "steps": 6, "loss_gpu": lg,
-          "loss_cpu": lc, "loss_max_rel_diff": loss_rel, "loss_tol": 1e-4,
-          "params_max_abs_diff": float(d.max()),
-          "params_frac_beyond_1e-4_of_max": frac, "frac_tol": 1e-4})
-    if loss_rel > 1e-4 or frac > 1e-4:
-        raise AssertionError("phase C: the trainer on the card disagrees with "
-                             "the trainer on the CPU")
+    rel = lambda a, b: abs(a - b) / abs(b) if b else abs(a)
+    for optimizer, mode in (("sgd", "ef_sign"), ("lars", "none"),
+                            ("lars", "ef_sign")):
+        lars = optimizer == "lars"
+        flips = lars and mode == "ef_sign"
+        frac_tol = 1e-3 if flips else 1e-4
+        run = phase_run(mode, smoke, seq=64, local_batch=2, steps=6, lars=lars)
+        sg, hg, _, _ = train_run(run, device="cuda", steps=6,
+                                 params0=tree_map(lambda t: t.to("cuda"), p0))
+        sc, hc, _, _ = train_run(run, device="cpu", steps=6,
+                                 params0=tree_map(lambda t: t.clone(), p0))
+        lg, lc = [h["loss"] for h in hg], [h["loss"] for h in hc]
+        loss_rel = max(rel(a, b) for a, b in zip(lg, lc))
+        pg, pc = sg.params.buckets[0].cpu(), sc.params.buckets[0]
+        d = (pg - pc).abs()
+        frac = float((d > 1e-4 * pc.abs().max()).float().mean())
+        rec = {"phase": "C", "model": smoke.name, "optimizer": optimizer,
+               "sync_compression": mode, "steps": 6, "loss_gpu": lg,
+               "loss_cpu": lc, "loss_max_rel_diff": loss_rel, "loss_tol": 1e-4,
+               "params_max_abs_diff": float(d.max()),
+               "params_frac_beyond_1e-4_of_max": frac, "frac_tol": frac_tol}
+        bad = []
+        if lars:
+            ssg, ssc = round_summary(sg.stats), round_summary(sc.stats)
+            errs = {k: rel(ssg[k], v) for k, v in ssc.items() if isinstance(v, float)}
+            errs["comp_rel_err"] = max(rel(a, b) for a, b in
+                                       zip(ssg["comp_rel_err"], ssc["comp_rel_err"]))
+            tols = {k: 1e-2 if flips and k in SYNC_MEAN_KEYS else 1e-4 for k in errs}
+            bad = [k for k in errs if errs[k] > tols[k]]
+            rec.update(round_summary_gpu=ssg, round_summary_cpu=ssc,
+                       stats_rel_diff=errs, stats_tol=tols)
+        emit(rec)
+        if loss_rel > 1e-4 or frac > frac_tol or bad:
+            raise AssertionError(f"phase C ({optimizer}, {mode}): the trainer on "
+                                 f"the card disagrees with the trainer on the CPU"
+                                 f"{': ' + ', '.join(bad) if bad else ''}")
 
+    # launches: the main-path phases A, B and L
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": full[k]["max_abs_err"],

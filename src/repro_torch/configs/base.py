@@ -125,8 +125,8 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class ControllerConfig:
-    """Adaptive sync controller settings.  Only ``kind="static"`` without
-    telemetry runs in this slice of the port."""
+    """Adaptive sync controller settings.  Only ``kind="static"`` runs in
+    the port so far, with or without telemetry."""
 
     kind: Literal["static", "diversity_h", "adaptive_batch",
                   "auto_compress", "noise_adaptive", "elastic"] = "static"

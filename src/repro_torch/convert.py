@@ -3,17 +3,21 @@
 The reference's param pytree, converted to numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), becomes the port's param tree with
 the same nesting; a resident ``LocalSGDState`` of the reference whose
-bucket buffers are numpy arrays becomes the port's resident state.  The
+bucket buffers (and telemetry stats, if any) are numpy arrays becomes the
+port's resident state.  The
 bucket layouts agree row for row (``core/flatbuf``), so buffers move
 as they are.  Nothing here imports JAX: the inputs are numpy.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.core import flatbuf
 from repro_torch.core.local_sgd import LocalSGDState
+from repro_torch.telemetry.stats import StatsAccumulator
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -36,7 +40,8 @@ def state_from_reference(ref_state, *, layout: flatbuf.FlatLayout, device,
                          ) -> LocalSGDState:
     """A resident ``LocalSGDState`` of the reference (fields ``params``,
     ``momentum``, ``anchor``, ``global_u``, ``ef_memory`` with numpy
-    ``.buckets``, and ``step``) -> the port's state on ``device``.
+    ``.buckets``, ``step``, and ``stats``: None or a ``StatsAccumulator``
+    of numpy arrays) -> the port's state on ``device``.
 
     ``layout`` is the port's layout for the same model (e.g.
     ``TrainBundle.layout``); every buffer must have its bucket rows.
@@ -52,9 +57,15 @@ def state_from_reference(ref_state, *, layout: flatbuf.FlatLayout, device,
                                  f"not match the layout's ({want}, 128)")
         return flatbuf.BucketState(layout, bufs, leading=leading)
 
+    ref_stats = getattr(ref_state, "stats", None)
+    stats = None
+    if ref_stats is not None:
+        stats = StatsAccumulator(**{
+            f.name: _tensor(np.asarray(getattr(ref_stats, f.name)), device)
+            for f in dataclasses.fields(StatsAccumulator)})
     return LocalSGDState(params=conv(ref_state.params, 1),
                          momentum=conv(ref_state.momentum, 1),
                          anchor=conv(ref_state.anchor, 0),
                          global_u=conv(ref_state.global_u, 0),
                          ef_memory=conv(ref_state.ef_memory, 1),
-                         step=int(np.asarray(ref_state.step)))
+                         step=int(np.asarray(ref_state.step)), stats=stats)

@@ -238,6 +238,16 @@ def segment_sizes(layout: FlatLayout, b: int) -> np.ndarray:
     return out
 
 
+def segment_skip_wd(layout: FlatLayout, b: int) -> np.ndarray:
+    """(num_segments,) bool: True where the leaf opts out of weight decay
+    (norm/bias params, which also take the plain LR under LARS)."""
+    slots = layout.bucket_slots(b)
+    out = np.zeros((len(slots),), bool)
+    for s in slots:
+        out[s.seg] = s.skip_wd
+    return out
+
+
 def valid_mask(layout: FlatLayout, b: int) -> np.ndarray:
     """(rows, 128) f32 mask: 1.0 on true elements, 0.0 on padding."""
     m = np.zeros((layout.bucket_rows[b], LANE), np.float32)

@@ -9,25 +9,35 @@ syncs — the tree view exists only at ``unpack_state`` / ``mean_params``.
 
 * ``local_step`` differentiates each worker's loss with respect to its
   param BUCKET (the model reads views into it, ``flatbuf.unflatten``), so
-  the gradient is a bucket with exact-zero padding; then ONE fused SGD
-  launch per bucket updates all W workers in place (plus one ``sq_sum``
-  launch per bucket for the per-worker grad clip).  Workers run one after
-  another in a Python loop where the reference uses ``vmap``.
+  the gradient is a bucket with exact-zero padding; then ONE fused update
+  launch per bucket updates all W workers in place: SGD (plus one
+  ``sq_sum`` launch per bucket for the per-worker grad clip) or LARS (plus
+  one ``lars_row_norms`` launch per bucket for the trust ratios; no
+  clip).  Workers run one after another in a Python loop where the
+  reference uses ``vmap``.
 * ``sync`` executes a flat :class:`~repro_torch.core.syncplan.SyncPlan`:
   the no-anchor mean sync averages the worker copies in place; the
   anchored sign / EF-sign sync forms the per-worker delta against the
   anchor, compresses it (two kernel launches per bucket), averages it and
   steps the anchor, then broadcasts the new anchor into every worker.
 
+With telemetry (``make_local_sgd(..., telemetry=True)``) ``state.stats``
+carries a ``telemetry.stats.StatsAccumulator``: the per-worker grad and
+update norms come from the update launch's ``stats=True`` form, and each
+global sync records its pre-/post-mean norm pair and per-bucket
+compression error.
+
 The update is in place: ``local_step`` and ``sync`` return a state that
 shares (and has mutated) the buffers of the one they were given.
 
 Not ported yet, and raising ``NotImplementedError``: gradient noise
-(``noise_eta > 0``), the 1-bit wire pack, telemetry, LARS, hierarchical
-topologies and the per-leaf tree path.
+(``noise_eta > 0``), the 1-bit wire pack, adaptive controllers (and the
+speculative compression error they measure), hierarchical topologies and
+the per-leaf tree path.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -38,7 +48,9 @@ from repro_torch.core import compression as comp
 from repro_torch.core import flatbuf
 from repro_torch.core import syncplan as splan
 from repro_torch.core.schedule import lr_at
+from repro_torch.optim.lars import apply_lars_buckets
 from repro_torch.optim.sgd import apply_sgd_buckets
+from repro_torch.telemetry import stats as tstats
 
 
 @dataclass
@@ -49,6 +61,7 @@ class LocalSGDState:
     global_u: Any        # BucketState, single copy, or None
     ef_memory: Any       # BucketState, stacked, or None
     step: int = 0
+    stats: Any = None    # telemetry.stats.StatsAccumulator or None
 
 
 def needs_anchor(cfg: LocalSGDConfig) -> bool:
@@ -60,13 +73,20 @@ def unpack_state(state: LocalSGDState) -> LocalSGDState:
     up = lambda x: x.unpack() if flatbuf.is_bucket_state(x) else x
     return LocalSGDState(params=up(state.params), momentum=up(state.momentum),
                          anchor=up(state.anchor), global_u=up(state.global_u),
-                         ef_memory=up(state.ef_memory), step=state.step)
+                         ef_memory=up(state.ef_memory), step=state.step,
+                         stats=state.stats)
 
 
 def mean_params(state: LocalSGDState):
     """Single-copy tree of the worker-averaged model (eval boundary)."""
     return flatbuf.unflatten(state.params.layout,
                              [b.mean(dim=0) for b in state.params.buckets])
+
+
+def _sumsq(x, *, from_axis: int = 0):
+    """f32 sum of squares over all dims from ``from_axis`` on (telemetry)."""
+    xf = x.float()
+    return (xf * xf).sum(dim=tuple(range(from_axis, x.dim())))
 
 
 def group_mean(x, group: int):
@@ -84,22 +104,25 @@ def _check_supported(run: RunConfig):
     ls, opt = run.local_sgd, run.optim
     if opt.noise_eta > 0:
         raise NotImplementedError("gradient noise (noise_eta > 0) is not ported yet")
-    if opt.optimizer != "sgd":
+    if opt.optimizer not in ("sgd", "lars"):
         raise NotImplementedError(f"optimizer {opt.optimizer!r} is not ported yet")
     if ls.wire_pack or ls.sync_coalesce:
         raise NotImplementedError("the 1-bit wire pack is not ported yet")
     if ls.block_steps > 1 or ls.sync_topology not in ("auto", "flat"):
         raise NotImplementedError("hierarchical / overlap sync topologies "
                                   "are not ported yet")
-    if run.controller.kind != "static" or run.controller.wants_telemetry:
-        raise NotImplementedError("telemetry and adaptive controllers are "
-                                  "not ported yet")
+    if run.controller.kind != "static":
+        raise NotImplementedError(f"controller {run.controller.kind!r} is not "
+                                  "ported yet (telemetry with the static "
+                                  "schedule is)")
 
 
 def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
-                   wd_mask=None):
+                   wd_mask=None, telemetry: bool = False):
     """Build (init, local_step, sync) for a single-worker
-    ``loss_fn(params, batch) -> (loss, metrics)`` on resident buckets."""
+    ``loss_fn(params, batch) -> (loss, metrics)`` on resident buckets.
+    ``telemetry`` carries a ``StatsAccumulator`` in ``state.stats``; it
+    observes only, the trajectory is the same with it on or off."""
     _check_supported(run)
     ls = run.local_sgd
     opt = run.optim
@@ -124,7 +147,9 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                       if ls.global_momentum > 0 else None),
             ef_memory=(flatbuf.BucketState(layout, zeros(), leading=1)
                        if ls.sync_compression == "ef_sign" else None),
-            step=0)
+            step=0,
+            stats=(tstats.init_stats(W, layout.num_buckets, pb[0].device)
+                   if telemetry else None))
 
     def local_step(state: LocalSGDState, batch):
         """One local step of every worker.  ``batch``: dict of (W, B_loc,
@@ -146,23 +171,37 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                 g_all[w].copy_(g)
             losses.append(loss.detach())
             metrics_w.append({k: v.detach() for k, v in metrics.items()})
-        apply_sgd_buckets(layout, pbs, gbs, list(state.momentum.buckets),
-                          lr=lr, momentum_coef=ls.local_momentum,
-                          weight_decay=opt.weight_decay, nesterov=ls.nesterov,
-                          grad_clip=opt.grad_clip)
+        ubs = list(state.momentum.buckets)
+        if opt.optimizer == "lars":
+            # LARS takes no grad clip, as in the reference: no sq_sum launch
+            out = apply_lars_buckets(
+                layout, pbs, gbs, ubs, lr=lr, trust=opt.lars_trust,
+                momentum_coef=ls.local_momentum, weight_decay=opt.weight_decay,
+                nesterov=ls.nesterov, want_stats=telemetry)
+        else:
+            out = apply_sgd_buckets(
+                layout, pbs, gbs, ubs, lr=lr, momentum_coef=ls.local_momentum,
+                weight_decay=opt.weight_decay, nesterov=ls.nesterov,
+                grad_clip=opt.grad_clip, want_stats=telemetry)
+        stats = state.stats
+        if telemetry:
+            gsq_w, usq_w = out[2]
+            stats = tstats.accumulate_step(stats, gsq_w, usq_w)
         metrics = {k: torch.stack([m[k].float() for m in metrics_w]).mean()
                    for k in metrics_w[0]}
         metrics["loss"] = torch.stack(losses).mean()
         metrics["lr"] = float(lr)
         new = LocalSGDState(params=state.params, momentum=state.momentum,
                             anchor=state.anchor, global_u=state.global_u,
-                            ef_memory=state.ef_memory, step=state.step + 1)
+                            ef_memory=state.ef_memory, step=state.step + 1,
+                            stats=stats)
         return new, metrics
 
     def sync(state: LocalSGDState, *, plan=None,
              scope: str = "global") -> LocalSGDState:
         """Execute a flat ``SyncPlan`` (built from the config when none is
-        given) on the resident buckets, in place."""
+        given) on the resident buckets, in place.  With telemetry the
+        returned state's ``stats`` has the round closed (``record_sync``)."""
         layout = state.params.layout
         if plan is None:
             plan = splan.make_sync_plan(layout, num_workers=W,
@@ -178,11 +217,22 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                 raise ValueError(
                     "compression needs an anchor: configure sync_compression/"
                     "global_momentum so the state allocates one (needs_anchor)")
+            pre_w = 0
             for st in stages:
                 if st.kind == "collective":
                     for b in st.buckets:
-                        pb[b].copy_(group_mean(pb[b], st.group))
-            return state
+                        m = group_mean(pb[b], st.group)
+                        if telemetry:
+                            # centred pair: x_k = p_k - pbar, taken before the
+                            # in-place copy; pre IS the dispersion, post = 0
+                            pre_w = pre_w + _sumsq(pb[b].float() - m.float(),
+                                                   from_axis=1)
+                        pb[b].copy_(m)
+            if not telemetry:
+                return state
+            stats = tstats.record_sync(state.stats, pre_sync_sq=pre_w.mean(),
+                                       post_sync_sq=0.0)
+            return dataclasses.replace(state, stats=stats)
 
         if "ef_sign" in modes and state.ef_memory is None:
             raise ValueError("ef_sign requires the config to allocate EF "
@@ -190,24 +240,39 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         ab = list(state.anchor.buckets)
         efb = (list(state.ef_memory.buckets) if state.ef_memory is not None
                else None)
-        x: list = [None] * layout.num_buckets
-        dbar: list = [None] * layout.num_buckets
+        nb = layout.num_buckets
+        x: list = [None] * nb
+        dbar: list = [None] * nb
+        # telemetry per bucket: ||x_k||^2 per worker, ||dbar||^2, and the
+        # compressor's ||input - output||^2 and ||input||^2
+        x_sq: list = [None] * nb
+        dbar_sq: list = [None] * nb
+        zero = lambda: torch.zeros((), dtype=torch.float32, device=pb[0].device)
+        err = [zero() for _ in range(nb)] if telemetry else None
+        ref = [zero() for _ in range(nb)] if telemetry else None
         for st in stages:
             if st.kind == "pack":
                 b = st.buckets[0]
                 delta = ab[b][None] - pb[b]
                 if modes[b] != "none":
-                    x[b], e_new, _ = comp.compress_stage(
+                    x[b], e_new, inp = comp.compress_stage(
                         layout, st, delta, efb[b] if efb is not None else None,
                         leading=1)
                     if modes[b] == "ef_sign":
                         efb[b].copy_(e_new)
+                    if telemetry:
+                        err[b] = _sumsq(inp.float() - x[b])
+                        ref[b] = _sumsq(inp)
                 else:
                     x[b] = delta
+                if telemetry:
+                    x_sq[b] = _sumsq(x[b], from_axis=1)
             elif st.kind == "collective":
                 for b in st.buckets:
                     dbar[b] = x[b].mean(dim=0)
                     x[b] = None
+                    if telemetry:
+                        dbar_sq[b] = _sumsq(dbar[b])
             elif st.kind == "apply":
                 for b in st.buckets:
                     step_b = dbar[b]
@@ -218,6 +283,17 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                     ab[b].sub_(step_b)
                     pb[b].copy_(ab[b][None].expand_as(pb[b]))
                     dbar[b] = None
-        return state
+        if not telemetry:
+            return state
+        # summed in bucket order after the stage loop, as the reference does
+        pre_w = torch.zeros((W,), dtype=torch.float32, device=pb[0].device)
+        for b in range(nb):
+            pre_w = pre_w + x_sq[b]
+        kw = {}
+        if any(m != "none" for m in modes):
+            kw = dict(comp_err_sq=torch.stack(err), comp_ref_sq=torch.stack(ref))
+        stats = tstats.record_sync(state.stats, pre_sync_sq=pre_w.mean(),
+                                   post_sync_sq=sum(dbar_sq), **kw)
+        return dataclasses.replace(state, stats=stats)
 
     return init, local_step, sync

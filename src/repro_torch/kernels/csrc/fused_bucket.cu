@@ -10,7 +10,7 @@
 //
 // Bounds, for the main path's shape W = 4, rows = 934,040 (paper-lm, one
 // f32 bucket of 478.2 MB per worker copy) on an H100 SXM (3.35 TB/s HBM3,
-// NVIDIA data sheet).  All four are memory-bound: at most a few flops per
+// NVIDIA data sheet).  All six are memory-bound: at most a few flops per
 // byte, against the ~20 flops/byte f32 CUDA cores need to be the limit.
 //
 //   fb_fused_sgd       replaces repro/kernels/fused_bucket.py::fused_sgd_bucket_2d
@@ -34,6 +34,17 @@
 //                      x, writes y: 3.83 GB -> 1.14 ms.  Elementwise float4
 //                      pass, sign(0) = 0, scale indexed by row % scale_rows
 //                      so one (rows,) scale vector serves all W copies.
+//   fb_lars_row_norms  replaces fused_bucket.py::lars_row_norms_2d.  Reads p,
+//                      g (and the 3.7 MB decay mask), writes two floats per
+//                      row: 3.86 GB -> 1.15 ms.  One warp per row as in
+//                      fb_row_abs_sum; the decayed gradient g + wd*mask*p
+//                      lives in registers only, both sums in one pass.
+//   fb_fused_lars      replaces fused_bucket.py::fused_lars_bucket_2d.  The
+//                      fb_fused_sgd pass (same template) with the per-row
+//                      trust ratio applied after the decay instead of the
+//                      clip scale before it: 9.57 GB + a 14.9 MB (W, rows)
+//                      ratio -> 2.86 ms.  The ratio is per worker, because
+//                      each worker's layer norms are its own.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a
@@ -76,18 +87,23 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
 }
 
-struct SgdParams {
+struct UpdateParams {
   float lr, momentum, weight_decay;
 };
 
-template <bool kNesterov, bool kStats>
-__device__ __forceinline__ void sgd_one(float& p, float g, float& u,
-                                        float dec, float gs,
-                                        const SgdParams& hp, float& gsq,
-                                        float& usq) {
-  g = g * gs;                                   // grad-clip scale (1 if off)
+// One element of the fused update.  SGD scales g by the per-worker
+// grad-clip factor gs before everything else; LARS scales the decayed g
+// by the row's trust ratio r.  The stats see g after the clip and before
+// the decay, as the TPU kernels do.
+template <bool kNesterov, bool kStats, bool kLars>
+__device__ __forceinline__ void update_one(float& p, float g, float& u,
+                                           float dec, float gs, float r,
+                                           const UpdateParams& hp, float& gsq,
+                                           float& usq) {
+  if (!kLars) g = g * gs;                       // grad-clip scale (1 if off)
   if (kStats) gsq += g * g;                     // raw grad, before decay
   if (hp.weight_decay != 0.f) g = g + dec * p;  // dec = wd * wd_row[row]
+  if (kLars) g = g * r;                         // trust ratio (1 on skip rows)
   const float un = hp.momentum * u + g;
   const float step = kNesterov ? hp.momentum * un + g : un;
   const float d = hp.lr * step;
@@ -97,19 +113,23 @@ __device__ __forceinline__ void sgd_one(float& p, float g, float& u,
 }
 
 // grid = (grid_x, W); each block walks its worker's float4 groups with a
-// grid stride.  partials: (W, 2, grid_x) = [sum g^2 | sum (lr*step)^2].
-template <bool kNesterov, bool kStats>
+// grid stride.  gscale: (W,) or null (SGD only); ratio: (W, rows) (LARS
+// only).  partials: (W, 2, grid_x) = [sum g^2 | sum (lr*step)^2].
+template <bool kNesterov, bool kStats, bool kLars>
 __global__ void __launch_bounds__(kThreads)
-sgd_kernel(float* __restrict__ p, const float* __restrict__ g,
-           float* __restrict__ u, const float* __restrict__ wd_row,
-           const float* __restrict__ gscale, SgdParams hp, int64_t n4,
-           float* __restrict__ partials) {
+update_kernel(float* __restrict__ p, const float* __restrict__ g,
+              float* __restrict__ u, const float* __restrict__ wd_row,
+              const float* __restrict__ gscale,
+              const float* __restrict__ ratio, UpdateParams hp, int64_t n4,
+              float* __restrict__ partials) {
   const int w = blockIdx.y;
   const int64_t base = static_cast<int64_t>(w) * n4;
   float4* p4 = reinterpret_cast<float4*>(p) + base;
   const float4* g4 = reinterpret_cast<const float4*>(g) + base;
   float4* u4 = reinterpret_cast<float4*>(u) + base;
-  const float gs = gscale != nullptr ? gscale[w] : 1.f;
+  const float gs = (!kLars && gscale != nullptr) ? gscale[w] : 1.f;
+  const float* ratio_w = kLars ? ratio + static_cast<int64_t>(w) * (n4 / kVecPerRow)
+                               : nullptr;
   float gsq = 0.f, usq = 0.f;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -117,11 +137,13 @@ sgd_kernel(float* __restrict__ p, const float* __restrict__ g,
     float4 pv = p4[i];
     const float4 gv = g4[i];
     float4 uv = u4[i];
-    const float dec = hp.weight_decay * wd_row[i / kVecPerRow];
-    sgd_one<kNesterov, kStats>(pv.x, gv.x, uv.x, dec, gs, hp, gsq, usq);
-    sgd_one<kNesterov, kStats>(pv.y, gv.y, uv.y, dec, gs, hp, gsq, usq);
-    sgd_one<kNesterov, kStats>(pv.z, gv.z, uv.z, dec, gs, hp, gsq, usq);
-    sgd_one<kNesterov, kStats>(pv.w, gv.w, uv.w, dec, gs, hp, gsq, usq);
+    const int64_t row = i / kVecPerRow;
+    const float dec = hp.weight_decay * wd_row[row];
+    const float r = kLars ? ratio_w[row] : 1.f;
+    update_one<kNesterov, kStats, kLars>(pv.x, gv.x, uv.x, dec, gs, r, hp, gsq, usq);
+    update_one<kNesterov, kStats, kLars>(pv.y, gv.y, uv.y, dec, gs, r, hp, gsq, usq);
+    update_one<kNesterov, kStats, kLars>(pv.z, gv.z, uv.z, dec, gs, r, hp, gsq, usq);
+    update_one<kNesterov, kStats, kLars>(pv.w, gv.w, uv.w, dec, gs, r, hp, gsq, usq);
     p4[i] = pv;
     u4[i] = uv;
   }
@@ -180,6 +202,37 @@ row_abs_sum_kernel(const float* __restrict__ x, int64_t n_rows,
   if (lane == 0) out[row] = s;
 }
 
+// One warp per 128-wide row of the stacked (W, rows, 128) buffers:
+// pn[r] = sum p^2, gn[r] = sum (g + wd * wd_row[r % rows] * p)^2.
+__global__ void __launch_bounds__(kThreads)
+lars_row_norms_kernel(const float* __restrict__ p, const float* __restrict__ g,
+                      const float* __restrict__ wd_row, float weight_decay,
+                      int64_t n_rows, int64_t rows, float* __restrict__ pn,
+                      float* __restrict__ gn) {
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;   // whole warps exit together
+  const int64_t k = row * kVecPerRow + lane;
+  const float4 pv = reinterpret_cast<const float4*>(p)[k];
+  float4 gv = reinterpret_cast<const float4*>(g)[k];
+  if (weight_decay != 0.f) {
+    const float dec = weight_decay * wd_row[row % rows];
+    gv.x = gv.x + dec * pv.x;
+    gv.y = gv.y + dec * pv.y;
+    gv.z = gv.z + dec * pv.z;
+    gv.w = gv.w + dec * pv.w;
+  }
+  float sp = (pv.x * pv.x + pv.y * pv.y) + (pv.z * pv.z + pv.w * pv.w);
+  float sg = (gv.x * gv.x + gv.y * gv.y) + (gv.z * gv.z + gv.w * gv.w);
+  sp = warp_sum(sp);
+  sg = warp_sum(sg);
+  if (lane == 0) {
+    pn[row] = sp;
+    gn[row] = sg;
+  }
+}
+
 __device__ __forceinline__ float sign_of(float v) {
   return static_cast<float>((v > 0.f) - (v < 0.f));
 }
@@ -205,6 +258,38 @@ scale_sign_rows_kernel(const float* __restrict__ x,
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+// The fused update over the stacked buffer (four template variants), then,
+// with stats, the second pass folding the (W, 2, grid_x) partials.
+template <bool kLars>
+int launch_update(void* p, const void* g, void* u, const void* wd_row,
+                  const void* gscale, const void* ratio, UpdateParams hp,
+                  int nesterov, int64_t W, int64_t rows, int stats,
+                  void* partials, int64_t grid_x, void* stats_out,
+                  cudaStream_t st) {
+  const int64_t n4 = rows * kVecPerRow;
+  const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(W));
+  float* pp = static_cast<float*>(p);
+  const float* gp = static_cast<const float*>(g);
+  float* up = static_cast<float*>(u);
+  const float* wp = static_cast<const float*>(wd_row);
+  const float* sp = static_cast<const float*>(gscale);
+  const float* rp = static_cast<const float*>(ratio);
+  float* part = static_cast<float*>(partials);
+  if (nesterov && stats)
+    update_kernel<true, true, kLars><<<grid, kThreads, 0, st>>>(pp, gp, up, wp, sp, rp, hp, n4, part);
+  else if (nesterov)
+    update_kernel<true, false, kLars><<<grid, kThreads, 0, st>>>(pp, gp, up, wp, sp, rp, hp, n4, part);
+  else if (stats)
+    update_kernel<false, true, kLars><<<grid, kThreads, 0, st>>>(pp, gp, up, wp, sp, rp, hp, n4, part);
+  else
+    update_kernel<false, false, kLars><<<grid, kThreads, 0, st>>>(pp, gp, up, wp, sp, rp, hp, n4, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !stats) return static_cast<int>(err);
+  reduce_rows_kernel<<<static_cast<unsigned>(2 * W), kThreads, 0, st>>>(
+      part, grid_x, static_cast<float*>(stats_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -218,28 +303,36 @@ int fb_fused_sgd(void* p, const void* g, void* u, const void* wd_row,
                  float weight_decay, int nesterov, int64_t W, int64_t rows,
                  int stats, void* partials, int64_t grid_x, void* stats_out,
                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t n4 = rows * kVecPerRow;
-  const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(W));
-  const SgdParams hp{lr, momentum, weight_decay};
-  float* pp = static_cast<float*>(p);
-  const float* gp = static_cast<const float*>(g);
-  float* up = static_cast<float*>(u);
-  const float* wp = static_cast<const float*>(wd_row);
-  const float* sp = static_cast<const float*>(gscale);
-  float* part = static_cast<float*>(partials);
-  if (nesterov && stats)
-    sgd_kernel<true, true><<<grid, kThreads, 0, st>>>(pp, gp, up, wp, sp, hp, n4, part);
-  else if (nesterov)
-    sgd_kernel<true, false><<<grid, kThreads, 0, st>>>(pp, gp, up, wp, sp, hp, n4, part);
-  else if (stats)
-    sgd_kernel<false, true><<<grid, kThreads, 0, st>>>(pp, gp, up, wp, sp, hp, n4, part);
-  else
-    sgd_kernel<false, false><<<grid, kThreads, 0, st>>>(pp, gp, up, wp, sp, hp, n4, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !stats) return static_cast<int>(err);
-  reduce_rows_kernel<<<static_cast<unsigned>(2 * W), kThreads, 0, st>>>(
-      part, grid_x, static_cast<float*>(stats_out));
+  return launch_update<false>(p, g, u, wd_row, gscale, nullptr,
+                              UpdateParams{lr, momentum, weight_decay},
+                              nesterov, W, rows, stats, partials, grid_x,
+                              stats_out, static_cast<cudaStream_t>(stream));
+}
+
+// As fb_fused_sgd, with ratio: (W, rows) f32 per-worker, per-row trust
+// ratio in place of the clip scale.
+int fb_fused_lars(void* p, const void* g, void* u, const void* wd_row,
+                  const void* ratio, float lr, float momentum,
+                  float weight_decay, int nesterov, int64_t W, int64_t rows,
+                  int stats, void* partials, int64_t grid_x, void* stats_out,
+                  void* stream) {
+  return launch_update<true>(p, g, u, wd_row, nullptr, ratio,
+                             UpdateParams{lr, momentum, weight_decay},
+                             nesterov, W, rows, stats, partials, grid_x,
+                             stats_out, static_cast<cudaStream_t>(stream));
+}
+
+// p, g: (W, rows, 128) f32; wd_row: (rows,) f32; pn, gn: (W, rows) f32.
+int fb_lars_row_norms(const void* p, const void* g, const void* wd_row,
+                      float weight_decay, int64_t W, int64_t rows, void* pn,
+                      void* gn, void* stream) {
+  const int64_t n_rows = W * rows;
+  const int64_t blocks = cdiv(n_rows * 32, kThreads);
+  lars_row_norms_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(g),
+      static_cast<const float*>(wd_row), weight_decay, n_rows, rows,
+      static_cast<float*>(pn), static_cast<float*>(gn));
   return static_cast<int>(cudaGetLastError());
 }
 

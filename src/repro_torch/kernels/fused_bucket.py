@@ -1,4 +1,4 @@
-"""The four flat-bus bucket kernels: wrappers, plain versions, launch counts.
+"""The six flat-bus bucket kernels: wrappers, plain versions, launch counts.
 
 Each wrapper takes float32 bucket tensors of shape ``(*lead, rows, 128)``
 (``lead`` is ``()`` or the worker dim ``(W,)``).  On a CPU tensor it runs
@@ -14,10 +14,12 @@ fused_sgd_bucket   repro/kernels/fused_bucket.py::fused_sgd_bucket_2d
 sq_sum             repro/kernels/fused_bucket.py::sq_sum_2d
 row_abs_sum        repro/kernels/fused_bucket.py::row_abs_sum_2d
 scale_sign_rows    repro/kernels/fused_bucket.py::scale_sign_rows_2d
+lars_row_norms     repro/kernels/fused_bucket.py::lars_row_norms_2d
+fused_lars_bucket  repro/kernels/fused_bucket.py::fused_lars_bucket_2d
 =================  ================================================
 
-The SGD update is IN PLACE on ``p`` and ``u`` on both routes: at the
-main path's width that saves a second copy of 2 x W x 478 MB.
+The SGD and LARS updates are IN PLACE on ``p`` and ``u`` on both routes:
+at the main path's width that saves a second copy of 2 x W x 478 MB.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ THREADS = 256
 _BLOCKS_TOTAL = 2 * 132 * 8
 
 LAUNCHES = {"fused_sgd_bucket": 0, "sq_sum": 0, "row_abs_sum": 0,
-            "scale_sign_rows": 0}
+            "scale_sign_rows": 0, "lars_row_norms": 0, "fused_lars_bucket": 0}
 
 
 def reset_launches():
@@ -49,6 +51,9 @@ _SIGNATURES = {
     "fb_sq_sum": [_P, _I, _I, _P, _I, _P, _P],
     "fb_row_abs_sum": [_P, _I, _P, _P],
     "fb_scale_sign_rows": [_P, _P, _I, _I, _P, _P],
+    "fb_lars_row_norms": [_P, _P, _P, _F, _I, _I, _P, _P, _P],
+    "fb_fused_lars": [_P, _P, _P, _P, _P, _F, _F, _F, ctypes.c_int, _I, _I,
+                      ctypes.c_int, _P, _I, _P, _P],
 }
 _LIB = None
 
@@ -109,6 +114,46 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _check_same(**buckets) -> tuple[int, int]:
+    """Check equal-shaped (*lead, rows, 128) f32 buckets; (W, rows)."""
+    for name, t in buckets.items():
+        _check(t, name)
+    shapes = {n: tuple(t.shape) for n, t in buckets.items()}
+    if len(set(shapes.values())) != 1:
+        raise ValueError(f"bucket shapes differ: {shapes}")
+    return _lead_rows(next(iter(buckets.values())))
+
+
+def _row_vector(v: torch.Tensor, n: int, name: str, device=None) -> torch.Tensor:
+    """``v`` flattened to a contiguous (n,) f32 vector (on ``device`` if
+    given), or raise."""
+    v = v.reshape(-1)
+    if v.numel() != n or v.dtype != torch.float32 or not v.is_contiguous() \
+            or (device is not None and v.device != device):
+        raise ValueError(f"{name}: ({n},) contiguous f32 on "
+                         f"{device or 'the same device'} expected")
+    return v
+
+
+def _stats_scratch(p: torch.Tensor, W: int, rows: int, stats: bool):
+    """(partials, out, grid_x) for an update launch; None scratch without
+    stats."""
+    gx = _grid_x(W, rows)
+    if not stats:
+        return None, None, gx
+    return (torch.empty((W, 2, gx), dtype=torch.float32, device=p.device),
+            torch.empty((W, 2), dtype=torch.float32, device=p.device), gx)
+
+
+def _stats_out(p: torch.Tensor, out):
+    """The per-worker (sum g^2, sum (lr*step)^2) pair, each ``lead``-shaped,
+    or None without stats."""
+    if out is None:
+        return None
+    lead = p.shape[:-2]
+    return out[:, 0].reshape(lead), out[:, 1].reshape(lead)
+
+
 # ---------------------------------------------------------------------------
 # fused SGD
 # ---------------------------------------------------------------------------
@@ -151,25 +196,11 @@ def fused_sgd_bucket(p, g, u, lr, wd_row, *, momentum: float,
                                       weight_decay=weight_decay,
                                       nesterov=nesterov, gscale=gscale,
                                       stats=stats)
-    for t, n in ((p, "p"), (g, "g"), (u, "u")):
-        _check(t, n)
-    if not (p.shape == g.shape == u.shape):
-        raise ValueError(f"p, g, u shapes differ: {p.shape}, {g.shape}, {u.shape}")
-    W, rows = _lead_rows(p)
-    wd_row = wd_row.reshape(-1)
-    if wd_row.numel() != rows or wd_row.dtype != torch.float32 \
-            or not wd_row.is_contiguous():
-        raise ValueError(f"wd_row: ({rows},) contiguous f32 expected")
+    W, rows = _check_same(p=p, g=g, u=u)
+    wd_row = _row_vector(wd_row, rows, "wd_row")
     if gscale is not None:
-        gscale = gscale.reshape(-1)
-        if gscale.numel() != W or gscale.dtype != torch.float32 \
-                or gscale.device != p.device or not gscale.is_contiguous():
-            raise ValueError(f"gscale: ({W},) contiguous f32 on {p.device} expected")
-    gx = _grid_x(W, rows)
-    partials = out = None
-    if stats:
-        partials = torch.empty((W, 2, gx), dtype=torch.float32, device=p.device)
-        out = torch.empty((W, 2), dtype=torch.float32, device=p.device)
+        gscale = _row_vector(gscale, W, "gscale", p.device)
+    partials, out, gx = _stats_scratch(p, W, rows, stats)
     _call("fb_fused_sgd", p.data_ptr(), g.data_ptr(), u.data_ptr(),
           wd_row.data_ptr(), gscale.data_ptr() if gscale is not None else None,
           float(lr), float(momentum), float(weight_decay), int(bool(nesterov)),
@@ -177,10 +208,7 @@ def fused_sgd_bucket(p, g, u, lr, wd_row, *, momentum: float,
           partials.data_ptr() if stats else None, gx,
           out.data_ptr() if stats else None, _stream(p))
     LAUNCHES["fused_sgd_bucket"] += 1
-    if stats:
-        lead = p.shape[:-2]
-        return out[:, 0].reshape(lead), out[:, 1].reshape(lead)
-    return None
+    return _stats_out(p, out)
 
 
 # ---------------------------------------------------------------------------
@@ -251,3 +279,82 @@ def scale_sign_rows(x, scale_row):
           rows, y.data_ptr(), _stream(x))
     LAUNCHES["scale_sign_rows"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# LARS: per-row norms and the fused update
+# ---------------------------------------------------------------------------
+
+def lars_row_norms_plain(p, g, wd_row, *, weight_decay: float):
+    """Plain PyTorch version of :func:`lars_row_norms` (same op order)."""
+    W, rows = _lead_rows(p)
+    gf = g
+    if weight_decay:
+        gf = gf + (weight_decay * wd_row).reshape(rows, 1) * p
+    return (p * p).sum(dim=-1), (gf * gf).sum(dim=-1)
+
+
+def lars_row_norms(p, g, wd_row, *, weight_decay: float):
+    """Per-row sum p^2 and sum (g + wd * wd_row[row] * p)^2 of
+    (*lead, rows, 128) buckets in one pass -> two (*lead, rows) f32."""
+    if not _on_cuda(p, g, wd_row):
+        return lars_row_norms_plain(p, g, wd_row, weight_decay=weight_decay)
+    W, rows = _check_same(p=p, g=g)
+    wd_row = _row_vector(wd_row, rows, "wd_row")
+    pn = torch.empty(p.shape[:-1], dtype=torch.float32, device=p.device)
+    gn = torch.empty_like(pn)
+    _call("fb_lars_row_norms", p.data_ptr(), g.data_ptr(), wd_row.data_ptr(),
+          float(weight_decay), W, rows, pn.data_ptr(), gn.data_ptr(), _stream(p))
+    LAUNCHES["lars_row_norms"] += 1
+    return pn, gn
+
+
+def fused_lars_bucket_plain(p, g, u, lr, wd_row, ratio_row, *, momentum: float,
+                            weight_decay: float, nesterov: bool,
+                            stats: bool = False):
+    """Plain PyTorch version of :func:`fused_lars_bucket` (same op order)."""
+    W, rows = _lead_rows(p)
+    lr = float(lr)
+    gsq = (g * g).sum(dim=(-2, -1)) if stats else None
+    gf = g
+    if weight_decay:
+        gf = gf + (weight_decay * wd_row).reshape(rows, 1) * p
+    gf = gf * ratio_row.reshape(p.shape[:-1] + (1,))
+    u_new = momentum * u + gf
+    step = momentum * u_new + gf if nesterov else u_new
+    d = lr * step
+    p.sub_(d)
+    u.copy_(u_new)
+    if stats:
+        return gsq, (d * d).sum(dim=(-2, -1))
+    return None
+
+
+def fused_lars_bucket(p, g, u, lr, wd_row, ratio_row, *, momentum: float,
+                      weight_decay: float, nesterov: bool,
+                      stats: bool = False):
+    """One fused LARS launch over a whole bucket, IN PLACE on p and u.
+
+    ``g += wd * wd_row[row] * p``; ``g *= ratio_row[..., row]``; then the
+    momentum update of :func:`fused_sgd_bucket`.  ``ratio_row`` is the
+    (*lead, rows) per-worker, per-row trust ratio (1.0 on rows of leaves
+    that take the plain LR); ``wd_row`` the (rows,) decay mask shared by
+    every worker.  With ``stats`` returns ``(sum g^2, sum (lr*step)^2)``
+    per worker, g raw (before decay and ratio).
+    """
+    if not _on_cuda(p, g, u, wd_row, ratio_row):
+        return fused_lars_bucket_plain(p, g, u, lr, wd_row, ratio_row,
+                                       momentum=momentum,
+                                       weight_decay=weight_decay,
+                                       nesterov=nesterov, stats=stats)
+    W, rows = _check_same(p=p, g=g, u=u)
+    wd_row = _row_vector(wd_row, rows, "wd_row")
+    ratio_row = _row_vector(ratio_row, W * rows, "ratio_row")
+    partials, out, gx = _stats_scratch(p, W, rows, stats)
+    _call("fb_fused_lars", p.data_ptr(), g.data_ptr(), u.data_ptr(),
+          wd_row.data_ptr(), ratio_row.data_ptr(), float(lr), float(momentum),
+          float(weight_decay), int(bool(nesterov)), W, rows, int(bool(stats)),
+          partials.data_ptr() if stats else None, gx,
+          out.data_ptr() if stats else None, _stream(p))
+    LAUNCHES["fused_lars_bucket"] += 1
+    return _stats_out(p, out)

@@ -23,6 +23,25 @@ def bucket_sq_sum(x2):
     return _fb.sq_sum(x2)
 
 
+def bucket_lars_norms(p2, g2, wd_row, *, weight_decay: float):
+    """Per-row sum of squares of p and of g + wd*mask*p — one pass.
+    Returns two (*lead, rows) f32; the per-layer LARS norms finish as a
+    segmented reduction over ``flatbuf.row_segments``."""
+    return _fb.lars_row_norms(p2, g2, wd_row, weight_decay=weight_decay)
+
+
+def bucket_fused_lars(p2, g2, u2, wd_row, ratio_row, *, lr, momentum: float,
+                      weight_decay: float, nesterov: bool = True,
+                      stats: bool = False):
+    """One fused LARS launch over a whole ``(*lead, rows, 128)`` bucket, in
+    place on ``p2``/``u2``; ``ratio_row`` is the (*lead, rows) per-row
+    trust ratio (1.0 on rows that take the plain LR).  Returns None, or
+    with ``stats`` the pair (sum g^2, sum ||update||^2) per worker."""
+    return _fb.fused_lars_bucket(p2, g2, u2, lr, wd_row, ratio_row,
+                                 momentum=momentum, weight_decay=weight_decay,
+                                 nesterov=nesterov, stats=stats)
+
+
 def segment_sum(vals, seg_ids, num_segments: int):
     """Scatter-add of ``vals`` into ``num_segments`` slots by ``seg_ids``
     (the counterpart of ``jax.ops.segment_sum``).  On the CPU the adds

@@ -3,7 +3,8 @@
 
 The port always builds the resident flat-bus path — the one the
 reference selects with ``use_kernel=True`` — so every local step runs the
-fused SGD kernel and every sign / EF-sign sync the compressor kernels.
+fused SGD or LARS kernels and every sign / EF-sign sync the compressor
+kernels.  Telemetry is on when ``run.controller.wants_telemetry``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ class TrainBundle:
     device: torch.device
     layout: Any = None          # flatbuf.FlatLayout of the param buckets
     sync_plan: Any = None       # compiled syncplan.SyncPlan (fit's default)
+    telemetry: bool = False     # state.stats carries a StatsAccumulator
+    n_comp: int = 1             # compression-error slots: one per bucket
 
 
 def build_train(run: RunConfig, *, num_workers: int = 1,
@@ -48,8 +51,9 @@ def build_train(run: RunConfig, *, num_workers: int = 1,
     def loss(params, batch):
         return lm.loss_fn(cfg, params, batch)
 
+    telemetry = run.controller.wants_telemetry
     init, local_step, sync = make_local_sgd(run, loss, num_workers=num_workers,
-                                            wd_mask=wd_mask)
+                                            wd_mask=wd_mask, telemetry=telemetry)
     layout = flatbuf.build_layout(
         mbase.abstract(specs, flatbuf.torch_dtype(cfg.param_dtype)),
         wd_mask=wd_mask)
@@ -58,4 +62,5 @@ def build_train(run: RunConfig, *, num_workers: int = 1,
                                 anchored=needs_anchor(run.local_sgd))
     return TrainBundle(cfg=cfg, run=run, num_workers=num_workers, specs=specs,
                        init=init, local_step=local_step, sync=sync,
-                       device=device, layout=layout, sync_plan=plan)
+                       device=device, layout=layout, sync_plan=plan,
+                       telemetry=telemetry, n_comp=layout.num_buckets)

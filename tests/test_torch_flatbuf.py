@@ -93,6 +93,22 @@ def test_stacked_norms_take_weight_decay_like_the_reference():
         tree_flatten(mask)[0]
 
 
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_segment_skip_wd_matches_reference(smoke):
+    """The per-leaf skip bits that pick LARS's plain-LR leaves: under the
+    stacked-norm quirk above only final_norm takes the plain LR, and the
+    stacked ln1/ln2 get trust ratios like the matrices."""
+    jl, tl, _, tspecs = _layouts("paper-lm", smoke)
+    skip = tfb.segment_skip_wd(tl, 0)
+    assert skip.dtype == bool and skip.shape == (tl.num_leaves,)
+    assert np.array_equal(skip, jfb.segment_skip_wd(jl, 0))
+    assert skip.sum() == 1
+    leaves, _ = tree_flatten(tmbase.norm_param_mask(tspecs))
+    assert skip.tolist() == leaves
+    assert torch.equal(tfb.const("segment_skip_wd", tl, 0, "cpu"),
+                       torch.from_numpy(skip))
+
+
 def test_tree_flatten_order_matches_jax():
     tree = {"b": (np.zeros(2), [np.ones(1), {"z": np.zeros(3), "a": np.ones(4)}]),
             "a": np.zeros(5), "c": (), "d": None}

@@ -1,15 +1,17 @@
-"""Port parity: the four bucket kernels' plain versions vs the Pallas
+"""Port parity: the six bucket kernels' plain versions vs the Pallas
 kernels of the JAX package (interpret mode on the CPU), and the
-compressor built on them.
+compressor and the LARS update built on them.
 
 On the CPU every wrapper runs its plain PyTorch version (the CUDA kernels
 need the card: ``tests/test_torch_cuda.py`` compares kernel and plain
 version there and skips here).  Tolerances, each with its reason:
 
-* elementwise SGD update: rtol 1e-6, atol 1e-7 — the same op order in
-  float32, so differences are single roundings;
-* reductions (sum g^2, sum x^2, per-row |x|): rtol 1e-5 — float32 sums
-  taken in another order;
+* elementwise SGD / LARS update: rtol 1e-6, atol 1e-7 — the same op
+  order in float32, so differences are single roundings;
+* reductions (sum g^2, sum x^2, per-row |x|, LARS row norms): rtol 1e-5
+  — float32 sums taken in another order;
+* apply_lars_buckets: rtol 1e-5, atol 1e-7 — the trust ratios come from
+  such sums, so they carry their rounding into every updated element;
 * sign: exact; compressor scales: 1e-6 relative on equal input.
 """
 import jax
@@ -22,6 +24,7 @@ from repro.core import compression as jcomp
 from repro.core import flatbuf as jfb
 from repro.kernels import fused_bucket as jkb
 from repro.kernels import ops as jops
+from repro.optim import lars as jlars
 from repro.models import base as jmbase
 from repro.models import lm as jlm
 from repro import configs as jconfigs
@@ -33,6 +36,7 @@ from repro_torch.kernels import fused_bucket as tkb
 from repro_torch.kernels import ops as tops
 from repro_torch.models import base as tmbase
 from repro_torch.models import lm as tlm
+from repro_torch.optim import lars as tlars
 from repro_torch import configs as tconfigs
 
 torch.set_num_threads(2)
@@ -80,6 +84,83 @@ def test_fused_sgd_plain_matches_pallas(rows, nesterov, wd, clip):
         np.testing.assert_allclose(ut[w].numpy(), np.asarray(uo), rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(float(gsq_t[w]), float(gsq), rtol=1e-5)
         np.testing.assert_allclose(float(usq_t[w]), float(usq), rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("wd", [0.0, 1e-2])
+def test_lars_row_norms_plain_matches_pallas(rows, wd):
+    p, g = _rand(rows, 21), _rand(rows, 22)
+    wd_row = _wd_row(rows, 23)
+    pn, gn = tkb.lars_row_norms(torch.from_numpy(p), torch.from_numpy(g),
+                                torch.from_numpy(wd_row), weight_decay=wd)
+    assert pn.shape == gn.shape == (W, rows)
+    assert tkb.LAUNCHES["lars_row_norms"] == 0       # plain route: no launch
+    for w in range(W):
+        jp, jg = jkb.lars_row_norms_2d(jnp.asarray(p[w]), jnp.asarray(g[w]),
+                                       jnp.asarray(wd_row), weight_decay=wd,
+                                       interpret=True)
+        np.testing.assert_allclose(pn[w].numpy(), np.asarray(jp)[:, 0], rtol=1e-5)
+        np.testing.assert_allclose(gn[w].numpy(), np.asarray(jg)[:, 0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("nesterov", [True, False])
+@pytest.mark.parametrize("wd", [0.0, 1e-2])
+def test_fused_lars_plain_matches_pallas(rows, nesterov, wd):
+    """Each worker slice against the reference's call on that worker, with
+    a trust ratio that differs per worker and per row."""
+    p, g, u = (_rand(rows, s) for s in (31, 32, 33))
+    u *= 0.1
+    wd_row = _wd_row(rows, 34)
+    ratio = np.random.default_rng(35).uniform(0.01, 2.0, (W, rows)).astype(np.float32)
+    lr, mom = np.float32(0.05), 0.9
+    pt, ut = torch.from_numpy(p.copy()), torch.from_numpy(u.copy())
+    gsq_t, usq_t = tkb.fused_lars_bucket(
+        pt, torch.from_numpy(g), ut, lr, torch.from_numpy(wd_row),
+        torch.from_numpy(ratio), momentum=mom, weight_decay=wd,
+        nesterov=nesterov, stats=True)
+    assert tkb.LAUNCHES["fused_lars_bucket"] == 0
+    for w in range(W):
+        po, uo, gsq, usq = jkb.fused_lars_bucket_2d(
+            jnp.asarray(p[w]), jnp.asarray(g[w]), jnp.asarray(u[w]),
+            jnp.full((1, 1), lr), jnp.asarray(wd_row),
+            jnp.asarray(ratio[w][:, None]), momentum=mom, weight_decay=wd,
+            nesterov=nesterov, stats=True, interpret=True)
+        np.testing.assert_allclose(pt[w].numpy(), np.asarray(po), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(ut[w].numpy(), np.asarray(uo), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(float(gsq_t[w]), float(gsq), rtol=1e-5)
+        np.testing.assert_allclose(float(usq_t[w]), float(usq), rtol=1e-5)
+    assert tkb.fused_lars_bucket(pt, torch.from_numpy(g), ut, lr,
+                                 torch.from_numpy(wd_row), torch.from_numpy(ratio),
+                                 momentum=mom, weight_decay=wd,
+                                 nesterov=nesterov) is None
+
+
+def test_apply_lars_buckets_matches_reference_per_worker():
+    """W=4 workers whose grads differ in scale by 10x each: every worker's
+    update uses its own layer norms, as the reference's vmapped update
+    does (a ratio shared across workers would be off by those factors)."""
+    jl, tl = _smoke_layouts()
+    Wl = 4
+    p = _delta(tl, 41, lead=(Wl,))
+    g = _delta(tl, 42, lead=(Wl,)) * (10.0 ** np.arange(Wl, dtype=np.float32)
+                                      )[:, None, None]
+    u = 0.1 * _delta(tl, 43, lead=(Wl,))
+    kw = dict(lr=0.1, trust=0.02, momentum_coef=0.9, weight_decay=1e-2,
+              nesterov=True, want_stats=True)
+    pt, ut = torch.from_numpy(p.copy()), torch.from_numpy(u.copy())
+    _, _, (gsq_t, usq_t) = tlars.apply_lars_buckets(tl, [pt], [torch.from_numpy(g)],
+                                                    [ut], **kw)
+    assert gsq_t.shape == usq_t.shape == (Wl,)
+    for w in range(Wl):
+        po, uo, (gsq, usq) = jlars.apply_lars_buckets(
+            jl, [jnp.asarray(p[w])], [jnp.asarray(g[w])], [jnp.asarray(u[w])],
+            kernel=True, **kw)
+        np.testing.assert_allclose(pt[w].numpy(), np.asarray(po[0]), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(ut[w].numpy(), np.asarray(uo[0]), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(float(gsq_t[w]), float(gsq), rtol=1e-5)
+        np.testing.assert_allclose(float(usq_t[w]), float(usq), rtol=1e-5)
+    assert (pt.numpy() * (1 - tfb.valid_mask(tl, 0)) == 0).all()   # padding stays 0
 
 
 @pytest.mark.parametrize("rows", ROWS)

@@ -14,7 +14,15 @@ compared:
   in the other framework, and the flip then moves that element by a
   whole scale, so all but at most 1e-4 of the elements must lie within
   1e-4 x the buffer's largest entry.
+
+With telemetry on, every field of ``state.stats`` must agree within 1e-5
+relative (float32 norms summed in another order; the dispersion ``pre``
+is a sum of squared worker differences and the most sensitive of them).
+LARS runs with ``grad_clip=1.0`` set: the reference ignores it under
+LARS, and so must the port.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,8 +40,10 @@ from repro_torch.core.local_sgd import mean_params, unpack_state
 from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
 from repro_torch.kernels import fused_bucket as tkb
+from repro_torch.kernels import ops as tops
 from repro_torch.launch.steps import build_train as tbuild
 from repro_torch.models import base as tmbase
+from repro_torch.telemetry import stats as tstats
 from repro_torch.utils import tree_flatten
 
 torch.set_num_threads(2)
@@ -42,18 +52,21 @@ W, B, S, H, N = 4, 2, 32, 2, 4
 FIELDS = ("params", "momentum", "anchor", "global_u", "ef_memory")
 
 
-def _run(cb, cfg, mode, clip, nesterov, gm=0.0):
+def _run(cb, cfg, mode, clip, nesterov, gm=0.0, optimizer="sgd",
+         telemetry=False):
     return cb.RunConfig(
         model=cfg, shape=cb.InputShape("t", S, W * B, "train"),
         local_sgd=cb.LocalSGDConfig(local_steps=H, sync_compression=mode,
                                     nesterov=nesterov, global_momentum=gm),
-        optim=cb.OptimConfig(base_lr=0.3, base_batch=W * B, lr_warmup_steps=2,
-                             weight_decay=1e-2, grad_clip=clip))
+        optim=cb.OptimConfig(optimizer=optimizer, base_lr=0.3, base_batch=W * B,
+                             lr_warmup_steps=2, weight_decay=1e-2,
+                             grad_clip=clip, lars_trust=0.02),
+        controller=cb.ControllerConfig(telemetry=telemetry))
 
 
-def _pair(mode, clip, nesterov, gm=0.0):
-    rj = _run(jcb, jconfigs.get_smoke("paper-lm"), mode, clip, nesterov, gm)
-    rt = _run(tcb, tconfigs.get_smoke("paper-lm"), mode, clip, nesterov, gm)
+def _pair(mode, clip, nesterov, gm=0.0, **kw):
+    rj = _run(jcb, jconfigs.get_smoke("paper-lm"), mode, clip, nesterov, gm, **kw)
+    rt = _run(tcb, tconfigs.get_smoke("paper-lm"), mode, clip, nesterov, gm, **kw)
     jb = jbuild(rj, num_workers=W, use_kernel=True)
     p0 = jmbase.materialize(jb.specs, jax.random.PRNGKey(0))
     js = jb.init(jax.random.PRNGKey(1), p0)
@@ -94,6 +107,14 @@ def _compare(js, ts, exact_mode: bool):
             else:
                 frac = float(np.mean(d > 1e-4 * scale))
                 assert frac <= 1e-4, (f, frac)
+
+
+def _compare_stats(js, ts):
+    for fld in dataclasses.fields(tstats.StatsAccumulator):
+        a = np.asarray(getattr(js.stats, fld.name))
+        b = getattr(ts.stats, fld.name).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, fld.name
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=0, err_msg=fld.name)
 
 
 # mode x grad_clip x nesterov: every value of each axis is swept
@@ -153,12 +174,75 @@ def test_mean_params_and_launch_counts_on_cpu():
 
 
 def test_unported_options_raise():
+    """LARS and telemetry with the static schedule build; every non-static
+    controller kind raises (auto_compress and noise_adaptive are the ones
+    whose speculative compression error the reference measures), as do
+    the other unported options."""
+    smoke = tconfigs.get_smoke("paper-lm")
+    for kw in (dict(optim=tcb.OptimConfig(optimizer="lars")),
+               dict(controller=tcb.ControllerConfig(telemetry=True))):
+        tbuild(tcb.RunConfig(model=smoke, **kw), num_workers=2, device="cpu")
+    kinds = ("diversity_h", "adaptive_batch", "auto_compress",
+             "noise_adaptive", "elastic")
     for kw in (dict(optim=tcb.OptimConfig(noise_eta=0.1)),
-               dict(optim=tcb.OptimConfig(optimizer="lars")),
                dict(local_sgd=tcb.LocalSGDConfig(wire_pack=True,
                                                  sync_compression="sign")),
                dict(local_sgd=tcb.LocalSGDConfig(block_steps=2)),
-               dict(controller=tcb.ControllerConfig(kind="diversity_h"))):
-        run = tcb.RunConfig(model=tconfigs.get_smoke("paper-lm"), **kw)
+               *(dict(controller=tcb.ControllerConfig(kind=k)) for k in kinds),
+               dict(controller=tcb.ControllerConfig(kind="auto_compress",
+                                                    telemetry=False))):
+        run = tcb.RunConfig(model=smoke, **kw)
         with pytest.raises(NotImplementedError):
             tbuild(run, num_workers=2, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["none", "ef_sign"])
+def test_lars_telemetry_trajectory_matches_reference(mode, monkeypatch):
+    """LARS (per-worker trust ratios, W=4) with telemetry: buffers, losses
+    and every stats field against the reference after N steps; the port
+    takes no clip norm under LARS (sq_sum never runs)."""
+    def no_clip_norm(*a, **k):
+        raise AssertionError("LARS must not take the grad-clip norm")
+    monkeypatch.setattr(tops, "bucket_sq_sum", no_clip_norm)
+    jb, js, jstep, jsync, tb, ts, it = _pair(mode, 1.0, True, optimizer="lars",
+                                             telemetry=True)
+    assert tb.telemetry and tb.n_comp == tb.layout.num_buckets == 1
+    losses = []
+    js, ts = _steps(N, js, jstep, jsync, tb, ts, it, losses)
+    np.testing.assert_allclose([l[1] for l in losses], [l[0] for l in losses],
+                               rtol=1e-6)
+    _compare(js, ts, exact_mode=(mode == "none"))
+    _compare_stats(js, ts)
+    assert int(ts.stats.rounds) == N // H and int(ts.stats.round_steps) == H
+    assert bool(ts.stats.comp_ref_sq.sum() > 0) == (mode == "ef_sign")
+
+
+def test_sgd_mean_telemetry_matches_reference():
+    """SGD + mean sync with telemetry: the centred pre/post pair (post = 0
+    exactly) and the post-clip grad norms agree with the reference."""
+    jb, js, jstep, jsync, tb, ts, it = _pair("none", 1.0, False, telemetry=True)
+    js, ts = _steps(N, js, jstep, jsync, tb, ts, it)
+    _compare(js, ts, exact_mode=True)
+    _compare_stats(js, ts)
+    assert float(ts.stats.post_sync_sq) == 0.0 and float(ts.stats.pre_sync_sq) > 0
+
+
+def test_state_carry_over_with_stats():
+    """A reference LARS + EF-sign state with telemetry, carried over after
+    one round (state_from_reference brings ``stats`` along), continues on
+    the port as on the reference."""
+    jb, js, jstep, jsync, tb, ts, it = _pair("ef_sign", 0.0, True,
+                                             optimizer="lars", telemetry=True)
+    it_ref = ShardedBatches(it.data, W, B)
+    for _ in range(H):
+        js = jstep(js, {k: jnp.asarray(v) for k, v in next(it_ref).items()})[0]
+    js = jsync(js)
+    ts = state_from_reference(jax.tree.map(np.asarray, js), layout=tb.layout,
+                              device="cpu")
+    for fld in dataclasses.fields(tstats.StatsAccumulator):
+        assert np.array_equal(getattr(ts.stats, fld.name).numpy(),
+                              np.asarray(getattr(js.stats, fld.name))), fld.name
+    assert tstats.round_summary(ts.stats)["rounds"] == 1
+    js, ts = _steps(H, js, jstep, jsync, tb, ts, it_ref)
+    _compare(js, ts, exact_mode=False)
+    _compare_stats(js, ts)
