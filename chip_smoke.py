@@ -14,12 +14,20 @@ script exits non-zero without printing that line.
 Phases:
   build    nvcc for every CUDA source, all started at once; build seconds.
   kernels  each kernel against its plain PyTorch version on the same card
-           inputs, at the main path's shape (W=4 workers x 934,040 rows x
-           128, float32: paper-lm's bucket) and at a ragged 3,101 rows;
-           max errors against the stated tolerance, and times (median of
-           CUDA-event-timed runs): kernel, plain version, the one PyTorch
-           call that computes the same function where there is one
-           (timed only, never used by the port), and the byte bound.
+           inputs, at full size and at a ragged size: the six bucket
+           kernels at the main path's shape (W=4 workers x 934,040 rows x
+           128, float32: paper-lm's bucket) and at 3,101 rows; the three
+           per-tensor kernels on one tensor of paper-lm's parameter count
+           (119,556,864; fused SGD in float32 and bfloat16) and of
+           1,000,003 elements; flash attention at paper-lm's attention
+           (B 32, S 512, 12 heads, D 64, causal, f32), at gemma3-1b's local
+           layer (B 1, S 4096, 4 heads, 1 kv head, D 256, window 512; f32
+           and bf16) and at two ragged shapes.  Max errors against the
+           stated tolerance, and times (median of CUDA-event-timed runs):
+           kernel, plain version, the one PyTorch call that computes the
+           same function where there is one (timed only, never used by
+           the port), and the bound (bytes, or operations over the
+           visited band for flash attention).
   A        the main path: paper-lm at full width, W=4 stacked on the card,
            post-local SGD, mean sync, 12 steps; launch counts.
   B        the same with EF-sign sync; the compressor kernels launch once
@@ -28,6 +36,13 @@ Phases:
            the two LARS kernels every step, their stats form feeding the
            round statistics, grad_clip set and ignored (no sq_sum launch);
            the last round's summary.
+  T        the per-tensor kernel API at full width: paper-lm's parameter
+           tree (W=1) on the card; one SGD step with ops.fused_sgd on every
+           leaf against the same step by the bucket kernel on the flat bus;
+           ops.sign_compress on every leaf of a delta tree against the
+           bucket compressor; ops.flash_attention against the training
+           path's attention (models.layers.causal_attention) at paper-lm's
+           attention shape; launch counts (one per leaf, one flash).
   P        torch.profiler over two full-width local steps and one EF-sign
            sync, for SGD (phase B's run) and for LARS with telemetry
            (phase L's): device busy time by kernel family and the idle
@@ -52,22 +67,42 @@ SRC = ROOT / "src"
 W = 4
 FULL_ROWS = 934_040          # paper-lm: one f32 bucket, 478.2 MB a copy
 RAGGED_ROWS = 3_096 + 5
+FULL_N = 119_556_864         # paper-lm's parameter count, as one tensor
+RAGGED_N = 1_000_003
 STEPS = 12
-TOL = {"elementwise": 2e-6, "reduction": 1e-5, "sign": 0.0}
-REPLACES = {
-    "fused_sgd_bucket": "src/repro/kernels/fused_bucket.py:107",
-    "sq_sum": "src/repro/kernels/fused_bucket.py:153",
-    "row_abs_sum": "src/repro/kernels/fused_bucket.py:177",
-    "scale_sign_rows": "src/repro/kernels/fused_bucket.py:304",
-    "lars_row_norms": "src/repro/kernels/fused_bucket.py:204",
-    "fused_lars_bucket": "src/repro/kernels/fused_bucket.py:258",
+TOL = {"elementwise": 2e-6, "reduction": 1e-5, "sign": 0.0,
+       # flash: f32 against the largest entry; bf16 elementwise, one bf16
+       # rounding of the entry (both round an f32 result once) plus that
+       "flash_f32": 2e-5, "flash_bf16_rtol": 2 ** -7,
+       # the bucket compressor's per-leaf |x| totals: a float32 scatter-add
+       # of up to 221,184 row sums into one slot, one after another
+       "scatter_add": 1e-4}
+# flash attention checks: (label, B, S, H, KH, D, window, dtype), causal
+FLASH_MAIN = ("paper-lm", 32, 512, 12, 12, 64, 0, "float32")
+FLASH_FULL = (FLASH_MAIN,
+              ("gemma3-1b local", 1, 4096, 4, 1, 256, 512, "float32"),
+              ("gemma3-1b local", 1, 4096, 4, 1, 256, 512, "bfloat16"))
+FLASH_RAGGED = (("ragged", 2, 333, 12, 4, 64, 0, "float32"),
+                ("ragged", 1, 1000, 4, 1, 256, 100, "bfloat16"))
+# each kernel: (the TPU kernel it replaces, under src/repro/kernels/; its
+# source, under src/repro_torch/kernels/csrc/)
+KERNELS = {
+    "fused_sgd_bucket": ("fused_bucket.py:107", "fused_bucket.cu"),
+    "sq_sum": ("fused_bucket.py:153", "fused_bucket.cu"),
+    "row_abs_sum": ("fused_bucket.py:177", "fused_bucket.cu"),
+    "scale_sign_rows": ("fused_bucket.py:304", "fused_bucket.cu"),
+    "lars_row_norms": ("fused_bucket.py:204", "fused_bucket.cu"),
+    "fused_lars_bucket": ("fused_bucket.py:258", "fused_bucket.cu"),
+    "fused_sgd_2d": ("fused_sgd.py:48", "per_tensor.cu"),
+    "abs_sum": ("sign_compress.py:34", "per_tensor.cu"),
+    "scale_sign": ("sign_compress.py:56", "per_tensor.cu"),
+    "flash_attention_bhsd": ("flash_attention.py:74", "flash_attention.cu"),
 }
 # phase L: LARS step size; the update of a layer is about lr * trust * ||w||
 LARS_LR, LARS_TRUST = 0.3, 0.02
 # round_summary fields computed from ||mean_k x_k||^2 (post_sync_sq)
 SYNC_MEAN_KEYS = ("post_sync_sq", "dispersion", "diversity", "signal_sq",
                   "noise_sq", "noise_ratio")
-SOURCE = "src/repro_torch/kernels/csrc/fused_bucket.cu"
 
 
 def emit(obj):
@@ -75,15 +110,15 @@ def emit(obj):
 
 
 def card_rates(name: str):
-    """(memory bytes/s, float32 non-tensor flop/s) from NVIDIA's data
-    sheets for the card present."""
+    """(memory bytes/s, float32 non-tensor flop/s, bf16 dense tensor-core
+    flop/s) from NVIDIA's data sheets for the card present."""
     if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12
+        return 3.9e12, 60e12, 835e12
     if "H200" in name:
-        return 4.8e12, 67e12
-    return 3.35e12, 67e12          # H100 SXM
+        return 4.8e12, 67e12, 989e12
+    return 3.35e12, 67e12, 989e12          # H100 SXM
 
 
 def nvidia_smi_line() -> str:
@@ -227,16 +262,166 @@ def check_kernels(rows: int, bw: float, flops_peak: float, timed: bool):
                 pp, g, up, 0.05, wd_row, ratio, **kw)),
             library_ms=None)
     del p, g, u, pk, uk, pp, up
+    return report(res, bw, flops_peak, W=W, rows=rows)
+
+
+def report(res: dict, bw: float, flops_peak: float, **where):
+    """Add each record's bound, emit it, and raise on a disagreement."""
+    import torch
     for name, r in res.items():
-        r["bound_ms"] = 1e3 * max(r["bytes"] / bw, r["flops"] / flops_peak)
-        r["bound_by"] = "bytes" if r["bytes"] / bw >= r["flops"] / flops_peak \
-            else "operations"
-        emit({"phase": "kernels", "kernel": name, "W": W, "rows": rows, **r})
+        ops_s = r.pop("ops_s", r["flops"] / flops_peak)
+        r["bound_ms"] = 1e3 * max(r["bytes"] / bw, ops_s)
+        r["bound_by"] = "bytes" if r["bytes"] / bw >= ops_s else "operations"
+        emit({"phase": "kernels", "kernel": name, **where, **r})
         if not r["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version at "
-                                 f"rows={rows}: {r}")
+                                 f"{where}: {r}")
     torch.cuda.empty_cache()
     return res
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at each entry of x (as f32)."""
+    import torch
+    a = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def check_per_tensor(n: int, bw: float, flops_peak: float, timed: bool):
+    """The three per-tensor kernels against their plain versions on one
+    tensor of n elements."""
+    import torch
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.kernels import sign_compress as sc
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(n)
+    res = {}
+    kw = dict(momentum=0.9, weight_decay=1e-4, nesterov=True)
+    for dt in (torch.float32, torch.bfloat16):
+        p, g, u = (torch.randn((n,), generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        got = fs.fused_sgd_2d(p, g, u, 0.05, **kw)
+        want = fs.fused_sgd_2d_plain(p, g, u, 0.05, **kw)
+        torch.cuda.synchronize()
+        errs = [rel_err(a.float(), b.float()) for a, b in zip(got, want)]
+        r = dict(dtype=str(dt).removeprefix("torch."),
+                 max_abs_err=max(e[0] for e in errs),
+                 max_rel_err=max(e[1] for e in errs),
+                 bytes=5 * p.element_size() * n, flops=8 * n)
+        if dt == torch.float32:
+            r.update(tol=TOL["elementwise"],
+                     ok=all(e[1] <= TOL["elementwise"] for e in errs))
+        else:
+            ulps = max(float(((a.float() - b.float()).abs() / bf16_ulp(b)).max())
+                       for a, b in zip(got, want))
+            r.update(tol="1 bf16 ulp", max_ulps=ulps, ok=ulps <= 1.0)
+        if timed:
+            # torch._fused_sgd_ (SGD(fused=True)'s kernel) computes the same
+            # update in place: timed on clones, never used by the port
+            lib = [[t.clone()] for t in (p, g, u)]
+            sgd = lambda: torch._fused_sgd_(
+                *lib, weight_decay=1e-4, momentum=0.9, lr=0.05, dampening=0.0,
+                nesterov=True, maximize=False, is_first_step=False)
+            sgd()
+            lib_err = max(rel_err(a[0].float(), b.float())[1]
+                          for a, b in zip((lib[0], lib[2]), want))
+            r.update(ms=time_ms(lambda: fs.fused_sgd_2d(p, g, u, 0.05, **kw)),
+                     plain_ms=time_ms(lambda: fs.fused_sgd_2d_plain(p, g, u, 0.05,
+                                                                   **kw)),
+                     library_ms=time_ms(sgd), library_max_rel_err=lib_err)
+            del lib
+        res["fused_sgd_2d" + ("" if dt == torch.float32 else "_bf16")] = r
+        del p, g, u, got, want
+
+    x = torch.randn((n,), generator=gen, device=dev)
+    x[::7] = 0.0                          # exact zeros: sign(0) must be 0
+    a, b = sc.abs_sum(x), sc.abs_sum_plain(x)
+    e = rel_err(a, b)
+    repeat = bool(torch.equal(a, sc.abs_sum(x)))        # no atomics
+    res["abs_sum"] = dict(max_abs_err=e[0], max_rel_err=e[1],
+                          tol=TOL["reduction"], same_bits_twice=repeat,
+                          ok=e[1] <= TOL["reduction"] and repeat,
+                          bytes=4 * n + 4, flops=2 * n)
+    s = a / n
+    y, yp = sc.scale_sign(x, s), sc.scale_sign_plain(x, s)
+    e = rel_err(y, yp)
+    res["scale_sign"] = dict(max_abs_err=e[0], max_rel_err=e[1], tol=TOL["sign"],
+                             ok=bool(torch.equal(y, yp)), bytes=8 * n + 4,
+                             flops=n)
+    if timed:
+        res["abs_sum"].update(
+            ms=time_ms(lambda: sc.abs_sum(x)),
+            plain_ms=time_ms(lambda: sc.abs_sum_plain(x)),
+            library_ms=time_ms(lambda: torch.linalg.vector_norm(x, 1)))
+        res["scale_sign"].update(
+            ms=time_ms(lambda: sc.scale_sign(x, s)),
+            plain_ms=time_ms(lambda: sc.scale_sign_plain(x, s)),
+            library_ms=None)
+    del x, y, yp
+    return report(res, bw, flops_peak, n=n)
+
+
+def sdpa_call(q, k, v, window: int):
+    """``scaled_dot_product_attention`` on the same inputs, causal (and
+    banded by an explicit mask with a window), kv heads repeated outside
+    the call: the yardstick, never used by the port."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    G = q.shape[2] // k.shape[2]
+    qs = q.transpose(1, 2)
+    ks = k.transpose(1, 2).repeat_interleave(G, dim=1)
+    vs = v.transpose(1, 2).repeat_interleave(G, dim=1)
+    mask = (fa.band_mask(q.shape[1], k.shape[1], causal=True, window=window,
+                         device=q.device) if window else None)
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  is_causal=mask is None)
+
+
+def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
+                timed: bool):
+    """The flash kernel (through ops.flash_attention) against its plain
+    version, causal, on random (B, S, H, D) inputs; the bound counts the
+    unmasked (q, k) pairs of this mask exactly: 2·D flops a pair for q·k
+    and 2·D for p·v, all at the f32 rate, but q·k at the bf16 tensor-core
+    rate for bf16 inputs (a product of bf16 values is exact in f32)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    label, B, S, H, KH, D, window, dtype = spec
+    dev, dt = "cuda", getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(S + D)
+    mk = lambda h: torch.randn((B, S, h, D), generator=gen, device=dev).to(dt)
+    q, k, v = mk(H), mk(KH), mk(KH)
+    run = lambda: ops.flash_attention(q, k, v, causal=True, window=window)
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    e = rel_err(got.float(), want.float())
+    rtol = 0.0 if dtype == "float32" else TOL["flash_bf16_rtol"]
+    bound = TOL["flash_f32"] * want.float().abs().max() + rtol * want.float().abs()
+    ratio = float(((got.float() - want.float()).abs() / bound).max())
+    pairs = int(fa.band_mask(S, S, causal=True, window=window,
+                             device=dev).sum()) * B * H
+    qk_peak = flops_peak if dtype == "float32" else bf16_peak
+    r = dict(max_abs_err=e[0], max_rel_err=e[1], tol=TOL["flash_f32"],
+             elementwise_rtol=rtol, max_err_over_tol=ratio, ok=ratio <= 1.0,
+             unmasked_pairs=pairs, flops=4 * D * pairs,
+             ops_s=2 * D * pairs / qk_peak + 2 * D * pairs / flops_peak,
+             bytes=q.element_size() * 2 * (q.numel() + k.numel()))
+    if timed:
+        lib = sdpa_call(q, k, v, window)
+        r.update(ms=time_ms(run), plain_ms=time_ms(plain), library_ms=time_ms(lib),
+                 library_max_rel_err=rel_err(lib().transpose(1, 2).float(),
+                                             want.float())[1])
+    del q, k, v, got, want
+    name = "flash_attention_bhsd" + ("" if spec == FLASH_MAIN else
+                                     f"@{label}/{dtype}")
+    return report({name: r}, bw, flops_peak, shape=label, B=B, S=S, H=H, KH=KH,
+                  D=D, causal=True, window=window, dtype=dtype)
 
 
 def train_run(run, *, device, steps, params0=None, seed=0):
@@ -333,6 +518,112 @@ def profile_phase(run):
     del state
 
 
+def phase_t(cfg) -> dict:
+    """Phase T: the per-tensor kernel API at full width on paper-lm's
+    parameter tree (W=1), each result held against the path it mirrors;
+    returns the launch counts of the driven calls."""
+    import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sign_compress as sc
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+    from repro_torch.models.layers import causal_attention
+    from repro_torch.utils import tree_leaves, tree_map
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    params = mbase.materialize(lm.param_specs(cfg), gen, dev)
+    noise = lambda scale: tree_map(
+        lambda t: scale * torch.randn(t.shape, generator=gen, device=dev), params)
+    grads, mom, delta = noise(1e-2), noise(1e-3), noise(1e-3)
+    layout = flatbuf.build_layout(params)
+    n_leaves = layout.num_leaves
+    lr, kw = 0.05, dict(momentum=0.9, weight_decay=1e-4, nesterov=True)
+    lr_dev = torch.tensor(lr, device=dev)
+    B, S, H, KH, D = FLASH_MAIN[1:6]
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+               for h in (H, KH, KH))
+    leaves = list(zip(*(tree_leaves(t) for t in (params, grads, mom))))
+    per_leaf_sgd = lambda: [ops.fused_sgd(p, g, u, lr=lr_dev, **kw)
+                            for p, g, u in leaves]
+    per_leaf_sign = lambda: [ops.sign_compress(d) for d in tree_leaves(delta)]
+
+    for mod in (fs, sc, fa):
+        mod.reset_launches()
+    upd = per_leaf_sgd()
+    ys = per_leaf_sign()
+    o_flash = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    counts = {**fs.LAUNCHES, **sc.LAUNCHES, **fa.LAUNCHES}
+
+    # the same SGD step by the bucket kernel: lead (), decay on every row
+    P, G, U = (flatbuf.flatten(layout, t)[0] for t in (params, grads, mom))
+    wd_row = torch.ones((P.shape[0],), device=dev)
+    bucket_sgd = lambda: fb.fused_sgd_bucket(P, G, U, lr, wd_row, **kw)
+    bucket_sgd()
+    pb = tree_leaves(flatbuf.unflatten(layout, [P]))
+    ub = tree_leaves(flatbuf.unflatten(layout, [U]))
+    p_err = max(float((a - b).abs().max()) for (a, _), b in zip(upd, pb))
+    u_err = max(float((a - b).abs().max()) for (_, a), b in zip(upd, ub))
+    p_max = max(float(b.abs().max()) for b in pb)
+    u_max = max(float(b.abs().max()) for b in ub)
+
+    # the same compressor by the bucket kernels, per-segment scales
+    X = flatbuf.flatten(layout, delta)[0]
+    seg = flatbuf.const("row_segments", layout, 0, dev)
+    sizes = flatbuf.const("segment_sizes", layout, 0, dev)
+    bucket_sign = lambda: ops.bucket_sign_compress(X, seg, sizes)
+    yb, scales = bucket_sign()
+    leaf_scales = torch.stack([y.abs().amax() for y in ys])
+    exact = torch.stack([d.double().abs().sum() / d.numel()
+                         for d in tree_leaves(delta)])
+    rel = lambda a, b: float(((a.double() - b).abs() / b).max())
+    scale_rel = rel(leaf_scales, scales.double())
+    leaf_rel, bucket_rel = rel(leaf_scales, exact), rel(scales, exact)
+    signs_equal = all(torch.equal(torch.sign(a), torch.sign(b)) for a, b in
+                      zip(ys, tree_leaves(flatbuf.unflatten(layout, [yb]))))
+
+    o_train = causal_attention(q, k, v)
+    f_err = rel_err(o_flash, o_train)
+    rec = {"phase": "T", "model": cfg.name, "leaves": n_leaves,
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "launches": counts,
+           "sgd_p_max_abs_err": p_err, "sgd_p_rel": p_err / p_max,
+           "sgd_u_max_abs_err": u_err, "sgd_u_rel": u_err / u_max,
+           "sgd_tol": TOL["elementwise"],
+           "sign_scale_max_rel_err": scale_rel, "sign_scale_tol": TOL["scatter_add"],
+           "leaf_scale_vs_f64_rel": leaf_rel, "leaf_scale_vs_f64_tol": TOL["reduction"],
+           "bucket_scale_vs_f64_rel": bucket_rel,
+           "signs_equal": signs_equal,
+           "flash_vs_training_attention_max_abs_err": f_err[0],
+           "flash_vs_training_attention_rel": f_err[1],
+           "flash_tol": TOL["flash_f32"],
+           "per_leaf_sgd_ms": time_ms(per_leaf_sgd),
+           "bucket_sgd_ms": time_ms(bucket_sgd),
+           "per_leaf_sign_ms": time_ms(per_leaf_sign),
+           "bucket_sign_ms": time_ms(bucket_sign),
+           "flash_ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+           "training_attention_ms": time_ms(lambda: causal_attention(q, k, v)),
+           "library_ms": time_ms(sdpa_call(q, k, v, 0))}
+    emit(rec)
+    want = {"fused_sgd_2d": n_leaves, "abs_sum": n_leaves,
+            "scale_sign": n_leaves, "flash_attention_bhsd": 1}
+    bad = [k for k, ok in (
+        ("launches", counts == want),
+        ("sgd", max(p_err / p_max, u_err / u_max) <= TOL["elementwise"]),
+        ("sign scales", scale_rel <= TOL["scatter_add"]),
+        ("per-leaf scales", leaf_rel <= TOL["reduction"]), ("signs", signs_equal),
+        ("flash", f_err[1] <= TOL["flash_f32"])) if not ok]
+    if bad:
+        raise AssertionError(f"phase T: {', '.join(bad)} (launches {counts}, "
+                             f"want {want})")
+    return counts
+
+
 def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
               lars: bool = False):
     """The phases' RunConfig; ``lars`` switches to LARS with telemetry
@@ -371,11 +662,11 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    bw, flops_peak = card_rates(name)
+    bw, flops_peak, bf16_peak = card_rates(name)
     emit({"phase": "card", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "mem_bw_Bps": bw,
-          "f32_peak_flops": flops_peak,
+          "f32_peak_flops": flops_peak, "bf16_tensor_peak_flops": bf16_peak,
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
@@ -387,6 +678,12 @@ def main() -> int:
 
     check_kernels(RAGGED_ROWS, bw, flops_peak, timed=False)
     full = check_kernels(FULL_ROWS, bw, flops_peak, timed=True)
+    check_per_tensor(RAGGED_N, bw, flops_peak, timed=False)
+    full.update(check_per_tensor(FULL_N, bw, flops_peak, timed=True))
+    for spec in FLASH_RAGGED:
+        check_flash(spec, bw, flops_peak, bf16_peak, timed=False)
+    for spec in FLASH_FULL:
+        full.update(check_flash(spec, bw, flops_peak, bf16_peak, timed=True))
 
     # ---- the main path: phases A (mean), B (EF-sign), L (LARS) ----
     from repro_torch.telemetry.stats import round_summary
@@ -441,6 +738,9 @@ def main() -> int:
             launches[k] += v
         del state
         torch.cuda.empty_cache()
+
+    launches.update(phase_t(cfg))
+    torch.cuda.empty_cache()
 
     for lars in (False, True):
         profile_phase(phase_run("ef_sign", cfg, seq=512, local_batch=8, lars=lars))
@@ -499,14 +799,18 @@ def main() -> int:
                                  f"the card disagrees with the trainer on the CPU"
                                  f"{': ' + ', '.join(bad) if bad else ''}")
 
-    # launches: the main-path phases A, B and L
+    # launches: phases A, B and L for the bucket kernels, T for the others
+    if not all(launches[k] > 0 for k in KERNELS):
+        raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
+        {"name": k, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/" + KERNELS[k][1],
+         "replaces": "src/repro/kernels/" + KERNELS[k][0],
          "launches": launches[k], "max_abs_err": full[k]["max_abs_err"],
          "ms": full[k]["ms"], "plain_ms": full[k]["plain_ms"],
          "bound_ms": full[k]["bound_ms"], "bound_by": full[k]["bound_by"],
          "library_ms": full[k]["library_ms"]}
-        for k in REPLACES]})
+        for k in KERNELS]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

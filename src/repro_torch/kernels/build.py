@@ -9,6 +9,11 @@ builds everything it needs by itself and an edited source rebuilds.
 
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them, so the build costs the time of the slowest file.
+
+The wrappers of every source share the launch helpers at the end:
+:class:`Library` binds a source's entry points and raises on a refused
+launch, :func:`on_cuda` picks the route (plain version on the CPU, kernel
+on the card, nothing else), :func:`stream` gives PyTorch's stream.
 """
 from __future__ import annotations
 
@@ -19,8 +24,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"fused_bucket": CSRC / "fused_bucket.cu"}
+SOURCES = {"fused_bucket": CSRC / "fused_bucket.cu",
+           "per_tensor": CSRC / "per_tensor.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -90,3 +99,46 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_finish(name, *_start(name))))
         _LOADED[name] = lib
     return lib
+
+
+class Library:
+    """The entry points of one source, bound at first call.
+
+    ``signatures`` maps each ``extern "C"`` function to its ctypes
+    argument types; every entry point returns a CUDA error code, and a
+    call raises unless it is 0 (a refused launch never runs, and no later
+    synchronize reports it)."""
+
+    def __init__(self, name: str, signatures: dict):
+        self.name = name
+        self.signatures = signatures
+        self._lib = None
+
+    def __call__(self, fn: str, *args):
+        if self._lib is None:
+            lib = load(self.name)
+            for f, argtypes in self.signatures.items():
+                getattr(lib, f).argtypes = argtypes
+                getattr(lib, f).restype = ctypes.c_int
+            self._lib = lib
+        err = getattr(self._lib, fn)(*args)
+        if err != 0:
+            raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
+
+
+def on_cuda(*tensors) -> bool:
+    """True when every tensor is on CUDA, False when all are on the CPU;
+    raises on a mix or any other device.  A wrapper runs its plain version
+    on False and launches its kernel on True: there is no fallback."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"the port's kernels take all-CPU or all-CUDA tensors, "
+                     f"got {kinds}")
+
+
+def stream(x: torch.Tensor) -> int:
+    """PyTorch's current stream on ``x``'s device, as a pointer-sized int."""
+    return torch.cuda.current_stream(x.device).cuda_stream

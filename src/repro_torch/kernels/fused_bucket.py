@@ -27,6 +27,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import build
+
 LANE = 128
 THREADS = 256
 # blocks per worker for the grid-stride passes: about two waves of
@@ -45,7 +47,7 @@ def reset_launches():
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _F = ctypes.c_float
-_SIGNATURES = {
+_LIB = build.Library("fused_bucket", {
     "fb_fused_sgd": [_P, _P, _P, _P, _P, _F, _F, _F, ctypes.c_int, _I, _I,
                      ctypes.c_int, _P, _I, _P, _P],
     "fb_sq_sum": [_P, _I, _I, _P, _I, _P, _P],
@@ -54,37 +56,7 @@ _SIGNATURES = {
     "fb_lars_row_norms": [_P, _P, _P, _F, _I, _I, _P, _P, _P],
     "fb_fused_lars": [_P, _P, _P, _P, _P, _F, _F, _F, ctypes.c_int, _I, _I,
                       ctypes.c_int, _P, _I, _P, _P],
-}
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from repro_torch.kernels import build
-        lib = build.load("fused_bucket")
-        for fn, args in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _call(fn: str, *args):
-    err = getattr(_lib(), fn)(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
-
-
-def _on_cuda(*tensors) -> bool:
-    """True when every tensor is on CUDA, False when all are on the CPU;
-    raises on a mix or any other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
-        return True
-    raise ValueError(f"bucket kernels take all-CPU or all-CUDA tensors, got {kinds}")
+})
 
 
 def _check(x: torch.Tensor, name: str):
@@ -108,10 +80,6 @@ def _lead_rows(x: torch.Tensor) -> tuple[int, int]:
 def _grid_x(W: int, rows: int) -> int:
     n4 = rows * (LANE // 4)
     return max(1, min(-(-n4 // THREADS), _BLOCKS_TOTAL // max(W, 1)))
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _check_same(**buckets) -> tuple[int, int]:
@@ -191,7 +159,7 @@ def fused_sgd_bucket(p, g, u, lr, wd_row, *, momentum: float,
     ``stats`` returns ``(sum g^2, sum (lr*step)^2)`` per worker, each of
     shape ``lead``, g after the clip scale and before decay.
     """
-    if not _on_cuda(p, g, u, wd_row):
+    if not build.on_cuda(p, g, u, wd_row):
         return fused_sgd_bucket_plain(p, g, u, lr, wd_row, momentum=momentum,
                                       weight_decay=weight_decay,
                                       nesterov=nesterov, gscale=gscale,
@@ -201,12 +169,12 @@ def fused_sgd_bucket(p, g, u, lr, wd_row, *, momentum: float,
     if gscale is not None:
         gscale = _row_vector(gscale, W, "gscale", p.device)
     partials, out, gx = _stats_scratch(p, W, rows, stats)
-    _call("fb_fused_sgd", p.data_ptr(), g.data_ptr(), u.data_ptr(),
+    _LIB("fb_fused_sgd", p.data_ptr(), g.data_ptr(), u.data_ptr(),
           wd_row.data_ptr(), gscale.data_ptr() if gscale is not None else None,
           float(lr), float(momentum), float(weight_decay), int(bool(nesterov)),
           W, rows, int(bool(stats)),
           partials.data_ptr() if stats else None, gx,
-          out.data_ptr() if stats else None, _stream(p))
+          out.data_ptr() if stats else None, build.stream(p))
     LAUNCHES["fused_sgd_bucket"] += 1
     return _stats_out(p, out)
 
@@ -222,15 +190,15 @@ def sq_sum_plain(x):
 def sq_sum(x):
     """sum(x^2) per worker of a (*lead, rows, 128) bucket -> ``lead``-shaped
     f32 (a scalar for a single bucket)."""
-    if not _on_cuda(x):
+    if not build.on_cuda(x):
         return sq_sum_plain(x)
     _check(x, "x")
     W, rows = _lead_rows(x)
     gx = _grid_x(W, rows)
     partials = torch.empty((W, gx), dtype=torch.float32, device=x.device)
     out = torch.empty((W,), dtype=torch.float32, device=x.device)
-    _call("fb_sq_sum", x.data_ptr(), W, rows, partials.data_ptr(), gx,
-          out.data_ptr(), _stream(x))
+    _LIB("fb_sq_sum", x.data_ptr(), W, rows, partials.data_ptr(), gx,
+          out.data_ptr(), build.stream(x))
     LAUNCHES["sq_sum"] += 1
     return out.reshape(x.shape[:-2])
 
@@ -245,12 +213,12 @@ def row_abs_sum_plain(x):
 
 def row_abs_sum(x):
     """Per-row sum |x| of a (*lead, rows, 128) bucket -> (*lead, rows) f32."""
-    if not _on_cuda(x):
+    if not build.on_cuda(x):
         return row_abs_sum_plain(x)
     _check(x, "x")
     W, rows = _lead_rows(x)
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
-    _call("fb_row_abs_sum", x.data_ptr(), W * rows, out.data_ptr(), _stream(x))
+    _LIB("fb_row_abs_sum", x.data_ptr(), W * rows, out.data_ptr(), build.stream(x))
     LAUNCHES["row_abs_sum"] += 1
     return out
 
@@ -266,7 +234,7 @@ def scale_sign_rows_plain(x, scale_row):
 def scale_sign_rows(x, scale_row):
     """``sign(x) * scale_row[row]`` with sign(0) = 0: x (*lead, rows, 128),
     scale_row (rows,) shared by every leading index -> f32 like x."""
-    if not _on_cuda(x, scale_row):
+    if not build.on_cuda(x, scale_row):
         return scale_sign_rows_plain(x, scale_row)
     _check(x, "x")
     W, rows = _lead_rows(x)
@@ -275,8 +243,8 @@ def scale_sign_rows(x, scale_row):
             or not scale_row.is_contiguous():
         raise ValueError(f"scale_row: ({rows},) contiguous f32 expected")
     y = torch.empty_like(x)
-    _call("fb_scale_sign_rows", x.data_ptr(), scale_row.data_ptr(), W * rows,
-          rows, y.data_ptr(), _stream(x))
+    _LIB("fb_scale_sign_rows", x.data_ptr(), scale_row.data_ptr(), W * rows,
+          rows, y.data_ptr(), build.stream(x))
     LAUNCHES["scale_sign_rows"] += 1
     return y
 
@@ -297,14 +265,14 @@ def lars_row_norms_plain(p, g, wd_row, *, weight_decay: float):
 def lars_row_norms(p, g, wd_row, *, weight_decay: float):
     """Per-row sum p^2 and sum (g + wd * wd_row[row] * p)^2 of
     (*lead, rows, 128) buckets in one pass -> two (*lead, rows) f32."""
-    if not _on_cuda(p, g, wd_row):
+    if not build.on_cuda(p, g, wd_row):
         return lars_row_norms_plain(p, g, wd_row, weight_decay=weight_decay)
     W, rows = _check_same(p=p, g=g)
     wd_row = _row_vector(wd_row, rows, "wd_row")
     pn = torch.empty(p.shape[:-1], dtype=torch.float32, device=p.device)
     gn = torch.empty_like(pn)
-    _call("fb_lars_row_norms", p.data_ptr(), g.data_ptr(), wd_row.data_ptr(),
-          float(weight_decay), W, rows, pn.data_ptr(), gn.data_ptr(), _stream(p))
+    _LIB("fb_lars_row_norms", p.data_ptr(), g.data_ptr(), wd_row.data_ptr(),
+          float(weight_decay), W, rows, pn.data_ptr(), gn.data_ptr(), build.stream(p))
     LAUNCHES["lars_row_norms"] += 1
     return pn, gn
 
@@ -342,7 +310,7 @@ def fused_lars_bucket(p, g, u, lr, wd_row, ratio_row, *, momentum: float,
     every worker.  With ``stats`` returns ``(sum g^2, sum (lr*step)^2)``
     per worker, g raw (before decay and ratio).
     """
-    if not _on_cuda(p, g, u, wd_row, ratio_row):
+    if not build.on_cuda(p, g, u, wd_row, ratio_row):
         return fused_lars_bucket_plain(p, g, u, lr, wd_row, ratio_row,
                                        momentum=momentum,
                                        weight_decay=weight_decay,
@@ -351,10 +319,10 @@ def fused_lars_bucket(p, g, u, lr, wd_row, ratio_row, *, momentum: float,
     wd_row = _row_vector(wd_row, rows, "wd_row")
     ratio_row = _row_vector(ratio_row, W * rows, "ratio_row")
     partials, out, gx = _stats_scratch(p, W, rows, stats)
-    _call("fb_fused_lars", p.data_ptr(), g.data_ptr(), u.data_ptr(),
+    _LIB("fb_fused_lars", p.data_ptr(), g.data_ptr(), u.data_ptr(),
           wd_row.data_ptr(), ratio_row.data_ptr(), float(lr), float(momentum),
           float(weight_decay), int(bool(nesterov)), W, rows, int(bool(stats)),
           partials.data_ptr() if stats else None, gx,
-          out.data_ptr() if stats else None, _stream(p))
+          out.data_ptr() if stats else None, build.stream(p))
     LAUNCHES["fused_lars_bucket"] += 1
     return _stats_out(p, out)

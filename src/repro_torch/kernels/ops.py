@@ -1,10 +1,51 @@
-"""Bucket-level entry points over the flat-bus kernels (the port of the
-bucket half of ``repro.kernels.ops``)."""
+"""Public entry points over the port's kernels (the port of
+``repro.kernels.ops``): the per-tensor API (``fused_sgd``,
+``sign_compress``, ``flash_attention``) and the bucket-level API over the
+flat-bus kernels.
+
+Each takes CPU or CUDA tensors: on the CPU the kernels' plain versions
+run, on the card the kernels launch (or raise).  The reference's
+``interpret`` switch has no counterpart, and the per-tensor API needs no
+128-lane padding: a tensor of any shape goes to its kernel as it is.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_bucket as _fb
+from repro_torch.kernels import fused_sgd as _fs
+from repro_torch.kernels import sign_compress as _sc
+
+
+def fused_sgd(p, g, u, *, lr, momentum: float, weight_decay: float = 0.0,
+              nesterov: bool = True):
+    """Fused SGD update of one tensor of any shape; returns NEW (p', u') in
+    p's and u's dtype.  ``lr`` is a float or a one-element f32 tensor on
+    p's device (read there: a schedule on the device costs no sync)."""
+    return _fs.fused_sgd_2d(p.contiguous(), g.contiguous(), u.contiguous(), lr,
+                            momentum=momentum, weight_decay=weight_decay,
+                            nesterov=nesterov)
+
+
+def sign_compress(x):
+    """sign(x) * mean|x| (the Alg. 3/4 compressor) of one tensor, as f32.
+
+    The scale divides by the TRUE element count ``x.numel()``; the sum
+    stays on the device between the two launches."""
+    x = x.contiguous()
+    scale = _sc.abs_sum(x) / x.numel()
+    return _sc.scale_sign(x, scale)
+
+
+# GQA flash attention, q (B, Sq, H, D), k / v (B, Sk, KH, D): the kernel
+# reads that layout through its strides, so there is nothing to adapt here
+flash_attention = _fa.flash_attention
+
+
+# ---------------------------------------------------------------------------
+# Bucket-level entry points (flat parameter bus; see core/flatbuf.py)
+# ---------------------------------------------------------------------------
 
 
 def bucket_fused_sgd(p2, g2, u2, wd_row, *, lr, momentum: float,

@@ -2,9 +2,9 @@
 (the port of the training-path parts of ``repro.models.layers``).
 
 All functions are single-worker, float32 in and out for float32 params.
-Attention is plain ``matmul``/``softmax``: on this path the reference
-runs jnp ``chunked_attention`` (no Pallas kernel); the flash kernel's port
-is later work.
+The training path's attention is plain ``matmul``/``softmax``, as the
+reference runs jnp ``chunked_attention`` there (no Pallas kernel); the
+flash kernel is reached only through ``kernels.ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -61,6 +61,41 @@ def causal_attention(q, k, v, *, scale: float = 0.0):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _softcap(s, cap: float):
+    if cap and cap > 0:
+        s = torch.tanh(s / cap) * cap
+    return s
+
+
+def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        scale: float = 0.0):
+    """O(S^2) oracle (the reference's ``reference_attention``).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KH, D).  Query positions are aligned
+    to the END of the keys (query i sits at key position i + Sk - Sq),
+    unlike the flash kernel's start-aligned rows: the two agree only
+    where Sq == Sk."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    scale = scale or 1.0 / math.sqrt(D)
+    qh = q.reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qh.float(), k.float()) * scale
+    s = _softcap(s, softcap)
+    Sk = k.shape[1]
+    qpos = torch.arange(Sq, device=q.device) + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def swiglu(gate, up):

@@ -9,7 +9,13 @@ machine without JAX:
 
 Tolerances: the elementwise SGD / LARS update 2e-6 x the largest entry
 (nvcc contracts a*b+c into one FMA, the plain version rounds twice);
-reductions rtol 1e-5 (float32 sums in another order); sign exact.
+reductions rtol 1e-5 (float32 sums in another order); sign exact.  The
+per-tensor SGD kernel rounds every operation on its own, as its plain
+version does: 2e-6 of the largest entry in f32 and one bf16 ulp in bf16
+are the stated bounds, not the expected error.  Flash attention: 2e-5 x
+the largest entry in f32 (the reference's own test tolerance; online
+against dense softmax); in bf16, both compute in f32 and round once, so
+each entry within one bf16 rounding (2^-7 of itself) plus that 2e-5.
 """
 import numpy as np
 import pytest
@@ -20,7 +26,11 @@ from repro_torch.configs.base import (ControllerConfig, InputShape,
                                       LocalSGDConfig, OptimConfig, RunConfig)
 from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_bucket as tkb
+from repro_torch.kernels import fused_sgd as tfs
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import sign_compress as tsc
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import build_train
 from repro_torch.models import base as mbase
@@ -216,3 +226,136 @@ def test_lars_telemetry_trainer_on_card_matches_cpu(cuda, mode):
                   "scale_sign_rows": comp, "lars_row_norms": 6,
                   "fused_lars_bucket": 6}
     assert all(v == 0 for v in cc.values())
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each entry of x (f32), the smallest normal's below it."""
+    a = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 129, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nesterov", [True, False])
+def test_cuda_fused_sgd_matches_plain(cuda, n, dtype, nesterov):
+    """Per-tensor fused SGD against its plain version, lr as a float and
+    as a device scalar; one launch per call; new tensors, inputs kept."""
+    tfs.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(n)
+    p, gr, u = (torch.randn((n,), generator=g, device=cuda).to(dtype)
+                for _ in range(3))
+    p0 = p.clone()
+    kw = dict(momentum=0.9, weight_decay=1e-2, nesterov=nesterov)
+    want = tfs.fused_sgd_2d_plain(p, gr, u, 0.05, **kw)
+    for lr in (0.05, torch.tensor(0.05, device=cuda)):
+        got = tfs.fused_sgd_2d(p, gr, u, lr, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and a.shape == b.shape
+            d = (a.float() - b.float()).abs()
+            if dtype == torch.float32:
+                assert float(d.max()) <= 2e-6 * float(b.abs().max())
+            else:
+                assert bool((d <= _bf16_ulp(b)).all())
+    assert torch.equal(p, p0)
+    assert tfs.LAUNCHES["fused_sgd_2d"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 130, 33_000, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sign_compress_kernels_match_plain(cuda, n, dtype):
+    """abs_sum within 1e-5 relative and bitwise repeatable; scale_sign
+    exact with sign(0) = 0; ops.sign_compress = two launches."""
+    tsc.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(n + 7)
+    x = torch.randn((n,), generator=g, device=cuda).to(dtype)
+    x[::3] = 0.0
+    a, b = tsc.abs_sum(x), tsc.abs_sum_plain(x)
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    assert torch.equal(a, tsc.abs_sum(x))                 # no atomics
+    s = a / n
+    y = tsc.scale_sign(x, s)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, tsc.scale_sign_plain(x, s))
+    assert bool((y[::3] == 0).all())
+    torch.testing.assert_close(tops.sign_compress(x),
+                               torch.sign(x.float()) * x.float().abs().mean(),
+                               rtol=1e-5, atol=0)
+    assert tsc.LAUNCHES == {"abs_sum": 3, "scale_sign": 2}
+
+
+def _flash_close(got, want):
+    """The flash tolerance above, in got's dtype."""
+    rtol = 2 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float().cpu(), want.float().cpu()
+    bound = 2e-5 * want.abs().max() + rtol * want.abs()
+    return bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 40),
+                                           (False, 40)])
+def test_cuda_flash_matches_plain(cuda, D, dtype, causal, window):
+    """The flash kernel against its plain version, (B, S, H, D) layout
+    with GQA, a ragged S = 200 and Sq != Sk (start-aligned rows)."""
+    tfa.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(D)
+    for Sq, Sk in ((200, 200), (96, 170)):
+        mk = lambda S, h: torch.randn((2, S, h, D), generator=g,
+                                      device=cuda).to(dtype)
+        q, k, v = mk(Sq, 4), mk(Sk, 2), mk(Sk, 2)
+        got = tops.flash_attention(q, k, v, causal=causal, window=window)
+        want = tfa.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal,
+                                   window=window)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert _flash_close(got, want), (Sq, Sk)
+    # the (BH, S, D) entry point, kv heads repeated to q's rows
+    qb = q.transpose(1, 2).reshape(-1, Sq, D)
+    kb, vb = (x.transpose(1, 2).repeat_interleave(2, dim=1).reshape(-1, Sk, D)
+              for x in (k, v))
+    got = tfa.flash_attention_bhsd(qb, kb, vb, causal=causal, window=window)
+    want = tfa.flash_attention_bhsd_plain(qb, kb, vb, causal=causal, window=window)
+    assert _flash_close(got, want)
+    assert tfa.LAUNCHES["flash_attention_bhsd"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_per_tensor_kernels_take_unaligned_tensors(cuda, dtype):
+    """A tensor that starts one element into its storage is not aligned for
+    vector loads: the kernels take their scalar loop, same results."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p, gr, u = (torch.randn((1001,), generator=g, device=cuda).to(dtype)[1:]
+                for _ in range(3))
+    assert not tfs.check_tensors("t", p, gr, u)
+    kw = dict(momentum=0.9, weight_decay=1e-2, nesterov=True)
+    for a, b in zip(tfs.fused_sgd_2d(p, gr, u, 0.05, **kw),
+                    tfs.fused_sgd_2d_plain(p, gr, u, 0.05, **kw)):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(tsc.abs_sum(p), tsc.abs_sum_plain(p), rtol=1e-5,
+                               atol=0)
+    s = torch.tensor(0.5, device=cuda)
+    assert torch.equal(tsc.scale_sign(p, s), tsc.scale_sign_plain(p, s))
+
+
+@pytest.mark.cuda
+def test_cuda_per_tensor_wrappers_refuse_bad_input(cuda):
+    x = torch.zeros((1, 8, 2, 24), device=cuda)
+    with pytest.raises(ValueError):                      # head dim 24
+        tops.flash_attention(x, x, x)
+    x = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        tops.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError):                      # kv on the CPU
+        tops.flash_attention(x, x.cpu(), x.cpu())
+    p = torch.zeros(10, device=cuda)
+    with pytest.raises(TypeError):
+        tfs.fused_sgd_2d(p, p.double(), p, 0.1, momentum=0.9,
+                         weight_decay=0.0, nesterov=True)
+    with pytest.raises(ValueError):                      # s on the CPU
+        tsc.scale_sign(p, torch.tensor(1.0))

@@ -42,6 +42,10 @@ def _imports(path: Path):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(PORT_FILES) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in PORT_FILES}
+    for mod in ("fused_bucket", "fused_sgd", "sign_compress", "flash_attention",
+                "ops", "ref", "build"):
+        assert f"src/repro_torch/kernels/{mod}.py" in names, mod
     bad = []
     for f in PORT_FILES:
         for mod in _imports(f):
