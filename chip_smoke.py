@@ -12,7 +12,10 @@ line of standard output but the last is one JSON object (the card's
 script exits non-zero without printing that line.
 
 Phases:
-  build    nvcc for every CUDA source, all started at once; build seconds.
+  build    nvcc for every CUDA source, all started at once; build seconds;
+           flash attention's ``-Xptxas -v`` readings (registers, stack,
+           spills per instantiation) and the tensor-core instructions
+           (HMMA / HGMMA) in each instantiation's SASS.
   kernels  each kernel against its plain PyTorch version on the same card
            inputs, at full size and at a ragged size: the six bucket
            kernels at the main path's shape (W=4 workers x 934,040 rows x
@@ -26,8 +29,11 @@ Phases:
            stated tolerance, and times (median of CUDA-event-timed runs):
            kernel, plain version, the one PyTorch call that computes the
            same function where there is one (timed only, never used by
-           the port), and the bound (bytes, or operations over the
-           visited band for flash attention).
+           the port), and the bound (bytes; for flash attention the
+           operations of the unmasked pairs at the tensor-core rate of its
+           route: 3xTF32 in f32, bf16 q·k and split-bf16 p·v in bf16).
+           Flash attention and abs_sum also give device time per call over
+           back-to-back calls (``device_ms``), beside the per-call time.
   A        the main path: paper-lm at full width, W=4 stacked on the card,
            post-local SGD, mean sync, 12 steps; launch counts.
   B        the same with EF-sign sync; the compressor kernels launch once
@@ -55,6 +61,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -111,14 +120,15 @@ def emit(obj):
 
 def card_rates(name: str):
     """(memory bytes/s, float32 non-tensor flop/s, bf16 dense tensor-core
-    flop/s) from NVIDIA's data sheets for the card present."""
+    flop/s, TF32 dense tensor-core flop/s) from NVIDIA's data sheets for
+    the card present (the sheets' sparse tensor rates halved)."""
     if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12, 756e12
+        return 2.0e12, 51e12, 756e12, 378e12
     if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12, 835e12
+        return 3.9e12, 60e12, 835e12, 418e12
     if "H200" in name:
-        return 4.8e12, 67e12, 989e12
-    return 3.35e12, 67e12, 989e12          # H100 SXM
+        return 4.8e12, 67e12, 989e12, 495e12
+    return 3.35e12, 67e12, 989e12, 495e12  # H100 SXM
 
 
 def nvidia_smi_line() -> str:
@@ -143,6 +153,78 @@ def time_ms(fn, reps=25, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls=20):
+    """Device time per call over ``calls`` back-to-back calls between two
+    events (the host's launch latency hidden behind the queue), median of
+    5 such runs: beside ``time_ms``, which times one call at a time."""
+    import torch
+    fn()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def flash_instance(symbol: str):
+    """``f32/D64``, ``bf16/D256``... for a mangled flash_kernel symbol,
+    else None."""
+    k = re.search(r"flash_kernelI(\w+?)Li(\d+)E", symbol)
+    return f"{'f32' if k.group(1) == 'f' else 'bf16'}/D{k.group(2)}" if k else None
+
+
+def ptxas_table(log: str) -> dict:
+    """Registers, stack and spills per flash instantiation from nvcc
+    ``-Xptxas -v`` output."""
+    table, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = flash_instance(m.group(1)) or m.group(1)
+            table[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            table[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            table[cur]["registers"] = int(m.group(1))
+    return table
+
+
+def sass_mma_counts(lib: Path) -> dict:
+    """HMMA (tensor-core) instructions per flash instantiation in the
+    built library's SASS (``cuobjdump -sass``); None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = flash_instance(m.group(1))
+            if cur:
+                counts[cur] = {"HMMA": 0, "HGMMA": 0}
+        elif cur:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[cur][op] += 1
+                    break
+    return counts
 
 
 def rel_err(got, want):
@@ -353,7 +435,9 @@ def check_per_tensor(n: int, bw: float, flops_peak: float, timed: bool):
         res["abs_sum"].update(
             ms=time_ms(lambda: sc.abs_sum(x)),
             plain_ms=time_ms(lambda: sc.abs_sum_plain(x)),
-            library_ms=time_ms(lambda: torch.linalg.vector_norm(x, 1)))
+            library_ms=time_ms(lambda: torch.linalg.vector_norm(x, 1)),
+            device_ms=device_ms(lambda: sc.abs_sum(x)),
+            library_device_ms=device_ms(lambda: torch.linalg.vector_norm(x, 1)))
         res["scale_sign"].update(
             ms=time_ms(lambda: sc.scale_sign(x, s)),
             plain_ms=time_ms(lambda: sc.scale_sign_plain(x, s)),
@@ -381,12 +465,15 @@ def sdpa_call(q, k, v, window: int):
 
 
 def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
-                timed: bool):
+                tf32_peak: float, timed: bool):
     """The flash kernel (through ops.flash_attention) against its plain
-    version, causal, on random (B, S, H, D) inputs; the bound counts the
-    unmasked (q, k) pairs of this mask exactly: 2·D flops a pair for q·k
-    and 2·D for p·v, all at the f32 rate, but q·k at the bf16 tensor-core
-    rate for bf16 inputs (a product of bf16 values is exact in f32)."""
+    version, causal, on random (B, S, H, D) inputs.  The bound is the
+    least time for a result of f32 accuracy on the tensor cores, over the
+    unmasked (q, k) pairs of this mask counted exactly, 2·D flops a pair
+    for q·k and 2·D for p·v: f32 both products in 3xTF32 (three TF32
+    products each, so a third of the TF32 rate); bf16 q·k at the bf16
+    rate (a product of bf16 values is exact in f32) and p·v at half of it
+    (p split into two bf16 parts)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -406,15 +493,17 @@ def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
     ratio = float(((got.float() - want.float()).abs() / bound).max())
     pairs = int(fa.band_mask(S, S, causal=True, window=window,
                              device=dev).sum()) * B * H
-    qk_peak = flops_peak if dtype == "float32" else bf16_peak
+    qk_rate, pv_rate = ((tf32_peak / 3, tf32_peak / 3) if dtype == "float32"
+                        else (bf16_peak, bf16_peak / 2))
     r = dict(max_abs_err=e[0], max_rel_err=e[1], tol=TOL["flash_f32"],
              elementwise_rtol=rtol, max_err_over_tol=ratio, ok=ratio <= 1.0,
              unmasked_pairs=pairs, flops=4 * D * pairs,
-             ops_s=2 * D * pairs / qk_peak + 2 * D * pairs / flops_peak,
+             ops_s=2 * D * pairs / qk_rate + 2 * D * pairs / pv_rate,
              bytes=q.element_size() * 2 * (q.numel() + k.numel()))
     if timed:
         lib = sdpa_call(q, k, v, window)
         r.update(ms=time_ms(run), plain_ms=time_ms(plain), library_ms=time_ms(lib),
+                 device_ms=device_ms(run), library_device_ms=device_ms(lib),
                  library_max_rel_err=rel_err(lib().transpose(1, 2).float(),
                                              want.float())[1])
     del q, k, v, got, want
@@ -662,11 +751,12 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    bw, flops_peak, bf16_peak = card_rates(name)
+    bw, flops_peak, bf16_peak, tf32_peak = card_rates(name)
     emit({"phase": "card", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "mem_bw_Bps": bw,
           "f32_peak_flops": flops_peak, "bf16_tensor_peak_flops": bf16_peak,
+          "tf32_tensor_peak_flops": tf32_peak,
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
@@ -675,15 +765,29 @@ def main() -> int:
     emit({"phase": "build", "build_s": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) if v.is_relative_to(ROOT)
                         else str(v) for k, v in libs.items()}})
+    # flash attention's instantiations: nvcc -Xptxas -v, and tensor-core
+    # instructions in the SASS (HMMA: mma.sync, HGMMA: wgmma)
+    ptxas = ptxas_table(kbuild.build_log("flash_attention"))
+    sass = sass_mma_counts(libs["flash_attention"])
+    emit({"phase": "build", "source": "flash_attention.cu", "ptxas": ptxas,
+          "sass_tensor_core_instructions": sass})
+    if not ptxas or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                        for r in ptxas.values()):
+        print(f"chip_smoke: flash attention spills registers: {ptxas}",
+              file=sys.stderr, flush=True)
+    if sass is not None and not all(c["HMMA"] + c["HGMMA"] for c in sass.values()):
+        raise AssertionError(f"a flash instantiation has no tensor-core "
+                             f"instruction: {sass}")
 
     check_kernels(RAGGED_ROWS, bw, flops_peak, timed=False)
     full = check_kernels(FULL_ROWS, bw, flops_peak, timed=True)
     check_per_tensor(RAGGED_N, bw, flops_peak, timed=False)
     full.update(check_per_tensor(FULL_N, bw, flops_peak, timed=True))
     for spec in FLASH_RAGGED:
-        check_flash(spec, bw, flops_peak, bf16_peak, timed=False)
+        check_flash(spec, bw, flops_peak, bf16_peak, tf32_peak, timed=False)
     for spec in FLASH_FULL:
-        full.update(check_flash(spec, bw, flops_peak, bf16_peak, timed=True))
+        full.update(check_flash(spec, bw, flops_peak, bf16_peak, tf32_peak,
+                                timed=True))
 
     # ---- the main path: phases A (mean), B (EF-sign), L (LARS) ----
     from repro_torch.telemetry.stats import round_summary

@@ -28,9 +28,16 @@
 //                   read-back).
 //   ps_abs_sum      replaces repro/kernels/sign_compress.py::abs_sum_2d.
 //                   Reads x once: 4 bytes an element, 0.478 GB -> 0.143 ms.
-//                   Per-block partial sums, then one block folds them in a
-//                   fixed order: no atomics, and the grid depends on n only,
-//                   so two runs give the same bits.
+//                   Design: one launch.  Each thread keeps four independent
+//                   16-byte loads in flight (4 f32 or 8 bf16 elements
+//                   each) over a grid of 4 blocks of 512 threads per SM; a
+//                   scalar head up to the first 16-byte boundary and a
+//                   scalar tail, so any start takes the vector loop.  Each block writes its partial;
+//                   the last block to finish (a ticket counter, the one
+//                   atomic, which never touches a sum) folds the partials
+//                   in block order and resets the counter.  The grid
+//                   depends on n and the SM count only: two runs give the
+//                   same bits.
 //   ps_scale_sign   replaces repro/kernels/sign_compress.py::scale_sign_2d.
 //                   Reads x, writes f32 y = sign(x) * s: 8 bytes an element
 //                   in f32, 0.956 GB -> 0.285 ms.  sign(0) = 0; s is read
@@ -50,6 +57,9 @@ namespace {
 constexpr int kThreads = 256;
 // grid-stride passes: at most about two waves of 256-thread blocks per SM
 constexpr int64_t kMaxBlocks = 2 * 132 * 8;
+// abs_sum: 4 blocks of 512 threads per SM, four 16-byte loads in flight each
+constexpr int kAbsSumThreads = 512;
+constexpr int kAbsSumBlocksPerSM = 4;
 
 typedef __nv_bfloat16 bf16;
 
@@ -88,9 +98,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Block-wide sum; the result is valid in thread 0.
+// Block-wide sum of an abs_sum block; the result is valid in thread 0.
 __device__ __forceinline__ float block_sum(float a) {
-  __shared__ float sa[kThreads / 32];
+  __shared__ float sa[kAbsSumThreads / 32];
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   a = warp_sum(a);
@@ -157,36 +167,75 @@ sgd_kernel(const T* __restrict__ p, const T* __restrict__ g,
   }
 }
 
-// partials[blockIdx.x] = sum |x| over the block's share of x.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-abs_sum_kernel(const T* __restrict__ x, int64_t n, int vec,
-               float* __restrict__ partials) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  float s = 0.f;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t n4 = n / 4;
-    for (int64_t i = tid; i < n4; i += stride) {
-      float v[4];
-      load4(x, i, v);
-      s += (fabsf(v[0]) + fabsf(v[1])) + (fabsf(v[2]) + fabsf(v[3]));
-    }
-    done = n4 * 4;
-  }
-  for (int64_t i = done + tid; i < n; i += stride) s += fabsf(to_f32(x[i]));
-  s = block_sum(s);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+// sum |x| over 16 bytes of f32 or bf16 (the sign bit cleared, bf16 widened
+// by a shift)
+__device__ __forceinline__ float abs_sum16(const uint4 w, float) {
+  return (fabsf(__uint_as_float(w.x)) + fabsf(__uint_as_float(w.y))) +
+         (fabsf(__uint_as_float(w.z)) + fabsf(__uint_as_float(w.w)));
+}
+__device__ __forceinline__ float abs_pair(uint32_t w) {
+  return __uint_as_float((w & 0x7fffu) << 16) + __uint_as_float(w & 0x7fff0000u);
+}
+__device__ __forceinline__ float abs_sum16(const uint4 w, bf16) {
+  return (abs_pair(w.x) + abs_pair(w.y)) + (abs_pair(w.z) + abs_pair(w.w));
 }
 
-// out[0] = sum(in[0:n]) in a fixed order (one block).
-__global__ void __launch_bounds__(kThreads)
-fold_kernel(const float* __restrict__ in, int64_t n, float* __restrict__ out) {
-  float s = 0.f;
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) s += in[i];
-  s = block_sum(s);
-  if (threadIdx.x == 0) out[0] = s;
+// 16 bytes read once: no L1 allocation, 256-byte L2 fetches
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// out[0] = sum |x|: block partials, folded by the last block to finish.
+// ticket: a zeroed counter, left zeroed.
+template <typename T>
+__global__ void __launch_bounds__(kAbsSumThreads)
+abs_sum_kernel(const T* __restrict__ x, int64_t n, float* __restrict__ partials,
+               unsigned int* __restrict__ ticket, float* __restrict__ out) {
+  constexpr int kV = 16 / sizeof(T);   // elements per 16-byte load
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t mis = (reinterpret_cast<uintptr_t>(x) % 16) / sizeof(T);
+  const int64_t head = mis ? (kV - mis < n ? kV - mis : n) : 0;
+  const int64_t nv = (n - head) / kV;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int64_t i = tid;
+  for (; i + 3 * stride < nv; i += 4 * stride) {
+    const uint4 a = ld_stream(xv + i);
+    const uint4 b = ld_stream(xv + i + stride);
+    const uint4 c = ld_stream(xv + i + 2 * stride);
+    const uint4 d = ld_stream(xv + i + 3 * stride);
+    s0 += abs_sum16(a, T());
+    s1 += abs_sum16(b, T());
+    s2 += abs_sum16(c, T());
+    s3 += abs_sum16(d, T());
+  }
+  for (; i < nv; i += stride) s0 += abs_sum16(ld_stream(xv + i), T());
+  for (int64_t j = tid; j < head; j += stride) s1 += fabsf(to_f32(x[j]));
+  for (int64_t j = head + nv * kV + tid; j < n; j += stride) s2 += fabsf(to_f32(x[j]));
+  const float s = block_sum((s0 + s1) + (s2 + s3));
+
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = s;
+    __threadfence();                   // the partial is visible before the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float f = 0.f;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += blockDim.x)
+    f += __ldcg(partials + b);
+  f = block_sum(f);
+  if (threadIdx.x == 0) {
+    out[0] = f;
+    *ticket = 0u;
+  }
 }
 
 template <typename T>
@@ -248,22 +297,35 @@ int ps_fused_sgd(const void* p, const void* g, const void* u, void* po,
                  : launch_sgd<float>(p, g, u, po, uo, hp, nesterov, n, vec, st);
 }
 
-// x: n elements (f32 or bf16); partials: (2 * 132 * 8,) f32 scratch, one
-// slot per block; out: one f32.
-int ps_abs_sum(const void* x, int64_t n, int is_bf16, int vec, void* partials,
-               void* out, void* stream) {
+// *blocks = the most blocks ps_abs_sum launches on the current device (the
+// partials it needs): 4 a streaming multiprocessor.
+int ps_abs_sum_blocks(int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = kAbsSumBlocksPerSM * sms;
+  return static_cast<int>(err);
+}
+
+// x: n elements (f32 or bf16), any 2-byte (bf16) / 4-byte (f32) aligned
+// start; partials: max_blocks f32 scratch; ticket: one zeroed uint32, left
+// zeroed, for this stream's calls only; out: one f32.
+int ps_abs_sum(const void* x, int64_t n, int is_bf16, void* partials,
+               int64_t max_blocks, void* ticket, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t blocks = grid_for(n);
+  const int64_t per_block = kAbsSumThreads * 4 * (is_bf16 ? 8 : 4);
+  int64_t blocks = (n + per_block - 1) / per_block;
+  blocks = blocks < 1 ? 1 : (blocks > max_blocks ? max_blocks : blocks);
   float* part = static_cast<float*>(partials);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
+  float* o = static_cast<float*>(out);
   if (is_bf16)
-    abs_sum_kernel<bf16><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        static_cast<const bf16*>(x), n, vec, part);
+    abs_sum_kernel<bf16><<<static_cast<unsigned>(blocks), kAbsSumThreads, 0, st>>>(
+        static_cast<const bf16*>(x), n, part, tk, o);
   else
-    abs_sum_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        static_cast<const float*>(x), n, vec, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fold_kernel<<<1, kThreads, 0, st>>>(part, blocks, static_cast<float*>(out));
+    abs_sum_kernel<float><<<static_cast<unsigned>(blocks), kAbsSumThreads, 0, st>>>(
+        static_cast<const float*>(x), n, part, tk, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,7 +18,9 @@ is degenerate: the reference kernel, like this one, gives the mean of
 the values in the tiles it visited, the plain version the mean over all
 keys; no caller relies on it.  ``block_q`` / ``block_k``
 are accepted for the reference's signature; the result does not depend
-on them, and the kernel picks its own tiles from D.
+on them, and the kernel picks its own tiles from the dtype and D.  On
+the card it computes in 3xTF32 (f32) or with bf16 products and p split
+into two bf16 parts (bf16): f32 accuracy on the tensor cores.
 """
 from __future__ import annotations
 
@@ -94,25 +96,26 @@ def _check(q, k, v):
     return B, Sq, H, KH, Sk, D
 
 
-def _launch(q, k, v, o, *, causal: bool, window: int, scale: float):
+def _launch(q, k, v, o, dims, *, causal: bool, window: int, scale: float):
     """Launch over (B, S, heads, D) views, each with its own strides and
-    the head dim contiguous."""
-    B, Sq, H, KH, Sk, D = _check(q, k, v)
-    vec = 4 * q.element_size()
-    strides = []
+    the head dim contiguous; ``dims`` is :func:`_check`'s."""
+    B, Sq, H, KH, Sk, D = dims
+    vec = 16 // q.element_size()             # elements per 16-byte copy
+    strides, ptrs = [], []
     for t in (q, k, v, o):
-        if t.stride(3) != 1 or t.data_ptr() % vec or any(
-                t.stride(i) % 4 for i in (0, 1, 2)):
-            raise ValueError("flash attention: contiguous head dim, aligned "
-                             "pointers and strides expected")
-        strides += [t.stride(0), t.stride(2), t.stride(1)]   # batch, head, seq
+        sb, ss, sh, sd = t.stride()
+        ptr = t.data_ptr()
+        if sd != 1 or ptr % 16 or sb % vec or ss % vec or sh % vec:
+            raise ValueError("flash attention: contiguous head dim, 16-byte "
+                             "aligned pointers and strides expected")
+        strides += (sb, sh, ss)                      # batch, head, seq
+        ptrs.append(ptr)
     if not o.numel():
         return o
     st = (ctypes.c_int64 * 12)(*strides)
-    _LIB("fa_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-         st, B, H, KH, Sq, Sk, D, float(scale or 1.0 / math.sqrt(D)),
-         int(bool(causal)), int(window), int(q.dtype == torch.bfloat16),
-         build.stream(q))
+    _LIB("fa_forward", *ptrs, st, B, H, KH, Sq, Sk, D,
+         float(scale or 1.0 / math.sqrt(D)), int(bool(causal)), int(window),
+         int(q.dtype == torch.bfloat16), build.stream(q))
     LAUNCHES["flash_attention_bhsd"] += 1
     return o
 
@@ -126,13 +129,14 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash_attention_bhsd: q (BH, Sq, D), k, v (BH, Sk, D) "
                          "expected")
     heads = lambda x: x[:, :, None]          # (BH, S, 1, D): one head each
-    _check(heads(q), heads(k), heads(v))
+    q4, k4, v4 = heads(q), heads(k), heads(v)
+    dims = _check(q4, k4, v4)
     if not build.on_cuda(q, k, v):
         return flash_attention_bhsd_plain(q, k, v, causal=causal, window=window,
                                           scale=scale)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _launch(heads(q), heads(k), heads(v), heads(o), causal=causal,
-            window=window, scale=scale)
+    _launch(q4, k4, v4, heads(o), dims, causal=causal, window=window,
+            scale=scale)
     return o
 
 
@@ -154,9 +158,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H % KH == 0 (query head h
     reads kv head h // (H / KH)).  Returns (B, Sq, H, D) in q's dtype.  On
     the card the kernel reads this layout through its strides, no copy."""
-    _check(q, k, v)
+    dims = _check(q, k, v)
     if not build.on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return _launch(q, k, v, o, causal=causal, window=window, scale=scale)
+    return _launch(q, k, v, o, dims, causal=causal, window=window, scale=scale)

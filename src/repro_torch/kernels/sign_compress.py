@@ -19,8 +19,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.fused_sgd import check_tensors
 
 LAUNCHES = {"abs_sum": 0, "scale_sign": 0}
-# one partial sum per block of the first pass (the kernel's grid cap)
-_MAX_BLOCKS = 2 * 132 * 8
+# abs_sum's scratch per (device, stream): block partials and the zeroed
+# ticket counter that picks the block which folds them
+_ABS_SUM_SCRATCH: dict = {}
 
 
 def reset_launches():
@@ -32,7 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _C = ctypes.c_int
 _LIB = build.Library("per_tensor", {
-    "ps_abs_sum": [_P, _I, _C, _C, _P, _P, _P],
+    "ps_abs_sum_blocks": [_P],
+    "ps_abs_sum": [_P, _I, _C, _P, _I, _P, _P, _P],
     "ps_scale_sign": [_P, _P, _I, _C, _C, _P, _P],
 })
 
@@ -41,18 +43,36 @@ def abs_sum_plain(x):
     return x.float().abs().sum()
 
 
+def _abs_sum_scratch(x, stream: int):
+    """(partials pointer, their count, ticket pointer) for abs_sum on x's
+    device and this stream, allocated once: the kernel leaves the ticket
+    zeroed for the next call."""
+    key = (x.get_device(), stream)
+    got = _ABS_SUM_SCRATCH.get(key)
+    if got is None:
+        blocks = ctypes.c_int(0)
+        _LIB("ps_abs_sum_blocks", ctypes.byref(blocks))
+        partials = torch.empty((blocks.value,), dtype=torch.float32, device=x.device)
+        ticket = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        got = (partials, ticket, partials.data_ptr(), blocks.value, ticket.data_ptr())
+        _ABS_SUM_SCRATCH[key] = got
+    return got[2:]
+
+
 def abs_sum(x):
     """sum |x| over the whole tensor -> 0-d float32 on x's device.
 
-    On the card: per-block partial sums and one fixed-order fold, no
-    atomics, so two runs on the same input give the same bits."""
+    On the card: one launch; block partials folded in block order by the
+    last block to finish, no atomics in the sum, so two runs on the same
+    input give the same bits."""
     if not build.on_cuda(x):
         return abs_sum_plain(x)
-    vec = check_tensors("abs_sum", x)
-    partials = torch.empty((_MAX_BLOCKS,), dtype=torch.float32, device=x.device)
+    check_tensors("abs_sum", x)
+    st = build.stream(x)
+    part_ptr, blocks, ticket_ptr = _abs_sum_scratch(x, st)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     _LIB("ps_abs_sum", x.data_ptr(), x.numel(), int(x.dtype == torch.bfloat16),
-         int(vec), partials.data_ptr(), out.data_ptr(), build.stream(x))
+         part_ptr, blocks, ticket_ptr, out.data_ptr(), st)
     LAUNCHES["abs_sum"] += 1
     return out
 

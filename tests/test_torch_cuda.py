@@ -275,6 +275,13 @@ def test_cuda_sign_compress_kernels_match_plain(cuda, n, dtype):
     a, b = tsc.abs_sum(x), tsc.abs_sum_plain(x)
     torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
     assert torch.equal(a, tsc.abs_sum(x))                 # no atomics
+    # starts 1 and 3 elements into the storage (a scalar head before the
+    # 16-byte loads), lengths n - 1 and n - 3 (n % 8 != 0 in bf16 for all)
+    for off in (1, 3):
+        xs = x[off:]
+        got = tsc.abs_sum(xs)
+        torch.testing.assert_close(got, tsc.abs_sum_plain(xs), rtol=1e-5, atol=0)
+        assert torch.equal(got, tsc.abs_sum(xs))
     s = a / n
     y = tsc.scale_sign(x, s)
     assert y.dtype == torch.float32
@@ -283,7 +290,7 @@ def test_cuda_sign_compress_kernels_match_plain(cuda, n, dtype):
     torch.testing.assert_close(tops.sign_compress(x),
                                torch.sign(x.float()) * x.float().abs().mean(),
                                rtol=1e-5, atol=0)
-    assert tsc.LAUNCHES == {"abs_sum": 3, "scale_sign": 2}
+    assert tsc.LAUNCHES == {"abs_sum": 7, "scale_sign": 2}
 
 
 def _flash_close(got, want):
@@ -294,17 +301,26 @@ def _flash_close(got, want):
     return bool(((got - want).abs() <= bound).all())
 
 
+# query and key lengths at the kernel's tile edges (64-row query tiles,
+# 64- or 32-key tiles), Sq != Sk
+FLASH_EDGE_LENGTHS = ((1, 63), (63, 65), (65, 63), (127, 129), (129, 127),
+                      (200, 1), (1, 200), (65, 200), (200, 129))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", tfa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 40),
-                                           (False, 40)])
+                                           (False, 40), (True, 64), (False, 64)])
 def test_cuda_flash_matches_plain(cuda, D, dtype, causal, window):
     """The flash kernel against its plain version, (B, S, H, D) layout
-    with GQA, a ragged S = 200 and Sq != Sk (start-aligned rows)."""
+    with GQA, a ragged S = 200, Sq != Sk (start-aligned rows) and lengths
+    at the tile edges; window 64 ends on a tile edge.  A row with no
+    unmasked key (a window with Sq > Sk + window - 1) is degenerate (the
+    module docstring) and only checked finite."""
     tfa.reset_launches()
     g = torch.Generator(device=cuda).manual_seed(D)
-    for Sq, Sk in ((200, 200), (96, 170)):
+    for Sq, Sk in ((200, 200), (96, 170), *FLASH_EDGE_LENGTHS):
         mk = lambda S, h: torch.randn((2, S, h, D), generator=g,
                                       device=cuda).to(dtype)
         q, k, v = mk(Sq, 4), mk(Sk, 2), mk(Sk, 2)
@@ -312,16 +328,39 @@ def test_cuda_flash_matches_plain(cuda, D, dtype, causal, window):
         want = tfa.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal,
                                    window=window)
         torch.cuda.synchronize()
+        rows = tfa.band_mask(Sq, Sk, causal=causal, window=window).any(dim=1)
         assert got.dtype == dtype and got.shape == q.shape
-        assert _flash_close(got, want), (Sq, Sk)
+        assert bool(torch.isfinite(got.float()).all()), (Sq, Sk)
+        assert _flash_close(got[:, rows.to(cuda)], want[:, rows]), (Sq, Sk)
     # the (BH, S, D) entry point, kv heads repeated to q's rows
     qb = q.transpose(1, 2).reshape(-1, Sq, D)
     kb, vb = (x.transpose(1, 2).repeat_interleave(2, dim=1).reshape(-1, Sk, D)
               for x in (k, v))
     got = tfa.flash_attention_bhsd(qb, kb, vb, causal=causal, window=window)
     want = tfa.flash_attention_bhsd_plain(qb, kb, vb, causal=causal, window=window)
-    assert _flash_close(got, want)
-    assert tfa.LAUNCHES["flash_attention_bhsd"] == 3
+    assert _flash_close(got[:, rows.to(cuda)], want[:, rows])
+    assert tfa.LAUNCHES["flash_attention_bhsd"] == 2 + len(FLASH_EDGE_LENGTHS) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_gqa_and_strided_views(cuda, D, dtype):
+    """GQA 4:1 with q every other batch of a larger tensor and k, v
+    slices of one packed (B, S, H + 2, D) tensor: the kernel reads them
+    through their strides, no copy; causal, and a 64-key window."""
+    g = torch.Generator(device=cuda).manual_seed(D + 1)
+    B, S, H = 2, 150, 4
+    q = torch.randn((2 * B, S, H, D), generator=g, device=cuda).to(dtype)[::2]
+    kv = torch.randn((B, S, H + 2, D), generator=g, device=cuda).to(dtype)
+    k, v = kv[:, :, H:H + 1], kv[:, :, H + 1:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    for window in (0, 64):
+        got = tops.flash_attention(q, k, v, causal=True, window=window)
+        want = tfa.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                                   window=window)
+        torch.cuda.synchronize()
+        assert _flash_close(got, want), window
 
 
 @pytest.mark.cuda

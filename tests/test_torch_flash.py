@@ -177,3 +177,129 @@ def test_flash_ref_oracle_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(tops.flash_attention(qt, kt, vt, window=8).numpy(),
                                got.numpy(), rtol=2e-5, atol=2e-5)
+
+
+# ---- the card kernel's numerical design, emulated in plain torch ----
+# The CUDA kernel cannot run here; these pin its arithmetic: 3xTF32 for
+# both products in f32, bf16 q.k with p split into two bf16 parts in
+# bf16, held at chip_smoke.py's tolerances against the plain version (f32:
+# 2e-5 of the largest entry; bf16: that plus 2^-7 of each entry).  The
+# single-rounded variants (1xTF32, p rounded once to bf16) must miss them:
+# the kernel may not take those shortcuts.
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: float32 to 10 mantissa bits, to nearest, ties
+    away from zero (add half of the dropped 13 bits' range to the
+    magnitude bits, then clear them)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, route):
+    """a @ b in f32 as the tensor cores compute it on ``route``."""
+    if route == "tf32x1":
+        return _tf32(a) @ _tf32(b)
+    if route == "tf32x3":            # big.small + small.big + big.big
+        ab, bb = _tf32(a), _tf32(b)
+        asm, bsm = _tf32(a - ab), _tf32(b - bb)
+        return ab @ bsm + asm @ bb + ab @ bb
+    return a @ b                     # bf16 values: products exact in f32
+
+
+def _pv(p, v, route):
+    if route == "bf16_split":        # p_lo first, then p_hi, one accumulator
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        return lo @ v + hi @ v
+    if route == "bf16_single":
+        return p.bfloat16().float() @ v
+    return _mm(p, v, route)
+
+
+def _flash_emulated(q, k, v, *, causal, window, qk_route, pv_route, BK=64):
+    """The kernel's online softmax over tiles of BK keys, (BH, S, D): raw
+    scores times scale * log2(e), masked at -1e30, p = exp2(s - m), keys
+    past Sk p = 0, output acc / max(l, 1e-30) in q's dtype."""
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    mask = tfa.band_mask(Sq, Sk, causal=causal, window=window)
+    sl2 = (1.0 / np.sqrt(D)) * np.log2(np.e)
+    m = torch.full((q.shape[0], Sq, 1), -1e30)
+    l = torch.zeros((q.shape[0], Sq, 1))
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, Sk, BK):
+        kt, vt = kf[:, k0:k0 + BK], vf[:, k0:k0 + BK]
+        s = _mm(qf, kt.transpose(1, 2), qk_route) * np.float32(sl2)
+        s = s.masked_fill(~mask[:, k0:k0 + BK], -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _pv(p, vt, pv_route)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _err_over_tol(got, want):
+    rtol = 2 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    bound = 2e-5 * want.abs().max() + rtol * want.abs()
+    return float(((got - want).abs() / bound).max())
+
+
+def _design_inputs(D, dtype, S=256, BH=2):
+    rng = np.random.default_rng(D)
+    return [torch.from_numpy(rng.normal(size=(BH, S, D)).astype(np.float32))
+            .to(dtype) for _ in range(3)]
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    ulp = 2.0 ** -10                 # TF32 spacing in [1, 2)
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 1.5 * ulp, 3.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("window", [0, 96])
+def test_flash_3xtf32_design_meets_f32_tolerance(D, window):
+    """f32: 3xTF32 for q.k and p.v is within 2e-5 of the max; one TF32
+    rounding (1xTF32) is not."""
+    q, k, v = _design_inputs(D, torch.float32)
+    want = tfa.flash_attention_bhsd_plain(q, k, v, causal=True, window=window)
+    three = _flash_emulated(q, k, v, causal=True, window=window,
+                            qk_route="tf32x3", pv_route="tf32x3")
+    one = _flash_emulated(q, k, v, causal=True, window=window,
+                          qk_route="tf32x1", pv_route="tf32x1")
+    assert _err_over_tol(three, want) <= 0.1
+    assert _err_over_tol(one, want) > 1.0
+
+
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("window", [0, 96])
+def test_flash_split_bf16_design_meets_bf16_tolerance(D, window):
+    """bf16: q.k of bf16 values in f32, p = p_hi + p_lo in two bf16
+    products is within the bf16 tolerance; p rounded once to bf16 is not."""
+    q, k, v = _design_inputs(D, torch.bfloat16)
+    want = tfa.flash_attention_bhsd_plain(q, k, v, causal=True, window=window)
+    split = _flash_emulated(q, k, v, causal=True, window=window,
+                            qk_route="bf16", pv_route="bf16_split")
+    single = _flash_emulated(q, k, v, causal=True, window=window,
+                             qk_route="bf16", pv_route="bf16_single")
+    assert split.dtype == torch.bfloat16
+    assert _err_over_tol(split, want) <= 1.0
+    assert _err_over_tol(single, want) > 1.0
+
+
+def test_flash_sweep_variants_match_the_kernel_source():
+    """Each design variant of ``kernels/flash_sweep.py`` is one text
+    substitution of the CUDA source: the text must still be there, once."""
+    from repro_torch.kernels import build as tbuild
+    from repro_torch.kernels import flash_sweep
+
+    src = tbuild.SOURCES["flash_attention"].read_text()
+    assert flash_sweep.VARIANTS["chosen"] is None
+    for name, sub in flash_sweep.VARIANTS.items():
+        if sub is not None:
+            assert src.count(sub[0]) == 1, name
