@@ -32,8 +32,11 @@ Phases:
            the port), and the bound (bytes; for flash attention the
            operations of the unmasked pairs at the tensor-core rate of its
            route: 3xTF32 in f32, bf16 q·k and split-bf16 p·v in bf16).
-           Flash attention and abs_sum also give device time per call over
-           back-to-back calls (``device_ms``), beside the per-call time.
+           Flash attention, abs_sum and sq_sum also give device time per
+           call over back-to-back calls (``device_ms``, and the library
+           call's ``library_device_ms``, the two timed in turns), beside
+           the per-call time; abs_sum and sq_sum must give the same bits
+           twice.
   A        the main path: paper-lm at full width, W=4 stacked on the card,
            post-local SGD, mean sync, 12 steps; launch counts.
   B        the same with EF-sign sync; the compressor kernels launch once
@@ -42,6 +45,12 @@ Phases:
            the two LARS kernels every step, their stats form feeding the
            round statistics, grad_clip set and ignored (no sq_sum launch);
            the last round's summary.
+  H        hierarchical local SGD (Alg. 5) at phase A's settings with
+           block_steps=2 (blocks of 2 of the 4 workers): syncs at
+           (0 block) (1 global) (2 block) (3 global) (7 block) (11 global);
+           launch counts as in A; the comms ledger's rounds and ring-model
+           bytes per topology and scope (a block round one bucket, a
+           global round 1.5 buckets); step time beside phase A's.
   T        the per-tensor kernel API at full width: paper-lm's parameter
            tree (W=1) on the card; one SGD step with ops.fused_sgd on every
            leaf against the same step by the bucket kernel on the flat bus;
@@ -53,9 +62,13 @@ Phases:
            sync, for SGD (phase B's run) and for LARS with telemetry
            (phase L's): device busy time by kernel family and the idle
            share (profiler overhead included; not a timing of record).
+           SGD's window must show no reduce_rows_kernel (sq_sum folds its
+           partials in its one launch; only the update's stats form uses
+           the second pass).
   C        the trainer on the card against the trainer on the CPU (the
            kernels' plain versions) at smoke size, from the same weights:
-           SGD + EF-sign, and LARS with telemetry, mean and EF-sign sync.
+           SGD + EF-sign, hierarchical SGD (block_steps=2, mean sync), and
+           LARS with telemetry, mean and EF-sign sync.
 """
 from __future__ import annotations
 
@@ -155,24 +168,30 @@ def time_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=20):
-    """Device time per call over ``calls`` back-to-back calls between two
-    events (the host's launch latency hidden behind the queue), median of
-    5 such runs: beside ``time_ms``, which times one call at a time."""
+def device_ms(fn, library, calls=20, rounds=3):
+    """Device time per call of ``fn`` and of ``library`` (the PyTorch call
+    computing the same function), each over ``calls`` back-to-back calls
+    between two events (the host's launch latency hidden behind the
+    queue), beside ``time_ms``, which times one call at a time.  Taken in
+    turns (fn, library, library, fn, ...) so that a drift of the card's
+    state falls on both; medians of ``2 * rounds`` runs each."""
     import torch
     fn()
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    library()
+    times = ([], [])
+    for _ in range(rounds):
+        for which in (0, 1, 1, 0):
+            f = (fn, library)[which]
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                f()
+            end.record()
+            end.synchronize()
+            times[which].append(start.elapsed_time(end) / calls)
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def flash_instance(symbol: str):
@@ -277,9 +296,11 @@ def check_kernels(rows: int, bw: float, flops_peak: float, timed: bool):
     x[:, :7] = 0.0                        # exact zeros: sign(0) must be 0
     a, b = fb.sq_sum(x), fb.sq_sum_plain(x)
     e = rel_err(a, b)
+    repeat = bool(torch.equal(a, fb.sq_sum(x)))         # no atomics
     res["sq_sum"] = dict(max_abs_err=e[0], max_rel_err=e[1],
-                         tol=TOL["reduction"], ok=e[1] <= TOL["reduction"],
-                         bytes=nbytes, flops=2 * n)
+                         tol=TOL["reduction"], same_bits_twice=repeat,
+                         ok=e[1] <= TOL["reduction"] and repeat,
+                         bytes=nbytes + 4 * W, flops=2 * n)
     a, b = fb.row_abs_sum(x), fb.row_abs_sum_plain(x)
     e = rel_err(a, b)
     res["row_abs_sum"] = dict(max_abs_err=e[0], max_rel_err=e[1],
@@ -292,11 +313,13 @@ def check_kernels(rows: int, bw: float, flops_peak: float, timed: bool):
                                   tol=TOL["sign"], ok=bool(torch.equal(a, b)),
                                   bytes=2 * nbytes + 4 * rows, flops=n)
     if timed:
+        lib = lambda: torch.linalg.vector_norm(x, 2, dim=(-2, -1)).square()
+        dev_ms, lib_dev_ms = device_ms(lambda: fb.sq_sum(x), lib)
         res["sq_sum"].update(
             ms=time_ms(lambda: fb.sq_sum(x)),
             plain_ms=time_ms(lambda: fb.sq_sum_plain(x)),
-            library_ms=time_ms(lambda: torch.linalg.vector_norm(
-                x, 2, dim=(-2, -1)).square()))
+            library_ms=time_ms(lib), device_ms=dev_ms,
+            library_device_ms=lib_dev_ms)
         res["row_abs_sum"].update(
             ms=time_ms(lambda: fb.row_abs_sum(x)),
             plain_ms=time_ms(lambda: fb.row_abs_sum_plain(x)),
@@ -432,12 +455,13 @@ def check_per_tensor(n: int, bw: float, flops_peak: float, timed: bool):
                              ok=bool(torch.equal(y, yp)), bytes=8 * n + 4,
                              flops=n)
     if timed:
+        lib = lambda: torch.linalg.vector_norm(x, 1)
+        dev_ms, lib_dev_ms = device_ms(lambda: sc.abs_sum(x), lib)
         res["abs_sum"].update(
             ms=time_ms(lambda: sc.abs_sum(x)),
             plain_ms=time_ms(lambda: sc.abs_sum_plain(x)),
-            library_ms=time_ms(lambda: torch.linalg.vector_norm(x, 1)),
-            device_ms=device_ms(lambda: sc.abs_sum(x)),
-            library_device_ms=device_ms(lambda: torch.linalg.vector_norm(x, 1)))
+            library_ms=time_ms(lib), device_ms=dev_ms,
+            library_device_ms=lib_dev_ms)
         res["scale_sign"].update(
             ms=time_ms(lambda: sc.scale_sign(x, s)),
             plain_ms=time_ms(lambda: sc.scale_sign_plain(x, s)),
@@ -502,8 +526,9 @@ def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
              bytes=q.element_size() * 2 * (q.numel() + k.numel()))
     if timed:
         lib = sdpa_call(q, k, v, window)
+        dev_ms, lib_dev_ms = device_ms(run, lib)
         r.update(ms=time_ms(run), plain_ms=time_ms(plain), library_ms=time_ms(lib),
-                 device_ms=device_ms(run), library_device_ms=device_ms(lib),
+                 device_ms=dev_ms, library_device_ms=lib_dev_ms,
                  library_max_rel_err=rel_err(lib().transpose(1, 2).float(),
                                              want.float())[1])
     del q, k, v, got, want
@@ -595,6 +620,7 @@ def profile_phase(run):
         f = kernel_family(e.key)
         fam[f] = fam.get(f, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    reduce_rows = sum(e.count for e in kern if "reduce_rows_kernel" in e.key)
     emit({"phase": "P", "optimizer": run.optim.optimizer,
           "telemetry": run.controller.wants_telemetry,
           "window": "2 local steps + 1 ef_sign sync",
@@ -603,7 +629,11 @@ def profile_phase(run):
           "idle_share": 1 - busy_ms / wall_ms if kern else None,
           "by_family_ms": fam,
           "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
-                          for e in top]})
+                          for e in top],
+          "reduce_rows_launches": reduce_rows})
+    if not run.controller.wants_telemetry and reduce_rows:
+        raise AssertionError(f"phase P: {reduce_rows} reduce_rows_kernel "
+                             "launches in an SGD window without stats")
     del state
 
 
@@ -714,9 +744,10 @@ def phase_t(cfg) -> dict:
 
 
 def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
-              lars: bool = False):
+              lars: bool = False, block_steps: int = 1):
     """The phases' RunConfig; ``lars`` switches to LARS with telemetry
-    (grad_clip stays set: LARS ignores it)."""
+    (grad_clip stays set: LARS ignores it); ``block_steps`` > 1 is
+    hierarchical local SGD (Alg. 5, the default two blocks)."""
     from repro_torch.configs.base import (ControllerConfig, InputShape,
                                           LocalSGDConfig, OptimConfig, RunConfig)
     opt = (dict(optimizer="lars", base_lr=LARS_LR, lars_trust=LARS_TRUST)
@@ -724,10 +755,65 @@ def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
     return RunConfig(
         model=cfg, shape=InputShape("chip", seq, W * local_batch, "train"),
         local_sgd=LocalSGDConfig(local_steps=4, post_local_switch=4,
-                                 sync_compression=mode),
+                                 sync_compression=mode,
+                                 block_steps=block_steps),
         optim=OptimConfig(base_batch=32, lr_warmup_steps=2, grad_clip=1.0, **opt),
         controller=ControllerConfig(telemetry=lars),
         steps=steps)
+
+
+def phase_h(cfg, a_step_s: float) -> dict:
+    """Phase H: hierarchical local SGD (Alg. 5) at full width with phase
+    A's settings and block_steps=2; returns its launch counts."""
+    import torch
+    from repro_torch.core.schedule import sync_boundaries
+    from repro_torch.kernels import fused_bucket as fb
+
+    run = phase_run("none", cfg, seq=512, local_batch=8, block_steps=2)
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    state, hist, summ, step_s = train_run(run, device="cuda", steps=STEPS)
+    counts = dict(fb.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    syncs = [(h["step"], h["synced"]) for h in hist if h["synced"]]
+    want_syncs = [(t, "block" if level == 1 else "global")
+                  for t, level in sync_boundaries(run.local_sgd, STEPS)]
+    bucket = FULL_ROWS * 128 * 4          # one worker copy of the f32 bucket
+    led = summ["ledger"]
+    topo = {k: (v["rounds"], v["wire_bytes"], v["collectives"])
+            for k, v in led["topologies"].items()}
+    # ring all-reduce over n workers: 2 (n - 1) / n x the bucket each
+    want_topo = {"hierarchical/block": (3, 3 * 1.0 * bucket, 3),
+                 "hierarchical/global": (3, 3 * 1.5 * bucket, 3)}
+    median = statistics.median(step_s[1:])
+    tokens = run.shape.global_batch * run.shape.seq_len
+    emit({"phase": "H", "model": cfg.name, "W": W, "local_batch": 8, "seq": 512,
+          "block_steps": 2, "topology": summ["topology"], "steps": STEPS,
+          "loss": losses, "comm_rounds": summ["comm_rounds"], "syncs": syncs,
+          "ledger_topologies": led["topologies"],
+          "ledger_wire_MB": led["wire_bytes"] / 1e6,
+          "flat_rounds_wire_MB": 6 * 1.5 * bucket / 1e6,
+          "step_s": step_s, "step_s_median": median,
+          "phase_A_step_s_median": a_step_s, "step_s_over_phase_A": median / a_step_s,
+          "tokens_per_s": tokens / median, "wall_s": summ["wall_s"],
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": counts})
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(fused_sgd_bucket=STEPS, sq_sum=STEPS)
+    bad = [k for k, ok in (
+        ("loss not finite or not falling",
+         all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+        ("syncs", syncs == want_syncs == [(0, "block"), (1, "global"), (2, "block"),
+                                          (3, "global"), (7, "block"), (11, "global")]),
+        ("comm rounds", summ["comm_rounds"] == {"block": 3, "global": 3}),
+        ("topology", summ["topology"] == "hierarchical(block_size=2)"),
+        ("ledger", topo == want_topo and led["wire_bytes"] == 7.5 * bucket),
+        ("launches", counts == want)) if not ok]
+    if bad:
+        raise AssertionError(f"phase H: {', '.join(bad)} (syncs {syncs}, ledger "
+                             f"{topo}, launches {counts})")
+    del state
+    return counts
 
 
 def main() -> int:
@@ -793,6 +879,7 @@ def main() -> int:
     from repro_torch.telemetry.stats import round_summary
     cfg = configs.get("paper-lm")
     launches = {k: 0 for k in fb.LAUNCHES}
+    step_median = {}
     for phase, mode, lars in (("A", "none", False), ("B", "ef_sign", False),
                               ("L", "ef_sign", True)):
         run = phase_run(mode, cfg, seq=512, local_batch=8, lars=lars)
@@ -814,6 +901,7 @@ def main() -> int:
                "wall_s": summ["wall_s"],
                "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
                "launches": counts}
+        step_median[phase] = rec["step_s_median"]
         summary = round_summary(state.stats) if lars else None
         if lars:
             rec["round_summary"] = summary
@@ -843,6 +931,10 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
+    for k, v in phase_h(cfg, step_median["A"]).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
     launches.update(phase_t(cfg))
     torch.cuda.empty_cache()
 
@@ -867,23 +959,26 @@ def main() -> int:
     p0 = mbase.materialize(lm.param_specs(smoke),
                            torch.Generator().manual_seed(0), "cpu")
     rel = lambda a, b: abs(a - b) / abs(b) if b else abs(a)
-    for optimizer, mode in (("sgd", "ef_sign"), ("lars", "none"),
-                            ("lars", "ef_sign")):
+    for optimizer, mode, block_steps in (("sgd", "ef_sign", 1), ("sgd", "none", 2),
+                                         ("lars", "none", 1), ("lars", "ef_sign", 1)):
         lars = optimizer == "lars"
         flips = lars and mode == "ef_sign"
         frac_tol = 1e-3 if flips else 1e-4
-        run = phase_run(mode, smoke, seq=64, local_batch=2, steps=6, lars=lars)
-        sg, hg, _, _ = train_run(run, device="cuda", steps=6,
-                                 params0=tree_map(lambda t: t.to("cuda"), p0))
-        sc, hc, _, _ = train_run(run, device="cpu", steps=6,
-                                 params0=tree_map(lambda t: t.clone(), p0))
+        run = phase_run(mode, smoke, seq=64, local_batch=2, steps=6, lars=lars,
+                        block_steps=block_steps)
+        sg, hg, sumg, _ = train_run(run, device="cuda", steps=6,
+                                    params0=tree_map(lambda t: t.to("cuda"), p0))
+        sc, hc, sumc, _ = train_run(run, device="cpu", steps=6,
+                                    params0=tree_map(lambda t: t.clone(), p0))
         lg, lc = [h["loss"] for h in hg], [h["loss"] for h in hc]
         loss_rel = max(rel(a, b) for a, b in zip(lg, lc))
         pg, pc = sg.params.buckets[0].cpu(), sc.params.buckets[0]
         d = (pg - pc).abs()
         frac = float((d > 1e-4 * pc.abs().max()).float().mean())
         rec = {"phase": "C", "model": smoke.name, "optimizer": optimizer,
-               "sync_compression": mode, "steps": 6, "loss_gpu": lg,
+               "sync_compression": mode, "block_steps": block_steps,
+               "topology": sumg["topology"], "comm_rounds": sumg["comm_rounds"],
+               "steps": 6, "loss_gpu": lg,
                "loss_cpu": lc, "loss_max_rel_diff": loss_rel, "loss_tol": 1e-4,
                "params_max_abs_diff": float(d.max()),
                "params_frac_beyond_1e-4_of_max": frac, "frac_tol": frac_tol}
@@ -897,13 +992,15 @@ def main() -> int:
             bad = [k for k in errs if errs[k] > tols[k]]
             rec.update(round_summary_gpu=ssg, round_summary_cpu=ssc,
                        stats_rel_diff=errs, stats_tol=tols)
+        if sumg["comm_rounds"] != sumc["comm_rounds"]:
+            bad.append("comm_rounds")
         emit(rec)
         if loss_rel > 1e-4 or frac > frac_tol or bad:
             raise AssertionError(f"phase C ({optimizer}, {mode}): the trainer on "
                                  f"the card disagrees with the trainer on the CPU"
                                  f"{': ' + ', '.join(bad) if bad else ''}")
 
-    # launches: phases A, B and L for the bucket kernels, T for the others
+    # launches: phases A, B, L and H for the bucket kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"kernels": [

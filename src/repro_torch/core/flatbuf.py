@@ -70,6 +70,11 @@ class FlatLayout:
     def bucket_slots(self, b: int) -> list[LeafSlot]:
         return [s for s in self.slots if s.bucket == b]
 
+    def bucket_local_rows(self, b: int) -> int:
+        """Rows of one shard's region: every bucket of the port is of the
+        replicated class, so all of ``bucket_rows[b]``."""
+        return self.bucket_rows[b]
+
     def bucket_bytes(self, b: int) -> int:
         return self.bucket_rows[b] * LANE * np.dtype(self.bucket_dtypes[b]).itemsize
 

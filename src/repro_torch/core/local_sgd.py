@@ -15,25 +15,30 @@ syncs — the tree view exists only at ``unpack_state`` / ``mean_params``.
   one ``lars_row_norms`` launch per bucket for the trust ratios; no
   clip).  Workers run one after another in a Python loop where the
   reference uses ``vmap``.
-* ``sync`` executes a flat :class:`~repro_torch.core.syncplan.SyncPlan`:
-  the no-anchor mean sync averages the worker copies in place; the
-  anchored sign / EF-sign sync forms the per-worker delta against the
-  anchor, compresses it (two kernel launches per bucket), averages it and
-  steps the anchor, then broadcasts the new anchor into every worker.
+* ``sync`` executes one scope of a :class:`~repro_torch.core.syncplan.SyncPlan`
+  (flat, hierarchical or overlap topology): the no-anchor mean sync
+  averages the worker copies in place, over all W at global scope or over
+  blocks of consecutive workers at the Alg. 5 block scope; the anchored
+  sign / EF-sign sync (global scope only) forms the per-worker delta
+  against the anchor, compresses it (two kernel launches per bucket),
+  averages it and steps the anchor, then broadcasts the new anchor into
+  every worker.  Stages run in the plan's order, and every order a
+  topology emits is a topological order of the same per-bucket dataflow:
+  overlap gives flat's bits.
 
 With telemetry (``make_local_sgd(..., telemetry=True)``) ``state.stats``
 carries a ``telemetry.stats.StatsAccumulator``: the per-worker grad and
 update norms come from the update launch's ``stats=True`` form, and each
-global sync records its pre-/post-mean norm pair and per-bucket
-compression error.
+global sync (block syncs record nothing) records its pre-/post-mean norm
+pair and per-bucket compression error.
 
 The update is in place: ``local_step`` and ``sync`` return a state that
 shares (and has mutated) the buffers of the one they were given.
 
 Not ported yet, and raising ``NotImplementedError``: gradient noise
-(``noise_eta > 0``), the 1-bit wire pack, adaptive controllers (and the
-speculative compression error they measure), hierarchical topologies and
-the per-leaf tree path.
+(``noise_eta > 0``), the 1-bit wire pack and coalesced collectives,
+adaptive controllers (and the speculative compression error they
+measure) and the per-leaf tree path.
 """
 from __future__ import annotations
 
@@ -107,10 +112,8 @@ def _check_supported(run: RunConfig):
     if opt.optimizer not in ("sgd", "lars"):
         raise NotImplementedError(f"optimizer {opt.optimizer!r} is not ported yet")
     if ls.wire_pack or ls.sync_coalesce:
-        raise NotImplementedError("the 1-bit wire pack is not ported yet")
-    if ls.block_steps > 1 or ls.sync_topology not in ("auto", "flat"):
-        raise NotImplementedError("hierarchical / overlap sync topologies "
-                                  "are not ported yet")
+        raise NotImplementedError("the 1-bit wire pack and coalesced "
+                                  "collectives are not ported yet")
     if run.controller.kind != "static":
         raise NotImplementedError(f"controller {run.controller.kind!r} is not "
                                   "ported yet (telemetry with the static "
@@ -199,18 +202,21 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
 
     def sync(state: LocalSGDState, *, plan=None,
              scope: str = "global") -> LocalSGDState:
-        """Execute a flat ``SyncPlan`` (built from the config when none is
-        given) on the resident buckets, in place.  With telemetry the
-        returned state's ``stats`` has the round closed (``record_sync``)."""
+        """Execute the ``scope`` stages of a ``SyncPlan`` (built from the
+        config when none is given) on the resident buckets, in place:
+        ``"global"`` averages over all W, ``"block"`` over the plan's
+        blocks of consecutive workers (Alg. 5; mean sync only, as in the
+        reference).  With telemetry a global sync returns a state whose
+        ``stats`` has the round closed (``record_sync``)."""
         layout = state.params.layout
         if plan is None:
             plan = splan.make_sync_plan(layout, num_workers=W,
+                                        topology=splan.resolve_topology(ls, W),
                                         compression=ls.sync_compression,
                                         anchored=needs_anchor(ls))
-        if scope != "global":
-            raise NotImplementedError("only the global (flat) scope is ported")
         stages = plan.schedule(scope)
-        modes = plan.modes
+        record = telemetry and scope == "global"
+        modes = plan.modes if scope == "global" else ("none",) * len(plan.modes)
         pb = list(state.params.buckets)
         if not needs_anchor(ls):
             if any(m != "none" for m in modes):
@@ -222,18 +228,21 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                 if st.kind == "collective":
                     for b in st.buckets:
                         m = group_mean(pb[b], st.group)
-                        if telemetry:
+                        if record:
                             # centred pair: x_k = p_k - pbar, taken before the
                             # in-place copy; pre IS the dispersion, post = 0
                             pre_w = pre_w + _sumsq(pb[b].float() - m.float(),
                                                    from_axis=1)
                         pb[b].copy_(m)
-            if not telemetry:
+            if not record:
                 return state
             stats = tstats.record_sync(state.stats, pre_sync_sq=pre_w.mean(),
                                        post_sync_sq=0.0)
             return dataclasses.replace(state, stats=stats)
 
+        if scope != "global":
+            raise ValueError("compression / global momentum require flat "
+                             "local SGD: a block sync needs the mean sync")
         if "ef_sign" in modes and state.ef_memory is None:
             raise ValueError("ef_sign requires the config to allocate EF "
                              "memory (sync_compression='ef_sign')")

@@ -1,17 +1,37 @@
-"""SyncPlan: the staged sync pipeline (the port of ``repro.core.syncplan``,
-flat topology only).
+"""SyncPlan: the staged, topology-aware sync pipeline (the port of
+``repro.core.syncplan``).
 
 A plan compiles the per-bucket sync into ordered :class:`SyncStage` s —
-``pack -> collective -> apply`` per bucket — with a per-bucket
-compressor mode; ``local_sgd.sync(state, plan=, scope="global")``
-executes it.  Hierarchical and overlap topologies, coalescing, the
-1-bit wire pack and the controller's ``PlanDelta`` are not ported yet
-and raise.
+``pack -> collective -> apply`` per bucket — each carrying its bucket
+ids, compressor mode, the workers it averages and its ring-model wire
+bytes (the same formulas as ``telemetry.ledger.analytic_sync_cost``).
+:class:`Topology` declares where the averages run:
+
+* ``flat()`` — one global mean over all W workers (Alg. 1);
+* ``hierarchical(block_size)`` — Alg. 5: block-mean stages (scope
+  ``"block"``, dense, over blocks of consecutive workers) beside the
+  global stages;
+* ``overlap()`` — flat semantics with the global stages software-
+  pipelined (bucket b's collective before bucket b-1's apply).  Every
+  ordering is a topological order of the same per-bucket dataflow, so
+  flat and overlap give the same bits.
+
+``local_sgd.sync(state, plan=, scope=)`` executes ``plan.schedule(scope)``
+and ``telemetry.ledger.CommsLedger.record_plan`` prices its collective
+stages.  Not ported yet, and raising: coalesced collectives and the
+1-bit wire pack (with workers across GPUs), and the controller's
+``PlanDelta``.  The port has no mesh, so every stage's ``reduce_axes``
+is ``()``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
+
+import numpy as np
+
+from repro_torch.core.flatbuf import LANE
+from repro_torch.telemetry.ledger import _ring_bytes
 
 _COMP_MODES = ("none", "sign", "ef_sign")
 
@@ -36,9 +56,26 @@ def resolve_comp_modes(compression, num_buckets: int, default: str):
     return modes
 
 
+# ---------------------------------------------------------------------------
+# Topology
+# ---------------------------------------------------------------------------
+
 @dataclass(frozen=True)
 class Topology:
+    """Where the sync averages run: ``kind`` is ``"flat"``,
+    ``"hierarchical"`` or ``"overlap"``; ``block_size`` the workers per
+    block of the Alg. 5 inner mean (0 = no block level)."""
     kind: str = "flat"
+    block_size: int = 0
+
+    @property
+    def has_block(self) -> bool:
+        return self.block_size > 0 and self.kind in ("hierarchical", "overlap")
+
+    def describe(self) -> str:
+        if self.has_block:
+            return f"{self.kind}(block_size={self.block_size})"
+        return self.kind
 
 
 def flat() -> Topology:
@@ -46,20 +83,127 @@ def flat() -> Topology:
     return Topology("flat")
 
 
+def hierarchical(block_size: int) -> Topology:
+    """Alg. 5: block-mean stages (scope ``"block"``) + global stages."""
+    if block_size < 1:
+        raise ValueError(f"hierarchical block_size must be >= 1, "
+                         f"got {block_size}")
+    return Topology("hierarchical", int(block_size))
+
+
+def overlap(block_size: int = 0) -> Topology:
+    """Flat semantics, software-pipelined global ordering: bucket b's
+    collective is issued before bucket b-1's apply."""
+    return Topology("overlap", int(block_size))
+
+
+def default_block_size(num_workers: int) -> int:
+    """The trainer's default Alg. 5 blocking: two blocks of consecutive
+    workers (the paper's two-pod Figure 17 mapping)."""
+    blocks = 2 if num_workers >= 2 else 1
+    return max(num_workers // blocks, 1)
+
+
+# ---------------------------------------------------------------------------
+# Stages
+# ---------------------------------------------------------------------------
+
 @dataclass(frozen=True)
 class SyncStage:
-    """One step of the sync pipeline: ``kind`` is ``pack`` (form and
-    compress the per-worker delta), ``collective`` (the worker mean) or
-    ``apply`` (anchor update and broadcast)."""
+    """One step of the sync pipeline.
+
+    ``kind``        — ``"pack"`` (form and compress the per-worker delta),
+                      ``"collective"`` (the worker mean) or ``"apply"``
+                      (global momentum, anchor update, broadcast).
+    ``scope``       — ``"block"`` (Alg. 5 inner mean) or ``"global"``.
+    ``buckets``     — the flat-bus bucket ids this stage touches.
+    ``compression`` — compressor mode of the payload.
+    ``group``       — workers averaged together (block_size or W).
+    ``reduce_axes`` — mesh axes of the collective (``()``: no mesh).
+    ``wire_bytes``  — per-worker ring-model bytes of the collective.
+    ``collectives`` — collectives this stage launches (0 for pack/apply).
+    ``coalesced``   — several buckets share this stage's payload gather
+                      (not ported: always False).
+    """
     kind: str
     scope: str
     buckets: tuple[int, ...]
     compression: str = "none"
     group: int = 0
+    reduce_axes: tuple[str, ...] = ()
+    wire_bytes: float = 0.0
+    collectives: int = 0
+    coalesced: bool = False
 
+
+def _collective_stage(layout, b: int, *, scope: str, group: int,
+                      mode: str) -> SyncStage:
+    """A dense collective stage of bucket ``b``: one all-reduce of the
+    bucket's bytes (f32 width once compressed, sign * scale unpacked),
+    priced like ``telemetry.ledger.analytic_sync_cost``."""
+    n = max(int(group), 1)
+    itemsize = (4 if mode != "none"
+                else np.dtype(layout.bucket_dtypes[b]).itemsize)
+    bytes_ = _ring_bytes("all-reduce",
+                         layout.bucket_local_rows(b) * LANE * itemsize, n)
+    return SyncStage(kind="collective", scope=scope, buckets=(b,),
+                     compression=mode, group=n, wire_bytes=bytes_,
+                     collectives=1)
+
+
+def _compile_stages(layout, topology: Topology, modes, *, num_workers: int,
+                    anchored: bool) -> tuple[SyncStage, ...]:
+    stages: list[SyncStage] = []
+    nb = layout.num_buckets
+    if topology.has_block:
+        # Alg. 5 inner mean: one dense block mean per bucket (the block
+        # level never compresses: compression needs the global anchor),
+        # then one trivial apply covering the whole state
+        for b in range(nb):
+            stages.append(_collective_stage(layout, b, scope="block",
+                                            group=topology.block_size,
+                                            mode="none"))
+        stages.append(SyncStage(kind="apply", scope="block",
+                                buckets=tuple(range(nb)),
+                                group=topology.block_size))
+
+    triples = []
+    for b in range(nb):
+        packs = ([SyncStage(kind="pack", scope="global", buckets=(b,),
+                            compression=modes[b], group=num_workers)]
+                 if anchored else [])
+        coll = _collective_stage(layout, b, scope="global", group=num_workers,
+                                 mode=modes[b])
+        applies = [SyncStage(kind="apply", scope="global", buckets=(b,),
+                             group=num_workers)]
+        triples.append((packs, coll, applies))
+    if topology.kind == "overlap":
+        # software pipeline: issue bucket b's collective, THEN apply
+        # bucket b-1
+        pending: list[SyncStage] = []
+        for packs, coll, applies in triples:
+            stages.extend(packs)
+            stages.append(coll)
+            stages.extend(pending)
+            pending = applies
+        stages.extend(pending)
+    else:
+        for packs, coll, applies in triples:
+            stages.extend(packs)
+            stages.append(coll)
+            stages.extend(applies)
+    return tuple(stages)
+
+
+# ---------------------------------------------------------------------------
+# The plan
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class SyncPlan:
+    """A compiled, static sync schedule for BOTH scopes: ``layout`` is the
+    per-worker ``flatbuf.FlatLayout`` of the synced state, ``modes`` the
+    per-bucket compressor; executors run ``schedule(scope)`` in order."""
     layout: Any
     topology: Topology
     modes: tuple[str, ...]
@@ -75,36 +219,103 @@ class SyncPlan:
         out = tuple(s for s in self.stages if s.scope == scope)
         if not out:
             raise ValueError(f"plan has no {scope!r} stages "
-                             f"(topology={self.topology.kind})")
+                             f"(topology={self.topology.describe()})")
         return out
 
+    def collective_stages(self, scope: str = "global") -> tuple[SyncStage, ...]:
+        """The scope's collective stages in schedule order; a stage's id is
+        its index here (``CommsLedger.record_plan`` rows carry it)."""
+        return tuple(s for s in self.schedule(scope) if s.kind == "collective")
 
-def _compile_stages(layout, modes, *, num_workers: int, anchored: bool):
-    stages: list[SyncStage] = []
-    for b in range(layout.num_buckets):
-        if anchored:
-            stages.append(SyncStage("pack", "global", (b,), modes[b], num_workers))
-        stages.append(SyncStage("collective", "global", (b,), modes[b], num_workers))
-        stages.append(SyncStage("apply", "global", (b,), "none", num_workers))
-    return tuple(stages)
+    def scope_cost(self, scope: str = "global"):
+        """(per-worker wire bytes, collective count) of one ``scope`` round."""
+        st = self.schedule(scope)
+        return (sum(s.wire_bytes for s in st),
+                sum(s.collectives for s in st))
+
+    def with_modes(self, compression) -> "SyncPlan":
+        """Recompile with new per-bucket compressor modes; ``None`` (or the
+        same modes) returns ``self``."""
+        if compression is None:
+            return self
+        modes = resolve_comp_modes(compression, self.num_buckets,
+                                   self.modes[0] if self.modes else "none")
+        if modes == self.modes:
+            return self
+        return _recompile(self, modes=modes)
+
+    def with_topology(self, topology: Topology | None) -> "SyncPlan":
+        if topology is None or topology == self.topology:
+            return self
+        return _recompile(self, topology=topology)
+
+    def describe(self, scope: str | None = None) -> str:
+        """Human-readable stage table."""
+        rows = [f"SyncPlan topology={self.topology.describe()} "
+                f"buckets={self.num_buckets} modes={'|'.join(self.modes)}"]
+        stages = self.stages if scope is None else self.schedule(scope)
+        for i, s in enumerate(stages):
+            extra = ""
+            if s.kind == "collective":
+                extra = (f" wire_bytes={s.wire_bytes:.0f} "
+                         f"collectives={s.collectives}")
+            rows.append(f"  [{i:2d}] {s.scope:6s} {s.kind:10s} "
+                        f"buckets={list(s.buckets)} mode={s.compression} "
+                        f"group={s.group}{extra}")
+        return "\n".join(rows)
+
+
+def _recompile(plan: SyncPlan, **changes) -> SyncPlan:
+    plan = replace(plan, **changes)
+    stages = _compile_stages(plan.layout, plan.topology, plan.modes,
+                             num_workers=plan.num_workers,
+                             anchored=plan.anchored)
+    return replace(plan, stages=stages)
 
 
 def make_sync_plan(layout, *, num_workers: int, topology: Topology | None = None,
                    compression=None, anchored: bool | None = None,
                    wire_pack: bool = False, coalesce: bool = False) -> SyncPlan:
-    """Compile a flat :class:`SyncPlan` for the bucket ``layout``."""
-    topology = topology or flat()
-    if topology.kind != "flat":
-        raise NotImplementedError(f"sync topology {topology.kind!r} is not "
-                                  "ported yet (flat only)")
+    """Compile a :class:`SyncPlan` for the bucket ``layout``.
+
+    ``topology`` defaults to ``flat()`` (``resolve_topology`` maps a
+    config to its own); ``compression`` follows
+    :func:`resolve_comp_modes`; ``anchored`` marks a sync that consumes a
+    delta against the global anchor (``local_sgd.needs_anchor``) and so
+    has pack stages.
+    """
     if wire_pack or coalesce:
         raise NotImplementedError("the 1-bit wire pack and coalesced "
                                   "collectives are not ported yet")
+    topology = topology or flat()
     modes = resolve_comp_modes(compression, layout.num_buckets, "none")
     if anchored is None:
         anchored = any(m != "none" for m in modes)
-    return SyncPlan(layout=layout, topology=topology, modes=modes,
-                    num_workers=int(num_workers), anchored=bool(anchored),
-                    stages=_compile_stages(layout, modes,
-                                           num_workers=int(num_workers),
-                                           anchored=bool(anchored)))
+    plan = SyncPlan(layout=layout, topology=topology, modes=modes,
+                    num_workers=int(num_workers), anchored=bool(anchored))
+    return _recompile(plan)
+
+
+def resolve_topology(ls, num_workers: int) -> Topology:
+    """Map a ``LocalSGDConfig`` to its declared :class:`Topology`.
+
+    ``sync_topology='auto'``: ``hierarchical(default_block_size)`` when
+    ``block_steps > 1`` (Alg. 5 needs block stages), else ``flat``.  An
+    explicit ``'flat'`` with ``block_steps > 1`` contradicts itself and
+    raises.
+    """
+    kind = ls.sync_topology
+    bs = default_block_size(num_workers)
+    if kind == "auto":
+        return hierarchical(bs) if ls.block_steps > 1 else flat()
+    if kind == "flat":
+        if ls.block_steps > 1:
+            raise ValueError("sync_topology='flat' cannot serve "
+                             "block_steps > 1 (Alg. 5 needs block stages); "
+                             "use 'auto', 'hierarchical', or 'overlap'")
+        return flat()
+    if kind == "hierarchical":
+        return hierarchical(bs)
+    if kind == "overlap":
+        return overlap(bs if ls.block_steps > 1 else 0)
+    raise ValueError(f"unknown sync_topology {kind!r}")

@@ -25,7 +25,18 @@
 //                      partial sums that reduce_rows_kernel folds in a second,
 //                      deterministic pass (no atomics).
 //   fb_sq_sum          replaces fused_bucket.py::sq_sum_2d.  Reads x once:
-//                      1.913 GB -> 0.571 ms.  Same partials + second pass.
+//                      1.913 GB -> 0.571 ms.  Design: one launch over a
+//                      (blocks per worker, W) grid of 512-thread blocks,
+//                      about 4 blocks per SM across all W; each thread
+//                      keeps four independent 16-byte streaming loads in
+//                      flight.  Each block writes its partial and takes its
+//                      worker's ticket (a counter, the one atomic, which
+//                      never touches a sum); the worker's last block folds
+//                      that worker's partials in block order, writes
+//                      out[w] and resets the ticket.  The grid depends on
+//                      the shape and the SM count only: two runs give the
+//                      same bits.  The scratch (partials, W tickets) is the
+//                      caller's, kept per stream.
 //   fb_row_abs_sum     replaces fused_bucket.py::row_abs_sum_2d.  Reads x,
 //                      writes one float per row: 1.928 GB -> 0.576 ms.
 //                      One warp per 128-wide row (32 lanes x float4),
@@ -156,25 +167,82 @@ update_kernel(float* __restrict__ p, const float* __restrict__ g,
   }
 }
 
-// grid = (grid_x, W); partials: (W, grid_x) per-block sums of x^2.
-__global__ void __launch_bounds__(kThreads)
-sq_sum_kernel(const float* __restrict__ x, int64_t n4,
-              float* __restrict__ partials) {
-  const int w = blockIdx.y;
-  const float4* x4 = reinterpret_cast<const float4*>(x) + static_cast<int64_t>(w) * n4;
-  float s = 0.f, unused = 0.f;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n4; i += stride) {
-    const float4 v = x4[i];
-    s += v.x * v.x;
-    s += v.y * v.y;
-    s += v.z * v.z;
-    s += v.w * v.w;
+// sq_sum: 4 blocks of 512 threads per SM, four 16-byte loads in flight each
+constexpr int kSqSumThreads = 512;
+constexpr int kSqSumBlocksPerSM = 4;
+
+// Block-wide sum of a sq_sum block; the result is valid in thread 0.
+__device__ __forceinline__ float sq_block_sum(float a) {
+  __shared__ float sa[kSqSumThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  a = warp_sum(a);
+  if (lane == 0) sa[wid] = a;
+  __syncthreads();
+  if (wid == 0) {
+    a = lane < (blockDim.x >> 5) ? sa[lane] : 0.f;
+    a = warp_sum(a);
   }
-  block_sum2(s, unused);
-  if (threadIdx.x == 0)
-    partials[static_cast<int64_t>(w) * gridDim.x + blockIdx.x] = s;
+  return a;
+}
+
+// 16 bytes read once: no L1 allocation, 256-byte L2 fetches
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ float sq_sum16(const uint4 v) {
+  const float a = __uint_as_float(v.x), b = __uint_as_float(v.y);
+  const float c = __uint_as_float(v.z), d = __uint_as_float(v.w);
+  return (a * a + b * b) + (c * c + d * d);
+}
+
+// grid = (blocks per worker, W).  partials: (W, gridDim.x) block sums;
+// tickets: (W,) zeroed counters, left zeroed; out[w] = sum x[w]^2.
+__global__ void __launch_bounds__(kSqSumThreads)
+sq_sum_kernel(const float* __restrict__ x, int64_t n4,
+              float* __restrict__ partials, unsigned int* __restrict__ tickets,
+              float* __restrict__ out) {
+  const int w = blockIdx.y;
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + static_cast<int64_t>(w) * n4;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; i + 3 * stride < n4; i += 4 * stride) {
+    const uint4 a = ld_stream(xv + i);
+    const uint4 b = ld_stream(xv + i + stride);
+    const uint4 c = ld_stream(xv + i + 2 * stride);
+    const uint4 d = ld_stream(xv + i + 3 * stride);
+    s0 += sq_sum16(a);
+    s1 += sq_sum16(b);
+    s2 += sq_sum16(c);
+    s3 += sq_sum16(d);
+  }
+  for (; i < n4; i += stride) s0 += sq_sum16(ld_stream(xv + i));
+  const float s = sq_block_sum((s0 + s1) + (s2 + s3));
+
+  float* part = partials + static_cast<int64_t>(w) * gridDim.x;
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = s;
+    __threadfence();                   // the partial is visible before the ticket
+    last = atomicAdd(tickets + w, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float f = 0.f;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += blockDim.x)
+    f += __ldcg(part + b);
+  f = sq_block_sum(f);
+  if (threadIdx.x == 0) {
+    out[w] = f;
+    tickets[w] = 0u;
+  }
 }
 
 // Second pass: out[r] = sum(in[r, 0:n]), one block per row, fixed order.
@@ -336,18 +404,30 @@ int fb_lars_row_norms(const void* p, const void* g, const void* wd_row,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (W, rows, 128) f32; partials: (W, grid_x) scratch; out: (W,).
+// *blocks = the most blocks fb_sq_sum launches in all on the current device
+// (the partials it needs, given W <= *blocks): 4 a streaming multiprocessor.
+int fb_sq_sum_blocks(int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = kSqSumBlocksPerSM * sms;
+  return static_cast<int>(err);
+}
+
+// x: (W, rows, 128) f32; partials: max_blocks f32 scratch, max_blocks >= W;
+// tickets: W zeroed uint32, left zeroed, for this stream's calls only;
+// out: (W,) f32.
 int fb_sq_sum(const void* x, int64_t W, int64_t rows, void* partials,
-              int64_t grid_x, void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(W));
-  sq_sum_kernel<<<grid, kThreads, 0, st>>>(static_cast<const float*>(x),
-                                            rows * kVecPerRow,
-                                            static_cast<float*>(partials));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_rows_kernel<<<static_cast<unsigned>(W), kThreads, 0, st>>>(
-      static_cast<const float*>(partials), grid_x, static_cast<float*>(out));
+              int64_t max_blocks, void* tickets, void* out, void* stream) {
+  const int64_t n4 = rows * kVecPerRow;
+  int64_t per_worker = cdiv(n4, kSqSumThreads * 4);
+  if (per_worker > max_blocks / W) per_worker = max_blocks / W;
+  if (per_worker < 1) per_worker = 1;
+  const dim3 grid(static_cast<unsigned>(per_worker), static_cast<unsigned>(W));
+  sq_sum_kernel<<<grid, kSqSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n4, static_cast<float*>(partials),
+      static_cast<unsigned int*>(tickets), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,8 @@ the library; at paper-lm's attention and gemma3-1b's local layer it is
 held against the plain version (error over the flash tolerance) and
 timed: device ms per call over back-to-back calls, median of five runs.
 Prints the card's ``nvidia-smi`` line, then one JSON object per (variant,
-shape).
+shape).  :func:`build_variants` and :func:`device_ms` serve the other
+sweeps too (``sq_sum_sweep.py``).
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ VARIANTS = {
 }
 
 
-def _device_ms(fn, calls: int = 20) -> float:
+def device_ms(fn, calls: int = 20) -> float:
+    """Device ms per call over ``calls`` back-to-back calls, median of 5."""
     fn()
     times = []
     for _ in range(5):
@@ -59,21 +61,23 @@ def _device_ms(fn, calls: int = 20) -> float:
     return statistics.median(times)
 
 
-def _build_variants() -> dict:
-    """Start one nvcc per variant, all at once; {variant: library path}."""
-    src = build.SOURCES["flash_attention"].read_text()
+def build_variants(source: str, variants: dict) -> dict:
+    """Build each variant of ``build.SOURCES[source]`` (None, or one
+    (text, replacement) substitution) into ``build/sweep/<source>/``, one
+    nvcc per variant, all at once; {variant: library path}."""
+    src = build.SOURCES[source].read_text()
     procs = {}
-    for name, sub in VARIANTS.items():
+    for name, sub in variants.items():
         text = src
         if sub is not None:
             if sub[0] not in text:
                 raise ValueError(f"variant {name!r}: its text is not in the source")
             text = text.replace(sub[0], sub[1])
-        d = build.build_dir().parent / "sweep" / name.replace(" ", "_")
+        d = build.build_dir().parent / "sweep" / source / name.replace(" ", "_")
         d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_attention.cu").write_text(text)
+        (d / f"{source}.cu").write_text(text)
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / "flash_attention.cu")]
+               str(d / f"{source}.cu")]
         procs[name] = (d / "lib.so", subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -92,7 +96,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    libs = _build_variants()
+    libs = build_variants("flash_attention", VARIANTS)
     for label, B, S, H, KH, D, window, dtype in SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(S + D)
         mk = lambda h: torch.randn((B, S, h, D), generator=gen,
@@ -109,7 +113,7 @@ def main() -> int:
             fa._LIB._lib = lib
             err = float(((run().float() - want).abs() / bound).max())
             print(json.dumps({"variant": name, "shape": label, "dtype": dtype,
-                              "device_ms": _device_ms(run),
+                              "device_ms": device_ms(run),
                               "max_err_over_tol": err}), flush=True)
         del q, k, v, want, bound
         torch.cuda.empty_cache()

@@ -37,6 +37,10 @@ _BLOCKS_TOTAL = 2 * 132 * 8
 
 LAUNCHES = {"fused_sgd_bucket": 0, "sq_sum": 0, "row_abs_sum": 0,
             "scale_sign_rows": 0, "lars_row_norms": 0, "fused_lars_bucket": 0}
+# sq_sum's scratch per (device, stream): block partials and one zeroed
+# ticket counter per worker, which picks the block that folds the worker's
+# partials
+_SQ_SUM_SCRATCH: dict = {}
 
 
 def reset_launches():
@@ -50,7 +54,8 @@ _F = ctypes.c_float
 _LIB = build.Library("fused_bucket", {
     "fb_fused_sgd": [_P, _P, _P, _P, _P, _F, _F, _F, ctypes.c_int, _I, _I,
                      ctypes.c_int, _P, _I, _P, _P],
-    "fb_sq_sum": [_P, _I, _I, _P, _I, _P, _P],
+    "fb_sq_sum_blocks": [_P],
+    "fb_sq_sum": [_P, _I, _I, _P, _I, _P, _P, _P],
     "fb_row_abs_sum": [_P, _I, _P, _P],
     "fb_scale_sign_rows": [_P, _P, _I, _I, _P, _P],
     "fb_lars_row_norms": [_P, _P, _P, _F, _I, _I, _P, _P, _P],
@@ -187,18 +192,40 @@ def sq_sum_plain(x):
     return (x * x).sum(dim=(-2, -1))
 
 
+def _sq_sum_scratch(x, W: int, stream: int):
+    """(partials pointer, their count, tickets pointer) for sq_sum on x's
+    device and this stream, allocated once (again only for a larger W):
+    the kernel leaves the tickets zeroed for the next call."""
+    key = (x.get_device(), stream)
+    got = _SQ_SUM_SCRATCH.get(key)
+    if got is None or got[1].numel() < W:
+        blocks = ctypes.c_int(0)
+        _LIB("fb_sq_sum_blocks", ctypes.byref(blocks))
+        partials = torch.empty((max(blocks.value, W),), dtype=torch.float32,
+                               device=x.device)
+        tickets = torch.zeros((W,), dtype=torch.int32, device=x.device)
+        got = (partials, tickets)
+        _SQ_SUM_SCRATCH[key] = got
+    partials, tickets = got
+    return partials.data_ptr(), partials.numel(), tickets.data_ptr()
+
+
 def sq_sum(x):
     """sum(x^2) per worker of a (*lead, rows, 128) bucket -> ``lead``-shaped
-    f32 (a scalar for a single bucket)."""
+    f32 (a scalar for a single bucket).
+
+    On the card: one launch; each worker's block partials are folded in
+    block order by its last block to finish, no atomics in the sum, so two
+    runs on the same input give the same bits."""
     if not build.on_cuda(x):
         return sq_sum_plain(x)
     _check(x, "x")
     W, rows = _lead_rows(x)
-    gx = _grid_x(W, rows)
-    partials = torch.empty((W, gx), dtype=torch.float32, device=x.device)
+    st = build.stream(x)
+    part_ptr, n_part, ticket_ptr = _sq_sum_scratch(x, W, st)
     out = torch.empty((W,), dtype=torch.float32, device=x.device)
-    _LIB("fb_sq_sum", x.data_ptr(), W, rows, partials.data_ptr(), gx,
-          out.data_ptr(), build.stream(x))
+    _LIB("fb_sq_sum", x.data_ptr(), W, rows, part_ptr, n_part, ticket_ptr,
+         out.data_ptr(), st)
     LAUNCHES["sq_sum"] += 1
     return out.reshape(x.shape[:-2])
 

@@ -4,7 +4,9 @@
 The port always builds the resident flat-bus path — the one the
 reference selects with ``use_kernel=True`` — so every local step runs the
 fused SGD or LARS kernels and every sign / EF-sign sync the compressor
-kernels.  Telemetry is on when ``run.controller.wants_telemetry``.
+kernels.  The sync plan takes the config's topology
+(``syncplan.resolve_topology``: hierarchical when ``block_steps > 1``).
+Telemetry is on when ``run.controller.wants_telemetry``.
 """
 from __future__ import annotations
 
@@ -57,9 +59,11 @@ def build_train(run: RunConfig, *, num_workers: int = 1,
     layout = flatbuf.build_layout(
         mbase.abstract(specs, flatbuf.torch_dtype(cfg.param_dtype)),
         wd_mask=wd_mask)
-    plan = splan.make_sync_plan(layout, num_workers=num_workers,
-                                compression=run.local_sgd.sync_compression,
-                                anchored=needs_anchor(run.local_sgd))
+    plan = splan.make_sync_plan(
+        layout, num_workers=num_workers,
+        topology=splan.resolve_topology(run.local_sgd, num_workers),
+        compression=run.local_sgd.sync_compression,
+        anchored=needs_anchor(run.local_sgd))
     return TrainBundle(cfg=cfg, run=run, num_workers=num_workers, specs=specs,
                        init=init, local_step=local_step, sync=sync,
                        device=device, layout=layout, sync_plan=plan,

@@ -2,13 +2,16 @@
 core of ``repro.launch.train.fit``).
 
 The communication pattern is decided on the host from the
-``LocalSGDConfig`` exactly like the paper's Alg. 1/2 outer loops: every
-step is a local step, and a global sync follows whenever the static
-schedule (``local_steps_at`` through ``DynamicSchedule``) says so.
+``LocalSGDConfig`` exactly like the paper's Alg. 1/2/5 outer loops: every
+step is a local step, and a sync follows whenever the static schedule
+(``local_steps_at`` through ``DynamicSchedule``) says so — a block sync
+(Alg. 5's inner mean, level 1) or a global one (level 2).  A
+``CommsLedger`` prices every sync from the plan's collective stages.
 
 CLI:
     PYTHONPATH=src python -m repro_torch.launch.train --steps 40
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --block-steps 2
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
 from repro_torch.models import base as mbase
 from repro_torch.models import lm
+from repro_torch.telemetry.ledger import CommsLedger
 
 
 def _sync_device(device):
@@ -40,8 +44,10 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     ``params0`` is the single-copy param tree to start from (e.g. weights
     carried over from the JAX package with ``repro_torch.convert``); by
     default it is drawn from the specs with a ``torch.Generator`` seeded
-    with ``seed``.  ``summary`` has ``comm_rounds`` ({"block", "global"})
-    and ``wall_s`` (host clock, ending after a device synchronize).
+    with ``seed``.  ``summary`` has ``comm_rounds`` ({"block", "global"}),
+    ``wall_s`` (host clock, ending after a device synchronize), the
+    plan's ``topology`` and the ledger's ``summary()`` (analytic ring
+    bytes per round; no sync seconds yet).
     """
     if bundle is None:
         from repro_torch.launch.steps import build_train
@@ -58,20 +64,22 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     plan = bundle.sync_plan
     sched = DynamicSchedule(ls, lambda t: local_steps_at(ls, t))
 
+    ledger = CommsLedger()
     history = []
     comm_rounds = {"block": 0, "global": 0}
     t_start = time.perf_counter()
     for t in range(num_steps):
+        h_now = max(local_steps_at(ls, t), 1)
         state, metrics = bundle.local_step(state, next(data_iter))
         level = sched.advance(t)
         synced = ""
-        if level == 1:
-            raise NotImplementedError("block (hierarchical) syncs are not "
-                                      "ported yet")
-        if level == 2:
-            state = bundle.sync(state, plan=plan, scope="global")
-            comm_rounds["global"] += 1
-            synced = "global"
+        if level:
+            scope = "block" if level == 1 else "global"
+            state = bundle.sync(state, plan=plan, scope=scope)
+            ledger.record_plan(step=t, level=level, h=h_now, plan=plan,
+                               scope=scope, num_workers=bundle.num_workers)
+            comm_rounds[scope] += 1
+            synced = scope
         rec = {k: float(v) for k, v in metrics.items()}
         rec.update(step=t, synced=synced)
         history.append(rec)
@@ -83,7 +91,8 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     _sync_device(dev)
     wall = time.perf_counter() - t_start
     summary = {"wall_s": wall, "comm_rounds": comm_rounds, "steps": num_steps,
-               "topology": plan.topology.kind}
+               "topology": plan.topology.describe(),
+               "ledger": ledger.summary()}
     return state, history, summary
 
 
@@ -113,6 +122,11 @@ def main(argv=None):
     ap.add_argument("--local-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--local-steps", type=int, default=4, help="H")
+    ap.add_argument("--block-steps", type=int, default=1,
+                    help="H^b: a global sync every H^b rounds, block syncs "
+                         "between (Alg. 5)")
+    ap.add_argument("--sync-topology", default="auto",
+                    choices=["auto", "flat", "hierarchical", "overlap"])
     ap.add_argument("--post-local-switch", type=int, default=-1)
     ap.add_argument("--lr", type=float, default=0.2)
     ap.add_argument("--sync-compression", default="none",
@@ -127,8 +141,10 @@ def main(argv=None):
     run = RunConfig(
         model=cfg, shape=shape,
         local_sgd=LocalSGDConfig(local_steps=args.local_steps,
+                                 block_steps=args.block_steps,
                                  post_local_switch=args.post_local_switch,
-                                 sync_compression=args.sync_compression),
+                                 sync_compression=args.sync_compression,
+                                 sync_topology=args.sync_topology),
         optim=OptimConfig(base_lr=args.lr, base_batch=shape.global_batch,
                           lr_warmup_steps=10,
                           lr_decay_steps=(args.steps // 2, 3 * args.steps // 4)),
@@ -145,7 +161,8 @@ def main(argv=None):
                                eval_every=max(args.steps // 5, 1),
                                eval_fn=eval_lm(bundle, held))
     print(f"done: final loss={hist[-1]['loss']:.4f} wall={summary['wall_s']:.1f}s "
-          f"comm={summary['comm_rounds']}")
+          f"comm={summary['comm_rounds']} topology={summary['topology']} "
+          f"wire_bytes={summary['ledger']['wire_bytes']:.4g}")
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""On-device training statistics (the port of ``repro.telemetry.stats``)."""
+"""Training statistics and the comms ledger (the port of
+``repro.telemetry.stats`` and ``repro.telemetry.ledger``)."""

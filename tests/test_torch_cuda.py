@@ -87,6 +87,42 @@ def test_cuda_kernels_match_plain(cuda, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 3096 + 5, 65_536 + 3])
+@pytest.mark.parametrize("W", [1, 4])
+def test_cuda_sq_sum_one_launch_same_bits(cuda, W, rows):
+    """sq_sum within 1e-5 relative of its plain version (float32 sums in
+    another order), per worker and on a lone bucket; the same bits on every
+    call (the fold takes the partials in block order, no atomics in the
+    sum); the per-stream scratch reused from call to call, a second stream
+    given its own; one launch counted per call."""
+    tkb.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(W * rows)
+    x = torch.randn((W, rows, 128), generator=g, device=cuda)
+    x[:, :3] = 0.0
+    a = tkb.sq_sum(x)
+    torch.testing.assert_close(a, tkb.sq_sum_plain(x), rtol=1e-5, atol=0)
+    key = (x.get_device(), torch.cuda.current_stream().cuda_stream)
+    scratch = tkb._SQ_SUM_SCRATCH[key]
+    assert scratch[1].numel() >= W
+    assert torch.equal(a, tkb.sq_sum(x))
+    assert tkb._SQ_SUM_SCRATCH[key] is scratch
+    lone = tkb.sq_sum(x[W - 1])
+    assert lone.shape == ()
+    torch.testing.assert_close(lone, tkb.sq_sum_plain(x[W - 1]), rtol=1e-5, atol=0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        b, c = tkb.sq_sum(x), tkb.sq_sum(x)
+        side_key = (x.get_device(), side.cuda_stream)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert side_key in tkb._SQ_SUM_SCRATCH and tkb._SQ_SUM_SCRATCH[key] is scratch
+    assert all(int(t.abs().sum()) == 0                     # tickets left zeroed
+               for _, t in tkb._SQ_SUM_SCRATCH.values())
+    assert tkb.LAUNCHES["sq_sum"] == 5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows", [3096 + 5, 264])
 def test_cuda_lars_kernels_match_plain(cuda, rows):
     """The two LARS kernels against their plain versions, with a trust
@@ -171,6 +207,73 @@ def test_trainer_on_card_matches_cpu(cuda, mode):
                   "scale_sign_rows": comp, "lars_row_norms": 0,
                   "fused_lars_bucket": 0}
     assert all(v == 0 for v in cc.values())
+
+
+def _topology_fit(dev, p0, block_steps, topology, steps=8):
+    """fit of paper-lm smoke, post-local SGD with mean sync, on ``dev``:
+    (params, losses, launches, summary)."""
+    W, B, S = 4, 2, 64
+    cfg = configs.get_smoke("paper-lm")
+    run = RunConfig(model=cfg, shape=InputShape("t", S, W * B, "train"),
+                    local_sgd=LocalSGDConfig(local_steps=2, post_local_switch=2,
+                                             block_steps=block_steps,
+                                             sync_topology=topology),
+                    optim=OptimConfig(base_lr=0.3, base_batch=W * B,
+                                      lr_warmup_steps=2, grad_clip=1.0))
+    data = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=64, seq_len=S))
+    tkb.reset_launches()
+    tb = build_train(run, num_workers=W, device=dev)
+    state, hist, summ = ttrain.fit(run, ShardedBatches(data, W, B), bundle=tb,
+                                   num_steps=steps,
+                                   params0=tree_map(lambda t: t.to(dev), p0),
+                                   log=lambda *a: None)
+    return (state.params.buckets[0].cpu(), [h["loss"] for h in hist],
+            dict(tkb.LAUNCHES), summ)
+
+
+def _smoke_params():
+    cfg = configs.get_smoke("paper-lm")
+    return mbase.materialize(build_train(RunConfig(model=cfg), num_workers=4,
+                                         device="cpu").specs,
+                             torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["hierarchical", "overlap"])
+def test_hierarchical_trainer_on_card_matches_cpu(cuda, topology):
+    """Alg. 5 (block_steps=2, blocks of 2 of 4 workers) through fit, card
+    against CPU from the same weights: per-step loss rtol 1e-4, params all
+    but 1e-4 of the elements within 1e-4 x the largest (mean sync: no
+    sign flips, float32 sums in another order); 3 block + 2 global rounds
+    and the same ledger; one fused SGD and one sq_sum launch a step."""
+    p0 = _smoke_params()
+    (pg, lg, cg, sg), (pc, lc, cc, sc) = (_topology_fit(d, p0, 2, topology)
+                                          for d in (cuda, "cpu"))
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    d = (pg - pc).abs()
+    assert float((d > 1e-4 * pc.abs().max()).float().mean()) <= 1e-4
+    assert sg["comm_rounds"] == sc["comm_rounds"] == {"block": 3, "global": 2}
+    assert sg["topology"] == sc["topology"] == f"{topology}(block_size=2)"
+    assert sg["ledger"] == sc["ledger"]
+    assert cg == {"fused_sgd_bucket": 8, "sq_sum": 8, "row_abs_sum": 0,
+                  "scale_sign_rows": 0, "lars_row_norms": 0,
+                  "fused_lars_bucket": 0}
+    assert all(v == 0 for v in cc.values())
+
+
+@pytest.mark.cuda
+def test_overlap_trainer_on_card_equals_flat(cuda):
+    """The overlap topology on the card gives flat's bits (the same
+    per-bucket dataflow in another stage order), and agrees with the CPU
+    as above."""
+    p0 = _smoke_params()
+    pf, lf, _, sf = _topology_fit(cuda, p0, 1, "flat")
+    po, lo, _, so = _topology_fit(cuda, p0, 1, "overlap")
+    assert (sf["topology"], so["topology"]) == ("flat", "overlap")
+    assert lf == lo and torch.equal(pf, po)
+    pc, lc, _, _ = _topology_fit("cpu", p0, 1, "overlap")
+    np.testing.assert_allclose(lo, lc, rtol=1e-4)
+    assert float(((po - pc).abs() > 1e-4 * pc.abs().max()).float().mean()) <= 1e-4
 
 
 # round_summary fields computed from ||mean_k x_k||^2 (post_sync_sq)

@@ -279,3 +279,16 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tbuild.build_all()
+
+
+def test_sq_sum_sweep_variants_match_the_kernel_source():
+    """Each design variant of ``kernels/sq_sum_sweep.py`` is one text
+    substitution of the CUDA source: the text must still be there, once."""
+    from repro_torch.kernels import build as tbuild
+    from repro_torch.kernels import sq_sum_sweep
+
+    src = tbuild.SOURCES["fused_bucket"].read_text()
+    assert sq_sum_sweep.VARIANTS["chosen"] is None
+    for name, sub in sq_sum_sweep.VARIANTS.items():
+        if sub is not None:
+            assert src.count(sub[0]) == 1, name

@@ -20,6 +20,12 @@ relative (float32 norms summed in another order; the dispersion ``pre``
 is a sum of squared worker differences and the most sensitive of them).
 LARS runs with ``grad_clip=1.0`` set: the reference ignores it under
 LARS, and so must the port.
+
+Hierarchical local SGD (Alg. 5, ``block_steps=2``, blocks of 2 workers)
+alternates block and global syncs and is held to the same tolerances.
+The overlap topology only reorders the stages of the same per-bucket
+dataflow, so the port's overlap trajectory must equal its flat one bit
+for bit (``torch.equal``).
 """
 import dataclasses
 
@@ -36,7 +42,8 @@ from repro.models import base as jmbase
 from repro_torch import configs as tconfigs
 from repro_torch.configs import base as tcb
 from repro_torch.convert import params_from_reference, state_from_reference
-from repro_torch.core.local_sgd import mean_params, unpack_state
+from repro_torch.core import syncplan as tsp
+from repro_torch.core.local_sgd import make_local_sgd, mean_params, unpack_state
 from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
 from repro_torch.kernels import fused_bucket as tkb
@@ -44,7 +51,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.launch.steps import build_train as tbuild
 from repro_torch.models import base as tmbase
 from repro_torch.telemetry import stats as tstats
-from repro_torch.utils import tree_flatten
+from repro_torch.utils import tree_flatten, tree_map
 
 torch.set_num_threads(2)
 
@@ -53,11 +60,13 @@ FIELDS = ("params", "momentum", "anchor", "global_u", "ef_memory")
 
 
 def _run(cb, cfg, mode, clip, nesterov, gm=0.0, optimizer="sgd",
-         telemetry=False):
+         telemetry=False, block_steps=1, topology="auto"):
     return cb.RunConfig(
         model=cfg, shape=cb.InputShape("t", S, W * B, "train"),
         local_sgd=cb.LocalSGDConfig(local_steps=H, sync_compression=mode,
-                                    nesterov=nesterov, global_momentum=gm),
+                                    nesterov=nesterov, global_momentum=gm,
+                                    block_steps=block_steps,
+                                    sync_topology=topology),
         optim=cb.OptimConfig(optimizer=optimizer, base_lr=0.3, base_batch=W * B,
                              lr_warmup_steps=2, weight_decay=1e-2,
                              grad_clip=clip, lars_trust=0.02),
@@ -174,20 +183,22 @@ def test_mean_params_and_launch_counts_on_cpu():
 
 
 def test_unported_options_raise():
-    """LARS and telemetry with the static schedule build; every non-static
-    controller kind raises (auto_compress and noise_adaptive are the ones
-    whose speculative compression error the reference measures), as do
-    the other unported options."""
+    """LARS, telemetry with the static schedule and hierarchical local SGD
+    build; every non-static controller kind raises (auto_compress and
+    noise_adaptive are the ones whose speculative compression error the
+    reference measures), as do the other unported options."""
     smoke = tconfigs.get_smoke("paper-lm")
     for kw in (dict(optim=tcb.OptimConfig(optimizer="lars")),
-               dict(controller=tcb.ControllerConfig(telemetry=True))):
+               dict(controller=tcb.ControllerConfig(telemetry=True)),
+               dict(local_sgd=tcb.LocalSGDConfig(block_steps=2))):
         tbuild(tcb.RunConfig(model=smoke, **kw), num_workers=2, device="cpu")
     kinds = ("diversity_h", "adaptive_batch", "auto_compress",
              "noise_adaptive", "elastic")
     for kw in (dict(optim=tcb.OptimConfig(noise_eta=0.1)),
                dict(local_sgd=tcb.LocalSGDConfig(wire_pack=True,
                                                  sync_compression="sign")),
-               dict(local_sgd=tcb.LocalSGDConfig(block_steps=2)),
+               dict(local_sgd=tcb.LocalSGDConfig(sync_coalesce=True,
+                                                 sync_compression="sign")),
                *(dict(controller=tcb.ControllerConfig(kind=k)) for k in kinds),
                dict(controller=tcb.ControllerConfig(kind="auto_compress",
                                                     telemetry=False))):
@@ -246,3 +257,127 @@ def test_state_carry_over_with_stats():
     js, ts = _steps(H, js, jstep, jsync, tb, ts, it_ref)
     _compare(js, ts, exact_mode=False)
     _compare_stats(js, ts)
+
+
+def _hier_steps(n, js, jstep, jsyncs, tb, ts, it, losses):
+    """n local steps with a sync every H steps, block and global in turn
+    (H^b = 2): the reference's sync jitted per scope."""
+    rounds = 0
+    for _ in range(n):
+        batch = next(it)
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in batch.items()})
+        ts, tm = tb.local_step(ts, batch)
+        losses.append((float(jm["loss"]), float(tm["loss"])))
+        if ts.step % H == 0:
+            rounds += 1
+            scope = "global" if rounds % 2 == 0 else "block"
+            js = jsyncs[scope](js)
+            ts = tb.sync(ts, plan=tb.sync_plan, scope=scope)
+    return js, ts
+
+
+@pytest.mark.parametrize("clip,nesterov,telemetry", [(1.0, True, False),
+                                                     (0.0, False, True)])
+def test_hierarchical_trajectory_matches_reference(clip, nesterov, telemetry):
+    """Alg. 5 at W=4 (blocks of 2 consecutive workers): two block and two
+    global syncs in 4 rounds of H=2 steps; losses rtol 1e-6, buffers and
+    (with telemetry, which only global syncs record) every stats field as
+    in the flat trajectory tests."""
+    jb, js, jstep, _, tb, ts, it = _pair("none", clip, nesterov,
+                                         telemetry=telemetry, block_steps=2)
+    assert jb.sync_plan.topology.kind == tb.sync_plan.topology.kind \
+        == "hierarchical"
+    assert tb.sync_plan.topology.block_size == 2
+    jsyncs = {sc: jax.jit(lambda s, sc=sc: jb.sync(s, plan=jb.sync_plan,
+                                                   scope=sc))
+              for sc in ("block", "global")}
+    losses = []
+    js, ts = _hier_steps(4 * H, js, jstep, jsyncs, tb, ts, it, losses)
+    np.testing.assert_allclose([l[1] for l in losses], [l[0] for l in losses],
+                               rtol=1e-6)
+    _compare(js, ts, exact_mode=True)
+    if telemetry:
+        _compare_stats(js, ts)
+        assert int(ts.stats.rounds) == 2
+    # the last sync was global: every worker holds the same model; after a
+    # block sync only the two workers of a block agree
+    p = ts.params.buckets[0]
+    assert all(torch.equal(p[0], p[w]) for w in range(1, W))
+    ts = tb.local_step(ts, next(it))[0]
+    ts = tb.sync(ts, plan=tb.sync_plan, scope="block")
+    p = ts.params.buckets[0]
+    assert torch.equal(p[0], p[1]) and torch.equal(p[2], p[3])
+    assert not torch.equal(p[0], p[2])
+
+
+def test_block_sync_needs_the_mean_sync():
+    """A block sync of an anchored config (compression or global momentum)
+    raises, as in the reference; its global sync runs."""
+    rt = _run(tcb, tconfigs.get_smoke("paper-lm"), "ef_sign", 1.0, True,
+              block_steps=2)
+    tb = tbuild(rt, num_workers=W, device="cpu")
+    ts = tb.init(tmbase.materialize(tb.specs, torch.Generator().manual_seed(0),
+                                    "cpu"))
+    with pytest.raises(ValueError, match="require flat local SGD"):
+        tb.sync(ts, plan=tb.sync_plan, scope="block")
+    tb.sync(ts, plan=tb.sync_plan, scope="global")
+    with pytest.raises(ValueError, match="cannot serve block_steps"):
+        tbuild(_run(tcb, tconfigs.get_smoke("paper-lm"), "none", 1.0, True,
+                    block_steps=2, topology="flat"), num_workers=W, device="cpu")
+
+
+def _buffers(state):
+    return [b for f in FIELDS if getattr(state, f) is not None
+            for b in getattr(state, f).buckets]
+
+
+@pytest.mark.parametrize("mode,block_steps", [("none", 1), ("ef_sign", 1),
+                                              ("none", 2)])
+def test_overlap_trajectory_equals_flat_bitwise(mode, block_steps):
+    """The overlap topology against flat (hierarchical with H^b = 2) from
+    the same weights and batches: every buffer and loss bit for bit."""
+    smoke = tconfigs.get_smoke("paper-lm")
+    p0 = tmbase.materialize(tbuild(_run(tcb, smoke, mode, 1.0, True),
+                                   num_workers=W, device="cpu").specs,
+                            torch.Generator().manual_seed(3), "cpu")
+    data = lm_examples(markov_lm(vocab=512, num_seqs=64, seq_len=S))
+    out = {}
+    for topo in ("auto", "overlap"):
+        tb = tbuild(_run(tcb, smoke, mode, 1.0, True, block_steps=block_steps,
+                         topology=topo), num_workers=W, device="cpu")
+        ts = tb.init(tree_map(lambda t: t.clone(), p0))
+        it, losses, rounds = ShardedBatches(data, W, B), [], 0
+        for _ in range(4 * H):
+            ts, m = tb.local_step(ts, next(it))
+            losses.append(m["loss"])
+            if ts.step % H == 0:
+                rounds += 1
+                scope = ("block" if block_steps > 1 and rounds % 2 else "global")
+                ts = tb.sync(ts, plan=tb.sync_plan, scope=scope)
+        out[topo] = (tb.sync_plan.topology.kind, losses, _buffers(ts))
+    (ka, la, ba), (ko, lo, bo) = out["auto"], out["overlap"]
+    assert (ka, ko) == ("flat" if block_steps == 1 else "hierarchical", "overlap")
+    assert all(torch.equal(a, b) for a, b in zip(la, lo))
+    assert len(ba) == len(bo) and all(torch.equal(a, b) for a, b in zip(ba, bo))
+
+
+@pytest.mark.parametrize("mode", ["none", "sign", "ef_sign"])
+def test_overlap_sync_equals_flat_on_two_buckets(mode):
+    """A state of two buckets (f32 and bf16 leaves), workers apart: the
+    overlap plan applies bucket 0 after bucket 1's collective, and the
+    synced state equals the flat plan's bit for bit."""
+    tree = {"a": torch.zeros((3, 200)), "b": torch.zeros((5, 7), dtype=torch.bfloat16),
+            "c": torch.zeros((130,))}
+    run = _run(tcb, tconfigs.get_smoke("paper-lm"), mode, 0.0, True)
+    init, _, sync = make_local_sgd(run, lambda p, b: None, num_workers=W)
+    out = []
+    for topo in (tsp.flat(), tsp.overlap()):
+        st = init(tree)
+        gen = torch.Generator().manual_seed(11)
+        for x in _buffers(st):                # anchor, momentum, EF memory
+            x.copy_(torch.randn(x.shape, generator=gen).to(x.dtype))
+        plan = tsp.make_sync_plan(st.params.layout, num_workers=W, topology=topo,
+                                  compression=mode, anchored=mode != "none")
+        assert plan.num_buckets == 2
+        out.append(_buffers(sync(st, plan=plan)))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
