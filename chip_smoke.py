@@ -58,17 +58,35 @@ Phases:
            bucket compressor; ops.flash_attention against the training
            path's attention (models.layers.causal_attention) at paper-lm's
            attention shape; launch counts (one per leaf, one flash).
+  N        noise-adaptive post-local SGD at full width: phase B's settings
+           with the noise_adaptive controller (NOISE_CC), 12 steps; per
+           round the H, compressor, batch and LR scale it ran under, the
+           speculative / measured sign error, the decisions and each
+           sensor's margin to its threshold; at least one actuation, the
+           launch counts (the update and sq_sum every step, the compressor
+           pair once per global round), the ledger's scaling block against
+           the decisions; median step time per batch scale beside phase
+           B's, peak memory.
+  noise    gradient noise at full width: the bucket noise on a zero
+           (W, 934,040, 128) grad bucket at t = 0 and 10 against
+           sigma_t^2 = eta / (1+t)^gamma (variance within 1e-3 relative,
+           mean below 1e-3 sigma_t, padding exactly zero, one seed the
+           same bits), then 4 full-width steps with noise_eta = 0.01.
   P        torch.profiler over two full-width local steps and one EF-sign
            sync, for SGD (phase B's run) and for LARS with telemetry
            (phase L's): device busy time by kernel family and the idle
-           share (profiler overhead included; not a timing of record).
+           share (profiler overhead included; not a timing of record), and
+           the gradient assembly's float add / fill kernels and aten ops.
            SGD's window must show no reduce_rows_kernel (sq_sum folds its
            partials in its one launch; only the update's stats form uses
            the second pass).
   C        the trainer on the card against the trainer on the CPU (the
            kernels' plain versions) at smoke size, from the same weights:
            SGD + EF-sign, hierarchical SGD (block_steps=2, mean sync), and
-           LARS with telemetry, mean and EF-sign sync.
+           LARS with telemetry, mean and EF-sign sync; then the
+           auto_compress and noise_adaptive policies with EF-sign: the same
+           decisions round by round, with each sensor's margin to its
+           threshold.
 """
 from __future__ import annotations
 
@@ -122,6 +140,16 @@ KERNELS = {
 }
 # phase L: LARS step size; the update of a layer is about lr * trust * ||w||
 LARS_LR, LARS_TRUST = 0.3, 0.02
+# phase N: noise-adaptive post-local SGD; patience / err_budget / h0 from a
+# CPU probe at full width cut to 2 layers (decisions at rounds 1-2: H 2 -> 1,
+# none -> sign, batch x2; sign errors 0.49-0.58 against the 0.95 budget)
+NOISE_CC = dict(kind="noise_adaptive", max_batch_scale=2, patience=2,
+                err_budget=0.95, noise_grow=1.0, h0=2)
+# phase C: the two compression-escalating policies at smoke size
+C_CONTROLLERS = (dict(kind="auto_compress", patience=1, err_budget=0.95),
+                 NOISE_CC)
+# the gradient-noise check: eta of the noisy steps; steps t of the draws
+NOISE_ETA, NOISE_GAMMA, NOISE_STEPS = 0.01, 0.55, (0, 10)
 # round_summary fields computed from ||mean_k x_k||^2 (post_sync_sq)
 SYNC_MEAN_KEYS = ("post_sync_sq", "dispersion", "diversity", "signal_sq",
                   "noise_sq", "noise_ratio")
@@ -538,8 +566,10 @@ def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
                   D=D, causal=True, window=window, dtype=dtype)
 
 
-def train_run(run, *, device, steps, params0=None, seed=0):
-    """fit() on markov_lm data; returns (state, history, summary, step_s)."""
+def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None):
+    """fit() on markov_lm data; returns (state, history, summary, step_s):
+    host seconds per step, each from one local step's start to the next's
+    (a device synchronize before each), the sync included on sync steps."""
     import torch
     from repro_torch.data.partition import ShardedBatches
     from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -551,23 +581,27 @@ def train_run(run, *, device, steps, params0=None, seed=0):
     data = lm_examples(markov_lm(vocab=run.model.vocab_size, num_seqs=W * B * 4,
                                  seq_len=S, seed=seed))
     bundle = build_train(run, num_workers=W, device=device)
-    it = ShardedBatches(data, W, B, seed=seed)
     step_s = []
+    local_step = bundle.local_step
 
-    class Timed:                       # host clock per step, synchronized
-        def __next__(self):
-            if torch.device(device).type == "cuda":
-                torch.cuda.synchronize()
-            step_s.append(time.perf_counter())
-            return next(it)
+    def timed_step(*args):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter())
+        return local_step(*args)
 
-    state, hist, summ = ttrain.fit(run, Timed(), bundle=bundle, num_steps=steps,
-                                   seed=seed, params0=params0,
-                                   log=lambda *a: None)
+    bundle.local_step = timed_step
+    state, hist, summ = ttrain.fit(run, ShardedBatches(data, W, B, seed=seed),
+                                   bundle=bundle, num_steps=steps, seed=seed,
+                                   params0=params0, log=lambda *a: None,
+                                   telemetry_path=telemetry_path)
     step_s.append(summ["wall_s"] + step_s[0])
     return state, hist, summ, [b - a for a, b in zip(step_s, step_s[1:])]
 
 
+# aten ops of the gradient assembly, read from phase P's profile
+ASSEMBLY_OPS = ("aten::add", "aten::add_", "aten::slice_backward",
+                "aten::zeros_like", "aten::copy_", "aten::fill_")
 BUCKET_KERNELS = ("update_kernel", "sq_sum_kernel", "reduce_rows_kernel",
                   "row_abs_sum_kernel", "scale_sign_rows_kernel",
                   "lars_row_norms_kernel")
@@ -621,6 +655,14 @@ def profile_phase(run):
         fam[f] = fam.get(f, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     reduce_rows = sum(e.count for e in kern if "reduce_rows_kernel" in e.key)
+    # the gradient assembly's share: the float add and fill kernels, and
+    # the aten ops that launch them, with their device time
+    kernel_calls = {f: [sum(e.count for e in kern if f in e.key),
+                        sum(e.self_device_time_total for e in kern
+                            if f in e.key) / 1e3]
+                    for f in ("CUDAFunctor_add<float>", "FillFunctor<float>")}
+    aten = {e.key: [e.count, e.device_time_total / 1e3]
+            for e in prof.key_averages() if e.key in ASSEMBLY_OPS}
     emit({"phase": "P", "optimizer": run.optim.optimizer,
           "telemetry": run.controller.wants_telemetry,
           "window": "2 local steps + 1 ef_sign sync",
@@ -630,7 +672,8 @@ def profile_phase(run):
           "by_family_ms": fam,
           "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
                           for e in top],
-          "reduce_rows_launches": reduce_rows})
+          "reduce_rows_launches": reduce_rows,
+          "kernel_calls_ms": kernel_calls, "aten_calls_device_ms": aten})
     if not run.controller.wants_telemetry and reduce_rows:
         raise AssertionError(f"phase P: {reduce_rows} reduce_rows_kernel "
                              "launches in an SGD window without stats")
@@ -744,10 +787,13 @@ def phase_t(cfg) -> dict:
 
 
 def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
-              lars: bool = False, block_steps: int = 1):
+              lars: bool = False, block_steps: int = 1, controller=None,
+              noise_eta: float = 0.0):
     """The phases' RunConfig; ``lars`` switches to LARS with telemetry
     (grad_clip stays set: LARS ignores it); ``block_steps`` > 1 is
-    hierarchical local SGD (Alg. 5, the default two blocks)."""
+    hierarchical local SGD (Alg. 5, the default two blocks);
+    ``controller`` a ``ControllerConfig`` keyword dict (an adaptive
+    policy); ``noise_eta`` the gradient noise."""
     from repro_torch.configs.base import (ControllerConfig, InputShape,
                                           LocalSGDConfig, OptimConfig, RunConfig)
     opt = (dict(optimizer="lars", base_lr=LARS_LR, lars_trust=LARS_TRUST)
@@ -757,8 +803,9 @@ def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
         local_sgd=LocalSGDConfig(local_steps=4, post_local_switch=4,
                                  sync_compression=mode,
                                  block_steps=block_steps),
-        optim=OptimConfig(base_batch=32, lr_warmup_steps=2, grad_clip=1.0, **opt),
-        controller=ControllerConfig(telemetry=lars),
+        optim=OptimConfig(base_batch=32, lr_warmup_steps=2, grad_clip=1.0,
+                          noise_eta=noise_eta, **opt),
+        controller=ControllerConfig(**(controller or dict(telemetry=lars))),
         steps=steps)
 
 
@@ -814,6 +861,247 @@ def phase_h(cfg, a_step_s: float) -> dict:
                              f"{topo}, launches {counts})")
     del state
     return counts
+
+
+def read_jsonl(path: Path) -> list:
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def round_modes(recs: list) -> list:
+    """Per global round, the (h, compression, batch_scale, lr_scale) the
+    round RAN under: the previous record's next_* (the first round runs
+    under the controller's initial decision)."""
+    out, prev = [], None
+    for r in recs:
+        out.append(prev)
+        prev = (r["next_h"], r["next_compression"], r["next_batch_scale"],
+                r["next_lr_scale"])
+    return out
+
+
+def sensor_margins(recs: list, cc: dict, global_batch: int) -> dict:
+    """Relative distance of each sensor a decision read to its threshold,
+    per round: the diversity EMA to low / high (diversity_h and
+    noise_adaptive), each compression error to err_budget, the
+    critical-batch EMA to noise_grow x the total batch."""
+    from repro_torch.configs.base import ControllerConfig
+    c = ControllerConfig(**cc)
+    out, ema, scale = [], None, 1
+    for r in recs:
+        m = {}
+        if c.kind in ("diversity_h", "noise_adaptive") and "diversity" in r:
+            d = r["diversity"]
+            ema = d if ema is None else c.ema * ema + (1 - c.ema) * d
+            m["diversity_ema"] = min(abs(ema - t) / t for t in (c.low, c.high))
+        if c.kind in ("auto_compress", "noise_adaptive") and r["comp_measured"]:
+            m["comp_rel_err"] = min(abs(e - c.err_budget) / c.err_budget
+                                    for e in r["comp_rel_err"])
+        bn = r.get("decisions", {}).get("b_noise")
+        if bn:
+            total = c.noise_grow * global_batch * scale
+            m["b_noise_ema"] = abs(bn["ema"] - total) / total
+        scale = r["next_batch_scale"]
+        out.append(m)
+    return out
+
+
+def decision_trace(recs: list) -> list:
+    """Per round: the next decisions and the non-float provenance."""
+    keep = lambda d: {k: {f: v for f, v in d[k].items()
+                          if not isinstance(v, float) and f != "comp_rel_err"}
+                      for k in d if k != "b_noise"}
+    return [(r["next_h"], r["next_compression"], r["next_batch_scale"],
+             r["next_lr_scale"], keep(r.get("decisions", {}))) for r in recs]
+
+
+def phase_n(cfg, b_step_s: float) -> dict:
+    """Phase N: noise-adaptive post-local SGD at full width (phase B's
+    settings with NOISE_CC): the controller actuates H, the compressor and
+    the batch from the round telemetry; every global sync launches the
+    compressor pair once, speculatively while the bucket is uncompressed.
+    Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import fused_bucket as fb
+
+    run = phase_run("ef_sign", cfg, seq=512, local_batch=8, controller=NOISE_CC)
+    path = ROOT / "build" / "phase_n.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    state, hist, summ, step_s = train_run(run, device="cuda", steps=STEPS,
+                                          telemetry_path=path)
+    counts = dict(fb.LAUNCHES)
+    recs = read_jsonl(path)
+    ran = round_modes(recs)
+    margins = sensor_margins(recs, NOISE_CC, run.shape.global_batch)
+    for r, under, m in zip(recs, ran, margins):
+        mode = under[1] if under else "none"
+        emit({"phase": "N", "round": r["round"], "step": r["step"], "h": r["h"],
+              "compression": mode, "batch_scale": under[2] if under else 1,
+              "lr_scale": under[3] if under else 1.0,
+              "comp_rel_err": r["comp_rel_err"],
+              "comp_err_kind": "speculative" if mode == "none" else "measured",
+              "diversity": r["diversity"], "signal_sq": r["signal_sq"],
+              "noise_sq": r["noise_sq"], "loss": r["loss"],
+              "next": [r["next_h"], r["next_compression"], r["next_batch_scale"],
+                       r["next_lr_scale"]],
+              "decisions": r.get("decisions", {}), "margins": m})
+    # the batch scale each step ran at: a round's decision holds from the
+    # step after its sync
+    scale_at, scale = [], 1
+    by_step = {r["step"]: r["next_batch_scale"] for r in recs}
+    for t in range(STEPS):
+        scale_at.append(scale)
+        scale = by_step.get(t, scale)
+    med = {s: statistics.median([x for t, x in enumerate(step_s)
+                                 if scale_at[t] == s and t > 0] or [float("nan")])
+           for s in sorted(set(scale_at))}
+    losses = [h["loss"] for h in hist]
+    rounds = summ["comm_rounds"]["global"]
+    led = summ["ledger"]["scaling"]
+    ran_scales = [u[2] if u else 1 for u in ran]
+    ran_lr = [u[3] if u else 1.0 for u in ran]
+    actuated = [r["round"] for r in recs
+                if set(r.get("decisions", {})) & {"h", "compression", "batch", "lr"}]
+    emit({"phase": "N", "model": cfg.name, "W": W, "local_batch": 8, "seq": 512,
+          "controller": NOISE_CC, "steps": STEPS, "loss": losses,
+          "comm_rounds": summ["comm_rounds"], "actuated_rounds": actuated,
+          "batch_scale_at_step": scale_at, "step_s": step_s,
+          "step_s_median_by_scale": {str(k): v for k, v in med.items()},
+          "phase_B_step_s_median": b_step_s,
+          "tokens_per_s_by_scale": {str(k): W * 8 * k * 512 / v
+                                    for k, v in med.items()},
+          "ledger_scaling": led, "summary_controller": summ["controller"],
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": counts,
+          "min_margin": min((v for m in margins for v in m.values()),
+                            default=None)})
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(fused_sgd_bucket=STEPS, sq_sum=STEPS, row_abs_sum=rounds,
+                scale_sign_rows=rounds)
+    bad = [k for k, ok in (
+        ("no decision changed an actuator", bool(actuated)),
+        ("loss not finite", all(math.isfinite(v) for v in losses)),
+        ("launches", counts == want),
+        ("rounds", rounds == len(recs) > 0),
+        ("ledger scaling", led["batch_scale_range"] == [min(ran_scales),
+                                                        max(ran_scales)]
+         and led["lr_scale_range"] == [min(ran_lr), max(ran_lr)]),
+        ("summary", summ["controller"]["batch_scale"] == recs[-1]["next_batch_scale"]
+         and summ["controller"]["lr_scale"] == recs[-1]["next_lr_scale"]))
+        if not ok]
+    if bad:
+        raise AssertionError(f"phase N: {', '.join(bad)} (launches {counts}, want "
+                             f"{want}; ledger {led}; decisions {actuated})")
+    del state
+    return counts
+
+
+def noise_check(cfg) -> dict:
+    """Gradient noise at full width: ``_bucket_noise`` on a zero grad bucket
+    (W x 934,040 x 128) at t = 0 and t = 10 against sigma_t^2 = eta /
+    (1+t)^gamma (per-element variance within 1e-3 relative, mean below
+    1e-3 sigma_t, padding exactly zero, one seed the same bits), then 4
+    full-width steps with noise; returns the launch counts of the steps."""
+    import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.core.local_sgd import _bucket_noise
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+
+    dev = "cuda"
+    layout = flatbuf.build_layout(mbase.abstract(lm.param_specs(cfg), torch.float32))
+    rows = layout.bucket_rows[0]
+    valid = flatbuf.const("valid_mask", layout, 0, dev)
+    n = float(valid.sum()) * W
+    bad = []
+    for t in NOISE_STEPS:
+        sigma = math.sqrt(NOISE_ETA / (1.0 + t) ** NOISE_GAMMA)
+        draw = lambda: _bucket_noise(
+            layout, [torch.zeros((W, rows, 128), device=dev)],
+            torch.Generator(device=dev).manual_seed(t), step=t, eta=NOISE_ETA,
+            gamma=NOISE_GAMMA)[0]
+        g = draw()
+        mean = float(g.sum(dtype=torch.float64)) / n
+        var = float((g.double() ** 2).sum()) / n - mean ** 2
+        pad_max = float((g * (1 - valid)).abs().max())
+        same = bool(torch.equal(g.view(torch.int32), draw().view(torch.int32)))
+        rec = {"phase": "noise", "shape": [W, rows, 128], "step": t,
+               "eta": NOISE_ETA, "gamma": NOISE_GAMMA, "sigma": sigma,
+               "var_rel_err": abs(var / sigma ** 2 - 1), "var_tol": 1e-3,
+               "mean_over_sigma": abs(mean) / sigma, "mean_tol": 1e-3,
+               "padding_max_abs": pad_max, "same_bits_same_seed": same}
+        emit(rec)
+        if not (rec["var_rel_err"] <= 1e-3 and rec["mean_over_sigma"] <= 1e-3
+                and pad_max == 0.0 and same):
+            bad.append(f"t={t}")
+        del g
+    run = phase_run("none", cfg, seq=512, local_batch=8, steps=4,
+                    noise_eta=NOISE_ETA)
+    fb.reset_launches()
+    state, hist, _, step_s = train_run(run, device="cuda", steps=4)
+    counts = dict(fb.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    emit({"phase": "noise", "model": cfg.name, "noise_eta": NOISE_ETA,
+          "steps": 4, "loss": losses, "step_s": step_s, "launches": counts})
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(fused_sgd_bucket=4, sq_sum=4)
+    if not all(math.isfinite(v) for v in losses) or counts != want:
+        bad.append(f"noisy steps: losses {losses}, launches {counts}")
+    if bad:
+        raise AssertionError(f"gradient noise check failed: {bad}")
+    del state
+    return counts
+
+
+def phase_c_controllers(smoke, p0):
+    """Phase C for the compression-escalating policies: the trainer with
+    auto_compress / noise_adaptive on the card and on the CPU at smoke
+    size, from the same weights: the same decision sequence, and losses
+    and params within phase C's EF-sign tolerances."""
+    import torch
+    from repro_torch.utils import tree_map
+
+    rel = lambda a, b: abs(a - b) / abs(b) if b else abs(a)
+    for cc in C_CONTROLLERS:
+        run = phase_run("ef_sign", smoke, seq=64, local_batch=2, steps=8,
+                        controller=cc)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            path = ROOT / "build" / f"phase_c_{cc['kind']}_{dev}.jsonl"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            st, hist, summ, _ = train_run(
+                run, device=dev, steps=8, telemetry_path=path,
+                params0=tree_map(lambda t: t.to(dev).clone(), p0))
+            out[dev] = (st.params.buckets[0].cpu(), [h["loss"] for h in hist],
+                        summ, read_jsonl(path))
+        (pg, lg, sg, rg), (pc, lc, sc, rc) = out["cuda"], out["cpu"]
+        loss_rel = max(rel(a, b) for a, b in zip(lg, lc))
+        d = (pg - pc).abs()
+        frac = float((d > 1e-4 * pc.abs().max()).float().mean())
+        dg, dc = decision_trace(rg), decision_trace(rc)
+        margins = sensor_margins(rg, cc, run.shape.global_batch)
+        low = [(i + 1, k, v) for i, m in enumerate(margins)
+               for k, v in m.items() if v < 1e-3]
+        emit({"phase": "C", "model": smoke.name, "controller": cc,
+              "sync_compression": "ef_sign", "steps": 8,
+              "comm_rounds": sg["comm_rounds"], "decisions_gpu": dg,
+              "decisions_cpu": dc, "decisions_equal": dg == dc,
+              "loss_gpu": lg, "loss_cpu": lc, "loss_max_rel_diff": loss_rel,
+              "loss_tol": 1e-4, "params_frac_beyond_1e-4_of_max": frac,
+              "frac_tol": 1e-4, "sensor_margins": margins,
+              "margins_below_1e-3": low})
+        from repro_torch.core.controller import make_controller
+        d0 = make_controller(run, n_comp=1).plan_delta(0)
+        actuated = any(x[1] != "|".join(d0.compression) or x[2] != 1
+                       or x[3] != 1.0 or "h" in x[4] for x in dc)
+        if dg != dc or loss_rel > 1e-4 or frac > 1e-4 or not actuated \
+                or sg["comm_rounds"] != sc["comm_rounds"]:
+            raise AssertionError(f"phase C ({cc['kind']}): the controller on "
+                                 f"the card disagrees with the CPU's (or never "
+                                 f"actuated): {dg} vs {dc}")
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -938,6 +1226,13 @@ def main() -> int:
     launches.update(phase_t(cfg))
     torch.cuda.empty_cache()
 
+    for k, v in phase_n(cfg, step_median["B"]).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    for k, v in noise_check(cfg).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
     for lars in (False, True):
         profile_phase(phase_run("ef_sign", cfg, seq=512, local_batch=8, lars=lars))
         torch.cuda.empty_cache()
@@ -1000,7 +1295,10 @@ def main() -> int:
                                  f"the card disagrees with the trainer on the CPU"
                                  f"{': ' + ', '.join(bad) if bad else ''}")
 
-    # launches: phases A, B, L and H for the bucket kernels, T for the others
+    phase_c_controllers(smoke, p0)
+
+    # launches: phases A, B, L, H, N and the noise check for the bucket
+    # kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"kernels": [

@@ -125,8 +125,13 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class ControllerConfig:
-    """Adaptive sync controller settings.  Only ``kind="static"`` runs in
-    the port so far, with or without telemetry."""
+    """Adaptive sync controller settings (policies in
+    ``core/controller.py``): ``static`` (the pre-scheduled H(t)),
+    ``diversity_h``, ``adaptive_batch``, ``auto_compress`` (needs
+    ``sync_compression='ef_sign'``) and ``noise_adaptive`` run in the
+    port; ``elastic`` raises (it needs workers across GPUs).
+    ``telemetry=None`` collects round statistics exactly when the kind
+    needs them (any non-static kind)."""
 
     kind: Literal["static", "diversity_h", "adaptive_batch",
                   "auto_compress", "noise_adaptive", "elastic"] = "static"
@@ -152,6 +157,12 @@ class ControllerConfig:
         if self.telemetry is None:
             return self.kind != "static"
         return self.telemetry
+
+    @property
+    def wants_speculation(self) -> bool:
+        """Measure the would-be sign error on uncompressed rounds: the
+        turn-on signal of the compression-escalating policies."""
+        return self.kind in ("auto_compress", "noise_adaptive")
 
 
 @dataclass(frozen=True)

@@ -45,6 +45,8 @@ def state_from_reference(ref_state, *, layout: flatbuf.FlatLayout, device,
 
     ``layout`` is the port's layout for the same model (e.g.
     ``TrainBundle.layout``); every buffer must have its bucket rows.
+    The reference's JAX key has no torch counterpart: the state's
+    generator (the gradient noise's stream) is seeded with 0.
     """
     def conv(field, leading):
         if field is None:
@@ -68,4 +70,5 @@ def state_from_reference(ref_state, *, layout: flatbuf.FlatLayout, device,
                          anchor=conv(ref_state.anchor, 0),
                          global_u=conv(ref_state.global_u, 0),
                          ef_memory=conv(ref_state.ef_memory, 1),
-                         step=int(np.asarray(ref_state.step)), stats=stats)
+                         step=int(np.asarray(ref_state.step)), stats=stats,
+                         rng=torch.Generator(device=device).manual_seed(0))

@@ -14,10 +14,11 @@ Layout invariants are the reference's, row for row:
   ``(W, ...)`` worker trees; the layout is keyed on per-worker shapes.
 
 ``unflatten`` returns VIEWS into the bucket buffers.  The resident local
-step builds each worker's param tree this way and differentiates the
-loss with respect to the bucket itself, so the gradient comes out as a
-bucket whose padding is exactly zero (autograd writes zeros wherever no
-view reads).
+step builds each worker's param tree with :func:`unflatten_grad_into`
+instead: the same views, whose backward writes every leaf's gradient
+once into its rows of a grad bucket that the caller zeroed, so the
+gradient comes out as a bucket whose padding is exactly zero without a
+full-bucket pass per leaf.
 
 Sharding classes (FSDP/TP sub-buckets, shard-major packing) are not
 ported yet: :func:`build_layout` raises on a non-replicated class.
@@ -172,6 +173,54 @@ def unflatten(layout: FlatLayout, buckets: Sequence[torch.Tensor], *,
         for s in layout.bucket_slots(b):
             off = s.row_offset * LANE
             vals[s.index] = flat[..., off:off + s.size].reshape(lead + s.shape)
+    return tree_unflatten(layout.treedef, vals)
+
+
+class _LeafViews(torch.autograd.Function):
+    """The leaves of one single-copy bucket as views (forward).  Backward
+    copies each leaf's gradient into its slice of ``out``, a bucket whose
+    padding the caller zeroed, and returns ``out`` itself: the gradient
+    lands once, where plain slicing would build one zero-filled bucket per
+    leaf (``slice_backward``) and add them up."""
+
+    @staticmethod
+    def forward(ctx, buf, slots, out):
+        ctx.slots, ctx.out = slots, out
+        ctx.set_materialize_grads(False)
+        flat = buf.view(-1)
+        return tuple(flat[s.row_offset * LANE:s.row_offset * LANE + s.size]
+                     .view(s.shape) for s in slots)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # drop the node's reference to the grad bucket: on the card the
+        # node outlives the step, and held one stacked grad bucket (W x
+        # 478 MB at paper-lm's width) from one step into the next
+        out, ctx.out = ctx.out, None
+        flat = out.view(-1)
+        for s, g in zip(ctx.slots, grads):
+            dst = flat[s.row_offset * LANE:s.row_offset * LANE + s.size]
+            if g is None:
+                dst.zero_()
+            else:
+                dst.copy_(g.reshape(-1))
+        return out, None, None
+
+
+def unflatten_grad_into(layout: FlatLayout, buckets: Sequence[torch.Tensor],
+                        grads: Sequence[torch.Tensor]):
+    """:func:`unflatten` of single-copy ``buckets`` (which require grad)
+    whose gradient lands in ``grads``: differentiating through the views
+    writes each leaf's gradient into its rows of ``grads[b]`` in one pass
+    and yields ``grads[b]`` as the bucket's gradient.  The caller zeroes
+    ``grads`` (same shape as ``buckets``) once; its padding stays zero."""
+    assert len(buckets) == len(grads) == layout.num_buckets
+    vals: list = [None] * layout.num_leaves
+    for b, (buf, out) in enumerate(zip(buckets, grads)):
+        assert buf.shape == out.shape, (buf.shape, out.shape)
+        slots = tuple(layout.bucket_slots(b))
+        for s, v in zip(slots, _LeafViews.apply(buf, slots, out)):
+            vals[s.index] = v
     return tree_unflatten(layout.treedef, vals)
 
 

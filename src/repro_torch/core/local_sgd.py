@@ -8,13 +8,17 @@ same card; the anchor (the last synced model) is a single-copy
 syncs — the tree view exists only at ``unpack_state`` / ``mean_params``.
 
 * ``local_step`` differentiates each worker's loss with respect to its
-  param BUCKET (the model reads views into it, ``flatbuf.unflatten``), so
-  the gradient is a bucket with exact-zero padding; then ONE fused update
-  launch per bucket updates all W workers in place: SGD (plus one
-  ``sq_sum`` launch per bucket for the per-worker grad clip) or LARS (plus
-  one ``lars_row_norms`` launch per bucket for the trust ratios; no
-  clip).  Workers run one after another in a Python loop where the
-  reference uses ``vmap``.
+  param BUCKET (the model reads views into it,
+  ``flatbuf.unflatten_grad_into``), so each worker's gradient lands once
+  in its row of the stacked grad bucket, with exact-zero padding;
+  optional isotropic gradient noise (``noise_eta > 0``) is added there,
+  masked off the padding; then ONE fused update launch per bucket
+  updates all W workers in place: SGD (plus one ``sq_sum`` launch per
+  bucket for the per-worker grad clip) or LARS (plus one
+  ``lars_row_norms`` launch per bucket for the trust ratios; no clip).
+  Workers run one after another in a Python loop where the reference
+  uses ``vmap``.  ``lr_scale`` multiplies the scheduled lr (the
+  controllers' LR actuator).
 * ``sync`` executes one scope of a :class:`~repro_torch.core.syncplan.SyncPlan`
   (flat, hierarchical or overlap topology): the no-anchor mean sync
   averages the worker copies in place, over all W at global scope or over
@@ -30,28 +34,33 @@ With telemetry (``make_local_sgd(..., telemetry=True)``) ``state.stats``
 carries a ``telemetry.stats.StatsAccumulator``: the per-worker grad and
 update norms come from the update launch's ``stats=True`` form, and each
 global sync (block syncs record nothing) records its pre-/post-mean norm
-pair and per-bucket compression error.
+pair and per-bucket compression error.  With ``speculate_compression``
+(the compression-escalating controllers) a global sync also measures,
+for every bucket it sends uncompressed, the error the sign compressor
+WOULD make: the controller's turn-on signal.
 
 The update is in place: ``local_step`` and ``sync`` return a state that
 shares (and has mutated) the buffers of the one they were given.
 
-Not ported yet, and raising ``NotImplementedError``: gradient noise
-(``noise_eta > 0``), the 1-bit wire pack and coalesced collectives,
-adaptive controllers (and the speculative compression error they
-measure) and the per-leaf tree path.
+Not ported yet, and raising ``NotImplementedError``: the 1-bit wire pack
+and coalesced collectives, the elastic controller (it needs workers
+across GPUs) and the per-leaf tree path.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import LocalSGDConfig, RunConfig
 from repro_torch.core import compression as comp
 from repro_torch.core import flatbuf
 from repro_torch.core import syncplan as splan
+from repro_torch.core.controller import ELASTIC_NOT_PORTED
 from repro_torch.core.schedule import lr_at
 from repro_torch.optim.lars import apply_lars_buckets
 from repro_torch.optim.sgd import apply_sgd_buckets
@@ -67,6 +76,7 @@ class LocalSGDState:
     ef_memory: Any       # BucketState, stacked, or None
     step: int = 0
     stats: Any = None    # telemetry.stats.StatsAccumulator or None
+    rng: Any = None      # torch.Generator on the training device (noise)
 
 
 def needs_anchor(cfg: LocalSGDConfig) -> bool:
@@ -79,7 +89,7 @@ def unpack_state(state: LocalSGDState) -> LocalSGDState:
     return LocalSGDState(params=up(state.params), momentum=up(state.momentum),
                          anchor=up(state.anchor), global_u=up(state.global_u),
                          ef_memory=up(state.ef_memory), step=state.step,
-                         stats=state.stats)
+                         stats=state.stats, rng=state.rng)
 
 
 def mean_params(state: LocalSGDState):
@@ -105,36 +115,66 @@ def group_mean(x, group: int):
     return m.expand(xg.shape).reshape(x.shape)
 
 
+def _bucket_noise(layout, gbs, gen, *, step: int, eta: float, gamma: float):
+    """Isotropic gradient noise straight on one worker's grad buckets, in
+    place: g += sigma_t * N(0, 1), sigma_t = sqrt(eta / (1+t)^gamma), the
+    schedule of :func:`repro_torch.core.noise.isotropic_noise`.  The draw
+    comes from the explicit generator ``gen`` (one stream per state, so
+    one seed gives the same bits) and is masked, so padding stays exactly
+    zero.  Keyed per bucket, not per leaf: the same N(0, sigma_t^2) per
+    element as the reference's bucket noise, but another stream, so noisy
+    runs compare with it statistically, never bitwise."""
+    if eta <= 0:
+        return gbs
+    sigma = math.sqrt(eta / (1.0 + step) ** gamma)
+    for b, g in enumerate(gbs):
+        n = torch.randn(g.shape, generator=gen, dtype=torch.float32,
+                        device=g.device)
+        g.add_(flatbuf.mask_padding(layout, b, n).mul_(sigma).to(g.dtype))
+    return gbs
+
+
+def _worker_grad(layout, loss_fn, pbs_w, batch_w, gw):
+    """One worker's loss on its param buckets ``pbs_w``; the gradient lands
+    in ``gw`` (zeroed grad buckets) once, through
+    ``flatbuf.unflatten_grad_into``.  Returns (loss, metrics)."""
+    src = [b.detach().requires_grad_(True) for b in pbs_w]
+    loss, metrics = loss_fn(flatbuf.unflatten_grad_into(layout, src, gw),
+                            batch_w)
+    torch.autograd.grad(loss, src)
+    return loss, metrics
+
+
 def _check_supported(run: RunConfig):
     ls, opt = run.local_sgd, run.optim
-    if opt.noise_eta > 0:
-        raise NotImplementedError("gradient noise (noise_eta > 0) is not ported yet")
     if opt.optimizer not in ("sgd", "lars"):
         raise NotImplementedError(f"optimizer {opt.optimizer!r} is not ported yet")
     if ls.wire_pack or ls.sync_coalesce:
         raise NotImplementedError("the 1-bit wire pack and coalesced "
                                   "collectives are not ported yet")
-    if run.controller.kind != "static":
-        raise NotImplementedError(f"controller {run.controller.kind!r} is not "
-                                  "ported yet (telemetry with the static "
-                                  "schedule is)")
+    if run.controller.kind == "elastic":
+        raise NotImplementedError(ELASTIC_NOT_PORTED)
 
 
 def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
-                   wd_mask=None, telemetry: bool = False):
+                   wd_mask=None, telemetry: bool = False,
+                   speculate_compression: bool = False):
     """Build (init, local_step, sync) for a single-worker
     ``loss_fn(params, batch) -> (loss, metrics)`` on resident buckets.
     ``telemetry`` carries a ``StatsAccumulator`` in ``state.stats``; it
-    observes only, the trajectory is the same with it on or off."""
+    observes only, the trajectory is the same with it on or off.
+    ``speculate_compression`` (with telemetry) records the would-be sign
+    error of every bucket a global sync sends uncompressed."""
     _check_supported(run)
     ls = run.local_sgd
     opt = run.optim
     W = num_workers
     global_batch = run.shape.global_batch
 
-    def init(params_single) -> LocalSGDState:
+    def init(params_single, seed: int = 0) -> LocalSGDState:
         """Enter resident form from a single-copy param tree (tensors on
-        the training device)."""
+        the training device); ``seed`` seeds the state's generator (the
+        gradient noise's stream)."""
         layout = flatbuf.build_layout(params_single, wd_mask=wd_mask)
         pb = flatbuf.flatten(layout, params_single)
         stacked = lambda: tuple(b[None].repeat(W, 1, 1) for b in pb)
@@ -152,26 +192,34 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                        if ls.sync_compression == "ef_sign" else None),
             step=0,
             stats=(tstats.init_stats(W, layout.num_buckets, pb[0].device)
-                   if telemetry else None))
+                   if telemetry else None),
+            rng=torch.Generator(device=pb[0].device).manual_seed(seed))
 
-    def local_step(state: LocalSGDState, batch):
+    def local_step(state: LocalSGDState, batch, lr_scale=None):
         """One local step of every worker.  ``batch``: dict of (W, B_loc,
-        ...) integer arrays (numpy or tensors)."""
+        ...) integer arrays (numpy or tensors).  ``lr_scale`` multiplies
+        the scheduled lr (in float32, as the reference does); ``None``
+        keeps the two-argument call's trajectory bit for bit."""
         layout = state.params.layout
         pbs = list(state.params.buckets)
         dev = pbs[0].device
         lr = lr_at(opt, state.step, global_batch=global_batch)
+        if lr_scale is not None:
+            lr = lr * np.float32(lr_scale)
         batch = {k: torch.as_tensor(v).to(dev, torch.int64)
                  for k, v in batch.items()}
-        gbs = [torch.empty_like(b) for b in pbs]
+        # every worker's gradient lands in its row once; zeroed here once
+        # for all W, so the padding is exact zero
+        gbs = [torch.zeros_like(b) for b in pbs]
         losses, metrics_w = [], []
         for w in range(W):
-            src = [b[w].detach().requires_grad_(True) for b in pbs]
-            params = flatbuf.unflatten(layout, src)
-            loss, metrics = loss_fn(params, {k: v[w] for k, v in batch.items()})
-            grads = torch.autograd.grad(loss, src)
-            for g_all, g in zip(gbs, grads):
-                g_all[w].copy_(g)
+            gw = [g[w] for g in gbs]
+            loss, metrics = _worker_grad(layout, loss_fn, [b[w] for b in pbs],
+                                         {k: v[w] for k, v in batch.items()},
+                                         gw)
+            if opt.noise_eta > 0:
+                _bucket_noise(layout, gw, state.rng, step=state.step,
+                              eta=opt.noise_eta, gamma=opt.noise_gamma)
             losses.append(loss.detach())
             metrics_w.append({k: v.detach() for k, v in metrics.items()})
         ubs = list(state.momentum.buckets)
@@ -197,7 +245,7 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         new = LocalSGDState(params=state.params, momentum=state.momentum,
                             anchor=state.anchor, global_u=state.global_u,
                             ef_memory=state.ef_memory, step=state.step + 1,
-                            stats=stats)
+                            stats=stats, rng=state.rng)
         return new, metrics
 
     def sync(state: LocalSGDState, *, plan=None,
@@ -274,6 +322,14 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                         ref[b] = _sumsq(inp)
                 else:
                     x[b] = delta
+                    if telemetry and speculate_compression:
+                        # the WOULD-BE sign error of this uncompressed
+                        # bucket: the escalating controllers' turn-on
+                        # signal
+                        cs = comp.sign_compress_bucket(layout, b, delta,
+                                                       leading=1)
+                        err[b] = _sumsq(delta.float() - cs)
+                        ref[b] = _sumsq(delta)
                 if telemetry:
                     x_sq[b] = _sumsq(x[b], from_axis=1)
             elif st.kind == "collective":
@@ -299,7 +355,7 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         for b in range(nb):
             pre_w = pre_w + x_sq[b]
         kw = {}
-        if any(m != "none" for m in modes):
+        if any(m != "none" for m in modes) or speculate_compression:
             kw = dict(comp_err_sq=torch.stack(err), comp_ref_sq=torch.stack(ref))
         stats = tstats.record_sync(state.stats, pre_sync_sq=pre_w.mean(),
                                    post_sync_sq=sum(dbar_sq), **kw)

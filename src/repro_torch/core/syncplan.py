@@ -18,10 +18,10 @@ bytes (the same formulas as ``telemetry.ledger.analytic_sync_cost``).
 
 ``local_sgd.sync(state, plan=, scope=)`` executes ``plan.schedule(scope)``
 and ``telemetry.ledger.CommsLedger.record_plan`` prices its collective
-stages.  Not ported yet, and raising: coalesced collectives and the
-1-bit wire pack (with workers across GPUs), and the controller's
-``PlanDelta``.  The port has no mesh, so every stage's ``reduce_axes``
-is ``()``.
+stages, and a controller's :class:`PlanDelta` rewrites the plan between
+rounds.  Not ported yet, and raising: coalesced collectives and the
+1-bit wire pack (with workers across GPUs).  The port has no mesh, so
+every stage's ``reduce_axes`` is ``()``.
 """
 from __future__ import annotations
 
@@ -319,3 +319,45 @@ def resolve_topology(ls, num_workers: int) -> Topology:
     if kind == "overlap":
         return overlap(bs if ls.block_steps > 1 else 0)
     raise ValueError(f"unknown sync_topology {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Controller actuator surface
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PlanDelta:
+    """One round's controller decision (``core/controller`` policies emit
+    one per global sync round; ``launch/train.fit`` applies it).
+
+    ``h``           — local steps H for the NEXT round (None = keep).
+    ``compression`` — per-stage compressor rewrite for the plan
+                      (None = keep; str broadcasts; tuple per bucket).
+    ``topology``    — switch the plan's :class:`Topology` (None = keep).
+    ``batch_scale`` — per-worker batch multiplier (None = keep).
+    ``lr_scale``    — runtime LR multiplier that ``fit`` applies to the
+                      scheduled lr (None = keep).
+    ``workers``, ``demote``, ``promote`` — the elastic policy's worker-set
+                      changes (a resize, a straggler's demotion to the
+                      outer scope and its return); ``fit`` raises on
+                      them until workers span GPUs.
+    ``block_steps`` — runtime Alg. 5 block-phase length for
+                      ``DynamicSchedule`` (None = keep).
+
+    Only ``compression`` and ``topology`` touch the plan: ``apply``
+    ignores the rest, which ``fit`` consumes.
+    """
+    h: int | None = None
+    compression: Any = None
+    topology: Topology | None = None
+    batch_scale: int | None = None
+    lr_scale: float | None = None
+    workers: int | None = None
+    demote: int | None = None
+    promote: int | None = None
+    block_steps: int | None = None
+
+    def apply(self, plan: SyncPlan) -> SyncPlan:
+        """Derive the next round's plan.  An empty delta returns the SAME
+        object: the static policy cannot perturb the schedule."""
+        return plan.with_modes(self.compression).with_topology(self.topology)

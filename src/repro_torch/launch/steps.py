@@ -6,7 +6,9 @@ reference selects with ``use_kernel=True`` — so every local step runs the
 fused SGD or LARS kernels and every sign / EF-sign sync the compressor
 kernels.  The sync plan takes the config's topology
 (``syncplan.resolve_topology``: hierarchical when ``block_steps > 1``).
-Telemetry is on when ``run.controller.wants_telemetry``.
+Telemetry is on when ``run.controller.wants_telemetry``, and the
+speculative compression error when ``run.controller.wants_speculation``
+(the compression-escalating controllers).
 """
 from __future__ import annotations
 
@@ -54,8 +56,10 @@ def build_train(run: RunConfig, *, num_workers: int = 1,
         return lm.loss_fn(cfg, params, batch)
 
     telemetry = run.controller.wants_telemetry
-    init, local_step, sync = make_local_sgd(run, loss, num_workers=num_workers,
-                                            wd_mask=wd_mask, telemetry=telemetry)
+    init, local_step, sync = make_local_sgd(
+        run, loss, num_workers=num_workers, wd_mask=wd_mask,
+        telemetry=telemetry,
+        speculate_compression=run.controller.wants_speculation)
     layout = flatbuf.build_layout(
         mbase.abstract(specs, flatbuf.torch_dtype(cfg.param_dtype)),
         wd_mask=wd_mask)

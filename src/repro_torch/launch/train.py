@@ -1,35 +1,49 @@
 """Training driver: the paper's schedules on top of the step builder (the
-core of ``repro.launch.train.fit``).
+port of ``repro.launch.train.fit``, without the tracer, backends and the
+elastic policy).
 
 The communication pattern is decided on the host from the
 ``LocalSGDConfig`` exactly like the paper's Alg. 1/2/5 outer loops: every
-step is a local step, and a sync follows whenever the static schedule
-(``local_steps_at`` through ``DynamicSchedule``) says so — a block sync
-(Alg. 5's inner mean, level 1) or a global one (level 2).  A
+step is a local step, and a sync follows whenever the schedule
+(``DynamicSchedule`` over the controller's ``h_at``) says so — a block
+sync (Alg. 5's inner mean, level 1) or a global one (level 2).  A
 ``CommsLedger`` prices every sync from the plan's collective stages.
+
+The controller (``core/controller.py``, ``ControllerConfig.kind``)
+closes the loop: at each global sync the telemetry round summary goes
+into ``update``, and the :class:`~repro_torch.core.syncplan.PlanDelta` it
+emits rewrites the plan (compressor modes, topology), the per-worker
+batch (``_scaled_batch``), the LR scale and the block cadence for the
+next round.  ``telemetry_path`` gets one JSON line per global round.
 
 CLI:
     PYTHONPATH=src python -m repro_torch.launch.train --steps 40
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --block-steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --controller noise_adaptive
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.configs.base import InputShape, LocalSGDConfig, OptimConfig, RunConfig
+from repro_torch.configs.base import (ControllerConfig, InputShape,
+                                      LocalSGDConfig, OptimConfig, RunConfig)
+from repro_torch.core.controller import RoundReport, make_controller
 from repro_torch.core.local_sgd import mean_params
-from repro_torch.core.schedule import DynamicSchedule, local_steps_at
+from repro_torch.core.schedule import DynamicSchedule
 from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
 from repro_torch.models import base as mbase
 from repro_torch.models import lm
 from repro_torch.telemetry.ledger import CommsLedger
+from repro_torch.telemetry.stats import round_summary
 
 
 def _sync_device(device):
@@ -37,17 +51,40 @@ def _sync_device(device):
         torch.cuda.synchronize(device)
 
 
+def _scaled_batch(data_iter, scale: int):
+    """Concatenate ``scale`` batches along the local-batch dim (axis 1 of
+    the (W, B_loc, ...) arrays): the batch-growth actuator."""
+    if scale <= 1:
+        return next(data_iter)
+    parts = [next(data_iter) for _ in range(scale)]
+    cat = lambda xs: (torch.cat(xs, dim=1) if isinstance(xs[0], torch.Tensor)
+                      else np.concatenate(xs, axis=1))
+    return {k: cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _mode_str(modes) -> str:
+    if modes is None:
+        return "config"
+    if isinstance(modes, str):
+        return modes
+    return "|".join(modes)
+
+
 def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
-        eval_every=0, eval_fn=None, log=print, params0=None, device=None):
+        eval_every=0, eval_fn=None, log=print, params0=None, device=None,
+        controller=None, telemetry_path=None):
     """Run the schedule; returns (state, history, summary).
 
     ``params0`` is the single-copy param tree to start from (e.g. weights
     carried over from the JAX package with ``repro_torch.convert``); by
     default it is drawn from the specs with a ``torch.Generator`` seeded
-    with ``seed``.  ``summary`` has ``comm_rounds`` ({"block", "global"}),
-    ``wall_s`` (host clock, ending after a device synchronize), the
-    plan's ``topology`` and the ledger's ``summary()`` (analytic ring
-    bytes per round; no sync seconds yet).
+    with ``seed``, which also seeds the state's gradient-noise stream.
+    ``controller`` overrides the policy built from ``run.controller``;
+    ``telemetry_path`` writes one JSON line per global round.
+    ``summary`` has ``comm_rounds`` ({"block", "global"}), ``wall_s``
+    (host clock, ending after a device synchronize), the plan's
+    ``topology``, the ledger's ``summary()`` (analytic ring bytes per
+    round; no sync seconds yet) and the ``controller``'s final decisions.
     """
     if bundle is None:
         from repro_torch.launch.steps import build_train
@@ -60,39 +97,112 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
         gen = torch.Generator(device=dev).manual_seed(seed)
         params0 = mbase.materialize(bundle.specs, gen, dev,
                                     dtype=getattr(torch, run.model.param_dtype))
-    state = bundle.init(params0)
-    plan = bundle.sync_plan
-    sched = DynamicSchedule(ls, lambda t: local_steps_at(ls, t))
+    state = bundle.init(params0, seed=seed)
+
+    controller = controller or make_controller(run, n_comp=bundle.n_comp)
+    sched = DynamicSchedule(ls, controller.h_at)
+    # round 1 runs under the controller's INITIAL decision: the
+    # error-driven compressor policies start uncompressed whatever the
+    # config allocated; an identity policy returns the same plan
+    plan = controller.plan_delta(0).apply(bundle.sync_plan)
 
     ledger = CommsLedger()
     history = []
     comm_rounds = {"block": 0, "global": 0}
+    global_rounds = 0
+    # the controller's LR multiplier; at 1.0 the step is the two-argument
+    # call, so a static run keeps its trajectory bit for bit
+    lr_scale_now = 1.0
+    tlog = open(telemetry_path, "w") if telemetry_path else None
     t_start = time.perf_counter()
-    for t in range(num_steps):
-        h_now = max(local_steps_at(ls, t), 1)
-        state, metrics = bundle.local_step(state, next(data_iter))
-        level = sched.advance(t)
-        synced = ""
-        if level:
-            scope = "block" if level == 1 else "global"
-            state = bundle.sync(state, plan=plan, scope=scope)
-            ledger.record_plan(step=t, level=level, h=h_now, plan=plan,
-                               scope=scope, num_workers=bundle.num_workers)
-            comm_rounds[scope] += 1
-            synced = scope
-        rec = {k: float(v) for k, v in metrics.items()}
-        rec.update(step=t, synced=synced)
-        history.append(rec)
-        if eval_every and eval_fn and (t + 1) % eval_every == 0:
-            ev = eval_fn(state)
-            rec.update({f"eval_{k}": float(v) for k, v in ev.items()})
-            log(f"step {t+1}: loss={rec['loss']:.4f} "
-                + " ".join(f"eval_{k}={float(v):.4f}" for k, v in ev.items()))
+    try:
+        for t in range(num_steps):
+            h_now = max(int(controller.h_at(t)), 1)
+            batch = _scaled_batch(data_iter, controller.batch_scale())
+            if lr_scale_now == 1.0:
+                state, metrics = bundle.local_step(state, batch)
+            else:
+                state, metrics = bundle.local_step(state, batch, lr_scale_now)
+            level = sched.advance(t)
+            synced = ""
+            if level == 1:
+                state = bundle.sync(state, plan=plan, scope="block")
+                ledger.record_plan(step=t, level=1, h=h_now, plan=plan,
+                                   scope="block",
+                                   num_workers=bundle.num_workers)
+                comm_rounds["block"] += 1
+                synced = "block"
+            elif level == 2:
+                state = bundle.sync(state, plan=plan, scope="global")
+                global_rounds += 1
+                entry = ledger.record_plan(
+                    step=t, level=2, h=h_now, plan=plan, scope="global",
+                    batch_scale=controller.batch_scale(),
+                    lr_scale=lr_scale_now, num_workers=bundle.num_workers)
+                comm_rounds["global"] += 1
+                synced = "global"
+                report = RoundReport(
+                    round=global_rounds, step=t, h=h_now,
+                    loss=float(metrics["loss"]),
+                    stats=round_summary(state.stats) if bundle.telemetry else {},
+                    wire_bytes=entry["bytes_on_wire"],
+                    collectives=entry["collectives"])
+                controller.update(report)
+                delta = controller.plan_delta(t + 1)
+                if any(getattr(delta, k) is not None
+                       for k in ("workers", "demote", "promote")):
+                    raise NotImplementedError(
+                        "a PlanDelta that resizes, demotes or promotes "
+                        "workers needs workers across GPUs (ROADMAP A.5)")
+                plan = delta.apply(plan)
+                if delta.lr_scale is not None:
+                    lr_scale_now = float(delta.lr_scale)
+                if tlog is not None:
+                    # None delta fields mean "keep": log the effective
+                    # next decision
+                    rec = {"round": report.round, "step": t, "h": h_now,
+                           "loss": report.loss, **report.stats,
+                           "wire_bytes": report.wire_bytes,
+                           "collectives": report.collectives,
+                           "cum_wire_bytes": ledger.total_bytes(),
+                           "next_h": int(delta.h if delta.h is not None
+                                         else controller.h_at(t + 1)),
+                           "next_compression": _mode_str(delta.compression),
+                           "next_batch_scale": int(
+                               delta.batch_scale
+                               if delta.batch_scale is not None
+                               else controller.batch_scale()),
+                           "next_lr_scale": lr_scale_now,
+                           "topology": plan.topology.describe()}
+                    prov = getattr(controller, "decisions", None)
+                    if prov:
+                        rec["decisions"] = prov
+                    tlog.write(json.dumps(rec) + "\n")
+                    tlog.flush()
+                if delta.block_steps is not None:
+                    sched.block_steps = int(delta.block_steps)
+            rec = {k: float(v) for k, v in metrics.items()}
+            rec.update(step=t, synced=synced)
+            history.append(rec)
+            if eval_every and eval_fn and (t + 1) % eval_every == 0:
+                ev = eval_fn(state)
+                rec.update({f"eval_{k}": float(v) for k, v in ev.items()})
+                log(f"step {t+1}: loss={rec['loss']:.4f} "
+                    + " ".join(f"eval_{k}={float(v):.4f}" for k, v in ev.items()))
+    finally:
+        if tlog is not None:
+            tlog.close()
     _sync_device(dev)
     wall = time.perf_counter() - t_start
     summary = {"wall_s": wall, "comm_rounds": comm_rounds, "steps": num_steps,
                "topology": plan.topology.describe(),
-               "ledger": ledger.summary()}
+               "ledger": ledger.summary(),
+               "controller": {"kind": getattr(controller, "kind", "custom"),
+                              "h_final": int(controller.h_at(num_steps)),
+                              "compression": _mode_str(
+                                  controller.compression()),
+                              "batch_scale": controller.batch_scale(),
+                              "lr_scale": lr_scale_now}}
     return state, history, summary
 
 
@@ -131,6 +241,12 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.2)
     ap.add_argument("--sync-compression", default="none",
                     choices=["none", "sign", "ef_sign"])
+    ap.add_argument("--controller", default="static",
+                    choices=["static", "diversity_h", "adaptive_batch",
+                             "auto_compress", "noise_adaptive", "elastic"],
+                    help="sync controller policy (elastic raises: it needs "
+                         "workers across GPUs); auto_compress needs "
+                         "--sync-compression ef_sign")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
     args = ap.parse_args(argv)
@@ -148,6 +264,7 @@ def main(argv=None):
         optim=OptimConfig(base_lr=args.lr, base_batch=shape.global_batch,
                           lr_warmup_steps=10,
                           lr_decay_steps=(args.steps // 2, 3 * args.steps // 4)),
+        controller=ControllerConfig(kind=args.controller),
         steps=args.steps)
 
     from repro_torch.launch.steps import build_train
@@ -162,7 +279,8 @@ def main(argv=None):
                                eval_fn=eval_lm(bundle, held))
     print(f"done: final loss={hist[-1]['loss']:.4f} wall={summary['wall_s']:.1f}s "
           f"comm={summary['comm_rounds']} topology={summary['topology']} "
-          f"wire_bytes={summary['ledger']['wire_bytes']:.4g}")
+          f"wire_bytes={summary['ledger']['wire_bytes']:.4g} "
+          f"controller={summary['controller']}")
 
 
 if __name__ == "__main__":

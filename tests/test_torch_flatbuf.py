@@ -232,3 +232,29 @@ def test_schedule_matches_reference():
                     for t in range(60)]
             assert all(isinstance(g, np.float32) for g in got)
             assert np.array_equal(np.array(got), np.array(want))
+
+
+def test_run_configs_match_reference():
+    """The run-level config dataclasses: the same fields with the same
+    defaults (every ControllerConfig knob: patience, tol, max_batch_scale,
+    err_budget, noise_grow, lr_cap_decay, lr_scale_min, skew_*), and the
+    same telemetry / speculation switches for every controller kind."""
+    import dataclasses
+
+    from repro.configs import base as jcb
+    from repro_torch.configs import base as tcb
+
+    for name in ("LocalSGDConfig", "OptimConfig", "ControllerConfig"):
+        jf = {f.name: f.default for f in dataclasses.fields(getattr(jcb, name))}
+        tf = {f.name: f.default for f in dataclasses.fields(getattr(tcb, name))}
+        assert tf == jf, name
+    for f in ("controller", "local_sgd", "optim", "seed", "steps"):
+        assert f in {x.name for x in dataclasses.fields(tcb.RunConfig)}
+    kinds = ("static", "diversity_h", "adaptive_batch", "auto_compress",
+             "noise_adaptive", "elastic")
+    for kind in kinds:
+        for tel in (None, True, False):
+            j = jcb.ControllerConfig(kind=kind, telemetry=tel)
+            t = tcb.ControllerConfig(kind=kind, telemetry=tel)
+            assert (t.wants_telemetry, t.wants_speculation) == \
+                (j.wants_telemetry, j.wants_speculation), (kind, tel)

@@ -46,6 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for mod in ("fused_bucket", "fused_sgd", "sign_compress", "flash_attention",
                 "ops", "ref", "build"):
         assert f"src/repro_torch/kernels/{mod}.py" in names, mod
+    for mod in ("controller", "noise", "syncplan", "local_sgd"):
+        assert f"src/repro_torch/core/{mod}.py" in names, mod
     bad = []
     for f in PORT_FILES:
         for mod in _imports(f):
