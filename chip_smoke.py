@@ -36,7 +36,9 @@ Phases:
            call over back-to-back calls (``device_ms``, and the library
            call's ``library_device_ms``, the two timed in turns), beside
            the per-call time; abs_sum and sq_sum must give the same bits
-           twice.
+           twice.  The three kernels of the paper harness's path (fused
+           SGD, row_abs_sum, scale_sign_rows) also at its bucket: K=8
+           workers x 624 rows x 128 (the width-256 MLP), timed.
   A        the main path: paper-lm at full width, W=4 stacked on the card,
            post-local SGD, mean sync, 12 steps; launch counts.
   B        the same with EF-sign sync; the compressor kernels launch once
@@ -87,6 +89,17 @@ Phases:
            auto_compress and noise_adaptive policies with EF-sign: the same
            decisions round by round, with each sensor's margin to its
            threshold.
+  G        the paper's experiments (``repro_torch.benchmarks``) at the
+           harness's full size (MLP width 256, 1,536 train / 2,048 test
+           examples, K up to 8): Fig. 1's A5 and Table 4's EFsign_post_H8
+           for 24 steps on the card against the CPU from the same weights;
+           then 240 steps of five rows (G_ROUNDS: Fig. 1 A1, A2, A5, Table
+           4's EFsign_post_H8, Table 16's H1_Hb8; the CLI runs them all):
+           test accuracy, global / block syncs pinned to the reference's
+           schedule, wall µs per step (as the CLI's rows), first and final
+           loss, launch counts (one fused SGD a step, one compressor pair a
+           compressed sync); and torch.profiler over 24 steps of A2 and of H1_Hb8
+           (device busy, idle share, the host's busiest ops).
 """
 from __future__ import annotations
 
@@ -150,6 +163,18 @@ C_CONTROLLERS = (dict(kind="auto_compress", patience=1, err_budget=0.95),
                  NOISE_CC)
 # the gradient-noise check: eta of the noisy steps; steps t of the draws
 NOISE_ETA, NOISE_GAMMA, NOISE_STEPS = 0.01, 0.55, (0, 10)
+# phase G: the paper harness's bucket (the width-256 MLP's 76,810 params,
+# padded, as one f32 bucket) at K = 8 workers, and its run length
+MLP_W, MLP_ROWS = 8, 624
+G_STEPS = 240
+# the full rows phase G runs (every row of Fig. 1, Tables 4 and 16 runs
+# through `python -m repro_torch.benchmarks.run`): the K=1 baseline, large
+# mini-batch, Alg. 5 with the most block syncs, post-local SGD and post-local
+# EF-sign; each with its (global, block) syncs in 240 steps, the reference's
+# schedule, read from `python -m benchmarks.run` of the JAX package on the CPU
+G_ROUNDS = {"fig1/A1_small_mb": (240, 0), "fig1/A2_large_mb": (240, 0),
+            "table16/H1_Hb8": (30, 210), "fig1/A5_post_local": (150, 0),
+            "table4/EFsign_post_H8": (135, 0)}
 # round_summary fields computed from ||mean_k x_k||^2 (post_sync_sq)
 SYNC_MEAN_KEYS = ("post_sync_sq", "dispersion", "diversity", "signal_sq",
                   "noise_sq", "noise_ratio")
@@ -396,6 +421,57 @@ def check_kernels(rows: int, bw: float, flops_peak: float, timed: bool):
             library_ms=None)
     del p, g, u, pk, uk, pp, up
     return report(res, bw, flops_peak, W=W, rows=rows)
+
+
+def check_mlp_bucket(bw: float, flops_peak: float):
+    """The kernels of the paper harness's path against their plain versions
+    at its bucket, (MLP_W, MLP_ROWS, 128) f32, as the harness calls them:
+    the update without a clip scale or stats (grad_clip 0, telemetry off)."""
+    import torch
+    from repro_torch.kernels import fused_bucket as fb
+
+    dev, W_, rows = "cuda", MLP_W, MLP_ROWS
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    mk = lambda: torch.randn((W_, rows, 128), generator=gen, device=dev)
+    n = W_ * rows * 128
+    nbytes = 4 * n
+    res = {}
+    p, g, u = mk(), mk(), 0.1 * mk()
+    wd_row = (torch.rand((rows,), generator=gen, device=dev) < 0.9).float()
+    kw = dict(momentum=0.9, weight_decay=1e-4, nesterov=True)
+    pk, uk, pp, up = p.clone(), u.clone(), p.clone(), u.clone()
+    fb.fused_sgd_bucket(pk, g, uk, 0.15, wd_row, **kw)
+    fb.fused_sgd_bucket_plain(pp, g, up, 0.15, wd_row, **kw)
+    torch.cuda.synchronize()
+    errs = [rel_err(pk, pp), rel_err(uk, up)]
+    res["fused_sgd_bucket"] = dict(
+        max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+        tol=TOL["elementwise"], ok=all(e[1] <= TOL["elementwise"] for e in errs),
+        bytes=5 * nbytes + 4 * rows, flops=10 * n,
+        ms=time_ms(lambda: fb.fused_sgd_bucket(pk, g, uk, 0.15, wd_row, **kw)),
+        plain_ms=time_ms(lambda: fb.fused_sgd_bucket_plain(pp, g, up, 0.15,
+                                                           wd_row, **kw)),
+        library_ms=None)
+    x = mk()
+    x[:, :7] = 0.0                        # exact zeros: sign(0) must be 0
+    a, b = fb.row_abs_sum(x), fb.row_abs_sum_plain(x)
+    e = rel_err(a, b)
+    res["row_abs_sum"] = dict(
+        max_abs_err=e[0], max_rel_err=e[1], tol=TOL["reduction"],
+        ok=e[1] <= TOL["reduction"], bytes=nbytes + 4 * W_ * rows, flops=2 * n,
+        ms=time_ms(lambda: fb.row_abs_sum(x)),
+        plain_ms=time_ms(lambda: fb.row_abs_sum_plain(x)),
+        library_ms=time_ms(lambda: torch.linalg.vector_norm(x, 1, dim=-1)))
+    s_ = torch.rand((rows,), generator=gen, device=dev)
+    a, b = fb.scale_sign_rows(x, s_), fb.scale_sign_rows_plain(x, s_)
+    e = rel_err(a, b)
+    res["scale_sign_rows"] = dict(
+        max_abs_err=e[0], max_rel_err=e[1], tol=TOL["sign"],
+        ok=bool(torch.equal(a, b)), bytes=2 * nbytes + 4 * rows, flops=n,
+        ms=time_ms(lambda: fb.scale_sign_rows(x, s_)),
+        plain_ms=time_ms(lambda: fb.scale_sign_rows_plain(x, s_)),
+        library_ms=None)
+    return report(res, bw, flops_peak, W=W_, rows=rows, shape="mlp bucket")
 
 
 def report(res: dict, bw: float, flops_peak: float, **where):
@@ -1104,6 +1180,114 @@ def phase_c_controllers(smoke, p0):
         torch.cuda.empty_cache()
 
 
+def phase_g() -> dict:
+    """Phase G: the paper's experiments through the port's harness
+    (``repro_torch.benchmarks``) at its full size: card vs CPU, the full
+    rows of G_ROUNDS, two profiles; returns the full rows' launch counts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.benchmarks import common as hc
+    from repro_torch.benchmarks import paper_tables as pt
+    from repro_torch.kernels import fused_bucket as fb
+
+    t_phase = time.perf_counter()
+    train, test = hc.dataset()
+    rel = lambda a, b: abs(a - b) / abs(b) if b else abs(a)
+    # card vs CPU from the same weights (drawn on the CPU, then moved)
+    for name, kw in (("fig1/A5_post_local", dict(pt.fig1_rows(24))["A5_post_local"]),
+                     ("table4/EFsign_post_H8",
+                      dict(pt.table4_rows(24))["EFsign_post_H8"])):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            st, comm, hist = hc.train_local_sgd(steps=24, train=train, device=dev,
+                                                return_history=True, **kw)
+            out[dev] = (st.params.buckets[0].cpu(), comm,
+                        [h["loss"] for h in hist], hc.test_acc(st, test))
+        (pg, cg, lg, ag), (pc, cc, lc, ac) = out["cuda"], out["cpu"]
+        loss_rel = max(rel(a, b) for a, b in zip(lg, lc))
+        frac = float(((pg - pc).abs() > 1e-4 * pc.abs().max()).float().mean())
+        emit({"phase": "G", "check": "card vs cpu", "row": name, **kw,
+              "steps": 24, "comm_rounds_gpu": cg, "comm_rounds_cpu": cc,
+              "loss_gpu": lg, "loss_cpu": lc, "loss_max_rel_diff": loss_rel,
+              "loss_tol": 1e-4, "params_frac_beyond_1e-4_of_max": frac,
+              "frac_tol": 1e-4, "test_acc_gpu": ag, "test_acc_cpu": ac})
+        if cg != cc or loss_rel > 1e-4 or frac > 1e-4:
+            raise AssertionError(f"phase G ({name}): the harness on the card "
+                                 f"disagrees with the CPU's")
+
+    rows = dict([("fig1/" + n, kw) for n, kw in pt.fig1_rows(G_STEPS)]
+                + [("table4/" + n, kw) for n, kw in pt.table4_rows(G_STEPS)]
+                + [("table16/" + n, kw) for n, kw in pt.table16_rows()])
+    launches = {k: 0 for k in fb.LAUNCHES}
+    t0 = time.perf_counter()
+    for name in G_ROUNDS:
+        kw = rows[name]
+        fb.reset_launches()
+        with hc.wall_timer() as w:
+            st, comm, hist = hc.train_local_sgd(steps=G_STEPS, train=train,
+                                                return_history=True,
+                                                device="cuda", **kw)
+        counts = dict(fb.LAUNCHES)
+        rounds = pt.sync_split(comm, kw.get("block_steps", 1))
+        losses = [h["loss"] for h in hist]
+        acc = hc.test_acc(st, test)
+        comp = rounds[0] if kw.get("sync_compression", "none") != "none" else 0
+        want = {k: 0 for k in fb.LAUNCHES}
+        want.update(fused_sgd_bucket=G_STEPS, row_abs_sum=comp, scale_sign_rows=comp)
+        emit({"phase": "G", "row": name, **kw, "steps": G_STEPS,
+              "test_acc": acc, "global_sync": rounds[0], "block_sync": rounds[1],
+              "us_per_step": w["us"] / G_STEPS,
+              "loss_first": losses[0], "loss_final": losses[-1],
+              "launches": counts})
+        bad = [k for k, ok in (
+            ("comm rounds", rounds == G_ROUNDS[name]),
+            ("loss not finite or not falling",
+             all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+            ("test acc <= 0.5", acc > 0.5),
+            ("launches", counts == want)) if not ok]
+        if bad:
+            raise AssertionError(f"phase G ({name}): {', '.join(bad)} (rounds "
+                                 f"{rounds}, want {G_ROUNDS[name]}; launches "
+                                 f"{counts}, want {want})")
+        for k, v in counts.items():
+            launches[k] += v
+        del st
+    rows_s = time.perf_counter() - t0
+
+    # device busy, idle share and the host's busiest ops over 24 steps of
+    # two K=8 rows: B_loc 64 and 32
+    for name in ("fig1/A2_large_mb", "table16/H1_Hb8"):
+        kw = dict(rows[name], steps=24, train=train, device="cuda")
+        hc.train_local_sgd(**dict(kw, steps=4))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            hc.train_local_sgd(**kw)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t1)
+        ev = prof.key_averages()
+        kern = [e for e in ev
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        host = [e for e in ev if e.device_type == DeviceType.CPU]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        emit({"phase": "G", "profile": name, "steps": 24,
+              "wall_ms_under_profiler": wall_ms,
+              "device_busy_ms": busy_ms if kern else None,
+              "idle_share": 1 - busy_ms / wall_ms if kern else None,
+              "kernel_launches": sum(e.count for e in kern),
+              "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                              for e in sorted(kern, key=lambda e:
+                                              -e.self_device_time_total)[:6]],
+              "top_host_ops_self_ms": [
+                  [e.key[:60], e.self_cpu_time_total / 1e3, e.count]
+                  for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]]})
+    emit({"phase": "G", "full_rows_s": rows_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run this from a "
@@ -1155,6 +1339,7 @@ def main() -> int:
 
     check_kernels(RAGGED_ROWS, bw, flops_peak, timed=False)
     full = check_kernels(FULL_ROWS, bw, flops_peak, timed=True)
+    check_mlp_bucket(bw, flops_peak)
     check_per_tensor(RAGGED_N, bw, flops_peak, timed=False)
     full.update(check_per_tensor(FULL_N, bw, flops_peak, timed=True))
     for spec in FLASH_RAGGED:
@@ -1297,7 +1482,11 @@ def main() -> int:
 
     phase_c_controllers(smoke, p0)
 
-    # launches: phases A, B, L, H, N and the noise check for the bucket
+    for k, v in phase_g().items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
+    # launches: phases A, B, L, H, N, G and the noise check for the bucket
     # kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")

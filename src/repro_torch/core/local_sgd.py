@@ -134,6 +134,13 @@ def _bucket_noise(layout, gbs, gen, *, step: int, eta: float, gamma: float):
     return gbs
 
 
+def _to_device(v, dev):
+    """One batch field on ``dev``: integers as int64 (token ids, labels),
+    floating values as float32 (features, +-1 targets), values intact."""
+    t = torch.as_tensor(v)
+    return t.to(dev, torch.float32 if t.is_floating_point() else torch.int64)
+
+
 def _worker_grad(layout, loss_fn, pbs_w, batch_w, gw):
     """One worker's loss on its param buckets ``pbs_w``; the gradient lands
     in ``gw`` (zeroed grad buckets) once, through
@@ -197,7 +204,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
 
     def local_step(state: LocalSGDState, batch, lr_scale=None):
         """One local step of every worker.  ``batch``: dict of (W, B_loc,
-        ...) integer arrays (numpy or tensors).  ``lr_scale`` multiplies
+        ...) arrays (numpy or tensors); integer fields reach ``loss_fn``
+        as int64, floating ones as float32.  ``lr_scale`` multiplies
         the scheduled lr (in float32, as the reference does); ``None``
         keeps the two-argument call's trajectory bit for bit."""
         layout = state.params.layout
@@ -206,8 +214,7 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         lr = lr_at(opt, state.step, global_batch=global_batch)
         if lr_scale is not None:
             lr = lr * np.float32(lr_scale)
-        batch = {k: torch.as_tensor(v).to(dev, torch.int64)
-                 for k, v in batch.items()}
+        batch = {k: _to_device(v, dev) for k, v in batch.items()}
         # every worker's gradient lands in its row once; zeroed here once
         # for all W, so the padding is exact zero
         gbs = [torch.zeros_like(b) for b in pbs]

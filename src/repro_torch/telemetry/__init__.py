@@ -1,2 +1,2 @@
-"""Training statistics and the comms ledger (the port of
-``repro.telemetry.stats`` and ``repro.telemetry.ledger``)."""
+"""Training statistics, the comms ledger and the metrics registry (the
+port of ``repro.telemetry.stats``, ``ledger`` and ``metrics``)."""

@@ -87,6 +87,64 @@ def test_cuda_kernels_match_plain(cuda, rows):
 
 
 @pytest.mark.cuda
+def test_cuda_mlp_bucket_kernels_match_plain(cuda):
+    """The three kernels of the paper harness's path at its bucket (K=8
+    workers x 624 rows: the width-256 MLP), as the harness calls them (no
+    clip scale, no stats), against their plain versions; one launch each."""
+    tkb.reset_launches()
+    g = torch.Generator(device=cuda).manual_seed(624)
+    mk = lambda: torch.randn((8, 624, 128), generator=g, device=cuda)
+    p, gr, u = mk(), mk(), 0.1 * mk()
+    wd_row = (torch.rand((624,), generator=g, device=cuda) < 0.9).float()
+    kw = dict(momentum=0.9, weight_decay=1e-4, nesterov=True)
+    p1, u1, p2, u2 = p.clone(), u.clone(), p.clone(), u.clone()
+    assert tkb.fused_sgd_bucket(p1, gr, u1, 0.15, wd_row, **kw) is None
+    tkb.fused_sgd_bucket_plain(p2, gr, u2, 0.15, wd_row, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(p1, p2, rtol=0, atol=2e-6 * p2.abs().max().item())
+    torch.testing.assert_close(u1, u2, rtol=0, atol=2e-6 * u2.abs().max().item())
+    x = mk()
+    x[:, :7] = 0.0
+    torch.testing.assert_close(tkb.row_abs_sum(x), tkb.row_abs_sum_plain(x),
+                               rtol=1e-5, atol=1e-5)
+    s = torch.rand((624,), generator=g, device=cuda)
+    assert torch.equal(tkb.scale_sign_rows(x, s), tkb.scale_sign_rows_plain(x, s))
+    assert tkb.LAUNCHES == {"fused_sgd_bucket": 1, "sq_sum": 0,
+                            "row_abs_sum": 1, "scale_sign_rows": 1,
+                            "lars_row_norms": 0, "fused_lars_bucket": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "ef_sign"])
+def test_paper_harness_on_card_matches_cpu(cuda, mode):
+    """The paper harness (``benchmarks.common.train_local_sgd``, width 64,
+    K=4, post-local SGD) on the card and on the CPU from the same weights:
+    per-step loss rtol 1e-4, params all but 1e-4 of the elements within
+    1e-4 x the largest entry, the same comm rounds; one fused SGD launch a
+    step and, under EF-sign, one compressor pair a sync, on the card only."""
+    from repro_torch.benchmarks import common as hc
+    train, _ = hc.dataset()
+    kw = dict(K=4, B_loc=16, H=4, steps=16, post_local_switch=8, lr=0.05,
+              width=64, sync_compression=mode, return_history=True, train=train)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tkb.reset_launches()
+        st, comm, hist = hc.train_local_sgd(device=dev, **kw)
+        out[dev] = (st.params.buckets[0].cpu(), [h["loss"] for h in hist],
+                    dict(tkb.LAUNCHES), comm)
+    (pg, lg, cg, ng), (pc, lc, cc, nc) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    d = (pg - pc).abs()
+    assert float((d > 1e-4 * pc.abs().max()).float().mean()) <= 1e-4
+    assert ng == nc == 10
+    comp = ng if mode != "none" else 0
+    assert cg == {"fused_sgd_bucket": 16, "sq_sum": 0, "row_abs_sum": comp,
+                  "scale_sign_rows": comp, "lars_row_norms": 0,
+                  "fused_lars_bucket": 0}
+    assert all(v == 0 for v in cc.values())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows", [8, 3096 + 5, 65_536 + 3])
 @pytest.mark.parametrize("W", [1, 4])
 def test_cuda_sq_sum_one_launch_same_bits(cuda, W, rows):

@@ -209,6 +209,27 @@ def test_data_matches_reference():
             assert bt[k].dtype == np.int32 and np.array_equal(bt[k], bj[k])
 
 
+@pytest.mark.parametrize("fn,kw", [
+    ("cluster_classification", dict(num_classes=10, dim=32, n_train=96,
+                                    n_test=64, seed=0, margin=1.15,
+                                    label_noise=0.2)),
+    ("cluster_classification", dict(num_classes=3, dim=5, n_train=40,
+                                    n_test=7, seed=4)),
+    ("logreg_data", dict(n=300, d=100, seed=0)),
+    ("logreg_data", dict(n=50, d=7, seed=2, flip=0.3)),
+])
+def test_classification_data_matches_reference(fn, kw):
+    """The paper harness's data (cluster_classification, logreg_data):
+    identical arrays and dtypes (float32 features, int32 or +-1 float32
+    labels)."""
+    got, want = getattr(tsyn, fn)(**kw), getattr(jsyn, fn)(**kw)
+    flat = lambda t: [a for x in t for a in (x if isinstance(x, tuple) else (x,))]
+    got, want = flat(got), flat(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def test_schedule_matches_reference():
     """lr_at is float32 like the reference's jnp form: bitwise equal."""
     for ls_kw in (dict(local_steps=4, post_local_switch=6),

@@ -1,7 +1,8 @@
 """Rules of the port: ``src/repro_torch`` and ``chip_smoke.py`` import no
-JAX and nothing of the JAX package; entry points never fall back to the
-CPU on their own; ``chip_smoke.py`` refuses to run without a card or
-outside a checkout."""
+JAX, nothing of the JAX package and nothing of the reference's top-level
+``benchmarks`` harness (which imports JAX); entry points never fall back
+to the CPU on their own; ``chip_smoke.py`` refuses to run without a card
+or outside a checkout."""
 import ast
 import os
 import shutil
@@ -20,7 +21,7 @@ from repro_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imports(path: Path):
@@ -48,6 +49,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         assert f"src/repro_torch/kernels/{mod}.py" in names, mod
     for mod in ("controller", "noise", "syncplan", "local_sgd"):
         assert f"src/repro_torch/core/{mod}.py" in names, mod
+    for mod in ("common", "paper_tables", "bench_convex", "run"):
+        assert f"src/repro_torch/benchmarks/{mod}.py" in names, mod
+    assert "src/repro_torch/telemetry/metrics.py" in names
     bad = []
     for f in PORT_FILES:
         for mod in _imports(f):
@@ -66,7 +70,7 @@ def test_port_modules_import_without_jax():
     code = ("import sys\n"
             "class Block:\n"
             "    def find_spec(self, name, path=None, target=None):\n"
-            "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
             "            raise ImportError('blocked: ' + name)\n"
             "sys.meta_path.insert(0, Block())\n"
             f"import importlib\nfor m in {mods!r}:\n    importlib.import_module(m)\n"
