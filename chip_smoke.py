@@ -53,6 +53,32 @@ Phases:
            launch counts as in A; the comms ledger's rounds and ring-model
            bytes per topology and scope (a block round one bucket, a
            global round 1.5 buckets); step time beside phase A's.
+  R        phase B's run traced (``Tracer(fence=True, annotate=True)``
+           with a metrics registry; artifacts in ``build/phase_r/``): the
+           trace directory passes ``export.check_trace_dir``, per-step
+           losses equal phase B's (1e-4 relative: EF-sign's scale totals
+           use atomics), the ledger's sync seconds equal the sync spans'
+           and the JSONL's stage seconds, each round's ``sync_s`` is its
+           span's duration; span census, median span seconds, the fenced
+           step time beside phase B's.
+  K        checkpoints at full width: ``save_flat`` of the resident state
+           after 6 steps of phase A's settings (3.83 GB), ``restore_flat``
+           into a fresh state: buckets bit-equal, 2 more steps from each
+           give the same losses; GB/s both ways; ``save`` / ``restore``
+           of the worker-mean param tree.  Files in a temporary directory
+           under ``build/``, removed.
+  S        serving from the trainer: ``fit`` at phase A's settings for 8
+           steps publishes versions 0 and 1 (``checkpoint_every=4``); the
+           paged continuous-batching engine (16 slots, max_len 512, page
+           16, prefill 128; a 605 MB pool) serves 48 markov-corpus
+           requests (prompts 16-128, 16-96 new tokens) from version 0 and
+           hot-swaps to version 1 once half have finished: every request
+           completes, the null page stays zero, every page comes back; the
+           logits of requests served on one version equal the contiguous
+           path's (``build_serve``) teacher-forced on their tokens; the
+           swapped resident continues as a fresh engine on version 1;
+           decode steps, tokens/s, decode and prefill ms, swap seconds,
+           peak memory, and torch.profiler's split of a decode step.
   T        the per-tensor kernel API at full width: paper-lm's parameter
            tree (W=1) on the card; one SGD step with ops.fused_sgd on every
            leaf against the same step by the bucket kernel on the flat bus;
@@ -642,7 +668,8 @@ def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
                   D=D, causal=True, window=window, dtype=dtype)
 
 
-def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None):
+def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None,
+              tracer=None, manifest_path=None):
     """fit() on markov_lm data; returns (state, history, summary, step_s):
     host seconds per step, each from one local step's start to the next's
     (a device synchronize before each), the sync included on sync steps."""
@@ -670,7 +697,8 @@ def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None):
     state, hist, summ = ttrain.fit(run, ShardedBatches(data, W, B, seed=seed),
                                    bundle=bundle, num_steps=steps, seed=seed,
                                    params0=params0, log=lambda *a: None,
-                                   telemetry_path=telemetry_path)
+                                   telemetry_path=telemetry_path, tracer=tracer,
+                                   manifest_path=manifest_path)
     step_s.append(summ["wall_s"] + step_s[0])
     return state, hist, summ, [b - a for a, b in zip(step_s, step_s[1:])]
 
@@ -936,6 +964,413 @@ def phase_h(cfg, a_step_s: float) -> dict:
         raise AssertionError(f"phase H: {', '.join(bad)} (syncs {syncs}, ledger "
                              f"{topo}, launches {counts})")
     del state
+    return counts
+
+
+def phase_r(cfg, b_losses: list, b_step_s: float) -> dict:
+    """Phase R: phase B's run (EF-sign, full width, 12 steps) traced with a
+    fenced, annotating tracer and a metrics registry, its artifacts in
+    ``build/phase_r/``; returns its launch counts."""
+    import torch
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.telemetry import export as texport
+    from repro_torch.telemetry.metrics import MetricsRegistry
+    from repro_torch.telemetry.trace import Tracer
+
+    out = ROOT / "build" / "phase_r"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    run = phase_run("ef_sign", cfg, seq=512, local_batch=8)
+    tracer = Tracer(fence=True, annotate=True, metrics=MetricsRegistry())
+    fb.reset_launches()
+    state, hist, summ, step_s = train_run(
+        run, device="cuda", steps=STEPS, tracer=tracer,
+        telemetry_path=out / "telemetry.jsonl",
+        manifest_path=out / "manifest.json")
+    counts = dict(fb.LAUNCHES)
+    texport.write_perfetto(str(out / "trace.json"), tracer,
+                           extra={"wall_s": summ["wall_s"]})
+    texport.write_prometheus(str(out / "metrics.prom"), tracer.metrics)
+    problems = texport.check_trace_dir(str(out))
+    losses = [h["loss"] for h in hist]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, b_losses))
+    spans = tracer.spans
+    census: dict = {}
+    for sp in spans:
+        census[sp.name] = census.get(sp.name, 0) + 1
+    dur = lambda name, **kw: [sp.dur_s for sp in spans if sp.name == name
+                              and all(sp.attrs.get(k) == v for k, v in kw.items())]
+    syncs = dur("sync", scope="global")
+    recs = read_jsonl(out / "telemetry.jsonl")
+    led = summ["ledger"]
+    stage_total = sum(v for r in recs for v in r["stage_s"].values())
+    emit({"phase": "R", "model": cfg.name, "W": W, "local_batch": 8, "seq": 512,
+          "sync_compression": "ef_sign", "steps": STEPS, "fenced": True,
+          "span_census": census, "trace_dir_problems": problems,
+          "loss": losses, "phase_B_loss": b_losses,
+          "loss_max_rel_diff_vs_B": loss_rel,
+          "loss_bitwise_equal_B": losses == b_losses,
+          "local_steps_s_median": statistics.median(dur("local_steps")),
+          "sync_s_median": statistics.median(syncs),
+          "round_s_median": statistics.median(dur("round")),
+          "controller_s_median": statistics.median(dur("controller")),
+          "fenced_step_s_median": statistics.median(step_s[1:]),
+          "phase_B_step_s_median": b_step_s,
+          "ledger_sync_seconds": led.get("sync_seconds"),
+          "jsonl_stage_s_total": stage_total,
+          "sync_s_by_round": [r["sync_s"] for r in recs],
+          "round_s_by_round": [r["round_s"] for r in recs],
+          "launches": counts})
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(fused_sgd_bucket=STEPS, sq_sum=STEPS, row_abs_sum=6,
+                scale_sign_rows=6)
+    sync_ok = (len(recs) == len(syncs) == 6
+               and [r["sync_s"] for r in recs] == syncs)
+    bad = [k for k, ok in (
+        ("trace dir", not problems),
+        # EF-sign's scale totals come from index_add_ (atomics on the
+        # card): a traced run may differ from an untraced one in the last
+        # bits, so per-step loss is held to 1e-4 relative, as phase C
+        ("loss vs phase B", loss_rel <= 1e-4),
+        ("sync_seconds", led.get("sync_seconds", 0) > 0
+         and math.isclose(led["sync_seconds"], stage_total, rel_tol=1e-9)
+         and math.isclose(led["sync_seconds"], sum(syncs), rel_tol=1e-9)),
+        ("sync_s per round", sync_ok),
+        ("spans", census.get("local_steps") == STEPS
+         and census.get("round") == 6 and census.get("controller") == 6),
+        ("launches", counts == want)) if not ok]
+    if bad:
+        raise AssertionError(f"phase R: {', '.join(bad)} (problems {problems}, "
+                             f"loss diff {loss_rel}, launches {counts})")
+    del state
+    return counts
+
+
+def phase_k(cfg) -> dict:
+    """Phase K: save_flat of the full-width resident state after 6 steps
+    of phase A's settings, restore_flat into a fresh state, bit-equal
+    buckets, and 2 more steps from each giving the same losses; then
+    save / restore of the worker-mean param tree.  The files go into a
+    temporary directory under build/ that the phase removes.  Returns
+    the launch counts."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core.local_sgd import mean_params
+    from repro_torch.core.schedule import sync_boundaries
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import base as mbase
+    from repro_torch.utils import tree_leaves, tree_map
+
+    run = phase_run("none", cfg, seq=512, local_batch=8)
+    B = run.shape.global_batch // W
+    data = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=W * B * 4,
+                                 seq_len=512))
+    it = iter(ShardedBatches(data, W, B))
+    bundle = build_train(run, num_workers=W, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p0 = mbase.materialize(bundle.specs, gen, "cuda")
+    fb.reset_launches()
+    syncs = dict(sync_boundaries(run.local_sgd, 8))
+
+    def steps(state, batches, t0):
+        losses = []
+        for t, batch in enumerate(batches, start=t0):
+            state, m = bundle.local_step(state, batch)
+            losses.append(float(m["loss"]))
+            if syncs.get(t) == 2:
+                state = bundle.sync(state, plan=bundle.sync_plan)
+        return state, losses
+
+    state, _ = steps(bundle.init(p0, seed=0), [next(it) for _ in range(6)], 0)
+    tail = [next(it) for _ in range(2)]
+    rec = {"phase": "K", "model": cfg.name, "W": W, "steps_before_save": 6}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = os.path.join(tmp, "state")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_flat(path, state, step=state.step)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path + ".npz")
+        fresh = bundle.init(tree_map(torch.zeros_like, p0), seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = ckpt.restore_flat(path, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del fresh
+        equal = all(torch.equal(a, b) for f in ("params", "momentum")
+                    for a, b in zip(getattr(state, f).buckets,
+                                    getattr(back, f).buckets))
+        equal = equal and back.step == state.step == 6
+        _, live = steps(state, tail, 6)
+        _, resumed = steps(back, tail, 6)
+        del back
+        # the worker-mean param tree, per-leaf format
+        tree = mean_params(state)
+        tpath = os.path.join(tmp, "params")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(tpath, tree, step=8)
+        tsave_s = time.perf_counter() - t0
+        tbytes = os.path.getsize(tpath + ".npz")
+        t0 = time.perf_counter()
+        tback = ckpt.restore(tpath, mbase.abstract(bundle.specs), device="cuda")
+        torch.cuda.synchronize()
+        trestore_s = time.perf_counter() - t0
+        tree_equal = all(torch.equal(a, b) for a, b in
+                         zip(tree_leaves(tree), tree_leaves(tback)))
+    counts = dict(fb.LAUNCHES)
+    rec.update(file_GB=nbytes / 1e9, save_s=save_s, restore_s=restore_s,
+               save_GBps=nbytes / 1e9 / save_s,
+               restore_GBps=nbytes / 1e9 / restore_s,
+               buckets_bit_equal=equal, losses_live=live,
+               losses_restored=resumed,
+               param_tree_GB=tbytes / 1e9, param_tree_save_GBps=tbytes / 1e9 / tsave_s,
+               param_tree_restore_GBps=tbytes / 1e9 / trestore_s,
+               param_tree_bit_equal=tree_equal,
+               temp_dir_removed=not os.path.exists(tmp), launches=counts)
+    emit(rec)
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(fused_sgd_bucket=10, sq_sum=10)
+    bad = [k for k, ok in (("buckets", equal), ("resumed losses", live == resumed),
+                           ("param tree", tree_equal),
+                           ("size", nbytes >= 2 * W * FULL_ROWS * 128 * 4),
+                           ("temp dir", rec["temp_dir_removed"]),
+                           ("launches", counts == want)) if not ok]
+    if bad:
+        raise AssertionError(f"phase K: {', '.join(bad)} ({rec})")
+    del state, tree, tback
+    return counts
+
+
+# phase S: the serving engine's shape and its traffic
+S_SLOTS, S_MAX_LEN, S_PAGE, S_PREFILL = 16, 512, 16, 128
+S_REQUESTS, S_PROMPT, S_NEW = 48, (16, 128), (16, 96)
+S_CHECKED = 3                 # requests a version held against the contiguous path
+S_TOL = 1e-4                  # logits: |a - b| <= S_TOL * (1 + |b|)
+
+
+def _close(a, b) -> float:
+    """max |a - b| / (1 + |b|) of two logit rows (tensors)."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / (1 + b.abs())).max())
+
+
+def _forced_logits(cfg, params, prompt, tokens):
+    """The contiguous path's logits teacher-forced on ``tokens``
+    (``build_serve``: prefill of the prompt, then one decode per token)."""
+    import torch
+    from repro_torch.launch.steps import build_serve
+    from repro_torch.models import lm
+
+    sb = build_serve(cfg, device="cuda")
+    lg, cache = sb.prefill(params, {"tokens": torch.tensor([list(prompt)],
+                                                           device="cuda")})
+    cache = lm.grow_cache(cfg, cache, S_MAX_LEN)
+    out = [lg[0, -1]]
+    n = len(prompt) + 1
+    for t in tokens[:-1]:
+        lg, cache = sb.decode_step(params, {"tokens": torch.tensor(
+            [[t]], device="cuda")}, cache, n)
+        out.append(lg[0, -1])
+        n += 1
+    return out
+
+
+def phase_s(cfg) -> dict:
+    """Phase S: train paper-lm (phase A's settings, 8 steps) publishing
+    versions 0 and 1 through the trainer's checkpoint hook; serve 48
+    requests from version 0 with the paged continuous-batching engine;
+    hot-swap to version 1 once half have finished.  Returns the
+    training's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import flatbuf
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import build_engine
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+    from repro_torch.serving import NULL_PAGE, WeightPublisher, WeightSubscriber
+    from repro_torch.telemetry.metrics import MetricsRegistry
+    from repro_torch.telemetry.trace import Tracer
+
+    run = phase_run("none", cfg, seq=512, local_batch=8, steps=8)
+    B = run.shape.global_batch // W
+    data = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=W * B * 4,
+                                 seq_len=512))
+    rec = {"phase": "S", "model": cfg.name}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as pub_dir:
+        pub = WeightPublisher(pub_dir)
+        fb.reset_launches()
+        t0 = time.perf_counter()
+        _, hist, summ = ttrain.fit(
+            run, ShardedBatches(data, W, B), num_steps=8, log=lambda *a: None,
+            checkpoint_every=4,
+            checkpoint_fn=lambda s, t: pub.publish(s.params, step=t))
+        counts = dict(fb.LAUNCHES)
+        rec.update(train_s=time.perf_counter() - t0,
+                   train_loss=[h["loss"] for h in hist],
+                   published=pub.last_version, launches=counts)
+        specs = lm.param_specs(cfg)
+        layout = flatbuf.build_layout(mbase.abstract(specs))
+        template = flatbuf.BucketState(layout, tuple(flatbuf.abstract_buckets(layout)))
+        manifest = json.loads(Path(pub_dir, "manifest.json").read_text())
+        v0 = ckpt.restore_flat(os.path.join(pub_dir, manifest["versions"]["0"]["path"]),
+                               template, device="cuda")
+        sub = WeightSubscriber(pub_dir, specs, device="cuda")
+
+        shape = InputShape("serve", S_MAX_LEN, S_SLOTS, "decode")
+        tracer, reg = Tracer(), MetricsRegistry()
+        kept: dict = {}          # uid -> its logit rows, on the card
+
+        def on_logits(kind, rows, logits):
+            for slot, uid in rows:
+                kept.setdefault(uid, []).append(logits[slot, -1].clone())
+
+        eng = build_engine(cfg, shape, v0.unpack(), page_size=S_PAGE,
+                           prefill_len=S_PREFILL, tracer=tracer, metrics=reg,
+                           on_logits=on_logits)
+        eng.install_weights(v0, version=0)
+        v0_params = eng.params
+        rng = np.random.default_rng(7)
+        corpus = markov_lm(vocab=cfg.vocab_size, num_seqs=S_REQUESTS,
+                           seq_len=S_PROMPT[1], seed=3)
+        reqs = []
+        for i in range(S_REQUESTS):
+            L = int(rng.integers(S_PROMPT[0], S_PROMPT[1] + 1))
+            reqs.append((corpus[i, :L].tolist(),
+                         int(rng.integers(S_NEW[0], S_NEW[1] + 1))))
+        uids = [eng.submit(p, max_new=n) for p, n in reqs]
+        torch.cuda.reset_peak_memory_stats()
+        swap = None
+        t0 = time.perf_counter()
+        while not eng.idle:
+            eng.step()
+            if swap is None and len(eng.completed) >= S_REQUESTS // 2:
+                resident = [b for b in range(S_SLOTS) if eng.lens[b] > 0]
+                # the resident with the most tokens still to come
+                b = max(resident, key=lambda b: eng.slot_req[b].max_new - eng.gen[b])
+                swap = {"residents": len(resident), "uid": eng.slot_req[b].uid,
+                        "k": int(eng.gen[b]), "hist": list(eng.hist[b]),
+                        "max_new": eng.slot_req[b].max_new,
+                        "version": eng.poll_weights(sub)}
+                kept.pop(swap["uid"])            # keep only post-swap rows
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        results = {r.uid: r for r in eng.completed}
+        desc = eng.describe()
+        null_zero = not any(bool(pool[NULL_PAGE].any()) for pool in eng.pools)
+        pages_back = len(eng.free_pages) == eng.pl.num_pages - 1
+        spans = lambda name: [sp.dur_s for sp in tracer.spans if sp.name == name]
+
+        # teacher-forced contiguous logits: the first S_CHECKED requests
+        # served wholly on version 0, and on version 1
+        worst, checked = 0.0, []
+        for version, params in ((0, v0_params), (1, eng.params)):
+            done = [u for u in uids if results[u].weight_versions == (version,)]
+            for uid in done[:S_CHECKED]:
+                want = _forced_logits(cfg, params, reqs[uid][0],
+                                      results[uid].tokens)
+                assert len(want) == len(kept[uid])
+                worst = max(worst, max(_close(a, b)
+                                       for a, b in zip(kept[uid], want)))
+                checked.append((uid, version))
+        # the swapped resident against a fresh engine on version 1
+        got = kept[swap["uid"]]
+        cont = results[swap["uid"]].tokens[swap["k"]:]
+        fresh_rows: list = []
+        fresh = build_engine(cfg, shape, eng.params, page_size=S_PAGE,
+                             prefill_len=S_PREFILL,
+                             on_logits=lambda k, rows, lg: fresh_rows.extend(
+                                 lg[s, -1].clone() for s, _ in rows))
+        fuid = fresh.submit(swap["hist"], max_new=swap["max_new"] - swap["k"])
+        fcont = {r.uid: r for r in fresh.run()}[fuid].tokens
+        same, swap_err = 0, 0.0
+        for a, b, ta, tb in zip(got, fresh_rows, cont, fcont):
+            swap_err = max(swap_err, _close(a, b))
+            top2 = torch.topk(b.double(), 2).values
+            if ta != tb or float(top2[0] - top2[1]) <= 2 * S_TOL * (1 + float(top2[0].abs())):
+                break
+            same += 1
+
+        # where a decode step's time goes: torch.profiler over 4 steps of
+        # a full engine (16 residents, prompts 128, long budgets)
+        prof_eng = build_engine(cfg, shape, eng.params, page_size=S_PAGE,
+                                prefill_len=S_PREFILL)
+        for i in range(S_SLOTS):
+            prof_eng.submit(corpus[i % S_REQUESTS, :S_PREFILL].tolist(),
+                            max_new=S_MAX_LEN - S_PREFILL)
+        for _ in range(3):
+            prof_eng.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(4):
+                prof_eng.step()
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t1) / 4
+        from torch.autograd import DeviceType
+        ev = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in ev
+                   if e.device_type == DeviceType.CUDA) / 1e3 / 4
+        op_ms = {k: sum(e.device_time_total for e in ev if e.key == k) / 1e3 / 4
+                 for k in ("aten::index", "aten::copy_", "aten::bmm",
+                           "aten::mm", "aten::index_put_")}
+        top = sorted((e for e in ev if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)[:8]
+        del prof_eng, fresh
+    rec.update(
+        requests=S_REQUESTS, completed=len(results), slots=S_SLOTS,
+        max_len=S_MAX_LEN, page_size=S_PAGE, prefill_len=S_PREFILL,
+        decode_steps=len(spans("decode")), tokens_out=desc["tokens_out"],
+        wall_s=wall, tokens_per_s=desc["tokens_out"] / wall,
+        decode_step_ms_median=1e3 * statistics.median(spans("decode")),
+        prefill_ms_median=1e3 * statistics.median(spans("prefill")),
+        admission_waves=len(spans("admit")),
+        swap_s=spans("swap")[-1], swap=dict(swap, hist=len(swap["hist"])),
+        pool_bytes=desc["pool_bytes"], num_pages=desc["num_pages"],
+        peak_mem_GB=peak / 1e9, null_page_zero=null_zero,
+        free_pages_full=pages_back, logits_checked=checked,
+        logits_max_rel_err=worst, logits_tol=S_TOL,
+        swap_tokens_equal_fresh=same, swap_tokens=len(cont),
+        swap_logits_max_rel_err=swap_err,
+        profile={"step_ms": prof_ms, "device_busy_ms": busy,
+                 "op_device_ms": op_ms,
+                 "gather_and_copies_share_of_busy":
+                     (op_ms["aten::index"] + op_ms["aten::copy_"]) / busy
+                     if busy else None,
+                 "top_kernels": [[e.key[:80], e.self_device_time_total / 4e3,
+                                  e.count / 4] for e in top]})
+    emit(rec)
+    bad = [k for k, ok in (
+        ("completed", len(results) == S_REQUESTS
+         and set(results) == set(uids)),
+        ("swap", swap is not None and swap["version"] == 1
+         and swap["residents"] > 0 and desc["weight_version"] == 1),
+        ("null page", null_zero), ("free pages", pages_back),
+        ("logits", worst <= S_TOL and len(checked) == 2 * S_CHECKED),
+        ("swap continuation", swap_err <= S_TOL and same >= min(8, len(cont))),
+        ("pool bytes", desc["pool_bytes"] == 513 * 16 * 144 * 128 * 4),
+        ("launches", counts == {**{k: 0 for k in fb.LAUNCHES},
+                                "fused_sgd_bucket": 8, "sq_sum": 8}))
+        if not ok]
+    if bad:
+        raise AssertionError(f"phase S: {', '.join(bad)} ({rec})")
     return counts
 
 
@@ -1352,7 +1787,7 @@ def main() -> int:
     from repro_torch.telemetry.stats import round_summary
     cfg = configs.get("paper-lm")
     launches = {k: 0 for k in fb.LAUNCHES}
-    step_median = {}
+    step_median, phase_losses = {}, {}
     for phase, mode, lars in (("A", "none", False), ("B", "ef_sign", False),
                               ("L", "ef_sign", True)):
         run = phase_run(mode, cfg, seq=512, local_batch=8, lars=lars)
@@ -1375,6 +1810,7 @@ def main() -> int:
                "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
                "launches": counts}
         step_median[phase] = rec["step_s_median"]
+        phase_losses[phase] = losses
         summary = round_summary(state.stats) if lars else None
         if lars:
             rec["round_summary"] = summary
@@ -1407,6 +1843,13 @@ def main() -> int:
     for k, v in phase_h(cfg, step_median["A"]).items():
         launches[k] += v
     torch.cuda.empty_cache()
+
+    # ---- R (traced training), K (checkpoints), S (serving) ----
+    for counts in (phase_r(cfg, phase_losses["B"], step_median["B"]),
+                   phase_k(cfg), phase_s(cfg)):
+        for k, v in counts.items():
+            launches[k] += v
+        torch.cuda.empty_cache()
 
     launches.update(phase_t(cfg))
     torch.cuda.empty_cache()
@@ -1486,8 +1929,8 @@ def main() -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # launches: phases A, B, L, H, N, G and the noise check for the bucket
-    # kernels, T for the others
+    # launches: phases A, B, L, H, R, K, S, N, G and the noise check for
+    # the bucket kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"kernels": [

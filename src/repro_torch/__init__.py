@@ -13,9 +13,15 @@ SGD, sum of squares, per-row |x| sums, per-row scaled sign, LARS row
 norms, fused LARS) as hand-written CUDA (``kernels/csrc/fused_bucket.cu``).
 The paper's own experiments (Fig. 1, Tables 1/2/4/8/14/16/17, Figs.
 2b/4/6/10, Section 5) run on the same resident path through
-``benchmarks`` (``python -m repro_torch.benchmarks.run``).
+``benchmarks`` (``python -m repro_torch.benchmarks.run``).  Around the
+trainer: the trace spine (``telemetry.trace`` / ``export``: spans,
+Perfetto / Prometheus / run manifest, the ledger's sync seconds), the
+reference's checkpoint files (``checkpoint``) and serving (``serving``:
+a paged KV cache, a continuous-batching engine, live weight hot-swap
+from the trainer's published versions; ``launch.steps.build_engine``).
 
-Entry points (``launch.steps.build_train``, ``launch.train.fit``, the
-``benchmarks`` harness and its CLI) run on the card unless the caller
-passes ``device="cpu"``; with no card and no device given they raise.
+Entry points (``launch.steps.build_train`` / ``build_serve`` /
+``build_engine``, ``launch.train.fit``, the ``benchmarks`` harness and
+its CLI) run on the card unless the caller passes ``device="cpu"``; with
+no card and no device given they raise.
 """

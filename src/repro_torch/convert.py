@@ -20,6 +20,24 @@ from repro_torch.core.local_sgd import LocalSGDState
 from repro_torch.telemetry.stats import StatsAccumulator
 
 
+def generator_from_key(key, device) -> torch.Generator:
+    """A torch generator for a reference PRNG key (``uint32[2]``), seeded
+    with the key's two words as one 64-bit seed: the inverse of
+    :func:`key_from_generator`.  JAX's threefry stream has no torch
+    counterpart, so its draws differ from the reference's (gradient noise
+    compares across packages only statistically)."""
+    hi, lo = (int(x) for x in np.asarray(key).astype(np.uint64).reshape(-1)[:2])
+    return torch.Generator(device=device).manual_seed((hi << 32) | lo)
+
+
+def key_from_generator(gen: torch.Generator) -> np.ndarray:
+    """The reference's key for a generator: ``[seed >> 32, seed &
+    0xffffffff]`` of its ``initial_seed()``, what ``jax.random.PRNGKey``
+    gives for the same seed."""
+    seed = int(gen.initial_seed())
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
 def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
@@ -45,8 +63,8 @@ def state_from_reference(ref_state, *, layout: flatbuf.FlatLayout, device,
 
     ``layout`` is the port's layout for the same model (e.g.
     ``TrainBundle.layout``); every buffer must have its bucket rows.
-    The reference's JAX key has no torch counterpart: the state's
-    generator (the gradient noise's stream) is seeded with 0.
+    The state's generator (the gradient noise's stream) comes from the
+    reference's key by :func:`generator_from_key`.
     """
     def conv(field, leading):
         if field is None:
@@ -71,4 +89,4 @@ def state_from_reference(ref_state, *, layout: flatbuf.FlatLayout, device,
                          global_u=conv(ref_state.global_u, 0),
                          ef_memory=conv(ref_state.ef_memory, 1),
                          step=int(np.asarray(ref_state.step)), stats=stats,
-                         rng=torch.Generator(device=device).manual_seed(0))
+                         rng=generator_from_key(ref_state.rng, device))

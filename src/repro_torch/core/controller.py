@@ -28,7 +28,8 @@ Control signals:
 Protocol: ``h_at(step)`` is consulted EVERY local step (so the static
 policy gives the plain scheduler's trajectory bit for bit);
 ``update(report)`` runs once per GLOBAL sync with the host-side summary;
-``plan_delta(step)`` then emits the next round's :class:`PlanDelta`.
+``plan_delta(step)`` then emits the next round's :class:`PlanDelta`
+(:func:`traced_decision` runs the pair inside a ``controller`` span).
 
 Not ported: the ``elastic`` policy (worker-set resizes and straggler
 demotion need the backend seam and workers across GPUs, ROADMAP A.5);
@@ -403,3 +404,27 @@ def make_controller(run: RunConfig, *, n_comp: int = 1) -> SyncController:
     if kind in ("auto_compress", "noise_adaptive"):
         return _KINDS[kind](run, n_comp=n_comp)
     return _KINDS[kind](run)
+
+
+def traced_decision(tracer, controller: SyncController, report: RoundReport,
+                    step: int) -> PlanDelta:
+    """One ``update`` + ``plan_delta`` inside a ``controller`` span whose
+    attributes are the emitted :class:`PlanDelta` and the policy's
+    ``decisions`` provenance, so the trace shows which sensor drove which
+    actuation at each round.  With the null tracer this is exactly the
+    bare ``update`` + ``plan_delta`` pair."""
+    with tracer.span("controller", round=report.round, step=report.step,
+                     kind=getattr(controller, "kind", "custom")) as sp:
+        controller.update(report)
+        delta = controller.plan_delta(step)
+        sp.set(next_h=delta.h,
+               compression=(list(delta.compression)
+                            if isinstance(delta.compression, (tuple, list))
+                            else delta.compression),
+               topology=(delta.topology.describe()
+                         if delta.topology is not None else None),
+               batch_scale=delta.batch_scale, lr_scale=delta.lr_scale,
+               workers=delta.workers, demote=delta.demote,
+               promote=delta.promote,
+               decisions=dict(getattr(controller, "decisions", None) or {}))
+    return delta

@@ -262,6 +262,22 @@ def is_bucket_state(x) -> bool:
     return isinstance(x, BucketState)
 
 
+def abstract_buckets(layout: FlatLayout, *, lead: tuple = (),
+                     device="meta") -> list[torch.Tensor]:
+    """One uninitialized ``(*lead, rows, LANE)`` tensor per bucket, on
+    ``device`` (``"meta"``: shape and dtype only, no storage).
+
+    The template form of the resident checkpoint restores and the serving
+    weight subscriber (a :class:`BucketState` of these restores a
+    published bucket snapshot without a pytree view), and, on a real
+    device with ``lead=(num_pages, page_size)``, the serving page pools.
+    """
+    return [torch.empty(tuple(lead) + (layout.bucket_rows[b], LANE),
+                        dtype=torch_dtype(layout.bucket_dtypes[b]),
+                        device=device)
+            for b in range(layout.num_buckets)]
+
+
 # ---------------------------------------------------------------------------
 # Per-bucket constants (numpy; tensor forms cached per device)
 # ---------------------------------------------------------------------------

@@ -75,8 +75,9 @@ class LocalSGDState:
     global_u: Any        # BucketState, single copy, or None
     ef_memory: Any       # BucketState, stacked, or None
     step: int = 0
-    stats: Any = None    # telemetry.stats.StatsAccumulator or None
     rng: Any = None      # torch.Generator on the training device (noise)
+    stats: Any = None    # telemetry.stats.StatsAccumulator or None
+    # (fields in the reference's order: checkpoints name them in it)
 
 
 def needs_anchor(cfg: LocalSGDConfig) -> bool:

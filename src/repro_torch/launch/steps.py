@@ -1,5 +1,6 @@
-"""Step builder: wire paper-lm + resident local SGD into a ``TrainBundle``
-(the port of ``repro.launch.steps.build_train``, without a mesh).
+"""Step builders: paper-lm + resident local SGD as a ``TrainBundle``, and
+the serving forms ``build_serve`` / ``build_engine`` (the port of
+``repro.launch.steps``, single-device: no mesh, layout or shardings).
 
 The port always builds the resident flat-bus path — the one the
 reference selects with ``use_kernel=True`` — so every local step runs the
@@ -72,3 +73,52 @@ def build_train(run: RunConfig, *, num_workers: int = 1,
                        init=init, local_step=local_step, sync=sync,
                        device=device, layout=layout, sync_plan=plan,
                        telemetry=telemetry, n_comp=layout.num_buckets)
+
+
+@dataclass
+class ServeBundle:
+    cfg: ModelConfig
+    specs: Any
+    prefill: Callable           # (params, batch) -> (last logits, cache)
+    decode_step: Callable       # (params, batch, cache, cache_len) -> (logits, cache)
+    device: torch.device
+
+
+def build_serve(cfg: ModelConfig, *, device=None) -> ServeBundle:
+    """Contiguous-cache serving functions for ``cfg`` (``batch["tokens"]``
+    in, ``lm.prefill`` / ``lm.decode_step`` out), on the card unless
+    ``device`` says otherwise (the reference's ``shape`` sizes its
+    shardings, which the single-device port has none of)."""
+    device = resolve_device(device)
+
+    def prefill_fn(params, batch):
+        return lm.prefill(cfg, params, batch["tokens"])
+
+    def decode_fn(params, batch, cache, cache_len):
+        return lm.decode_step(cfg, params, batch["tokens"], cache, cache_len)
+
+    return ServeBundle(cfg=cfg, specs=lm.param_specs(cfg), prefill=prefill_fn,
+                       decode_step=decode_fn, device=device)
+
+
+def build_engine(cfg: ModelConfig, shape, params=None, *, page_size: int = 8,
+                 num_pages: int | None = None, prefill_len: int | None = None,
+                 eos_id: int | None = None, seed: int = 0, tracer=None,
+                 metrics=None, device=None, on_logits=None):
+    """Continuous-batching serving engine (see
+    :mod:`repro_torch.serving.engine`): ``shape.global_batch`` decode
+    slots, ``shape.seq_len`` max sequence length, a paged KV pool sized
+    for full occupancy, on the card unless ``device`` says otherwise.
+    ``params=None`` draws weights from the specs with a
+    ``torch.Generator(seed)`` on that device."""
+    from repro_torch.serving.engine import DecodeEngine
+
+    device = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = mbase.materialize(lm.param_specs(cfg), gen, device)
+    return DecodeEngine(cfg, params, max_batch=shape.global_batch,
+                        max_len=shape.seq_len, page_size=page_size,
+                        num_pages=num_pages, prefill_len=prefill_len,
+                        eos_id=eos_id, tracer=tracer, metrics=metrics,
+                        on_logits=on_logits)

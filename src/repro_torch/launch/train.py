@@ -1,6 +1,6 @@
 """Training driver: the paper's schedules on top of the step builder (the
-port of ``repro.launch.train.fit``, without the tracer, backends and the
-elastic policy).
+port of ``repro.launch.train.fit``, without the backends and the elastic
+policy).
 
 The communication pattern is decided on the host from the
 ``LocalSGDConfig`` exactly like the paper's Alg. 1/2/5 outer loops: every
@@ -16,17 +16,28 @@ emits rewrites the plan (compressor modes, topology), the per-worker
 batch (``_scaled_batch``), the LR scale and the block cadence for the
 next round.  ``telemetry_path`` gets one JSON line per global round.
 
+With a ``telemetry.trace.Tracer`` the loop is span-instrumented —
+``round`` / ``local_steps`` / ``sync`` (+ per-stage ``collective``
+attribution) / ``controller`` / ``eval`` / ``checkpoint`` — and the
+sync spans give the ledger its seconds (``record_plan(seconds=)``), the
+JSONL its ``round_s`` / ``sync_s`` / ``stage_s`` and the tracer's
+metrics registry its step and round series.  Without a tracer every
+hook is the null tracer's no-op: the trajectory is the same bit for bit.
+
 CLI:
     PYTHONPATH=src python -m repro_torch.launch.train --steps 40
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --block-steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --controller noise_adaptive
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 4 --trace-dir traced_run   # trace/metrics/manifest/jsonl
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -35,13 +46,17 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import (ControllerConfig, InputShape,
                                       LocalSGDConfig, OptimConfig, RunConfig)
-from repro_torch.core.controller import RoundReport, make_controller
+from repro_torch.core.controller import (RoundReport, make_controller,
+                                         traced_decision)
 from repro_torch.core.local_sgd import mean_params
 from repro_torch.core.schedule import DynamicSchedule
 from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
 from repro_torch.models import base as mbase
 from repro_torch.models import lm
+from repro_torch.telemetry import export as texport
+from repro_torch.telemetry import metrics as tmetrics
+from repro_torch.telemetry import trace as ttrace
 from repro_torch.telemetry.ledger import CommsLedger
 from repro_torch.telemetry.stats import round_summary
 
@@ -72,7 +87,8 @@ def _mode_str(modes) -> str:
 
 def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
         eval_every=0, eval_fn=None, log=print, params0=None, device=None,
-        controller=None, telemetry_path=None):
+        controller=None, telemetry_path=None, tracer=None,
+        checkpoint_every=0, checkpoint_fn=None, manifest_path=None):
     """Run the schedule; returns (state, history, summary).
 
     ``params0`` is the single-copy param tree to start from (e.g. weights
@@ -81,10 +97,17 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     with ``seed``, which also seeds the state's gradient-noise stream.
     ``controller`` overrides the policy built from ``run.controller``;
     ``telemetry_path`` writes one JSON line per global round.
+    ``tracer`` (a ``telemetry.trace.Tracer``) span-instruments the loop
+    and, when it carries a metrics registry, feeds it; a traced run's
+    JSONL records carry ``round_s`` / ``sync_s`` / ``stage_s``, and its
+    run manifest goes to ``manifest_path`` (default
+    ``<telemetry_path>.manifest.json``).  ``checkpoint_fn(state, step)``
+    runs every ``checkpoint_every`` steps inside a ``checkpoint`` span.
     ``summary`` has ``comm_rounds`` ({"block", "global"}), ``wall_s``
     (host clock, ending after a device synchronize), the plan's
-    ``topology``, the ledger's ``summary()`` (analytic ring bytes per
-    round; no sync seconds yet) and the ``controller``'s final decisions.
+    ``topology``, the ledger's ``summary()`` (ring-model bytes per round,
+    and ``sync_seconds`` when traced), the ``controller``'s final
+    decisions and, when traced, ``trace``.
     """
     if bundle is None:
         from repro_torch.launch.steps import build_train
@@ -106,6 +129,14 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     # config allocated; an identity policy returns the same plan
     plan = controller.plan_delta(0).apply(bundle.sync_plan)
 
+    tracer = tracer if tracer is not None else ttrace.NULL
+    mreg = tracer.metrics
+    if tracer.enabled and (manifest_path or telemetry_path):
+        # written up front, so a run that fails still names itself
+        texport.write_run_manifest(
+            manifest_path or f"{telemetry_path}.manifest.json",
+            run=run, plan=plan, device=dev)
+
     ledger = CommsLedger()
     history = []
     comm_rounds = {"block": 0, "global": 0}
@@ -113,32 +144,58 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     # the controller's LR multiplier; at 1.0 the step is the two-argument
     # call, so a static run keeps its trajectory bit for bit
     lr_scale_now = 1.0
+    # one "round" span per global round: opened at the round's first
+    # local step, closed when its global sync (+ decision) completes
+    round_span = None
     tlog = open(telemetry_path, "w") if telemetry_path else None
     t_start = time.perf_counter()
     try:
         for t in range(num_steps):
             h_now = max(int(controller.h_at(t)), 1)
-            batch = _scaled_batch(data_iter, controller.batch_scale())
-            if lr_scale_now == 1.0:
-                state, metrics = bundle.local_step(state, batch)
-            else:
-                state, metrics = bundle.local_step(state, batch, lr_scale_now)
+            if round_span is None:
+                round_span = tracer.start("round", round=global_rounds + 1,
+                                          step=t, h=h_now)
+            with tracer.span("local_steps", step=t) as stp:
+                batch = _scaled_batch(data_iter, controller.batch_scale())
+                if lr_scale_now == 1.0:
+                    state, metrics = bundle.local_step(state, batch)
+                else:
+                    state, metrics = bundle.local_step(state, batch,
+                                                       lr_scale_now)
+                stp.fence(state)
+            if mreg is not None:
+                tmetrics.observe_step(mreg, stp.dur_s)
             level = sched.advance(t)
             synced = ""
             if level == 1:
-                state = bundle.sync(state, plan=plan, scope="block")
-                ledger.record_plan(step=t, level=1, h=h_now, plan=plan,
-                                   scope="block",
-                                   num_workers=bundle.num_workers)
+                with tracer.span("sync", scope="block",
+                                 topology=plan.topology.describe()) as ssp:
+                    state = bundle.sync(state, plan=plan, scope="block")
+                    ssp.fence(state)
+                stage_s = ttrace.sync_stage_spans(tracer, plan, "block", ssp)
+                entry = ledger.record_plan(step=t, level=1, h=h_now, plan=plan,
+                                           scope="block", seconds=ssp.dur_s,
+                                           num_workers=bundle.num_workers)
                 comm_rounds["block"] += 1
                 synced = "block"
+                if mreg is not None:
+                    tmetrics.observe_round(
+                        mreg, scope="block", h=h_now,
+                        wire_bytes=entry["bytes_on_wire"],
+                        sync_s=ssp.dur_s, stage_s=stage_s)
             elif level == 2:
-                state = bundle.sync(state, plan=plan, scope="global")
+                with tracer.span("sync", scope="global",
+                                 topology=plan.topology.describe()) as ssp:
+                    state = bundle.sync(state, plan=plan, scope="global")
+                    ssp.fence(state)
+                sync_s = ssp.dur_s
+                stage_s = ttrace.sync_stage_spans(tracer, plan, "global", ssp)
                 global_rounds += 1
                 entry = ledger.record_plan(
                     step=t, level=2, h=h_now, plan=plan, scope="global",
                     batch_scale=controller.batch_scale(),
-                    lr_scale=lr_scale_now, num_workers=bundle.num_workers)
+                    lr_scale=lr_scale_now, seconds=sync_s,
+                    num_workers=bundle.num_workers)
                 comm_rounds["global"] += 1
                 synced = "global"
                 report = RoundReport(
@@ -147,8 +204,7 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                     stats=round_summary(state.stats) if bundle.telemetry else {},
                     wire_bytes=entry["bytes_on_wire"],
                     collectives=entry["collectives"])
-                controller.update(report)
-                delta = controller.plan_delta(t + 1)
+                delta = traced_decision(tracer, controller, report, t + 1)
                 if any(getattr(delta, k) is not None
                        for k in ("workers", "demote", "promote")):
                     raise NotImplementedError(
@@ -157,6 +213,17 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                 plan = delta.apply(plan)
                 if delta.lr_scale is not None:
                     lr_scale_now = float(delta.lr_scale)
+                tracer.finish(round_span, loss=report.loss,
+                              wire_bytes=report.wire_bytes)
+                round_s = round_span.dur_s
+                round_span = None
+                if mreg is not None:
+                    tmetrics.observe_round(
+                        mreg, scope="global", h=h_now,
+                        wire_bytes=report.wire_bytes, loss=report.loss,
+                        batch_scale=controller.batch_scale(),
+                        lr_scale=lr_scale_now, round_s=round_s,
+                        sync_s=sync_s, stage_s=stage_s)
                 if tlog is not None:
                     # None delta fields mean "keep": log the effective
                     # next decision
@@ -174,6 +241,12 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                                else controller.batch_scale()),
                            "next_lr_scale": lr_scale_now,
                            "topology": plan.topology.describe()}
+                    if tracer.enabled:
+                        # the seconds extension of the schema, keyed by
+                        # the stage ids the ledger prices
+                        rec["round_s"] = round_s
+                        rec["sync_s"] = sync_s
+                        rec["stage_s"] = {str(i): s for i, s in stage_s}
                     prov = getattr(controller, "decisions", None)
                     if prov:
                         rec["decisions"] = prov
@@ -185,11 +258,18 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
             rec.update(step=t, synced=synced)
             history.append(rec)
             if eval_every and eval_fn and (t + 1) % eval_every == 0:
-                ev = eval_fn(state)
+                with tracer.span("eval", step=t):
+                    ev = eval_fn(state)
                 rec.update({f"eval_{k}": float(v) for k, v in ev.items()})
                 log(f"step {t+1}: loss={rec['loss']:.4f} "
                     + " ".join(f"eval_{k}={float(v):.4f}" for k, v in ev.items()))
+            if checkpoint_every and checkpoint_fn \
+                    and (t + 1) % checkpoint_every == 0:
+                with tracer.span("checkpoint", step=t) as csp:
+                    csp.fence(checkpoint_fn(state, t))
     finally:
+        if round_span is not None:          # training ended mid-round
+            tracer.finish(round_span, incomplete=True)
         if tlog is not None:
             tlog.close()
     _sync_device(dev)
@@ -203,6 +283,9 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                                   controller.compression()),
                               "batch_scale": controller.batch_scale(),
                               "lr_scale": lr_scale_now}}
+    if tracer.enabled:
+        summary["trace"] = {"spans": len(tracer.spans),
+                            "fenced": tracer.fence}
     return state, history, summary
 
 
@@ -249,6 +332,15 @@ def main(argv=None):
                          "--sync-compression ef_sign")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
+    ap.add_argument("--trace-dir", default="",
+                    help="write trace.json / metrics.prom / manifest.json / "
+                         "telemetry.jsonl for this run (Perfetto + "
+                         "Prometheus exports; export.check_trace_dir "
+                         "validates them)")
+    ap.add_argument("--fence", action="store_true",
+                    help="synchronize the card at span boundaries: the "
+                         "spans time the work, not its launch (off by "
+                         "default)")
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -274,9 +366,27 @@ def main(argv=None):
                                  seq_len=args.seq, sample_seed=123))
     it = ShardedBatches(data, args.workers, args.local_batch)
     bundle = build_train(run, num_workers=args.workers, device=args.device)
+    tracer = None
+    trace_kw = {}
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        tracer = ttrace.Tracer(fence=args.fence, annotate=True,
+                               metrics=tmetrics.MetricsRegistry())
+        trace_kw = {"tracer": tracer,
+                    "telemetry_path": os.path.join(args.trace_dir,
+                                                   "telemetry.jsonl"),
+                    "manifest_path": os.path.join(args.trace_dir,
+                                                  "manifest.json")}
     state, hist, summary = fit(run, it, bundle=bundle, num_steps=args.steps,
                                eval_every=max(args.steps // 5, 1),
-                               eval_fn=eval_lm(bundle, held))
+                               eval_fn=eval_lm(bundle, held), **trace_kw)
+    if tracer is not None:
+        texport.write_perfetto(os.path.join(args.trace_dir, "trace.json"),
+                               tracer, extra={"wall_s": summary["wall_s"]})
+        texport.write_prometheus(os.path.join(args.trace_dir, "metrics.prom"),
+                                 tracer.metrics)
+        print(f"trace: {len(tracer.spans)} spans -> {args.trace_dir}/ "
+              "(trace.json, metrics.prom, manifest.json, telemetry.jsonl)")
     print(f"done: final loss={hist[-1]['loss']:.4f} wall={summary['wall_s']:.1f}s "
           f"comm={summary['comm_rounds']} topology={summary['topology']} "
           f"wire_bytes={summary['ledger']['wire_bytes']:.4g} "

@@ -1,5 +1,6 @@
-"""Shared layers in plain PyTorch: RMS norm, RoPE, causal attention, SwiGLU
-(the port of the training-path parts of ``repro.models.layers``).
+"""Shared layers in plain PyTorch: RMS norm, RoPE, causal attention, the
+decode step's cache write and single-token attention, SwiGLU (the port
+of the training and serving parts of ``repro.models.layers``).
 
 All functions are single-worker, float32 in and out for float32 params.
 The training path's attention is plain ``matmul``/``softmax``, as the
@@ -96,6 +97,57 @@ def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def cache_write(buf, new, write):
+    """Write one token's k/v rows into a sequence-major cache buffer, IN
+    PLACE, and return it (the reference returns an updated copy; the port
+    updates the buffer the caller holds, as the reference's donated
+    buffers are updated).
+
+    ``buf``: (B, S, ...); ``new``: (B, 1, ...); ``write``: an int, a 0-d
+    or a (B,) int tensor — the target position along axis 1, one per row
+    for continuous batching.  Positions are taken in ``[0, S)``.
+    """
+    new = new.to(buf.dtype)
+    w = torch.as_tensor(write, device=buf.device)
+    if w.dim() == 0:
+        buf[:, w] = new[:, 0]
+    else:
+        buf[torch.arange(buf.shape[0], device=buf.device), w.long()] = new[:, 0]
+    return buf
+
+
+def decode_attention(q, k_cache, v_cache, *, cache_len, window: int = 0,
+                     softcap: float = 0.0, scale: float = 0.0):
+    """Single-token attention over a KV cache (the reference's
+    ``decode_attention``), accumulated in float32.
+
+    q: (B, 1, H, D); caches: (B, S, KH, D); ``cache_len``: int, 0-d or
+    (B,) — the number of valid cache entries, the new token's k/v already
+    written at ``cache_len - 1``.  ``window`` keeps the last ``window``
+    entries; ``softcap`` caps the scores as ``tanh(s / cap) * cap``.
+    """
+    B, _, H, D = q.shape
+    KH = k_cache.shape[2]
+    G = H // KH
+    S = k_cache.shape[1]
+    scale = scale or 1.0 / math.sqrt(D)
+    qh = q.reshape(B, KH, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qh.float(), k_cache.float()) * scale
+    s = _softcap(s, softcap)
+    pos = torch.arange(S, device=q.device)
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    clen = clen.expand(B, 1)
+    valid = pos[None, :] < clen
+    if window:
+        valid &= pos[None, :] >= clen - window
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    out = out / p.sum(dim=-1)[..., None]
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def swiglu(gate, up):

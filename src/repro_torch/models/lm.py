@@ -1,11 +1,16 @@
-"""Decoder LM of the training path (the port of ``repro.models.lm`` for the
-dense attention + SwiGLU family: paper-lm).
+"""Decoder LM (the port of ``repro.models.lm`` for the dense attention +
+SwiGLU family: paper-lm): the training forward and loss, and the serving
+entry points ``prefill`` / ``decode_step`` over a KV cache.
 
 The param tree has the reference's nesting: ``embed``, ``final_norm``,
 ``layers`` (a tuple with one dict per block of the repeating pattern,
 each leaf stacked over the pattern's repeats) and ``rem`` (the unstacked
 remainder).  A Python loop over the stacked layers takes the place of
-``lax.scan``.  Embeddings are tied.
+``lax.scan``.  Embeddings are tied.  The cache has the same nesting:
+``{"layers": ({"k", "v"} per block, stacked over the repeats), "rem":
+(...)}``, leaves ``(repeats, B, S, KH, D)`` with logical axes
+``("layers", "batch", "kv_seq", "kv_heads", None)``.  ``decode_step``
+writes the new token's k/v into the cache it is given, in place.
 """
 from __future__ import annotations
 
@@ -65,20 +70,30 @@ def param_specs(cfg: ModelConfig):
     return specs
 
 
-def apply_layer(cfg: ModelConfig, bd: BlockDef, p, x, positions):
-    """Pre-norm residual block."""
+def apply_layer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx):
+    """Pre-norm residual block.  Returns ``(x, new_cache)``."""
     h = rms_norm(x, p["ln1"], eps=cfg.norm_eps)
     theta = cfg.rope_theta_global or cfg.rope_theta
-    x = x + B.attn_apply(cfg, p["mix"], h, positions, rope_theta=theta)
+    y, new_cache = B.attn_apply(cfg, p["mix"], h, ctx, rope_theta=theta)
+    x = x + y
     h = rms_norm(x, p["ln2"], eps=cfg.norm_eps)
-    return x + B.ffn_apply(cfg, p["ffn"], h, bd.ffn)
+    return x + B.ffn_apply(cfg, p["ffn"], h, bd.ffn), new_cache
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """Train-mode decoder stack: tokens (B, S) int -> hidden (B, S, E)."""
+def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
+             cache=None, cache_len=None):
+    """The decoder stack in any mode: (hidden (B, S, E), new cache).
+
+    Train mode returns no cache; prefill stacks each block's k/v over the
+    repeats; decode writes the new token's k/v into ``cache`` in place
+    (through per-layer views) and returns it."""
     x = params["embed"][tokens]
     Bsz, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(Bsz, S)
+    if mode == "decode":
+        last = torch.as_tensor(cache_len, device=tokens.device).reshape(-1) - 1
+        positions = last[:, None].expand(Bsz, 1)
+    else:
+        positions = torch.arange(S, device=tokens.device)[None].expand(Bsz, S)
     period, n_groups, rem = _schedule_groups(cfg)
     # unbind each stacked leaf once: its backward stacks the per-layer
     # grads in one pass, where indexing a[g] per layer would make autograd
@@ -87,14 +102,35 @@ def forward(cfg: ModelConfig, params, tokens):
     for i in range(period if n_groups else 0):
         leaves, treedef = tree_flatten(params["layers"][i])
         groups.append((treedef, [leaf.unbind(0) for leaf in leaves]))
+    group_caches = [[] for _ in groups]
     for g in range(n_groups):
         for i, (treedef, per_layer) in enumerate(groups):
             lp = tree_unflatten(treedef, [p[g] for p in per_layer])
-            x = apply_layer(cfg, cfg.blocks[i], lp, x, positions)
+            lc = (None if cache is None else
+                  {k: v[g] for k, v in cache["layers"][i].items()})
+            x, nc = apply_layer(cfg, cfg.blocks[i], lp, x,
+                                B.Ctx(mode=mode, positions=positions,
+                                      cache=lc, cache_len=cache_len))
+            group_caches[i].append(nc)
+    rem_caches = []
     for i in range(rem):
-        x = apply_layer(cfg, cfg.block_at(n_groups * period + i),
-                        params["rem"][i], x, positions)
-    return rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+        lc = None if cache is None else cache["rem"][i]
+        x, nc = apply_layer(cfg, cfg.block_at(n_groups * period + i),
+                            params["rem"][i], x,
+                            B.Ctx(mode=mode, positions=positions, cache=lc,
+                                  cache_len=cache_len))
+        rem_caches.append(nc)
+    x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+    if mode != "prefill":
+        return x, cache
+    layers = tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+                   for cs in group_caches)
+    return x, {"layers": layers, "rem": tuple(rem_caches)}
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """Train-mode decoder stack: tokens (B, S) int -> hidden (B, S, E)."""
+    return _decoder(cfg, params, tokens)[0]
 
 
 def chunked_xent(cfg: ModelConfig, params, hidden, labels, *, block: int = 512):
@@ -128,3 +164,102 @@ def loss_fn(cfg: ModelConfig, params, batch):
     loss = s / n.clamp_min(1)
     return loss, {"xent": loss, "aux": loss.new_zeros(()), "tokens": n}
 
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _is_axes(x) -> bool:
+    return (isinstance(x, tuple) and len(x) > 0
+            and all(isinstance(e, (str, type(None))) for e in x))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, axes: bool = False, device=None):
+    """Zero KV cache (``axes=True``: the logical-axes tree instead)."""
+    period, n_groups, rem = _schedule_groups(cfg)
+
+    def one():
+        return (B.attn_cache_axes() if axes else
+                B.attn_init_cache(cfg, batch, max_len, dtype, device=device))
+
+    def stack(c):
+        if axes:
+            return tree_map(lambda a: ("layers",) + a, c, is_leaf=_is_axes)
+        return tree_map(lambda a: a[None].repeat((n_groups,) + (1,) * a.dim()), c)
+
+    group = tuple(stack(one()) for _ in range(period))
+    return {"layers": group if n_groups else (),
+            "rem": tuple(one() for _ in range(rem))}
+
+
+def cache_axes_tree(cfg: ModelConfig):
+    """Logical-axes tree congruent with :func:`init_cache` trees."""
+    return init_cache(cfg, 1, 1, axes=True)
+
+
+def grow_cache(cfg: ModelConfig, cache, max_len: int):
+    """Zero-extend every cache leaf along its ``kv_seq`` axis to
+    ``max_len`` (dtype kept)."""
+    leaves, treedef = tree_flatten(cache)
+    axes = tree_flatten(cache_axes_tree(cfg), is_leaf=_is_axes)[0]
+    assert len(leaves) == len(axes), (len(leaves), len(axes))
+    grown = []
+    for leaf, ax in zip(leaves, axes):
+        si = ax.index("kv_seq")
+        if leaf.shape[si] >= max_len:
+            grown.append(leaf)
+            continue
+        shape = list(leaf.shape)
+        shape[si] = max_len
+        out = leaf.new_zeros(shape)
+        out.narrow(si, 0, leaf.shape[si]).copy_(leaf)
+        grown.append(out)
+    return tree_unflatten(treedef, grown)
+
+
+# ---------------------------------------------------------------------------
+# Serving entry points
+# ---------------------------------------------------------------------------
+
+def logits_from_hidden(cfg: ModelConfig, params, hidden):
+    logits = hidden @ params["embed"].t().to(hidden.dtype)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, tokens, *, max_len=None, lengths=None):
+    """Forward over the prompt, building its KV cache; returns
+    ``(last_logits (B, 1, V), cache)``.
+
+    ``lengths`` ((B,) int): true prompt lengths of right-padded
+    ``tokens`` — the logits are read at ``lengths - 1``; causal attention
+    keeps the positions before it independent of the padding, so a padded
+    prefill reads what an exact-length prefill reads.  ``max_len`` grows
+    the cache to that length (:func:`grow_cache`).
+    """
+    Bsz, S = tokens.shape
+    hidden, cache = _decoder(cfg, params, tokens, mode="prefill")
+    if lengths is None:
+        last = hidden[:, -1:]
+    else:
+        idx = (torch.as_tensor(lengths, device=tokens.device).reshape(-1)
+               .long() - 1).clamp_min(0)
+        last = hidden[torch.arange(Bsz, device=tokens.device), idx][:, None]
+    logits = logits_from_hidden(cfg, params, last)
+    if max_len is not None and max_len > S:
+        cache = grow_cache(cfg, cache, max_len)
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, token, cache, cache_len):
+    """One decode step: ``token`` (B, 1); ``cache_len`` (int, 0-d or (B,))
+    counts the new token.  Returns ``(logits (B, 1, V), cache)``, the
+    cache updated in place."""
+    hidden, cache = _decoder(cfg, params, token, mode="decode", cache=cache,
+                             cache_len=cache_len)
+    return logits_from_hidden(cfg, params, hidden), cache

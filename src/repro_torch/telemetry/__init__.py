@@ -1,2 +1,3 @@
-"""Training statistics, the comms ledger and the metrics registry (the
-port of ``repro.telemetry.stats``, ``ledger`` and ``metrics``)."""
+"""Training statistics, the comms ledger, the metrics registry, the trace
+spine and its exporters (the port of ``repro.telemetry.stats``,
+``ledger``, ``metrics``, ``trace`` and ``export``)."""

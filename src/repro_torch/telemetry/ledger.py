@@ -8,8 +8,8 @@ the port live on one card, so nothing crosses a wire there: the bytes are
 the ring model's, as if each worker had its own device, and every row's
 ``cost_source`` is ``"analytic"``.  The reference's ``hlo_sync_cost``
 parses XLA HLO and has no counterpart; a measured collective count comes
-with workers across GPUs (NCCL), and per-stage seconds with the trace
-port.
+with workers across GPUs (NCCL).  Seconds come from the tracer: ``fit``
+passes each traced sync's span duration to ``record_plan(seconds=)``.
 
 :class:`CommsLedger` accumulates one row per collective stage of each
 sync round (:meth:`CommsLedger.record_plan`) or one per round
@@ -132,15 +132,24 @@ class CommsLedger:
 
     def record_plan(self, *, step: int, level: int, h: int, plan,
                     scope: str = "global", batch_scale: int = 1,
-                    lr_scale: float = 1.0,
+                    lr_scale: float = 1.0, seconds: float | None = None,
                     num_workers: int | None = None) -> dict:
         """Append one row per collective stage of ``plan.schedule(scope)``;
         returns the round totals (a ``record``-shaped dict).
-        ``num_workers`` stamps the rows with the worker-set width the round
-        priced (default: the plan's)."""
+
+        ``seconds`` is the round's measured sync wall time (the tracer's
+        ``sync`` span): it is spread over the stage rows as ``stage_s`` by
+        the stages' wire-byte weights, as ``trace.sync_stage_spans`` spreads
+        it over the ``collective`` spans, and the totals carry it as
+        ``sync_s``.  ``num_workers`` stamps the rows with the worker-set
+        width the round priced (default: the plan's)."""
         nw = int(num_workers if num_workers is not None else plan.num_workers)
+        stages = plan.collective_stages(scope)
+        est = sum(s.wire_bytes for s in stages)
+        shares = ([s.wire_bytes / est for s in stages] if est > 0
+                  else [1.0 / max(len(stages), 1)] * len(stages))
         total_b, total_c = 0.0, 0
-        for i, s in enumerate(plan.collective_stages(scope)):
+        for i, s in enumerate(stages):
             e = {"step": int(step), "level": int(level), "h": int(h),
                  "stage": i, "scope": scope, "kind": s.kind,
                  "topology": plan.topology.kind,
@@ -154,15 +163,20 @@ class CommsLedger:
                  "compression": s.compression,
                  "batch_scale": int(batch_scale),
                  "lr_scale": float(lr_scale)}
+            if seconds is not None:
+                e["stage_s"] = float(seconds * shares[i])
             self.entries.append(e)
             total_b += e["bytes_on_wire"]
             total_c += e["collectives"]
-        return {"step": int(step), "level": int(level), "h": int(h),
-                "bytes_on_wire": total_b, "collectives": total_c,
-                "cost_source": "analytic",
-                "compression": "|".join(plan.modes),
-                "batch_scale": int(batch_scale),
-                "lr_scale": float(lr_scale)}
+        out = {"step": int(step), "level": int(level), "h": int(h),
+               "bytes_on_wire": total_b, "collectives": total_c,
+               "cost_source": "analytic",
+               "compression": "|".join(plan.modes),
+               "batch_scale": int(batch_scale),
+               "lr_scale": float(lr_scale)}
+        if seconds is not None:
+            out["sync_s"] = float(seconds)
+        return out
 
     def total_bytes(self, *, level: int | None = None) -> float:
         return float(sum(e["bytes_on_wire"] for e in self.entries
@@ -211,11 +225,16 @@ class CommsLedger:
                     / max(sum(bs), 1))}
 
     def summary(self) -> dict:
-        return {"sync_rounds": self.num_rounds(),
-                "wire_bytes": self.total_bytes(),
-                "collectives": self.total_collectives(),
-                "cost_sources": sorted({e["cost_source"]
-                                        for e in self.entries}),
-                "scaling": self.scaling(),
-                "topologies": self.by_topology(),
-                "worker_sets": self.by_workers()}
+        out = {"sync_rounds": self.num_rounds(),
+               "wire_bytes": self.total_bytes(),
+               "collectives": self.total_collectives(),
+               "cost_sources": sorted({e["cost_source"]
+                                       for e in self.entries}),
+               "scaling": self.scaling(),
+               "topologies": self.by_topology(),
+               "worker_sets": self.by_workers()}
+        if any("stage_s" in e for e in self.entries):
+            # measured sync seconds rode in through record_plan(seconds=)
+            out["sync_seconds"] = float(sum(e.get("stage_s", 0.0)
+                                            for e in self.entries))
+        return out

@@ -10,7 +10,7 @@ runs them op by op).  Per-step loss and held-out xent: rtol 1e-5
 the sync pattern: exact.  Hierarchical local SGD (Alg. 5) is held the
 same way, and its comms ledger too: rounds, ring-model wire bytes and
 collectives per topology and scope, exactly (the reference's clock fields
-are not compared: the port's ledger records no seconds yet).
+are not compared: an untraced run records no seconds).
 """
 import jax
 import numpy as np

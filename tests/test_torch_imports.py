@@ -52,6 +52,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for mod in ("common", "paper_tables", "bench_convex", "run"):
         assert f"src/repro_torch/benchmarks/{mod}.py" in names, mod
     assert "src/repro_torch/telemetry/metrics.py" in names
+    for mod in ("telemetry/trace", "telemetry/export", "checkpoint/checkpoint",
+                "checkpoint/__init__", "core/elastic", "serving/paged",
+                "serving/engine", "serving/publish", "serving/__init__"):
+        assert f"src/repro_torch/{mod}.py" in names, mod
     bad = []
     for f in PORT_FILES:
         for mod in _imports(f):
