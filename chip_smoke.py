@@ -53,6 +53,27 @@ Phases:
            launch counts as in A; the comms ledger's rounds and ring-model
            bytes per topology and scope (a block round one bucket, a
            global round 1.5 buckets); step time beside phase A's.
+  E        the elastic worker pool at phase A's settings, through the
+           backend seam (``LocalBackend`` / ``SimulatedBackend``, the
+           ``elastic`` controller).  E1: W = 4 -> 2 -> 4 under the mean
+           sync (resizes after global rounds 3 and 5; W=2 runs steps 3-7),
+           12 steps: two resizes, syncs as phase A's, final buckets
+           (4, 934,040, 128), the ledger per worker set (a W=2 round one
+           bucket, a W=4 round 1.5), launches 12 / 12, per-step losses
+           against a hand-driven fresh-run oracle on the card (1e-6
+           relative), sq_sum on the live buckets after each resize against
+           its plain version; median step time per W, each fenced resize
+           span's seconds, peak memory.  E2: LARS + EF-sign with
+           telemetry, W = 4 -> 2 after round 3, 8 steps: the oracle within
+           1e-4, ``num_workers`` 2 in the rounds after the resize, the
+           LARS pair 8 launches each, the compressor pair one a sync.  E3:
+           a ``SimulatedBackend`` straggler (worker 2, +0.05 s a step,
+           cleared by an eval hook every 3 steps), 12 steps: demoted at
+           round ``skew_patience``, block syncs at steps 2 and 7 under
+           hierarchical(block_size=2) while demoted, promoted back at the
+           last round, flat topology and an empty demoted set after; the
+           decision stream (the step times are the backend's model, not
+           the card's).  JSONL in ``build/phase_e{1,2,3}.jsonl``.
   R        phase B's run traced (``Tracer(fence=True, annotate=True)``
            with a metrics registry; artifacts in ``build/phase_r/``): the
            trace directory passes ``export.check_trace_dir``, per-step
@@ -114,7 +135,11 @@ Phases:
            LARS with telemetry, mean and EF-sign sync; then the
            auto_compress and noise_adaptive policies with EF-sign: the same
            decisions round by round, with each sensor's margin to its
-           threshold.
+           threshold; then sq_sum and fused SGD against their plain
+           versions at W = 4 -> 2 -> 4 -> 8 on one stream (sq_sum's scratch
+           reused across the changes), and the elastic trainer with phase
+           E's resizes and straggler together: the same resize and
+           demotion decisions, losses within 1e-4.
   G        the paper's experiments (``repro_torch.benchmarks``) at the
            harness's full size (MLP width 256, 1,536 train / 2,048 test
            examples, K up to 8): Fig. 1's A5 and Table 4's EFsign_post_H8
@@ -967,6 +992,315 @@ def phase_h(cfg, a_step_s: float) -> dict:
     return counts
 
 
+# phase E: the elastic worker pool (resizes, straggler demotion)
+E_STEPS = 12
+E_RESIZE = {3: 2, 5: 4}         # global round -> worker-set width (E1)
+E2_STEPS, E2_RESIZE = 8, {3: 2}
+E3_LATENCY = {2: 0.05}          # simulated seconds per step of worker 2 (E3)
+E3_STEPS, E3_HEAL_EVERY = 12, 3
+E3_BLOCKS = [2, 7]               # block syncs while worker 2 is demoted
+C_E_STEPS, C_E_RESIZE = 16, {3: 2, 4: 4}    # phase C: straggler + resizes
+
+
+def elastic_fit(run, *, device, steps, resize_at=None, latency_s=None,
+                heal_every=0, params0=None, seed=0, telemetry_path=None,
+                tracer=None, on_resize=None):
+    """fit() through a LocalBackend (a SimulatedBackend with
+    ``latency_s``, cleared by an eval hook every ``heal_every`` steps
+    when that is set) and the elastic controller, on markov_lm data.  The
+    backend's ``build_fn`` wraps every (re)built bundle's local_step, so
+    the step timer survives a resize; ``on_resize(state, W)`` runs at the
+    first step of each rebuilt bundle, before its timer starts.  Returns
+    (state, history, summary, backend, step_s, step_w): host seconds per
+    step (one local step's start to the next's, a device synchronize
+    before each, the sync and any resize included) and each step's W."""
+    import torch
+    from repro_torch.backend import LocalBackend, SimulatedBackend
+    from repro_torch.core.controller import ElasticController
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import build_train
+
+    S = run.shape.seq_len
+    B = run.shape.global_batch // W
+    data = lm_examples(markov_lm(vocab=run.model.vocab_size, num_seqs=W * B * 4,
+                                 seq_len=S, seed=seed))
+    starts, widths, builds = [], [], []
+
+    def build(run_, ws):
+        bundle = build_train(run_, worker_set=ws, device=device)
+        local_step, first = bundle.local_step, [bool(builds)]
+        builds.append(ws.num_workers)
+
+        def timed_step(state, *args):
+            if first[0] and on_resize is not None:
+                on_resize(state, ws.num_workers)
+            first[0] = False
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            widths.append(ws.num_workers)
+            return local_step(state, *args)
+
+        bundle.local_step = timed_step
+        return bundle
+
+    kw = dict(device=device, build_fn=build)
+    be = (SimulatedBackend(W, latency_s=latency_s, **kw) if latency_s
+          else LocalBackend(W, **kw))
+    ctl = ElasticController(run, resize_at=resize_at)
+
+    def heal(state):                    # the straggler recovers
+        be.latency_s.clear()
+        return {}
+
+    state, hist, summ = ttrain.fit(
+        run, ShardedBatches(data, W, B, seed=seed), backend=be, controller=ctl,
+        num_steps=steps, seed=seed, params0=params0, log=lambda *a: None,
+        telemetry_path=telemetry_path, tracer=tracer,
+        eval_fn=heal if heal_every else None, eval_every=heal_every)
+    starts.append(summ["wall_s"] + starts[0])
+    return (state, hist, summ, be,
+            [b - a for a, b in zip(starts, starts[1:])], widths)
+
+
+def elastic_oracle(run, *, device, steps, resize_at, params0, seed=0):
+    """The fresh-run oracle of a resize (the reference test's
+    ``_reference_elastic``): local steps and syncs driven by hand on the
+    schedule, and at each scripted round the resized state handed to a
+    FRESH bundle at the new W, the data re-partitioned and the LR scaled
+    by new_w / 4.  Returns the per-step losses."""
+    from repro_torch.core import elastic
+    from repro_torch.core.schedule import DynamicSchedule, local_steps_at
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.launch.steps import build_train
+
+    S = run.shape.seq_len
+    B = run.shape.global_batch // W
+    data = lm_examples(markov_lm(vocab=run.model.vocab_size, num_seqs=W * B * 4,
+                                 seq_len=S, seed=seed))
+    it = ShardedBatches(data, W, B, seed=seed)
+    bundle = build_train(run, num_workers=W, device=device)
+    state = bundle.init(params0, seed=seed)
+    sched = DynamicSchedule(run.local_sgd, lambda t: local_steps_at(run.local_sgd, t))
+    rounds, lr_scale, losses = 0, 1.0, []
+    for t in range(steps):
+        batch = next(it)
+        state, m = (bundle.local_step(state, batch) if lr_scale == 1.0
+                    else bundle.local_step(state, batch, lr_scale))
+        losses.append(float(m["loss"]))
+        if sched.advance(t) != 2:
+            continue
+        state = bundle.sync(state)
+        rounds += 1
+        new_w = resize_at.get(rounds)
+        if new_w is not None and new_w != bundle.num_workers:
+            lr_scale *= new_w / bundle.num_workers
+            state = elastic.resize_state(state, new_w)
+            bundle = build_train(run, num_workers=new_w, device=device)
+            it.resize(new_w)
+    del state
+    return losses
+
+
+def _sq_sum_on_live(checks: list):
+    """``on_resize`` hook: sq_sum on the live resized buckets (params and
+    momentum) against sq_sum_plain, launches not counted (a comparison,
+    not the path)."""
+    from repro_torch.kernels import fused_bucket as fb
+
+    def check(state, w):
+        before = dict(fb.LAUNCHES)
+        for f in ("params", "momentum"):
+            x = getattr(state, f).buckets[0]
+            got, want = fb.sq_sum(x), fb.sq_sum_plain(x)
+            checks.append({"W": w, "buffer": f, "shape": list(x.shape),
+                           "max_rel_err": rel_err(got, want)[1]})
+        fb.LAUNCHES.update(before)
+    return check
+
+
+def phase_e(cfg) -> dict:
+    """Phase E: the elastic worker pool at full width (phase A's settings,
+    the markov corpus).  E1 resizes W = 4 -> 2 -> 4 under the mean sync;
+    E2 resizes 4 -> 2 under LARS + EF-sign with telemetry; E3 demotes a
+    simulated straggler and promotes it back.  Returns the launch counts
+    of the three runs."""
+    import torch
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+    from repro_torch.telemetry import trace as ttrace
+    from repro_torch.telemetry.stats import round_summary
+
+    launches = {k: 0 for k in fb.LAUNCHES}
+    bucket = FULL_ROWS * 128 * 4            # one worker copy of the f32 bucket
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p0 = mbase.materialize(lm.param_specs(cfg), gen, "cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    # ---- E1: W = 4 -> 2 -> 4, mean sync ----
+    run = phase_run("none", cfg, seq=512, local_batch=8,
+                    controller=dict(kind="elastic"))
+    checks = []
+    tracer = ttrace.Tracer(fence=True)
+    jsonl = ROOT / "build" / "phase_e1.jsonl"
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    state, hist, summ, be, step_s, step_w = elastic_fit(
+        run, device="cuda", steps=E_STEPS, resize_at=E_RESIZE, params0=p0,
+        telemetry_path=str(jsonl), tracer=tracer,
+        on_resize=_sq_sum_on_live(checks))
+    counts = dict(fb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    shape = list(state.params.buckets[0].shape)
+    del state
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    oracle = elastic_oracle(run, device="cuda", steps=E_STEPS,
+                            resize_at=E_RESIZE, params0=p0)
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle))
+    recs = read_jsonl(jsonl)
+    syncs = [(h["step"], h["synced"]) for h in hist if h["synced"]]
+    resize_steps = {r["step"] for r in recs if "next_workers" in r}
+    by_w = {w: statistics.median(s for t, (s, ww) in enumerate(zip(step_s, step_w))
+                                 if ww == w and t and t not in resize_steps)
+            for w in (2, 4)}
+    resize_s = [s.dur_s for s in tracer.spans if s.name == "resize"]
+    wsets = summ["ledger"]["worker_sets"]
+    for k, v in counts.items():
+        launches[k] += v
+    emit({"phase": "E1", "model": cfg.name, "local_batch": 8, "seq": 512,
+          "resize_at": E_RESIZE, "steps": E_STEPS, "loss": losses,
+          "oracle_loss": oracle, "loss_max_rel_diff": loss_rel, "loss_tol": 1e-6,
+          "syncs": syncs, "next_workers": [r["next_workers"] for r in recs
+                                           if "next_workers" in r],
+          "resizes": summ["resizes"], "backend": summ["backend"],
+          "final_bucket_shape": shape, "ledger_worker_sets": wsets,
+          "sq_sum_after_resize": checks, "step_s": step_s, "step_w": step_w,
+          "step_s_median_W4": by_w[4], "step_s_median_W2": by_w[2],
+          "W2_over_W4": by_w[2] / by_w[4], "resize_span_s_fenced": resize_s,
+          "peak_mem_GB": peak, "launches": counts})
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(fused_sgd_bucket=E_STEPS, sq_sum=E_STEPS)
+    a_syncs = [(0, "global"), (1, "global"), (2, "global"), (3, "global"),
+               (7, "global"), (11, "global")]
+    bad = [k for k, ok in (
+        ("loss not finite", all(math.isfinite(v) for v in losses)),
+        ("oracle", loss_rel <= 1e-6),
+        ("resizes", summ["resizes"] == 2 and be.worker_set.num_workers == 4),
+        ("next_workers", [r["next_workers"] for r in recs
+                          if "next_workers" in r] == [2, 4]),
+        ("syncs", syncs == a_syncs),
+        ("final shape", shape == [W, FULL_ROWS, 128]),
+        ("ledger", set(wsets) == {"W=2", "W=4"}
+         and wsets["W=2"]["rounds"] == 2 and wsets["W=4"]["rounds"] == 4
+         and wsets["W=2"]["bytes_per_round"] == bucket
+         and wsets["W=4"]["bytes_per_round"] == 1.5 * bucket),
+        ("sq_sum after resize", [c["W"] for c in checks] == [2, 2, 4, 4]
+         and all(c["max_rel_err"] <= TOL["reduction"] for c in checks)),
+        ("resize spans", len(resize_s) == 2),
+        ("launches", counts == want)) if not ok]
+    if bad:
+        raise AssertionError(f"phase E1: {', '.join(bad)} (losses {losses}, "
+                             f"oracle {oracle}, syncs {syncs}, ledger {wsets}, "
+                             f"checks {checks}, launches {counts})")
+
+    # ---- E2: LARS + EF-sign with telemetry, W = 4 -> 2 ----
+    run = phase_run("ef_sign", cfg, seq=512, local_batch=8, steps=E2_STEPS,
+                    lars=True, controller=dict(kind="elastic"))
+    jsonl = ROOT / "build" / "phase_e2.jsonl"
+    fb.reset_launches()
+    state, hist, summ, be, step_s, step_w = elastic_fit(
+        run, device="cuda", steps=E2_STEPS, resize_at=E2_RESIZE, params0=p0,
+        telemetry_path=str(jsonl))
+    counts = dict(fb.LAUNCHES)
+    summary = round_summary(state.stats)
+    del state
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    oracle = elastic_oracle(run, device="cuda", steps=E2_STEPS,
+                            resize_at=E2_RESIZE, params0=p0)
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle))
+    recs = read_jsonl(jsonl)
+    syncs = summ["comm_rounds"]["global"]
+    for k, v in counts.items():
+        launches[k] += v
+    emit({"phase": "E2", "model": cfg.name, "optimizer": "lars",
+          "sync_compression": "ef_sign", "resize_at": E2_RESIZE,
+          "steps": E2_STEPS, "loss": losses, "oracle_loss": oracle,
+          "loss_max_rel_diff": loss_rel, "loss_tol": 1e-4,
+          "round_num_workers": [r["num_workers"] for r in recs],
+          "round_summary": summary, "step_s": step_s, "step_w": step_w,
+          "launches": counts})
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(lars_row_norms=E2_STEPS, fused_lars_bucket=E2_STEPS,
+                row_abs_sum=syncs, scale_sign_rows=syncs)
+    bad = [k for k, ok in (
+        ("loss not finite", all(math.isfinite(v) for v in losses)),
+        ("oracle", loss_rel <= 1e-4),
+        ("resizes", summ["resizes"] == 1 and be.worker_set.num_workers == 2),
+        ("num_workers", [r["num_workers"] for r in recs] == [4, 4, 4, 2, 2]
+         and summary["num_workers"] == 2),
+        ("launches", syncs == 5 and counts == want)) if not ok]
+    if bad:
+        raise AssertionError(f"phase E2: {', '.join(bad)} (losses {losses}, "
+                             f"oracle {oracle}, launches {counts})")
+
+    # ---- E3: a simulated straggler, demoted and promoted back ----
+    run = phase_run("none", cfg, seq=512, local_batch=8, steps=E3_STEPS,
+                    controller=dict(kind="elastic"))
+    jsonl = ROOT / "build" / "phase_e3.jsonl"
+    fb.reset_launches()
+    state, hist, summ, be, step_s, step_w = elastic_fit(
+        run, device="cuda", steps=E3_STEPS, latency_s=dict(E3_LATENCY),
+        heal_every=E3_HEAL_EVERY, params0=p0, telemetry_path=str(jsonl))
+    counts = dict(fb.LAUNCHES)
+    del state
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    recs = read_jsonl(jsonl)
+    keys = ("round", "step", "worker_step_s", "worker_step_skew",
+            "worker_slowest", "worker_step_s_by_id", "demote", "promote",
+            "topology", "decisions")
+    stream = [{k: r[k] for k in keys if k in r} for r in recs]
+    syncs = [(h["step"], h["synced"]) for h in hist if h["synced"]]
+    blocks = [t for t, s in syncs if s == "block"]
+    demoted = [r for r in recs if "demote" in r]
+    promoted = [r for r in recs if "promote" in r]
+    for k, v in counts.items():
+        launches[k] += v
+    emit({"phase": "E3", "model": cfg.name, "latency_s": E3_LATENCY,
+          "latency_cleared_every": E3_HEAL_EVERY, "steps": E3_STEPS,
+          "step_times": "the simulated backend's model "
+                        "(h x (base_step_s + latency)), not the card's",
+          "loss": losses, "syncs": syncs, "comm_rounds": summ["comm_rounds"],
+          "topology": summ["topology"], "backend": summ["backend"],
+          "decisions": stream, "step_s": step_s, "launches": counts})
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(fused_sgd_bucket=E3_STEPS, sq_sum=E3_STEPS)
+    d_step = demoted[0]["step"] if demoted else E3_STEPS
+    p_step = promoted[0]["step"] if promoted else E3_STEPS
+    bad = [k for k, ok in (
+        ("loss not finite", all(math.isfinite(v) for v in losses)),
+        ("demotion", len(demoted) == 1 and demoted[0]["demote"] == 2
+         and demoted[0]["round"] == run.controller.skew_patience),
+        ("block syncs while demoted", blocks == E3_BLOCKS
+         and all(d_step < t < p_step for t in blocks)),
+        ("promotion", len(promoted) == 1 and promoted[0]["promote"] == 2),
+        ("restored", summ["topology"] == "flat"
+         and be.worker_set.demoted == ()),
+        ("launches", counts == want)) if not ok]
+    if bad:
+        raise AssertionError(f"phase E3: {', '.join(bad)} (syncs {syncs}, "
+                             f"decisions {stream}, launches {counts})")
+    del p0
+    return launches
+
 def phase_r(cfg, b_losses: list, b_step_s: float) -> dict:
     """Phase R: phase B's run (EF-sign, full width, 12 steps) traced with a
     fenced, annotating tracer and a metrics registry, its artifacts in
@@ -1615,6 +1949,84 @@ def phase_c_controllers(smoke, p0):
         torch.cuda.empty_cache()
 
 
+def check_resized_kernels(rows: int = RAGGED_ROWS) -> list:
+    """sq_sum and fused_sgd_bucket against their plain versions at a
+    worker count that shrinks and grows on one stream (W = 4 -> 2 -> 4 ->
+    8): sq_sum's scratch (per device and stream, grown only for a larger
+    W, its tickets left zeroed by the kernel) is reused across the
+    changes.  Returns one record per W."""
+    import torch
+    from repro_torch.kernels import fused_bucket as fb
+
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    out = []
+    for w in (4, 2, 4, 8):
+        mk = lambda: torch.randn((w, rows, 128), generator=g, device="cuda")
+        p, gr, u = mk(), mk(), 0.1 * mk()
+        wd_row = (torch.rand((rows,), generator=g, device="cuda") < 0.7).float()
+        gscale = torch.rand((w,), generator=g, device="cuda")
+        kw = dict(momentum=0.9, weight_decay=1e-2, nesterov=True,
+                  gscale=gscale, stats=True)
+        p1, u1, p2, u2 = p.clone(), u.clone(), p.clone(), u.clone()
+        sk = fb.fused_sgd_bucket(p1, gr, u1, 0.05, wd_row, **kw)
+        sp = fb.fused_sgd_bucket_plain(p2, gr, u2, 0.05, wd_row, **kw)
+        errs = {"sq_sum": rel_err(fb.sq_sum(p), fb.sq_sum_plain(p))[1],
+                "sq_sum_again": rel_err(fb.sq_sum(gr), fb.sq_sum_plain(gr))[1],
+                "fused_sgd_p": rel_err(p1, p2)[1], "fused_sgd_u": rel_err(u1, u2)[1],
+                "fused_sgd_stats": max(rel_err(a, b)[1] for a, b in zip(sk, sp))}
+        tol = {"sq_sum": TOL["reduction"], "sq_sum_again": TOL["reduction"],
+               "fused_sgd_p": TOL["elementwise"], "fused_sgd_u": TOL["elementwise"],
+               "fused_sgd_stats": TOL["reduction"]}
+        out.append({"W": w, "rows": rows, "max_rel_err": errs, "tol": tol})
+        bad = [k for k in errs if not errs[k] <= tol[k]]
+        if bad:
+            raise AssertionError(f"kernels after a resize to W={w}: "
+                                 f"{', '.join(bad)} ({errs})")
+    return out
+
+
+def phase_c_elastic(smoke, p0):
+    """Phase C for the elastic worker pool: the resized-W kernel check,
+    then the elastic trainer at smoke size on the card and on the CPU from
+    the same weights, with phase E3's simulated straggler and two resizes
+    (W = 4 -> 2 -> 4 after global rounds 3 and 4: the demotion's block
+    syncs thin the global rounds) together: the same resize and demotion
+    decisions, losses within 1e-4."""
+    import torch
+    from repro_torch.utils import tree_map
+
+    kernels = check_resized_kernels()
+    run = phase_run("none", smoke, seq=64, local_batch=2, steps=C_E_STEPS,
+                    controller=dict(kind="elastic"))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        path = ROOT / "build" / f"phase_c_elastic_{dev}.jsonl"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        _, hist, summ, _, _, _ = elastic_fit(
+            run, device=dev, steps=C_E_STEPS, resize_at=C_E_RESIZE,
+            latency_s=dict(E3_LATENCY), telemetry_path=str(path),
+            params0=tree_map(lambda t: t.to(dev).clone(), p0))
+        keys = ("round", "step", "next_workers", "demote", "promote",
+                "topology", "num_workers")
+        out[dev] = ([h["loss"] for h in hist], summ,
+                    [{k: r[k] for k in keys if k in r} for r in read_jsonl(path)])
+    (lg, sg, dg), (lc, sc, dc) = out["cuda"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    emit({"phase": "C", "model": smoke.name, "controller": "elastic",
+          "resize_at": C_E_RESIZE, "latency_s": E3_LATENCY, "steps": C_E_STEPS,
+          "resized_kernels": kernels, "decisions_gpu": dg,
+          "decisions_equal": dg == dc, "comm_rounds": sg["comm_rounds"],
+          "backend_gpu": sg["backend"], "loss_gpu": lg, "loss_cpu": lc,
+          "loss_max_rel_diff": loss_rel, "loss_tol": 1e-4})
+    if dg != dc or loss_rel > 1e-4 or not sg["resizes"] == sc["resizes"] == 2 \
+            or sg["comm_rounds"] != sc["comm_rounds"] \
+            or sg["backend"] != sc["backend"] \
+            or not any("demote" in r for r in dg):
+        raise AssertionError(f"phase C (elastic): the card disagrees with the "
+                             f"CPU: {dg} vs {dc}, losses {lg} vs {lc}")
+    torch.cuda.empty_cache()
+
+
 def phase_g() -> dict:
     """Phase G: the paper's experiments through the port's harness
     (``repro_torch.benchmarks``) at its full size: card vs CPU, the full
@@ -1844,6 +2256,11 @@ def main() -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
+    # ---- E: the elastic worker pool (resizes, straggler demotion) ----
+    for k, v in phase_e(cfg).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
     # ---- R (traced training), K (checkpoints), S (serving) ----
     for counts in (phase_r(cfg, phase_losses["B"], step_median["B"]),
                    phase_k(cfg), phase_s(cfg)):
@@ -1924,13 +2341,14 @@ def main() -> int:
                                  f"{': ' + ', '.join(bad) if bad else ''}")
 
     phase_c_controllers(smoke, p0)
+    phase_c_elastic(smoke, p0)
 
     for k, v in phase_g().items():
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # launches: phases A, B, L, H, R, K, S, N, G and the noise check for
-    # the bucket kernels, T for the others
+    # launches: phases A, B, L, H, E, R, K, S, N, G and the noise check
+    # for the bucket kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"kernels": [

@@ -359,7 +359,7 @@ def _elastic_leaves(path, layout, meta, template_leaves):
     for arr, ts, leaf in zip(saved, tmpl_shapes, template_leaves):
         if tuple(arr.shape) != ts:
             arr = resize_axis(torch.from_numpy(np.ascontiguousarray(arr)),
-                              ts[0]).numpy()
+                              ts[0], fold="slice").numpy()
         out.append(arr)
     return data, out
 

@@ -128,8 +128,9 @@ class ControllerConfig:
     """Adaptive sync controller settings (policies in
     ``core/controller.py``): ``static`` (the pre-scheduled H(t)),
     ``diversity_h``, ``adaptive_batch``, ``auto_compress`` (needs
-    ``sync_compression='ef_sign'``) and ``noise_adaptive`` run in the
-    port; ``elastic`` raises (it needs workers across GPUs).
+    ``sync_compression='ef_sign'``), ``noise_adaptive`` and ``elastic``
+    (resizes, and straggler demotion once the step-time skew stays over
+    ``skew_threshold`` for ``skew_patience`` rounds).
     ``telemetry=None`` collects round statistics exactly when the kind
     needs them (any non-static kind)."""
 

@@ -31,19 +31,22 @@ policy gives the plain scheduler's trajectory bit for bit);
 ``plan_delta(step)`` then emits the next round's :class:`PlanDelta`
 (:func:`traced_decision` runs the pair inside a ``controller`` span).
 
-Not ported: the ``elastic`` policy (worker-set resizes and straggler
-demotion need the backend seam and workers across GPUs, ROADMAP A.5);
-:func:`make_controller` raises for it.
+``ElasticController`` moves workers instead: scripted resizes and
+straggler demotion / promotion from the backend's per-worker step times
+(``worker_step_skew``, ``worker_step_s_by_id``), actuated by ``fit``
+through the backend seam (``repro_torch.backend``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Protocol, runtime_checkable
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import noise as noise_mod
 from repro_torch.core.schedule import local_steps_at
-from repro_torch.core.syncplan import PlanDelta
+from repro_torch.core.local_sgd import needs_anchor
+from repro_torch.core.syncplan import (PlanDelta, Topology, default_block_size,
+                                       flat, hierarchical)
 
 
 @dataclass
@@ -71,10 +74,15 @@ class SyncController(Protocol):
 
 class _EmitsPlanDelta:
     """Every policy emits ONE :class:`PlanDelta` per global round: the next
-    H, the per-bucket compressor rewrite, the batch scale and the LR scale
-    (no ported policy switches the topology: that is the elastic
-    policy's).  A policy that decides nothing emits a delta that rewrites
-    nothing, and ``apply`` returns the SAME plan."""
+    H, the per-bucket compressor rewrite, an optional topology switch, the
+    batch scale and the LR scale.  A policy that decides nothing emits a
+    delta that rewrites nothing, and ``apply`` returns the SAME plan.
+
+    ``_topology_switch`` is the hook of topology-driving policies (the
+    elastic policy's demotion): set it to a :class:`Topology` and the next
+    delta carries it once."""
+
+    _topology_switch: Topology | None = None
 
     def lr_scale(self) -> float:
         """Runtime LR multiplier for the next round (1.0 unless a policy
@@ -82,8 +90,10 @@ class _EmitsPlanDelta:
         return 1.0
 
     def plan_delta(self, step: int) -> PlanDelta:
+        topo, self._topology_switch = self._topology_switch, None
         return PlanDelta(h=int(self.h_at(step)),
                          compression=self.compression(),
+                         topology=topo,
                          batch_scale=int(self.batch_scale()),
                          lr_scale=float(self.lr_scale()))
 
@@ -376,10 +386,143 @@ class NoiseAdaptiveController(_EmitsPlanDelta):
                                               "noise still dominant"}
 
 
-ELASTIC_NOT_PORTED = (
-    "controller 'elastic' is not ported yet: it needs the backend seam and "
-    "core/elastic.resize_state, which come with workers across GPUs "
-    "(ROADMAP A.5)")
+class ElasticController(_EmitsPlanDelta):
+    """Worker-set policy on the backend seam.  Its actuations ride the same
+    per-round :class:`PlanDelta` as every other policy's:
+
+    * **resize** — ``resize_at`` maps a global-round index to a worker-set
+      width; at that round the delta carries ``workers=W'`` and ``fit``
+      does the state surgery (``core/elastic``), rebuilds the bundle
+      through the backend and co-scales the LR (Lau et al. 2024).  The
+      scripted map stands in for a membership signal: join / leave events
+      would feed the same field.
+    * **straggler demotion** — when the ``worker_step_skew`` gauge (the
+      backend's per-worker step times; absent on the lockstep local
+      backend) exceeds ``skew_threshold`` for ``skew_patience``
+      consecutive rounds, the slowest worker is demoted: ``demote=<id>``
+      moves it to the outer scope in the backend's census, and, when the
+      config can serve block syncs (the plain mean path: compression and
+      global momentum need flat local SGD), the delta also switches the
+      plan to ``hierarchical(W // 2)`` and stretches the outer cadence
+      with ``block_steps``, so the demoted worker stops gating every
+      round.
+    * **promotion back** — the backend's by-id census
+      (``worker_step_s_by_id``, which unlike the active-only skew still
+      sees demoted workers) is watched per demoted id; once a worker's
+      excess over the active mean stays under ``skew_threshold`` for
+      ``skew_patience`` consecutive rounds it returns to the inner scope
+      with ``promote=<id>`` (one a round).  When the LAST demoted worker
+      comes back, the delta also restores the pre-demotion topology
+      (``flat`` for a flat-scheduled run) and block cadence.
+
+    H, compression and batch follow the static schedule: this policy only
+    moves workers.
+    """
+
+    kind = "elastic"
+
+    def __init__(self, run: RunConfig, *, resize_at: dict | None = None,
+                 demote_block_steps: int = 2):
+        self.ls = run.local_sgd
+        self.cc = run.controller
+        self.resize_at = {int(k): int(v) for k, v in (resize_at or {}).items()}
+        self.demote_block_steps = int(demote_block_steps)
+        self.can_block = not needs_anchor(self.ls)
+        self.skew_streak = 0
+        self.demoted: set[int] = set()
+        self.recovery_streak: dict[int, int] = {}
+        self.decisions: dict = {}
+        self._pending_workers: int | None = None
+        self._pending_demote: int | None = None
+        self._pending_promote: int | None = None
+        self._pending_block_steps: int | None = None
+
+    def h_at(self, step: int) -> int:
+        return local_steps_at(self.ls, step)
+
+    def compression(self):
+        return None
+
+    def batch_scale(self) -> int:
+        return 1
+
+    def update(self, report: RoundReport) -> None:
+        self.decisions = {}
+        target = self.resize_at.get(report.round)
+        if target is not None:
+            self._pending_workers = target
+            self.decisions["resize"] = {"workers": target,
+                                        "round": report.round}
+        self._maybe_promote(report)
+        skew = report.stats.get("worker_step_skew")
+        if skew is None:
+            return
+        if skew > self.cc.skew_threshold:
+            self.skew_streak += 1
+        else:
+            self.skew_streak = 0
+        slowest = report.stats.get("worker_slowest")
+        if (self.skew_streak >= self.cc.skew_patience
+                and slowest is not None and slowest not in self.demoted):
+            slowest = int(slowest)
+            self.skew_streak = 0
+            self.demoted.add(slowest)
+            self._pending_demote = slowest
+            self.decisions["straggler"] = {"demote": slowest,
+                                           "skew": float(skew),
+                                           "scheduled": self.can_block}
+            if self.can_block:
+                w = int(report.stats.get("num_workers") or 0)
+                if w > 1:
+                    self._topology_switch = hierarchical(default_block_size(w))
+                    self._pending_block_steps = self.demote_block_steps
+
+    def _maybe_promote(self, report: RoundReport) -> None:
+        """Watch the demoted workers in the by-id census; return one to the
+        inner scope once its excess over the active mean has stayed under
+        ``skew_threshold`` for ``skew_patience`` rounds."""
+        by_id = report.stats.get("worker_step_s_by_id")
+        if not self.demoted or not by_id:
+            return
+        by_id = {int(k): float(v) for k, v in by_id.items()}
+        active = [t for i, t in by_id.items() if i not in self.demoted]
+        mean_active = sum(active) / len(active) if active else 0.0
+        if mean_active <= 0:
+            return
+        for d in sorted(self.demoted):
+            if d not in by_id:
+                continue
+            excess = (by_id[d] - mean_active) / mean_active
+            if excess < self.cc.skew_threshold:
+                self.recovery_streak[d] = self.recovery_streak.get(d, 0) + 1
+            else:
+                self.recovery_streak[d] = 0
+        ready = [d for d in sorted(self.demoted)
+                 if self.recovery_streak.get(d, 0) >= self.cc.skew_patience]
+        if not ready:
+            return
+        back = ready[0]                       # one promotion a round
+        self.demoted.discard(back)
+        self.recovery_streak.pop(back, None)
+        self._pending_promote = back
+        self.decisions["recovered"] = {"promote": back,
+                                       "restored": not self.demoted}
+        if not self.demoted and self.can_block:
+            # the last straggler is back: undo the demotion-era schedule
+            if self.ls.block_steps == 1:
+                self._topology_switch = flat()
+            self._pending_block_steps = self.ls.block_steps
+
+    def plan_delta(self, step: int) -> PlanDelta:
+        delta = super().plan_delta(step)
+        w, self._pending_workers = self._pending_workers, None
+        d, self._pending_demote = self._pending_demote, None
+        p, self._pending_promote = self._pending_promote, None
+        b, self._pending_block_steps = self._pending_block_steps, None
+        if w is None and d is None and p is None and b is None:
+            return delta
+        return replace(delta, workers=w, demote=d, promote=p, block_steps=b)
+
 
 _KINDS = {
     "static": StaticController,
@@ -387,6 +530,7 @@ _KINDS = {
     "adaptive_batch": AdaptiveBatchController,
     "auto_compress": AutoCompressController,
     "noise_adaptive": NoiseAdaptiveController,
+    "elastic": ElasticController,
 }
 
 
@@ -396,11 +540,9 @@ def make_controller(run: RunConfig, *, n_comp: int = 1) -> SyncController:
     per bucket), the granularity at which ``auto_compress`` /
     ``noise_adaptive`` escalate."""
     kind = run.controller.kind
-    if kind == "elastic":
-        raise NotImplementedError(ELASTIC_NOT_PORTED)
     if kind not in _KINDS:
         raise ValueError(f"unknown controller kind {kind!r}; "
-                         f"one of {sorted(_KINDS) + ['elastic']}")
+                         f"one of {sorted(_KINDS)}")
     if kind in ("auto_compress", "noise_adaptive"):
         return _KINDS[kind](run, n_comp=n_comp)
     return _KINDS[kind](run)

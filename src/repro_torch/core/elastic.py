@@ -1,29 +1,111 @@
-"""Worker-axis resize of one stacked array (the port of
-``repro.core.elastic.resize_axis`` with ``fold="slice"``, the fold of
-the checkpoint restore; resizing a live run comes with workers across
-GPUs).
+"""Elastic worker-axis resize: carry a ``LocalSGDState`` through a W change
+(the port of ``repro.core.elastic``).
 
-The worker axis is the leading dim of every stacked buffer: ``(W,) +
-shape`` on a tree, ``(W, rows, 128)`` for a resident bucket.
+The worker axis is the leading dim of every stacked buffer of a resident
+:class:`~repro_torch.core.local_sgd.LocalSGDState`: params, momentum and
+EF memory are ``(W, rows, 128)`` bucket buffers with ``leading=1``.  A
+resize maps that axis to a new width without building the tree view:
+
+* **shrink** (W -> W', W % W' == 0): fold groups of ``W // W'``
+  consecutive workers.  ``fold="mean"`` averages the group (the
+  reduction of the sync's ``group_mean``), so the departing workers'
+  momentum and EF memory fold into the survivors instead of being
+  dropped.  ``fold="slice"`` keeps the first W' workers bit for bit (the
+  checkpoint restore, where the surviving state must round-trip exactly).
+* **grow** (W -> W', W' % W == 0): ``repeat_interleave`` each worker
+  ``W' // W`` times.  The clones start from the same state and diverge
+  through their data shards, as a fresh run from the synced model would.
+
+Single-copy state (anchor, global_u, step, the generator) has no worker
+axis and passes through untouched.  The telemetry accumulator carries
+its ``(W,)`` fields through the same fold, so ``round_summary``'s
+``num_workers`` follows the live worker set.
+
+The LR co-scaling on a resize (Lau et al. 2024) lives in ``fit``, not
+here: this module is state surgery only.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import flatbuf
+from repro_torch.telemetry import stats as tstats
 
-def resize_axis(x: torch.Tensor, new_w: int) -> torch.Tensor:
-    """Resize the leading (worker) axis of ``x`` to ``new_w``: shrink
-    (``W % new_w == 0``) keeps the first ``new_w`` workers bit for bit,
-    grow (``new_w % W == 0``) repeats each worker ``new_w // W`` times."""
+
+def resize_axis(x: torch.Tensor, new_w: int, *,
+                fold: str = "mean") -> torch.Tensor:
+    """Resize the leading (worker) axis of ``x`` to ``new_w``.
+
+    Shrink needs ``W % new_w == 0`` (consecutive groups, ``group_mean``'s
+    convention), grow ``new_w % W == 0`` (uniform clones).  The dtype is
+    kept: the mean fold sums in at least float32 and rounds back through
+    the input dtype, as the reference's ``jnp.mean`` does.
+    """
     w = int(x.shape[0])
     if new_w == w:
         return x
+    if fold not in ("mean", "slice"):
+        raise ValueError(f"unknown fold {fold!r} (want 'mean' or 'slice')")
     if new_w < w:
         if w % new_w:
             raise ValueError(
                 f"cannot shrink worker axis {w} -> {new_w}: not divisible")
-        return x[:new_w]
+        if fold == "slice":
+            return x[:new_w]
+        g = w // new_w
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return (x.reshape((new_w, g) + tuple(x.shape[1:]))
+                .to(acc).mean(dim=1).to(x.dtype))
     if new_w % w:
         raise ValueError(
             f"cannot grow worker axis {w} -> {new_w}: not divisible")
     return torch.repeat_interleave(x, new_w // w, dim=0)
+
+
+def _resize_stacked(state, new_w: int, *, fold: str):
+    """:func:`resize_axis` over the buffers of a stacked ``BucketState``
+    (``leading=1``; its layout describes one worker's rows, so it carries
+    over unchanged); a ``leading=0`` state or None passes through."""
+    if state is None or not flatbuf.is_bucket_state(state) \
+            or state.leading != 1:
+        return state
+    return state.with_buckets(
+        [resize_axis(b, new_w, fold=fold) for b in state.buckets])
+
+
+def resize_stats(stats, new_w: int, *, fold: str = "mean"):
+    """Carry a StatsAccumulator through a resize: the (W,) fields fold like
+    the state; the scalars (round counters, the sync pair, the
+    compression-error slots) persist."""
+    if stats is None:
+        return None
+    r = lambda x: resize_axis(x, new_w, fold=fold)
+    return tstats.StatsAccumulator(
+        acc_grad_sq=r(stats.acc_grad_sq),
+        acc_update_sq=r(stats.acc_update_sq),
+        acc_steps=stats.acc_steps,
+        round_grad_sq=r(stats.round_grad_sq),
+        round_update_sq=r(stats.round_update_sq),
+        round_steps=stats.round_steps,
+        pre_sync_sq=stats.pre_sync_sq, post_sync_sq=stats.post_sync_sq,
+        comp_err_sq=stats.comp_err_sq, comp_ref_sq=stats.comp_ref_sq,
+        rounds=stats.rounds)
+
+
+def resize_state(state, new_w: int, *, fold: str = "mean"):
+    """``state`` with its worker axis resized to ``new_w``, staying
+    resident.  ``fold`` sets the shrink semantics; grow always clones.
+    anchor / global_u / step / rng are single-copy and unchanged, which
+    keeps an anchored resize consistent: the anchor still is the last
+    synced model, and the next sync's model difference is taken against
+    it per surviving or cloned worker."""
+    from repro_torch.core.local_sgd import LocalSGDState
+    return LocalSGDState(
+        params=_resize_stacked(state.params, new_w, fold=fold),
+        momentum=_resize_stacked(state.momentum, new_w, fold=fold),
+        anchor=state.anchor,
+        global_u=state.global_u,
+        ef_memory=_resize_stacked(state.ef_memory, new_w, fold=fold),
+        step=state.step,
+        rng=state.rng,
+        stats=resize_stats(state.stats, new_w, fold=fold))

@@ -43,8 +43,10 @@ The update is in place: ``local_step`` and ``sync`` return a state that
 shares (and has mutated) the buffers of the one they were given.
 
 Not ported yet, and raising ``NotImplementedError``: the 1-bit wire pack
-and coalesced collectives, the elastic controller (it needs workers
-across GPUs) and the per-leaf tree path.
+and coalesced collectives (they come with workers across GPUs) and the
+per-leaf tree path.  A change of W (``core/elastic.resize_state``) builds
+new functions for the new width: ``local_step`` and ``sync`` are built
+for one W.
 """
 from __future__ import annotations
 
@@ -60,7 +62,6 @@ from repro_torch.configs.base import LocalSGDConfig, RunConfig
 from repro_torch.core import compression as comp
 from repro_torch.core import flatbuf
 from repro_torch.core import syncplan as splan
-from repro_torch.core.controller import ELASTIC_NOT_PORTED
 from repro_torch.core.schedule import lr_at
 from repro_torch.optim.lars import apply_lars_buckets
 from repro_torch.optim.sgd import apply_sgd_buckets
@@ -159,9 +160,8 @@ def _check_supported(run: RunConfig):
         raise NotImplementedError(f"optimizer {opt.optimizer!r} is not ported yet")
     if ls.wire_pack or ls.sync_coalesce:
         raise NotImplementedError("the 1-bit wire pack and coalesced "
-                                  "collectives are not ported yet")
-    if run.controller.kind == "elastic":
-        raise NotImplementedError(ELASTIC_NOT_PORTED)
+                                  "collectives are not ported yet: they come "
+                                  "with workers across GPUs (ROADMAP A.5)")
 
 
 def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,

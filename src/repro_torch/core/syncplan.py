@@ -339,8 +339,8 @@ class PlanDelta:
                       scheduled lr (None = keep).
     ``workers``, ``demote``, ``promote`` — the elastic policy's worker-set
                       changes (a resize, a straggler's demotion to the
-                      outer scope and its return); ``fit`` raises on
-                      them until workers span GPUs.
+                      outer scope and its return), which ``fit``
+                      actuates through the backend.
     ``block_steps`` — runtime Alg. 5 block-phase length for
                       ``DynamicSchedule`` (None = keep).
 

@@ -44,3 +44,17 @@ class ShardedBatches:
         idx = self.shards[:, self.cursor:self.cursor + self.B]   # (W, B)
         self.cursor += self.B
         return {k: v[idx] for k, v in self.data.items()}
+
+    def resize(self, num_workers: int, *, local_batch: int | None = None):
+        """Elastic re-partition to a new worker count (the backend seam):
+        the CURRENT epoch's permutation is re-sharded among the live
+        workers and the pass restarts, so every example is still drawn
+        from a disjoint shard, now among W' workers.  ``local_batch``
+        optionally co-scales B."""
+        if num_workers <= 0:
+            raise ValueError(f"num_workers must be positive, got {num_workers}")
+        self.W = int(num_workers)
+        if local_batch is not None:
+            self.B = int(local_batch)
+        self._reshard()
+        return self

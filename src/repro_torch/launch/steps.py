@@ -18,6 +18,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.backend.base import WorkerSet
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import flatbuf
 from repro_torch.core import syncplan as splan
@@ -41,13 +42,27 @@ class TrainBundle:
     sync_plan: Any = None       # compiled syncplan.SyncPlan (fit's default)
     telemetry: bool = False     # state.stats carries a StatsAccumulator
     n_comp: int = 1             # compression-error slots: one per bucket
+    worker_set: Any = None      # backend.base.WorkerSet this bundle was built for
 
 
-def build_train(run: RunConfig, *, num_workers: int = 1,
-                device=None) -> TrainBundle:
-    """Resident-bucket local SGD for ``run.model`` with ``num_workers``
-    workers stacked on one device.  ``device=None`` means the card and
-    raises when CUDA is absent; tests pass ``device="cpu"``."""
+def build_train(run: RunConfig, *, num_workers: int | None = None,
+                worker_set=None, device=None) -> TrainBundle:
+    """Resident-bucket local SGD for ``run.model`` with its workers stacked
+    on one device: ``worker_set`` (a ``backend.WorkerSet``) names them,
+    else ``num_workers`` (default 1) and the bundle gets
+    ``WorkerSet.of(num_workers)``; the two must agree when both are
+    given.  ``device=None`` means the card and raises when CUDA is
+    absent; tests pass ``device="cpu"``."""
+    if worker_set is not None:
+        if num_workers is not None and num_workers != worker_set.num_workers:
+            raise ValueError(
+                f"num_workers={num_workers} disagrees with "
+                f"worker_set ({worker_set.num_workers} workers)")
+        num_workers = worker_set.num_workers
+    if num_workers is None:
+        num_workers = 1
+    if worker_set is None:
+        worker_set = WorkerSet.of(num_workers)
     device = resolve_device(device)
     cfg = run.model
     specs = lm.param_specs(cfg)
@@ -72,7 +87,8 @@ def build_train(run: RunConfig, *, num_workers: int = 1,
     return TrainBundle(cfg=cfg, run=run, num_workers=num_workers, specs=specs,
                        init=init, local_step=local_step, sync=sync,
                        device=device, layout=layout, sync_plan=plan,
-                       telemetry=telemetry, n_comp=layout.num_buckets)
+                       telemetry=telemetry, n_comp=layout.num_buckets,
+                       worker_set=worker_set)
 
 
 @dataclass

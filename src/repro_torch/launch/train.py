@@ -1,6 +1,5 @@
 """Training driver: the paper's schedules on top of the step builder (the
-port of ``repro.launch.train.fit``, without the backends and the elastic
-policy).
+port of ``repro.launch.train.fit``).
 
 The communication pattern is decided on the host from the
 ``LocalSGDConfig`` exactly like the paper's Alg. 1/2/5 outer loops: every
@@ -16,11 +15,19 @@ emits rewrites the plan (compressor modes, topology), the per-worker
 batch (``_scaled_batch``), the LR scale and the block cadence for the
 next round.  ``telemetry_path`` gets one JSON line per global round.
 
+The backend (``repro_torch.backend``) owns the worker set: it feeds the
+per-worker step times into the round statistics (``worker_step_skew``,
+the straggler sensor) and actuates the elastic fields of the delta —
+``demote`` / ``promote`` (the census), ``block_steps`` (the cadence) and
+``workers`` (a resize: ``core/elastic.resize_state``, a bundle rebuilt
+through the backend, a recompiled plan, the data re-partitioned and the
+LR co-scaled with the global batch, Lau et al. 2024).
+
 With a ``telemetry.trace.Tracer`` the loop is span-instrumented —
 ``round`` / ``local_steps`` / ``sync`` (+ per-stage ``collective``
-attribution) / ``controller`` / ``eval`` / ``checkpoint`` — and the
-sync spans give the ledger its seconds (``record_plan(seconds=)``), the
-JSONL its ``round_s`` / ``sync_s`` / ``stage_s`` and the tracer's
+attribution) / ``controller`` / ``resize`` / ``eval`` / ``checkpoint`` —
+and the sync spans give the ledger its seconds (``record_plan(seconds=)``),
+the JSONL its ``round_s`` / ``sync_s`` / ``stage_s`` and the tracer's
 metrics registry its step and round series.  Without a tracer every
 hook is the null tracer's no-op: the trajectory is the same bit for bit.
 
@@ -32,6 +39,8 @@ CLI:
         --controller noise_adaptive
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --steps 4 --trace-dir traced_run   # trace/metrics/manifest/jsonl
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --backend simulated --straggler-s 0.05 --controller elastic
 """
 from __future__ import annotations
 
@@ -44,11 +53,14 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.backend.local import LocalBackend
 from repro_torch.configs.base import (ControllerConfig, InputShape,
                                       LocalSGDConfig, OptimConfig, RunConfig)
+from repro_torch.core import elastic
+from repro_torch.core import syncplan as splan
 from repro_torch.core.controller import (RoundReport, make_controller,
                                          traced_decision)
-from repro_torch.core.local_sgd import mean_params
+from repro_torch.core.local_sgd import mean_params, needs_anchor
 from repro_torch.core.schedule import DynamicSchedule
 from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -85,10 +97,45 @@ def _mode_str(modes) -> str:
     return "|".join(modes)
 
 
+def _config_plan(run: RunConfig, bundle, state):
+    """The config's plan for a bundle that carries none (a hand-made one),
+    compiled from the state's own bucket layout."""
+    ls = run.local_sgd
+    return splan.make_sync_plan(
+        state.params.layout, num_workers=bundle.num_workers,
+        topology=splan.resolve_topology(ls, bundle.num_workers),
+        compression=ls.sync_compression, anchored=needs_anchor(ls))
+
+
+def _worker_census(stats: dict, backend, h: int, measured_s):
+    """Add the backend's step-time census to one round's stats; returns the
+    per-active-worker seconds (None on a lockstep backend, where the skew
+    cannot be observed)."""
+    wtimes = backend.worker_step_times(h=h, measured_s=measured_s)
+    if wtimes:
+        ts = [float(x) for x in wtimes]
+        mean_t = sum(ts) / len(ts)
+        ws = backend.worker_set
+        active = ws.active or ws.ids
+        stats["worker_step_s"] = ts
+        stats["worker_step_skew"] = ((max(ts) - min(ts)) / mean_t
+                                     if mean_t > 0 else 0.0)
+        stats["worker_slowest"] = int(
+            active[max(range(len(ts)), key=ts.__getitem__)])
+        stats.setdefault("num_workers", ws.num_workers)
+    # the by-id census covers demoted workers too: the promotion sensor
+    by_id = backend.worker_times_by_id(h=h, measured_s=measured_s)
+    if by_id:
+        stats["worker_step_s_by_id"] = {int(k): float(v)
+                                        for k, v in by_id.items()}
+    return wtimes
+
+
 def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
         eval_every=0, eval_fn=None, log=print, params0=None, device=None,
         controller=None, telemetry_path=None, tracer=None,
-        checkpoint_every=0, checkpoint_fn=None, manifest_path=None):
+        checkpoint_every=0, checkpoint_fn=None, manifest_path=None,
+        backend=None):
     """Run the schedule; returns (state, history, summary).
 
     ``params0`` is the single-copy param tree to start from (e.g. weights
@@ -103,16 +150,27 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     run manifest goes to ``manifest_path`` (default
     ``<telemetry_path>.manifest.json``).  ``checkpoint_fn(state, step)``
     runs every ``checkpoint_every`` steps inside a ``checkpoint`` span.
+    ``backend`` (``repro_torch.backend``) owns the worker set and
+    actuates the elastic delta fields (see the module docstring); a resize
+    needs a ``data_iter`` with ``.resize(num_workers)``.  ``None`` is a
+    ``LocalBackend`` that adopts ``bundle`` (a hand-made bundle without a
+    ``worker_set`` warns) or, without one, builds it at
+    ``data_iter.W`` workers on ``device``.
     ``summary`` has ``comm_rounds`` ({"block", "global"}), ``wall_s``
     (host clock, ending after a device synchronize), the plan's
-    ``topology``, the ledger's ``summary()`` (ring-model bytes per round,
-    and ``sync_seconds`` when traced), the ``controller``'s final
+    ``topology``, the ``backend``'s census, the number of ``resizes``,
+    the ledger's ``summary()`` (ring-model bytes per round, per worker
+    set, and ``sync_seconds`` when traced), the ``controller``'s final
     decisions and, when traced, ``trace``.
     """
+    if backend is None:
+        backend = LocalBackend(
+            None if bundle is not None else getattr(data_iter, "W", 1),
+            device=bundle.device if bundle is not None else device)
     if bundle is None:
-        from repro_torch.launch.steps import build_train
-        bundle = build_train(run, num_workers=getattr(data_iter, "W", 1),
-                             device=device)
+        bundle = backend.build(run)
+    elif hasattr(backend, "adopt"):
+        backend.adopt(bundle)
     dev = bundle.device
     num_steps = num_steps or run.steps
     ls = run.local_sgd
@@ -127,7 +185,10 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     # round 1 runs under the controller's INITIAL decision: the
     # error-driven compressor policies start uncompressed whatever the
     # config allocated; an identity policy returns the same plan
-    plan = controller.plan_delta(0).apply(bundle.sync_plan)
+    plan = bundle.sync_plan
+    if plan is None:
+        plan = _config_plan(run, bundle, state)
+    plan = controller.plan_delta(0).apply(plan)
 
     tracer = tracer if tracer is not None else ttrace.NULL
     mreg = tracer.metrics
@@ -141,9 +202,14 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     history = []
     comm_rounds = {"block": 0, "global": 0}
     global_rounds = 0
-    # the controller's LR multiplier; at 1.0 the step is the two-argument
-    # call, so a static run keeps its trajectory bit for bit
+    # the LR multiplier is the controller's lr_scale times the elastic
+    # co-scaling (linear in the global batch across resizes, Lau et al.
+    # 2024); at 1.0 the step is the two-argument call, so a static run
+    # keeps its trajectory bit for bit
+    lr_ctrl = 1.0
+    lr_resize = 1.0
     lr_scale_now = 1.0
+    resizes = 0
     # one "round" span per global round: opened at the round's first
     # local step, closed when its global sync (+ decision) completes
     round_span = None
@@ -198,21 +264,18 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                     num_workers=bundle.num_workers)
                 comm_rounds["global"] += 1
                 synced = "global"
+                stats = round_summary(state.stats) if bundle.telemetry else {}
+                wtimes = _worker_census(stats, backend, h_now, stp.dur_s)
                 report = RoundReport(
                     round=global_rounds, step=t, h=h_now,
-                    loss=float(metrics["loss"]),
-                    stats=round_summary(state.stats) if bundle.telemetry else {},
+                    loss=float(metrics["loss"]), stats=stats,
                     wire_bytes=entry["bytes_on_wire"],
                     collectives=entry["collectives"])
                 delta = traced_decision(tracer, controller, report, t + 1)
-                if any(getattr(delta, k) is not None
-                       for k in ("workers", "demote", "promote")):
-                    raise NotImplementedError(
-                        "a PlanDelta that resizes, demotes or promotes "
-                        "workers needs workers across GPUs (ROADMAP A.5)")
                 plan = delta.apply(plan)
                 if delta.lr_scale is not None:
-                    lr_scale_now = float(delta.lr_scale)
+                    lr_ctrl = float(delta.lr_scale)
+                    lr_scale_now = lr_ctrl * lr_resize
                 tracer.finish(round_span, loss=report.loss,
                               wire_bytes=report.wire_bytes)
                 round_s = round_span.dur_s
@@ -223,7 +286,8 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                         wire_bytes=report.wire_bytes, loss=report.loss,
                         batch_scale=controller.batch_scale(),
                         lr_scale=lr_scale_now, round_s=round_s,
-                        sync_s=sync_s, stage_s=stage_s)
+                        sync_s=sync_s, stage_s=stage_s,
+                        worker_step_s=wtimes)
                 if tlog is not None:
                     # None delta fields mean "keep": log the effective
                     # next decision
@@ -241,6 +305,10 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                                else controller.batch_scale()),
                            "next_lr_scale": lr_scale_now,
                            "topology": plan.topology.describe()}
+                    for k in ("workers", "demote", "promote"):
+                        if getattr(delta, k) is not None:
+                            key = "next_workers" if k == "workers" else k
+                            rec[key] = int(getattr(delta, k))
                     if tracer.enabled:
                         # the seconds extension of the schema, keyed by
                         # the stage ids the ledger prices
@@ -252,8 +320,48 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                         rec["decisions"] = prov
                     tlog.write(json.dumps(rec) + "\n")
                     tlog.flush()
+                # elastic actuation, after the round is recorded: the
+                # JSONL and the trace show each decision at the round that
+                # made it, and the next round runs under the new census
+                if delta.demote is not None:
+                    backend.demote(int(delta.demote))
+                if delta.promote is not None:
+                    backend.promote(int(delta.promote))
                 if delta.block_steps is not None:
                     sched.block_steps = int(delta.block_steps)
+                if delta.workers is not None \
+                        and int(delta.workers) != bundle.num_workers:
+                    new_w, old_w = int(delta.workers), bundle.num_workers
+                    with tracer.span("resize", step=t, from_workers=old_w,
+                                     to_workers=new_w) as rsp:
+                        if not hasattr(data_iter, "resize"):
+                            raise RuntimeError(
+                                f"elastic resize {old_w} -> {new_w} needs a "
+                                "resizable data iterator (ShardedBatches or "
+                                "any object with .resize(num_workers)); got "
+                                f"{type(data_iter).__name__}")
+                        # departing workers' momentum / EF memory fold into
+                        # the survivors (group mean), joiners are clones
+                        state = elastic.resize_state(state, new_w)
+                        bundle = backend.resize(run, new_w)
+                        # the plan for the new W, with the controller's
+                        # current modes; a block size that no longer
+                        # divides W is re-derived
+                        topo = plan.topology
+                        if topo.block_size and new_w % topo.block_size:
+                            topo = splan.Topology(
+                                topo.kind, splan.default_block_size(new_w))
+                        newplan = bundle.sync_plan
+                        if newplan is None:
+                            newplan = _config_plan(run, bundle, state)
+                        plan = newplan.with_modes(plan.modes).with_topology(topo)
+                        data_iter.resize(new_w)
+                        lr_resize *= new_w / old_w
+                        lr_scale_now = lr_ctrl * lr_resize
+                        resizes += 1
+                        rsp.fence(state)
+                    log(f"resize: W {old_w} -> {new_w} at step {t} "
+                        f"(lr x{lr_resize:g})")
             rec = {k: float(v) for k, v in metrics.items()}
             rec.update(step=t, synced=synced)
             history.append(rec)
@@ -276,6 +384,8 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     wall = time.perf_counter() - t_start
     summary = {"wall_s": wall, "comm_rounds": comm_rounds, "steps": num_steps,
                "topology": plan.topology.describe(),
+               "backend": backend.describe(),
+               "resizes": resizes,
                "ledger": ledger.summary(),
                "controller": {"kind": getattr(controller, "kind", "custom"),
                               "h_final": int(controller.h_at(num_steps)),
@@ -324,11 +434,20 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.2)
     ap.add_argument("--sync-compression", default="none",
                     choices=["none", "sign", "ef_sign"])
+    ap.add_argument("--backend", default="local",
+                    choices=["local", "simulated", "distributed"],
+                    help="execution backend (repro_torch.backend); simulated "
+                         "injects per-worker latency so the straggler "
+                         "telemetry has real values on one card")
+    ap.add_argument("--straggler-s", type=float, default=0.0,
+                    help="simulated backend: extra per-step seconds injected "
+                         "into the LAST worker (drives the worker_step_skew "
+                         "gauge)")
     ap.add_argument("--controller", default="static",
                     choices=["static", "diversity_h", "adaptive_batch",
                              "auto_compress", "noise_adaptive", "elastic"],
-                    help="sync controller policy (elastic raises: it needs "
-                         "workers across GPUs); auto_compress needs "
+                    help="sync controller policy (elastic demotes a "
+                         "straggler on the skew gauge); auto_compress needs "
                          "--sync-compression ef_sign")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card (raises without one)")
@@ -359,13 +478,17 @@ def main(argv=None):
         controller=ControllerConfig(kind=args.controller),
         steps=args.steps)
 
-    from repro_torch.launch.steps import build_train
+    from repro_torch.backend import make_backend
     toks = markov_lm(vocab=cfg.vocab_size, num_seqs=1024, seq_len=args.seq)
     data = lm_examples(toks)
     held = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=64,
                                  seq_len=args.seq, sample_seed=123))
     it = ShardedBatches(data, args.workers, args.local_batch)
-    bundle = build_train(run, num_workers=args.workers, device=args.device)
+    be_kw = {} if args.backend == "distributed" else {"device": args.device}
+    if args.backend == "simulated" and args.straggler_s:
+        be_kw["latency_s"] = {args.workers - 1: args.straggler_s}
+    be = make_backend(args.backend, args.workers, **be_kw)
+    bundle = be.build(run)
     tracer = None
     trace_kw = {}
     if args.trace_dir:
@@ -377,7 +500,8 @@ def main(argv=None):
                                                    "telemetry.jsonl"),
                     "manifest_path": os.path.join(args.trace_dir,
                                                   "manifest.json")}
-    state, hist, summary = fit(run, it, bundle=bundle, num_steps=args.steps,
+    state, hist, summary = fit(run, it, bundle=bundle, backend=be,
+                               num_steps=args.steps,
                                eval_every=max(args.steps // 5, 1),
                                eval_fn=eval_lm(bundle, held), **trace_kw)
     if tracer is not None:
@@ -390,7 +514,8 @@ def main(argv=None):
     print(f"done: final loss={hist[-1]['loss']:.4f} wall={summary['wall_s']:.1f}s "
           f"comm={summary['comm_rounds']} topology={summary['topology']} "
           f"wire_bytes={summary['ledger']['wire_bytes']:.4g} "
-          f"controller={summary['controller']}")
+          f"controller={summary['controller']} "
+          f"backend={summary['backend']}")
 
 
 if __name__ == "__main__":

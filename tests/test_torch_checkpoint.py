@@ -193,7 +193,7 @@ def test_restore_flat_non_elastic_mismatch_still_raises(tmp_path):
 def test_resize_axis_matches_reference_slice_fold(w, new_w):
     from repro.core.elastic import resize_axis as jresize
     x = np.random.default_rng(w).standard_normal((w, 5, 4)).astype(np.float32)
-    got = resize_axis(torch.from_numpy(x), new_w).numpy()
+    got = resize_axis(torch.from_numpy(x), new_w, fold="slice").numpy()
     np.testing.assert_array_equal(got, np.asarray(jresize(jnp.asarray(x), new_w,
                                                           fold="slice")))
     with pytest.raises(ValueError, match="not divisible"):

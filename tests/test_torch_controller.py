@@ -247,25 +247,27 @@ def test_noise_adaptive_without_ef_config():
 
 def test_registry_and_refusals():
     """make_controller's kinds; auto_compress needs the EF allocation;
-    elastic raises naming ROADMAP A.5, from the registry, build_train and
-    the CLI; an unknown kind is a ValueError."""
+    elastic is the ElasticController (the reference's class) from the
+    registry, builds through build_train and runs from the CLI; an unknown
+    kind is a ValueError."""
     for kind, cls in (("static", "StaticController"),
                       ("diversity_h", "DiversityHController"),
                       ("adaptive_batch", "AdaptiveBatchController"),
-                      ("noise_adaptive", "NoiseAdaptiveController")):
-        assert type(tctl.make_controller(_runs(dict(kind=kind))[1])).__name__ == cls
+                      ("noise_adaptive", "NoiseAdaptiveController"),
+                      ("elastic", "ElasticController")):
+        got = tctl.make_controller(_runs(dict(kind=kind))[1])
+        assert type(got).__name__ == cls
+        assert type(jctl.make_controller(_runs(dict(kind=kind))[0])).__name__ == cls
     assert isinstance(tctl.make_controller(_runs()[1]), tctl.SyncController)
     with pytest.raises(ValueError, match="ef_sign"):
         tctl.make_controller(_runs(dict(kind="auto_compress"))[1])
     elastic = _runs(dict(kind="elastic"))[1]
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tctl.make_controller(elastic)
+    assert isinstance(tctl.make_controller(elastic), tctl.ElasticController)
     smoke = dataclasses.replace(elastic, model=tconfigs.get_smoke("paper-lm"))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tbuild(smoke, num_workers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ttrain.main(["--smoke", "--device", "cpu", "--steps", "1",
-                     "--controller", "elastic"])
+    bundle = tbuild(smoke, num_workers=2, device="cpu")
+    assert bundle.telemetry and bundle.worker_set.num_workers == 2
+    ttrain.main(["--smoke", "--device", "cpu", "--steps", "1", "--seq", "16",
+                 "--local-batch", "1", "--controller", "elastic"])
     bogus = dataclasses.replace(
         elastic, controller=dataclasses.replace(elastic.controller, kind="x"))
     with pytest.raises(ValueError, match="unknown controller"):
@@ -273,8 +275,10 @@ def test_registry_and_refusals():
 
 
 def test_fit_refuses_worker_set_deltas():
-    """A custom policy that resizes workers: fit raises (ROADMAP A.5)
-    instead of ignoring the decision."""
+    """A custom policy that resizes workers (W=4 -> 2 after the first
+    round): fit actuates it through the default backend — the state folds
+    to 2 workers, the data re-partitions, the LR halves, the ledger prices
+    the rounds per worker set — instead of ignoring the decision."""
     class Resize(tctl.StaticController):
         def plan_delta(self, step):
             d = super().plan_delta(step)
@@ -282,10 +286,18 @@ def test_fit_refuses_worker_set_deltas():
 
     run = _fit_run(tcb, tconfigs.get_smoke("paper-lm"), {}, "none", H=1)
     data = lm_examples(markov_lm(vocab=512, num_seqs=16, seq_len=S))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ttrain.fit(run, ShardedBatches(data, W, B),
-                   bundle=tbuild(run, num_workers=W, device="cpu"),
-                   controller=Resize(run), num_steps=2, log=lambda *a: None)
+    it = ShardedBatches(data, W, B)
+    logs = []
+    state, hist, summary = ttrain.fit(
+        run, it, bundle=tbuild(run, num_workers=W, device="cpu"),
+        controller=Resize(run), num_steps=3, log=logs.append)
+    assert summary["resizes"] == 1 and it.W == 2
+    assert summary["backend"]["num_workers"] == 2
+    assert state.params.buckets[0].shape[0] == 2
+    assert summary["controller"]["lr_scale"] == 0.5
+    assert set(summary["ledger"]["worker_sets"]) == {"W=2", "W=4"}
+    assert logs == ["resize: W 4 -> 2 at step 0 (lr x0.5)"]
+    assert all(np.isfinite(h["loss"]) for h in hist)
 
 
 # ---------------------------------------------------------------------------

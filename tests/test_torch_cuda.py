@@ -17,6 +17,8 @@ the largest entry in f32 (the reference's own test tolerance; online
 against dense softmax); in bf16, both compute in f32 and round once, so
 each entry within one bf16 rounding (2^-7 of itself) plus that 2e-5.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -265,6 +267,81 @@ def test_trainer_on_card_matches_cpu(cuda, mode):
                   "scale_sign_rows": comp, "lars_row_norms": 0,
                   "fused_lars_bucket": 0}
     assert all(v == 0 for v in cc.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3096 + 5, 264])
+def test_cuda_kernels_across_worker_resizes(cuda, rows):
+    """sq_sum and fused_sgd_bucket against their plain versions while W
+    shrinks and grows on one stream (4 -> 2 -> 4 -> 8, an elastic run's
+    widths): sq_sum's per-stream scratch is kept for a smaller W and grown
+    only for a larger one, its tickets left zeroed after every call."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    key = (0, torch.cuda.current_stream().cuda_stream)
+    tkb.reset_launches()
+    for i, W in enumerate((4, 2, 4, 8)):
+        mk = lambda: torch.randn((W, rows, 128), generator=g, device=cuda)
+        p, gr, u = mk(), mk(), 0.1 * mk()
+        wd_row = (torch.rand((rows,), generator=g, device=cuda) < 0.7).float()
+        gscale = torch.rand((W,), generator=g, device=cuda)
+        p1, u1, p2, u2 = p.clone(), u.clone(), p.clone(), u.clone()
+        kw = dict(momentum=0.9, weight_decay=1e-2, nesterov=True,
+                  gscale=gscale, stats=True)
+        st_k = tkb.fused_sgd_bucket(p1, gr, u1, 0.05, wd_row, **kw)
+        st_p = tkb.fused_sgd_bucket_plain(p2, gr, u2, 0.05, wd_row, **kw)
+        torch.testing.assert_close(p1, p2, rtol=0, atol=2e-6 * p2.abs().max().item())
+        torch.testing.assert_close(u1, u2, rtol=0, atol=2e-6 * u2.abs().max().item())
+        for a, b in zip(st_k, st_p):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        for x in (p, gr, p1):
+            torch.testing.assert_close(tkb.sq_sum(x), tkb.sq_sum_plain(x),
+                                       rtol=1e-5, atol=0)
+        assert tkb._SQ_SUM_SCRATCH[key][1].numel() >= W
+        torch.cuda.synchronize()
+        assert all(int(t.abs().sum()) == 0
+                   for _, t in tkb._SQ_SUM_SCRATCH.values())
+    assert tkb.LAUNCHES["sq_sum"] == 12 and tkb.LAUNCHES["fused_sgd_bucket"] == 4
+
+
+@pytest.mark.cuda
+def test_elastic_trainer_on_card_matches_cpu(cuda, tmp_path):
+    """paper-lm smoke through a SimulatedBackend with a straggler (worker 2)
+    and two resizes (W = 4 -> 2 -> 4), from the same weights: the same
+    resize and demotion decisions on the card and on the CPU, per-step
+    loss rtol 1e-4."""
+    from repro_torch.backend import SimulatedBackend
+    from repro_torch.core.controller import ElasticController
+    W, B, S, steps = 4, 2, 64, 16
+    cfg = configs.get_smoke("paper-lm")
+    run = RunConfig(model=cfg, shape=InputShape("t", S, W * B, "train"),
+                    local_sgd=LocalSGDConfig(local_steps=4, post_local_switch=4),
+                    optim=OptimConfig(base_lr=0.3, base_batch=32,
+                                      lr_warmup_steps=2, grad_clip=1.0),
+                    controller=ControllerConfig(kind="elastic"))
+    data = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=64, seq_len=S))
+    p0 = _smoke_params()
+    keys = ("round", "step", "next_workers", "demote", "promote", "topology",
+            "num_workers", "worker_slowest")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        be = SimulatedBackend(W, latency_s={2: 0.05}, device=dev)
+        path = tmp_path / f"{dev}.jsonl"
+        _, hist, summ = ttrain.fit(
+            run, ShardedBatches(data, W, B), backend=be,
+            controller=ElasticController(run, resize_at={3: 2, 4: 4}),
+            num_steps=steps, params0=tree_map(lambda t: t.to(dev), p0),
+            telemetry_path=str(path), log=lambda *a: None)
+        recs = [{k: r[k] for k in keys if k in r}
+                for r in map(json.loads, open(path))]
+        out[dev] = ([h["loss"] for h in hist], summ, recs)
+    (lg, sg, rg), (lc, sc, rc) = out["cuda"], out["cpu"]
+    assert rg == rc
+    assert [r.get("next_workers") for r in rg if "next_workers" in r] == [2, 4]
+    assert [r["demote"] for r in rg if "demote" in r] == [2]
+    assert sg["resizes"] == sc["resizes"] == 2
+    assert sg["comm_rounds"] == sc["comm_rounds"]
+    assert sg["backend"] == sc["backend"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
 
 
 def _topology_fit(dev, p0, block_steps, topology, steps=8):

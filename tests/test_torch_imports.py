@@ -54,7 +54,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert "src/repro_torch/telemetry/metrics.py" in names
     for mod in ("telemetry/trace", "telemetry/export", "checkpoint/checkpoint",
                 "checkpoint/__init__", "core/elastic", "serving/paged",
-                "serving/engine", "serving/publish", "serving/__init__"):
+                "serving/engine", "serving/publish", "serving/__init__",
+                "backend/__init__", "backend/base", "backend/local",
+                "backend/simulated", "backend/distributed"):
         assert f"src/repro_torch/{mod}.py" in names, mod
     bad = []
     for f in PORT_FILES:

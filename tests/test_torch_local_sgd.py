@@ -187,11 +187,11 @@ def test_mean_params_and_launch_counts_on_cpu():
 
 def test_unported_options_raise():
     """LARS, telemetry with the static schedule, hierarchical local SGD,
-    gradient noise and the adaptive controllers build; the elastic
-    controller (it needs workers across GPUs, ROADMAP A.5), the 1-bit wire
-    pack and coalesced collectives raise."""
+    gradient noise and the adaptive and elastic controllers build; the
+    1-bit wire pack and coalesced collectives (they come with workers
+    across GPUs, ROADMAP A.5) raise."""
     smoke = tconfigs.get_smoke("paper-lm")
-    kinds = ("diversity_h", "adaptive_batch", "noise_adaptive")
+    kinds = ("diversity_h", "adaptive_batch", "noise_adaptive", "elastic")
     for kw in (dict(optim=tcb.OptimConfig(optimizer="lars")),
                dict(controller=tcb.ControllerConfig(telemetry=True)),
                dict(local_sgd=tcb.LocalSGDConfig(block_steps=2)),
@@ -203,8 +203,7 @@ def test_unported_options_raise():
     for kw in (dict(local_sgd=tcb.LocalSGDConfig(wire_pack=True,
                                                  sync_compression="sign")),
                dict(local_sgd=tcb.LocalSGDConfig(sync_coalesce=True,
-                                                 sync_compression="sign")),
-               dict(controller=tcb.ControllerConfig(kind="elastic"))):
+                                                 sync_compression="sign"))):
         run = tcb.RunConfig(model=smoke, **kw)
         with pytest.raises(NotImplementedError):
             tbuild(run, num_workers=2, device="cpu")
