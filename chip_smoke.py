@@ -100,6 +100,22 @@ Phases:
            swapped resident continues as a fresh engine on version 1;
            decode steps, tokens/s, decode and prefill ms, swap seconds,
            peak memory, and torch.profiler's split of a decode step.
+  M        the MoE and MLA decoders at their published widths, depth cut to
+           2 layers (1 when the peak reckoned from the bucket layout's rows
+           passes 72 GB): M1 olmoe-1b-7b (64 experts top-8, mean sync, W=4),
+           M2 deepseek-v2-lite-16b (MLA, 64 routed + 2 shared experts top-6,
+           EF-sign sync, W=2), each phase A's settings for 8 steps: losses
+           finite and falling, aux, comm rounds equal to the schedule's,
+           median step, peak memory, launches (update and sq_sum every step,
+           the compressor pair every EF-sign sync), the capacity drops per
+           step (counted on the card); M1's step under torch.profiler split
+           into expert bmm / dispatch / attention / head; the trained model
+           on the card against the port on the CPU on a (1, 128) batch (loss
+           1e-4 relative, routing flips counted); 16 markov requests served
+           on 8 slots (max_len 256, pages of 16) by the paged engine, timed,
+           then again beside the contiguous path run on the engine's own
+           batches (an MoE layer's capacity drops depend on its batch):
+           logits within 1e-4 x (1 + |logit|).
   T        the per-tensor kernel API at full width: paper-lm's parameter
            tree (W=1) on the card; one SGD step with ops.fused_sgd on every
            leaf against the same step by the bucket kernel on the flat bus;
@@ -139,7 +155,10 @@ Phases:
            versions at W = 4 -> 2 -> 4 -> 8 on one stream (sq_sum's scratch
            reused across the changes), and the elastic trainer with phase
            E's resizes and straggler together: the same resize and
-           demotion decisions, losses within 1e-4.
+           demotion decisions, losses within 1e-4; and the two MoE smoke
+           configs (phase M's sync modes and widths): one local step and a
+           sync, loss and params within the tolerances above, decode logits
+           within 1e-4 x (1 + |logit|).
   G        the paper's experiments (``repro_torch.benchmarks``) at the
            harness's full size (MLP width 256, 1,536 train / 2,048 test
            examples, K up to 8): Fig. 1's A5 and Table 4's EFsign_post_H8
@@ -694,10 +713,12 @@ def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
 
 
 def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None,
-              tracer=None, manifest_path=None):
-    """fit() on markov_lm data; returns (state, history, summary, step_s):
-    host seconds per step, each from one local step's start to the next's
-    (a device synchronize before each), the sync included on sync steps."""
+              tracer=None, manifest_path=None, workers=W, bundle=None):
+    """fit() on markov_lm data at ``workers`` workers (through ``bundle``
+    when given, else a fresh ``build_train``); returns (state, history,
+    summary, step_s): host seconds per step, each from one local step's
+    start to the next's (a device synchronize before each), the sync
+    included on sync steps."""
     import torch
     from repro_torch.data.partition import ShardedBatches
     from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -705,10 +726,11 @@ def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None,
     from repro_torch.launch.steps import build_train
 
     S = run.shape.seq_len
-    B = run.shape.global_batch // W
-    data = lm_examples(markov_lm(vocab=run.model.vocab_size, num_seqs=W * B * 4,
-                                 seq_len=S, seed=seed))
-    bundle = build_train(run, num_workers=W, device=device)
+    B = run.shape.global_batch // workers
+    data = lm_examples(markov_lm(vocab=run.model.vocab_size,
+                                 num_seqs=workers * B * 4, seq_len=S, seed=seed))
+    if bundle is None:
+        bundle = build_train(run, num_workers=workers, device=device)
     step_s = []
     local_step = bundle.local_step
 
@@ -719,11 +741,14 @@ def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None,
         return local_step(*args)
 
     bundle.local_step = timed_step
-    state, hist, summ = ttrain.fit(run, ShardedBatches(data, W, B, seed=seed),
-                                   bundle=bundle, num_steps=steps, seed=seed,
-                                   params0=params0, log=lambda *a: None,
-                                   telemetry_path=telemetry_path, tracer=tracer,
-                                   manifest_path=manifest_path)
+    try:
+        state, hist, summ = ttrain.fit(
+            run, ShardedBatches(data, workers, B, seed=seed), bundle=bundle,
+            num_steps=steps, seed=seed, params0=params0, log=lambda *a: None,
+            telemetry_path=telemetry_path, tracer=tracer,
+            manifest_path=manifest_path)
+    finally:
+        bundle.local_step = local_step
     step_s.append(summ["wall_s"] + step_s[0])
     return state, hist, summ, [b - a for a, b in zip(step_s, step_s[1:])]
 
@@ -917,8 +942,9 @@ def phase_t(cfg) -> dict:
 
 def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
               lars: bool = False, block_steps: int = 1, controller=None,
-              noise_eta: float = 0.0):
-    """The phases' RunConfig; ``lars`` switches to LARS with telemetry
+              noise_eta: float = 0.0, workers: int = W):
+    """The phases' RunConfig (``workers`` x ``local_batch`` sequences a
+    step); ``lars`` switches to LARS with telemetry
     (grad_clip stays set: LARS ignores it); ``block_steps`` > 1 is
     hierarchical local SGD (Alg. 5, the default two blocks);
     ``controller`` a ``ControllerConfig`` keyword dict (an adaptive
@@ -928,7 +954,7 @@ def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
     opt = (dict(optimizer="lars", base_lr=LARS_LR, lars_trust=LARS_TRUST)
            if lars else dict(base_lr=0.3))
     return RunConfig(
-        model=cfg, shape=InputShape("chip", seq, W * local_batch, "train"),
+        model=cfg, shape=InputShape("chip", seq, workers * local_batch, "train"),
         local_sgd=LocalSGDConfig(local_steps=4, post_local_switch=4,
                                  sync_compression=mode,
                                  block_steps=block_steps),
@@ -1496,7 +1522,7 @@ def _close(a, b) -> float:
     return float(((a - b).abs() / (1 + b.abs())).max())
 
 
-def _forced_logits(cfg, params, prompt, tokens):
+def _forced_logits(cfg, params, prompt, tokens, max_len=S_MAX_LEN):
     """The contiguous path's logits teacher-forced on ``tokens``
     (``build_serve``: prefill of the prompt, then one decode per token)."""
     import torch
@@ -1506,7 +1532,7 @@ def _forced_logits(cfg, params, prompt, tokens):
     sb = build_serve(cfg, device="cuda")
     lg, cache = sb.prefill(params, {"tokens": torch.tensor([list(prompt)],
                                                            device="cuda")})
-    cache = lm.grow_cache(cfg, cache, S_MAX_LEN)
+    cache = lm.grow_cache(cfg, cache, max_len)
     out = [lg[0, -1]]
     n = len(prompt) + 1
     for t in tokens[:-1]:
@@ -1572,7 +1598,7 @@ def phase_s(cfg) -> dict:
         tracer, reg = Tracer(), MetricsRegistry()
         kept: dict = {}          # uid -> its logit rows, on the card
 
-        def on_logits(kind, rows, logits):
+        def on_logits(kind, rows, logits, inputs):
             for slot, uid in rows:
                 kept.setdefault(uid, []).append(logits[slot, -1].clone())
 
@@ -1630,7 +1656,7 @@ def phase_s(cfg) -> dict:
         fresh_rows: list = []
         fresh = build_engine(cfg, shape, eng.params, page_size=S_PAGE,
                              prefill_len=S_PREFILL,
-                             on_logits=lambda k, rows, lg: fresh_rows.extend(
+                             on_logits=lambda k, rows, lg, inp: fresh_rows.extend(
                                  lg[s, -1].clone() for s, _ in rows))
         fuid = fresh.submit(swap["hist"], max_new=swap["max_new"] - swap["k"])
         fcont = {r.uid: r for r in fresh.run()}[fuid].tokens
@@ -2027,6 +2053,69 @@ def phase_c_elastic(smoke, p0):
     torch.cuda.empty_cache()
 
 
+def phase_c_moe():
+    """Phase C for the MoE and MLA decoders at smoke size, the card against
+    the CPU from the same weights (phase M's sync modes and worker
+    counts): one local step and one global sync, loss and params within
+    phase C's tolerances (loss 1e-4 relative; all but 1e-4 of the param
+    elements within 1e-4 x the largest); then a prefill and 4 decode
+    steps of the synced model, logits within M_TOL x (1 + |logit|)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.local_sgd import mean_params
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map
+
+    for tag, arch, mode, workers, _ in M_RUNS:
+        smoke = configs.get_smoke(arch)
+        run = phase_run(mode, smoke, seq=64, local_batch=2, steps=1,
+                        workers=workers)
+        p0 = mbase.materialize(lm.param_specs(smoke),
+                               torch.Generator().manual_seed(0), "cpu")
+        batch = next(iter(ShardedBatches(lm_examples(markov_lm(
+            vocab=smoke.vocab_size, num_seqs=workers * 2, seq_len=64)),
+            workers, 2)))
+        rng = np.random.default_rng(1)
+        prompt = torch.from_numpy(rng.integers(0, smoke.vocab_size, (2, 12)))
+        forced = torch.from_numpy(rng.integers(0, smoke.vocab_size, (2, 4)))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            tb = build_train(run, num_workers=workers, device=dev)
+            st = tb.init(tree_map(lambda t: t.to(dev).clone(), p0))
+            st, m = tb.local_step(st, batch)
+            st = tb.sync(st, plan=tb.sync_plan)
+            params = mean_params(st)
+            with torch.no_grad():
+                lg, cache = lm.prefill(smoke, params, prompt.to(dev), max_len=16)
+                rows = [lg[:, -1].cpu()]
+                for i in range(forced.shape[1]):
+                    lg, cache = lm.decode_step(smoke, params,
+                                               forced[:, i:i + 1].to(dev),
+                                               cache, prompt.shape[1] + 1 + i)
+                    rows.append(lg[:, -1].cpu())
+            out[dev] = (float(m["loss"]), float(m["aux"]),
+                        st.params.buckets[0].cpu(), rows)
+        (lg, ag, pg, rg), (lc, ac, pc, rc) = out["cuda"], out["cpu"]
+        loss_rel = abs(lg - lc) / abs(lc)
+        frac = float(((pg - pc).abs() > 1e-4 * pc.abs().max()).float().mean())
+        logit_err = max(_close(a, b) for a, b in zip(rg, rc))
+        emit({"phase": "C", "part": tag, "model": smoke.name, "W": workers,
+              "sync_compression": mode, "steps": 1, "loss_gpu": lg,
+              "loss_cpu": lc, "aux_gpu": ag, "aux_cpu": ac,
+              "loss_rel_diff": loss_rel, "loss_tol": 1e-4,
+              "params_frac_beyond_1e-4_of_max": frac, "frac_tol": 1e-4,
+              "decode_logits_max_rel_err": logit_err, "logits_tol": M_TOL})
+        if loss_rel > 1e-4 or frac > 1e-4 or logit_err > M_TOL:
+            raise AssertionError(f"phase C ({smoke.name}): the card disagrees "
+                                 "with the CPU")
+        torch.cuda.empty_cache()
+
+
 def phase_g() -> dict:
     """Phase G: the paper's experiments through the port's harness
     (``repro_torch.benchmarks``) at its full size: card vs CPU, the full
@@ -2133,6 +2222,474 @@ def phase_g() -> dict:
     emit({"phase": "G", "full_rows_s": rows_s,
           "phase_s": time.perf_counter() - t_phase})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase M: the MoE and MLA decoders at full published width
+# ---------------------------------------------------------------------------
+
+M_STEPS = 8
+# (part, arch, sync, W, layers): published widths, depth cut.  deepseek runs
+# 1 layer: m_reckon's peak at 2 layers (1,589,128,192 params, 6.36 GB a
+# copy, 15 copies with EF-sign's 4W sync temporaries) is 95.3 GB, past the card
+M_RUNS = (("M1", "olmoe-1b-7b", "none", 4, 2),
+          ("M2", "deepseek-v2-lite-16b", "ef_sign", 2, 1))
+M_SLOTS, M_MAX_LEN, M_PAGE, M_PREFILL = 8, 256, 16, 128
+M_REQUESTS, M_PROMPT, M_NEW = 16, (16, 128), (16, 48)
+M_CPU_SEQ = 128                # the card-vs-CPU forward: a (1, 128) batch
+M_TOL = 1e-4                   # loss (relative); logits |a-b| <= M_TOL (1+|b|)
+M_CHUNK_ROWS = 1 << 18         # rows of a bucket one plain-version call covers
+
+
+def m_reckon(cfg, workers: int, mode: str) -> dict:
+    """Memory reckoned from the layout's rows before the run: one param
+    copy's bucket bytes, and the copies resident at once.  Resident:
+    params and momentum (W each), plus EF memory (W) and the anchor under
+    EF-sign.  A local step adds the grad buckets (W); a sync adds its
+    temporaries: the mean's (the W-wide broadcast mean and the mean
+    itself, W + 1), EF-sign's (delta, compressor input, output and new
+    memory, 4W).  Activations are not in the sum (read from the run)."""
+    from repro_torch.core import flatbuf
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+
+    specs = lm.param_specs(cfg)
+    copy = flatbuf.build_layout(mbase.abstract(specs)).total_bytes()
+    ef = mode == "ef_sign"
+    resident = 2 * workers + (workers + 1 if ef else 0)
+    step = resident + workers
+    sync = resident + (4 * workers if ef else workers + 1)
+    return {"params": mbase.count_params(specs), "copy_bytes": copy,
+            "resident_copies": resident, "step_copies": step,
+            "sync_copies": sync, "reckoned_peak_bytes": max(step, sync) * copy}
+
+
+def _event_ms(fn):
+    """(fn(), its device ms) between two CUDA events."""
+    import torch
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def m_check_kernels(state, run, layout) -> list:
+    """Kernels 1-4 against their plain versions on phase M's own trained
+    buckets, at the (W, rows, 128) shape the path gives them (olmoe at
+    W=4 is past 2^31 elements): fused SGD on clones of the params and
+    momentum, with the momentum (a running mean of the run's gradients)
+    as its gradient, the run's SGD settings at the base LR, the layout's
+    decay rows, a clip scale per worker and stats; sq_sum and
+    row_abs_sum on the momentum; scale_sign_rows on it with worker 0's
+    row sums / 128 as the row scale.  The plain versions run on chunks
+    of M_CHUNK_ROWS rows of the same inputs (one plain pass over the
+    whole bucket would need several more bucket copies), their sums
+    folded in f64.  One timed launch per kernel; check_kernels'
+    tolerances.  Returns one record per bucket."""
+    import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import fused_bucket as fb
+
+    def fold(acc, got, want):             # acc: [max |got - want|, max |want|]
+        acc[0] = max(acc[0], float((got - want).abs().max()))
+        acc[1] = max(acc[1], float(want.abs().max()))
+
+    ls, out = run.local_sgd, []
+    for b, (p0, u0) in enumerate(zip(state.params.buckets, state.momentum.buckets)):
+        W_, rows = p0.shape[0], p0.shape[1]
+        chunks = [slice(r, r + M_CHUNK_ROWS) for r in range(0, rows, M_CHUNK_ROWS)]
+        wd_row = flatbuf.const("wd_rows", layout, b, p0.device)
+        kw = dict(momentum=ls.local_momentum, weight_decay=run.optim.weight_decay,
+                  nesterov=ls.nesterov, stats=True,
+                  gscale=torch.linspace(1.0, 0.25, W_, device=p0.device))
+        lr = run.optim.base_lr
+        ms, err = {}, {}
+
+        pk, uk = p0.clone(), u0.clone()
+        sk, ms["fused_sgd_bucket"] = _event_ms(
+            lambda: fb.fused_sgd_bucket(pk, u0, uk, lr, wd_row, **kw))
+        acc_p, acc_u = [0.0, 0.0], [0.0, 0.0]
+        stats = [torch.zeros(W_, dtype=torch.float64, device=p0.device)
+                 for _ in range(2)]
+        for sl in chunks:
+            pc, uc = p0[:, sl].clone(), u0[:, sl].clone()
+            sp = fb.fused_sgd_bucket_plain(pc, u0[:, sl], uc, lr, wd_row[sl], **kw)
+            for acc, x in zip(stats, sp):
+                acc += x.double()
+            fold(acc_p, pk[:, sl], pc)
+            fold(acc_u, uk[:, sl], uc)
+            del pc, uc
+        del pk, uk
+        err["fused_sgd_bucket"] = max(acc_p[0] / acc_p[1], acc_u[0] / acc_u[1])
+        err["fused_sgd_bucket_stats"] = max(rel_err(a, w)[1] for a, w in zip(sk, stats))
+
+        got, ms["sq_sum"] = _event_ms(lambda: fb.sq_sum(u0))
+        err["sq_sum"] = rel_err(got, sum(fb.sq_sum_plain(u0[:, sl]).double()
+                                         for sl in chunks))[1]
+        rsum, ms["row_abs_sum"] = _event_ms(lambda: fb.row_abs_sum(u0))
+        acc = [0.0, 0.0]
+        for sl in chunks:
+            fold(acc, rsum[:, sl], fb.row_abs_sum_plain(u0[:, sl]))
+        err["row_abs_sum"] = acc[0] / acc[1]
+        scale = (rsum[0] / 128).contiguous()
+        y, ms["scale_sign_rows"] = _event_ms(lambda: fb.scale_sign_rows(u0, scale))
+        err["scale_sign_rows"] = float(not all(
+            torch.equal(y[:, sl], fb.scale_sign_rows_plain(u0[:, sl], scale[sl]))
+            for sl in chunks))
+        del y, rsum, scale
+        tol = {"fused_sgd_bucket": TOL["elementwise"],
+               "fused_sgd_bucket_stats": TOL["reduction"],
+               "sq_sum": TOL["reduction"], "row_abs_sum": TOL["reduction"],
+               "scale_sign_rows": TOL["sign"]}
+        out.append({"bucket": b, "shape": [W_, rows, 128],
+                    "elements": W_ * rows * 128, "max_rel_err": err, "tol": tol,
+                    "ms": ms, "ok": all(err[k] <= tol[k] for k in err)})
+    torch.cuda.empty_cache()
+    return out
+
+
+def shadowed_engine(cfg, shape, params, **kw):
+    """``build_engine``'s engine with the contiguous path run beside it on
+    the engine's own batches, through its ``on_logits`` hook: each
+    admission wave's padded prompts and lengths (the hook's inputs) are
+    prefilled into a contiguous (slots, max_tokens) cache, each decode
+    step runs ``lm.decode_step`` on it with the step's tokens and
+    lengths (idle rows zeroed, as their null pages read), and the live
+    rows' logits are held against the paged step's.  An MoE layer routes
+    the whole batch at once, and its capacity drops depend on the batch,
+    so the contiguous path is held on the same batches, not request by
+    request.  Returns (engine, check): ``check`` has the worst
+    |a - b| / (1 + |b|), the rows compared and each uid's logit rows."""
+    import torch
+    from repro_torch.launch.steps import build_engine
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, tree_leaves, tree_unflatten
+
+    eng = build_engine(cfg, shape, params, **kw)
+    is_axes = lambda x: isinstance(x, tuple) and len(x) > 0 and all(
+        isinstance(e, (str, type(None))) for e in x)
+    bdim = [ax.index("batch") for ax in
+            tree_leaves(lm.cache_axes_tree(cfg), is_leaf=is_axes)]
+    cont, treedef = tree_flatten(lm.init_cache(
+        cfg, eng.max_batch, eng.pl.max_tokens, dtype=torch.float32,
+        device=eng.device))
+    check = {"worst": 0.0, "rows": 0, "kept": {}}
+
+    @torch.no_grad()
+    def hook(kind, rows, logits, inputs):
+        tok, lens = inputs
+        for slot, uid in rows:
+            check["kept"].setdefault(uid, []).append(logits[slot, -1].clone())
+        if kind == "prefill":
+            _, c = lm.prefill(cfg, eng.params, tok, lengths=lens,
+                              max_len=eng.pl.max_tokens)
+            idx = torch.tensor([s for s, _ in rows], device=eng.device)
+            for dst, src, d in zip(cont, tree_leaves(c), bdim):
+                dst.index_copy_(d, idx, src.index_select(d, idx).to(dst.dtype))
+            return
+        idle = torch.nonzero(lens == 0)[:, 0]
+        for leaf, d in zip(cont, bdim):
+            leaf.index_fill_(d, idle, 0.0)
+        want, _ = lm.decode_step(cfg, eng.params, tok,
+                                 tree_unflatten(treedef, cont), lens)
+        live = lens > 0
+        err = ((logits.double() - want.double()).abs()
+               / (1 + want.double().abs()))[live]
+        check["worst"] = max(check["worst"], float(err.max()))
+        check["rows"] += int(live.sum())
+
+    eng.on_logits = hook
+    return eng, check
+
+
+# blocks.moe_apply's profiler spans: routing + dispatch, and the combine
+M_SPANS = ("moe.dispatch", "moe.combine")
+# index ops outside the MoE spans: the embedding lookup and its
+# accumulating scatter, chunked_xent's label gather and its backward
+M_INDEX_OPS = ("aten::index", "aten::index_put_", "aten::_index_put_impl_",
+               "aten::gather", "aten::scatter_add_", "aten::index_select",
+               "aten::index_add_", "aten::embedding_dense_backward")
+EVAL_FN = "autograd::engine::evaluate_function: "
+
+
+def moe_span_ops(events) -> set:
+    """ids of the profiled CPU events that belong to an MoE span: the ops
+    under a span in the forward, and everything under the backward's
+    ``evaluate_function`` of a node whose sequence number a forward op
+    under a span carries."""
+    def root(e):
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+        return e
+
+    def in_span(e):
+        while e is not None and e.name not in M_SPANS:
+            e = e.cpu_parent
+        return e is not None
+
+    fwd = {id(e): e for e in events if e.cpu_parent is not None and in_span(e)}
+    seqs = {e.sequence_nr for e in fwd.values() if e.sequence_nr >= 0}
+    bwd = set()
+    for e in events:
+        r = root(e)
+        if r.name.startswith(EVAL_FN) and r.sequence_nr in seqs:
+            bwd.add(id(e))
+    return set(fwd) | bwd
+
+
+def m_profile_step(bundle, state, batch, cfg) -> dict:
+    """torch.profiler over one full-width local step: device time by
+    part, each kernel booked to the innermost aten op that launched it —
+    the experts' batched matmuls (``aten::bmm`` whose batch is the
+    expert count), the rest of the matmuls by whether they touch the
+    vocabulary (the head) or not (attention projections, router, shared
+    experts), attention's own batched matmuls, the MoE routing, dispatch
+    and combine (every other op under ``moe_apply``'s spans, and its
+    backward by autograd sequence number), the index ops outside them
+    (embedding, the loss's label gather), the port's bucket kernels, and
+    everything else."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    X, V = cfg.moe.num_experts, cfg.vocab_size
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        state, _ = bundle.local_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    moe = moe_span_ops(events)
+    parts = {"expert_bmm": 0.0, "moe_dispatch": 0.0, "attention_bmm": 0.0,
+             "head_mm": 0.0, "other_mm": 0.0, "embed_xent_index": 0.0,
+             "bucket_kernels": 0.0, "other": 0.0}
+    busy = 0.0
+    for e in events:
+        if e.name in M_SPANS:              # the spans' own (CPU and device) ranges
+            continue
+        ms = e.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            # kernels: the busy total, and the port's own (launched from
+            # Python through ctypes, so under no aten op)
+            busy += ms
+            if kernel_family(e.name) == "bucket kernels (this port)":
+                parts["bucket_kernels"] += ms
+            continue
+        shapes = [tuple(x) for x in (e.input_shapes or []) if x]
+        if e.name == "aten::bmm":
+            part = ("expert_bmm" if any(len(x) == 3 and x[0] == X for x in shapes)
+                    else "attention_bmm")
+        elif e.name in ("aten::mm", "aten::addmm"):
+            part = "head_mm" if any(V in x for x in shapes) else "other_mm"
+        elif id(e) in moe:
+            part = "moe_dispatch"
+        elif e.name in M_INDEX_OPS:
+            part = "embed_xent_index"
+        else:
+            part = "other"
+        parts[part] += ms
+    return {"window": "1 local step", "wall_ms_under_profiler": wall_ms,
+            "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "by_part_ms": parts, "moe_span_ops": len(moe),
+            "parts_sum_ms": sum(parts.values()),
+            "unattributed_ms": busy - sum(parts.values())}, state
+
+
+def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
+    """Phase M: ``arch`` at its published width, cut in depth only (to
+    ``layers``): post-local SGD at phase A's settings with ``mode`` sync
+    at ``workers`` workers for M_STEPS steps; kernels 1-4 against their
+    plain versions on the trained buckets; the trained model on the card
+    against the port on the CPU; then M_REQUESTS requests served from it
+    by the paged engine, held against the contiguous path.  Returns the
+    training's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.local_sgd import mean_params
+    from repro_torch.core.schedule import sync_boundaries
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.steps import build_engine, build_train
+    from repro_torch.models import blocks, lm
+    from repro_torch.telemetry.trace import Tracer
+    from repro_torch.utils import tree_map
+
+    t_start = time.perf_counter()
+    published = configs.get(arch)
+    cfg = published.replace(num_layers=layers)
+    run = phase_run(mode, cfg, seq=512, local_batch=8, steps=M_STEPS,
+                    workers=workers)
+    want_syncs = sum(1 for _, lvl in sync_boundaries(run.local_sgd, M_STEPS)
+                     if lvl == 2)
+    rec = {"phase": "M", "part": tag, "model": arch, "W": workers,
+           "local_batch": 8, "seq": 512, "sync_compression": mode,
+           "base_lr": run.optim.base_lr, "grad_clip": run.optim.grad_clip,
+           "post_local_switch": run.local_sgd.post_local_switch,
+           "local_steps": run.local_sgd.local_steps,
+           "reduced": {"num_layers": [published.num_layers, cfg.num_layers],
+                       "steps": M_STEPS, "requests": M_REQUESTS,
+                       "widths": "published (unchanged)"},
+           "memory_reckoning": m_reckon(cfg, workers, mode)}
+
+    # -- train (the counts zeroed just before, read just after); step 0's
+    #    routing is kept to count its capacity drops on the card (step 0
+    #    is outside every time reported below)
+    bundle = build_train(run, num_workers=workers, device="cuda")
+    local_step, step0 = bundle.local_step, []
+
+    def first_step_routed(*args):
+        if step0:
+            return local_step(*args)
+        with blocks.record_routes() as routes:
+            out = local_step(*args)
+        step0.append(sum((~torch.stack(r.valids)).sum() for r in routes))
+        return out
+
+    bundle.local_step = first_step_routed
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    try:
+        state, hist, summ, step_s = train_run(run, device="cuda", steps=M_STEPS,
+                                              workers=workers, bundle=bundle)
+    finally:
+        bundle.local_step = local_step
+    counts = dict(fb.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    T = 8 * 512
+    rec.update(loss=losses, aux=[h["aux"] for h in hist],
+               xent=[h["xent"] for h in hist], comm_rounds=summ["comm_rounds"],
+               comm_rounds_scheduled=want_syncs, step_s=step_s,
+               step_s_median=statistics.median(step_s[1:]),
+               tokens_per_s=workers * T * len(step_s[1:]) / sum(step_s[1:]),
+               tokens_per_s_window="steps 1-%d: their tokens over their summed "
+                                   "seconds" % (len(step_s) - 1),
+               peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, capacity_drops_step0=int(step0[0]),
+               routed_choices_per_step=workers * cfg.num_layers * T * cfg.moe.top_k,
+               capacity_per_expert=blocks.moe_capacity(cfg, T))
+
+    # -- kernels 1-4 on the trained buckets (the step and sync temporaries
+    #    freed first), then the worker-mean model and one profiled M1 step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec["mem_before_kernel_check_GB"] = torch.cuda.memory_allocated() / 1e9
+    rec["kernels_vs_plain"] = m_check_kernels(state, run, bundle.layout)
+    rec["peak_mem_kernel_check_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    params = mean_params(state)
+    if tag == "M1":
+        it = ShardedBatches(lm_examples(markov_lm(
+            vocab=cfg.vocab_size, num_seqs=workers * 8, seq_len=512, seed=9)),
+            workers, 8)
+        rec["profile"], state = m_profile_step(bundle, state, next(it), cfg)
+    del state, bundle
+    torch.cuda.empty_cache()
+
+    # -- the card against the port on the CPU: one (1, 128) forward
+    toks = torch.from_numpy(markov_lm(vocab=cfg.vocab_size, num_seqs=1,
+                                      seq_len=M_CPU_SEQ + 1, seed=5)).long()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", None)):
+        if p is None:
+            p = tree_map(lambda t: t.cpu(), params)
+        with torch.no_grad(), blocks.record_routes() as routes:
+            loss, m = lm.loss_fn(cfg, p, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(loss), float(m["aux"]),
+                    [(r.top_i.cpu(), r.probs.cpu()) for r in routes])
+        del p
+    (lg, ag, rg), (lc, ac, rc) = out["cuda"], out["cpu"]
+    flips, near = 0, 0
+    for (ig, _), (ic, pc) in zip(rg, rc):
+        flips += int((ig != ic).any(dim=-1).sum())
+        srt = pc.sort(dim=-1, descending=True).values[:, :cfg.moe.top_k + 1]
+        near += int(((srt[:, :-1] - srt[:, 1:]).min(dim=-1).values <= 1e-6).sum())
+    loss_rel = abs(lg - lc) / abs(lc)
+    rec["card_vs_cpu"] = {"batch": [1, M_CPU_SEQ], "loss_gpu": lg,
+                          "loss_cpu": lc, "aux_gpu": ag, "aux_cpu": ac,
+                          "loss_rel_diff": loss_rel, "loss_tol": M_TOL,
+                          "routing_flips": flips,
+                          "near_ties_within_1e-6": near,
+                          "tokens_x_layers": M_CPU_SEQ * cfg.num_layers}
+
+    # -- serve: a timed engine run, then the same requests on the shadowed
+    #    engine, held against the contiguous path on the engine's batches
+    shape = InputShape("serve", M_MAX_LEN, M_SLOTS, "decode")
+    rng = np.random.default_rng(7)
+    corpus = markov_lm(vocab=cfg.vocab_size, num_seqs=M_REQUESTS,
+                       seq_len=M_PROMPT[1], seed=3)
+    reqs = [(corpus[i, :int(rng.integers(M_PROMPT[0], M_PROMPT[1] + 1))].tolist(),
+             int(rng.integers(M_NEW[0], M_NEW[1] + 1))) for i in range(M_REQUESTS)]
+    tracer = Tracer()
+    eng = build_engine(cfg, shape, params, page_size=M_PAGE,
+                       prefill_len=M_PREFILL, tracer=tracer)
+    uids = [eng.submit(p, max_new=n) for p, n in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = {r.uid: r.tokens for r in eng.run()}
+    wall = time.perf_counter() - t0
+    spans = lambda name: [sp.dur_s for sp in tracer.spans if sp.name == name]
+    desc = eng.describe()
+    del eng
+    sh, check = shadowed_engine(cfg, shape, params, page_size=M_PAGE,
+                                prefill_len=M_PREFILL)
+    suids = [sh.submit(p, max_new=n) for p, n in reqs]
+    shadow = {r.uid: r for r in sh.run()}
+    null_zero = not any(bool(pool[0].any()) for pool in sh.pools)
+    pages_back = len(sh.free_pages) == sh.pl.num_pages - 1
+    same_tokens = all(shadow[b].tokens == timed[a] for a, b in zip(uids, suids))
+    # request by request (batch of one), for the record: capacity drops
+    # depend on the batch, so this is a reading, not a check
+    iso = []
+    for uid in suids[:2]:
+        want = _forced_logits(cfg, params, reqs[uid][0], shadow[uid].tokens,
+                              max_len=M_MAX_LEN)
+        iso.append(max(_close(a, b) for a, b in zip(check["kept"][uid], want)))
+    del sh, params
+    torch.cuda.empty_cache()
+    rec["serve"] = {
+        "requests": M_REQUESTS, "completed": len(shadow), "slots": M_SLOTS,
+        "max_len": M_MAX_LEN, "page_size": M_PAGE, "prefill_len": M_PREFILL,
+        "prompt": list(M_PROMPT), "new_tokens": list(M_NEW),
+        "tokens_out": desc["tokens_out"], "wall_s": wall,
+        "tokens_per_s": desc["tokens_out"] / wall,
+        "decode_steps": len(spans("decode")),
+        "decode_step_ms_median": 1e3 * statistics.median(spans("decode")),
+        "prefill_ms_median": 1e3 * statistics.median(spans("prefill")),
+        "pool_bytes": desc["pool_bytes"],
+        "logits_vs_contiguous_max_rel_err": check["worst"],
+        "logit_rows_compared": check["rows"], "logits_tol": M_TOL,
+        "tokens_equal_timed_run": same_tokens,
+        "null_page_zero": null_zero, "free_pages_full": pages_back,
+        "isolated_request_max_rel_err": iso,
+        "moe_capacity_decode": blocks.moe_capacity(cfg, M_SLOTS)}
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec)
+    comp = want_syncs if mode != "none" else 0
+    want_launches = {k: 0 for k in fb.LAUNCHES}
+    want_launches.update(fused_sgd_bucket=M_STEPS, sq_sum=M_STEPS,
+                         row_abs_sum=comp, scale_sign_rows=comp)
+    bad = [k for k, ok in (
+        ("loss", all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+        ("aux", all(math.isfinite(h["aux"]) and h["aux"] > 0 for h in hist)),
+        ("comm rounds", summ["comm_rounds"] == {"block": 0, "global": want_syncs}),
+        ("launches", counts == want_launches),
+        ("kernels vs plain", all(k["ok"] for k in rec["kernels_vs_plain"])),
+        ("card vs cpu", loss_rel <= M_TOL),
+        ("served", len(shadow) == M_REQUESTS and set(shadow) == set(suids)),
+        ("logits", check["worst"] <= M_TOL and check["rows"] > 0),
+        ("null page", null_zero), ("free pages", pages_back)) if not ok]
+    if bad:
+        raise AssertionError(f"phase {tag}: {', '.join(bad)} ({rec})")
+    return counts
 
 
 def main() -> int:
@@ -2268,6 +2825,12 @@ def main() -> int:
             launches[k] += v
         torch.cuda.empty_cache()
 
+    # ---- M: the MoE and MLA decoders at full published width ----
+    for m_run in M_RUNS:
+        for k, v in phase_m(*m_run).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+
     launches.update(phase_t(cfg))
     torch.cuda.empty_cache()
 
@@ -2342,12 +2905,13 @@ def main() -> int:
 
     phase_c_controllers(smoke, p0)
     phase_c_elastic(smoke, p0)
+    phase_c_moe()
 
     for k, v in phase_g().items():
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # launches: phases A, B, L, H, E, R, K, S, N, G and the noise check
+    # launches: phases A, B, L, H, E, R, K, S, M, N, G and the noise check
     # for the bucket kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")

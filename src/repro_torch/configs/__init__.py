@@ -1,15 +1,20 @@
 """Architecture registry of the port: ``get(name)`` / ``get_smoke(name)``.
 
-Only ``paper-lm`` is registered in this slice."""
+The families ported so far: the dense ``paper-lm``, the MoE
+``olmoe-1b-7b`` and the MLA + MoE ``deepseek-v2-lite-16b``."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (BlockDef, ControllerConfig, InputShape,
-                                      LocalSGDConfig, ModelConfig,
-                                      OptimConfig, RunConfig)
+                                      LocalSGDConfig, MLAConfig, ModelConfig,
+                                      MoEConfig, OptimConfig, RunConfig)
 
-_MODULES = {"paper-lm": "paper_lm"}
+_MODULES = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "paper-lm": "paper_lm",
+}
 
 
 def _mod(name: str):

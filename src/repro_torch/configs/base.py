@@ -1,8 +1,8 @@
 """Config dataclasses: the port's own copy of ``repro.configs.base``.
 
 Field names and defaults match the reference so that a run described in
-one package reads the same in the other.  The family sub-configs (MoE,
-MLA, SSM) are not ported in this slice: their slots stay ``None``.
+one package reads the same in the other.  The MoE and MLA sub-configs are
+ported; the SSM slot stays ``None`` until its family is.
 """
 from __future__ import annotations
 
@@ -20,6 +20,25 @@ class BlockDef:
 
     mixer: MixerKind
     ffn: FFNKind
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0           # routed experts
+    num_shared: int = 0            # always-on shared experts
+    top_k: int = 1
+    capacity_factor: float = 1.25  # slots per expert = cf * tokens * top_k / E
+    d_expert: int = 0              # expert hidden dim (d_ff of each expert)
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0           # 0 => full-rank q projection (V2-Lite)
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -47,8 +66,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     scale_embeddings: bool = False
 
-    moe: Any = None
-    mla: Any = None
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     ssm: Any = None
 
     encoder_layers: int = 0

@@ -41,6 +41,8 @@ CLI:
         --steps 4 --trace-dir traced_run   # trace/metrics/manifest/jsonl
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --backend simulated --straggler-s 0.05 --controller elastic
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+        --device cpu --steps 4      # any arch but paper-lm: its smoke config
 """
 from __future__ import annotations
 
@@ -179,6 +181,7 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
         params0 = mbase.materialize(bundle.specs, gen, dev,
                                     dtype=getattr(torch, run.model.param_dtype))
     state = bundle.init(params0, seed=seed)
+    params0 = None      # the state holds its own copies: free a drawn tree
 
     controller = controller or make_controller(run, n_comp=bundle.n_comp)
     sched = DynamicSchedule(ls, controller.h_at)
@@ -418,7 +421,9 @@ def eval_lm(bundle, data: dict, batch: int = 8):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-lm")
+    ap.add_argument("--arch", default="paper-lm",
+                    help="paper-lm, olmoe-1b-7b or deepseek-v2-lite-16b (the "
+                         "last two at their smoke size)")
     ap.add_argument("--smoke", action="store_true", help="use reduced config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--workers", type=int, default=4)
@@ -462,7 +467,10 @@ def main(argv=None):
                          "default)")
     args = ap.parse_args(argv)
 
-    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    # as the reference's CLI: every arch but paper-lm runs its smoke
+    # config here; full-width runs of the others build their config in code
+    cfg = (configs.get_smoke(args.arch) if args.smoke or args.arch != "paper-lm"
+           else configs.get("paper-lm"))
     cfg = cfg.replace(max_seq_len=args.seq)
     shape = InputShape("cli", args.seq, args.workers * args.local_batch, "train")
     run = RunConfig(

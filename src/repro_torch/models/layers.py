@@ -48,7 +48,10 @@ def causal_attention(q, k, v, *, scale: float = 0.0):
     """Causal softmax attention with GQA, counterpart of the reference's
     ``chunked_attention(causal=True, window=0)`` in train mode.
 
-    q: (B, S, H, D); k, v: (B, S, KH, D) with H % KH == 0.
+    q, k: (B, S, H | KH, D); v: (B, S, KH, Dv) with H % KH == 0 — v's
+    head width may differ from q's (MLA's v is narrower than its
+    nope + rope q/k; the reference pads v to q's width and slices after,
+    which gives the same numbers).  ``scale`` 0 means 1/sqrt(D).
     """
     B, S, H, D = q.shape
     KH = k.shape[2]
@@ -61,7 +64,7 @@ def causal_attention(q, k, v, *, scale: float = 0.0):
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def _softcap(s, cap: float):

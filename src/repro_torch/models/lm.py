@@ -1,16 +1,20 @@
-"""Decoder LM (the port of ``repro.models.lm`` for the dense attention +
-SwiGLU family: paper-lm): the training forward and loss, and the serving
-entry points ``prefill`` / ``decode_step`` over a KV cache.
+"""Decoder LM (the port of ``repro.models.lm`` for the pre-norm decoders
+whose blocks are GQA attention or MLA followed by a SwiGLU or MoE FFN:
+paper-lm, olmoe-1b-7b, deepseek-v2-lite-16b): the training forward and
+loss (cross-entropy plus the MoE layers' load-balance aux), and the
+serving entry points ``prefill`` / ``decode_step`` over a KV cache.
 
 The param tree has the reference's nesting: ``embed``, ``final_norm``,
-``layers`` (a tuple with one dict per block of the repeating pattern,
-each leaf stacked over the pattern's repeats) and ``rem`` (the unstacked
-remainder).  A Python loop over the stacked layers takes the place of
-``lax.scan``.  Embeddings are tied.  The cache has the same nesting:
-``{"layers": ({"k", "v"} per block, stacked over the repeats), "rem":
-(...)}``, leaves ``(repeats, B, S, KH, D)`` with logical axes
-``("layers", "batch", "kv_seq", "kv_heads", None)``.  ``decode_step``
-writes the new token's k/v into the cache it is given, in place.
+``head`` (untied configs only), ``layers`` (a tuple with one dict per
+block of the repeating pattern, each leaf stacked over the pattern's
+repeats) and ``rem`` (the unstacked remainder).  A Python loop over the
+stacked layers takes the place of ``lax.scan``.  The cache has the same
+nesting: ``{"layers": (one dict per block, stacked over the repeats),
+"rem": (...)}``; an attention block caches ``k`` / ``v`` (repeats, B, S,
+KH, D), axes ``("layers", "batch", "kv_seq", "kv_heads", None)``, an MLA
+block ``ckv`` (repeats, B, S, kv_lora) and ``k_rope`` (repeats, B, S,
+qk_rope), axes ``("layers", "batch", "kv_seq", None)``.  ``decode_step``
+writes the new token's entries into the cache it is given, in place.
 """
 from __future__ import annotations
 
@@ -27,22 +31,41 @@ def _norm_spec(cfg):
     return ParamSpec((cfg.d_model,), (None,), init="ones")
 
 
+_DENSE_VARIANTS = ("the dense-variants slice (qwen3-32b, gemma3-1b, "
+                   "phi4-mini, minitron-4b)")
+_RECURRENT = "the recurrent-families slice (mamba2, xlstm, zamba2)"
+_ENC_PREFIX = "the whisper and internvl2 slices"
+
+
 def _check_supported(cfg: ModelConfig):
+    """Raise on what the port does not run yet, naming the slice it waits
+    for."""
     for bd in cfg.blocks:
-        if bd.mixer != "attn" or bd.ffn != "swiglu":
-            raise NotImplementedError(
-                f"block {bd} is not ported yet (attn + swiglu only)")
-    if (not cfg.tie_embeddings or cfg.post_norm or cfg.cross_attention
-            or cfg.encoder_layers or cfg.num_prefix_tokens
-            or cfg.family != "dense" or cfg.logit_softcap
-            or cfg.scale_embeddings):
-        raise NotImplementedError(f"{cfg.name}: only tied dense decoders "
-                                  "like paper-lm are ported yet")
+        if bd.mixer in ("mamba2", "mlstm", "slstm", "shared_attn") \
+                or bd.ffn == "none":
+            raise NotImplementedError(f"{cfg.name}: block {bd} waits for "
+                                      f"{_RECURRENT}")
+        if bd.mixer not in ("attn", "mla") or bd.ffn not in ("swiglu", "moe"):
+            raise NotImplementedError(f"{cfg.name}: block {bd} waits for "
+                                      f"{_DENSE_VARIANTS}")
+    for flag, what in ((cfg.post_norm, "post-norm"),
+                       (cfg.logit_softcap, "logit softcap"),
+                       (cfg.sliding_window, "sliding windows"),
+                       (cfg.scale_embeddings, "scaled embeddings")):
+        if flag:
+            raise NotImplementedError(f"{cfg.name}: {what} waits for "
+                                      f"{_DENSE_VARIANTS}")
+    if (cfg.cross_attention or cfg.encoder_layers or cfg.num_prefix_tokens
+            or cfg.family in ("vlm", "audio")):
+        raise NotImplementedError(f"{cfg.name}: encoders and prefix tokens "
+                                  f"wait for {_ENC_PREFIX}")
 
 
 def layer_specs(cfg: ModelConfig, bd: BlockDef):
-    return {"ln1": _norm_spec(cfg), "mix": B.attn_specs(cfg),
-            "ln2": _norm_spec(cfg), "ffn": B.ffn_specs(cfg, bd.ffn)}
+    return {"ln1": _norm_spec(cfg),
+            "mix": B.mla_specs(cfg) if bd.mixer == "mla" else B.attn_specs(cfg),
+            "ln2": _norm_spec(cfg),
+            "ffn": B.moe_specs(cfg) if bd.ffn == "moe" else B.ffn_specs(cfg, bd.ffn)}
 
 
 def _stack_specs(tree, n: int):
@@ -62,6 +85,8 @@ def param_specs(cfg: ModelConfig):
         "embed": ParamSpec((V, E), ("vocab", "embed"), init="embed"),
         "final_norm": _norm_spec(cfg),
     }
+    if not cfg.tie_embeddings:
+        specs["head"] = ParamSpec((E, V), ("embed", "vocab"))
     period, n_groups, rem = _schedule_groups(cfg)
     group = tuple(layer_specs(cfg, cfg.blocks[i]) for i in range(period))
     specs["layers"] = _stack_specs(group, n_groups) if n_groups else ()
@@ -71,22 +96,32 @@ def param_specs(cfg: ModelConfig):
 
 
 def apply_layer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx):
-    """Pre-norm residual block.  Returns ``(x, new_cache)``."""
+    """Pre-norm residual block.  Returns ``(x, new_cache, aux)``: ``aux``
+    sums the load-balance losses the block appended to ``ctx``."""
     h = rms_norm(x, p["ln1"], eps=cfg.norm_eps)
-    theta = cfg.rope_theta_global or cfg.rope_theta
-    y, new_cache = B.attn_apply(cfg, p["mix"], h, ctx, rope_theta=theta)
+    if bd.mixer == "mla":
+        y, new_cache = B.mla_apply(cfg, p["mix"], h, ctx)
+    else:
+        theta = cfg.rope_theta_global or cfg.rope_theta
+        y, new_cache = B.attn_apply(cfg, p["mix"], h, ctx, rope_theta=theta)
     x = x + y
     h = rms_norm(x, p["ln2"], eps=cfg.norm_eps)
-    return x + B.ffn_apply(cfg, p["ffn"], h, bd.ffn), new_cache
+    if bd.ffn == "moe":
+        y = B.moe_apply(cfg, p["ffn"], h, ctx)
+    else:
+        y = B.ffn_apply(cfg, p["ffn"], h, bd.ffn)
+    aux = sum(ctx.aux_losses, x.new_zeros((), dtype=torch.float32))
+    return x + y, new_cache, aux
 
 
 def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
              cache=None, cache_len=None):
-    """The decoder stack in any mode: (hidden (B, S, E), new cache).
+    """The decoder stack in any mode: (hidden (B, S, E), new cache, aux).
 
-    Train mode returns no cache; prefill stacks each block's k/v over the
-    repeats; decode writes the new token's k/v into ``cache`` in place
-    (through per-layer views) and returns it."""
+    Train mode returns no cache; prefill stacks each block's cache over
+    the repeats; decode writes the new token's entries into ``cache`` in
+    place (through per-layer views) and returns it.  ``aux`` () f32 sums
+    the layers' MoE load-balance losses in layer order (0 without MoE)."""
     x = params["embed"][tokens]
     Bsz, S = tokens.shape
     if mode == "decode":
@@ -103,34 +138,42 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
         leaves, treedef = tree_flatten(params["layers"][i])
         groups.append((treedef, [leaf.unbind(0) for leaf in leaves]))
     group_caches = [[] for _ in groups]
+    aux = x.new_zeros((), dtype=torch.float32)
     for g in range(n_groups):
         for i, (treedef, per_layer) in enumerate(groups):
             lp = tree_unflatten(treedef, [p[g] for p in per_layer])
             lc = (None if cache is None else
                   {k: v[g] for k, v in cache["layers"][i].items()})
-            x, nc = apply_layer(cfg, cfg.blocks[i], lp, x,
-                                B.Ctx(mode=mode, positions=positions,
-                                      cache=lc, cache_len=cache_len))
+            x, nc, a = apply_layer(cfg, cfg.blocks[i], lp, x,
+                                   B.Ctx(mode=mode, positions=positions,
+                                         cache=lc, cache_len=cache_len))
+            aux = aux + a
             group_caches[i].append(nc)
     rem_caches = []
     for i in range(rem):
         lc = None if cache is None else cache["rem"][i]
-        x, nc = apply_layer(cfg, cfg.block_at(n_groups * period + i),
-                            params["rem"][i], x,
-                            B.Ctx(mode=mode, positions=positions, cache=lc,
-                                  cache_len=cache_len))
+        x, nc, a = apply_layer(cfg, cfg.block_at(n_groups * period + i),
+                               params["rem"][i], x,
+                               B.Ctx(mode=mode, positions=positions, cache=lc,
+                                     cache_len=cache_len))
+        aux = aux + a
         rem_caches.append(nc)
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     if mode != "prefill":
-        return x, cache
+        return x, cache, aux
     layers = tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]}
                    for cs in group_caches)
-    return x, {"layers": layers, "rem": tuple(rem_caches)}
+    return x, {"layers": layers, "rem": tuple(rem_caches)}, aux
 
 
 def forward(cfg: ModelConfig, params, tokens):
     """Train-mode decoder stack: tokens (B, S) int -> hidden (B, S, E)."""
     return _decoder(cfg, params, tokens)[0]
+
+
+def _head(cfg: ModelConfig, params):
+    """The (E, V) output projection: the embedding's transpose when tied."""
+    return params["embed"].t() if cfg.tie_embeddings else params["head"]
 
 
 def chunked_xent(cfg: ModelConfig, params, hidden, labels, *, block: int = 512):
@@ -141,7 +184,7 @@ def chunked_xent(cfg: ModelConfig, params, hidden, labels, *, block: int = 512):
     blk = min(block, S)
     while S % blk:
         blk -= 1
-    head = params["embed"].t()
+    head = _head(cfg, params)
     total = hidden.new_zeros(())
     count = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for s0 in range(0, S, blk):
@@ -158,12 +201,11 @@ def chunked_xent(cfg: ModelConfig, params, hidden, labels, *, block: int = 512):
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """batch: dict(tokens (B,S), labels (B,S)) int tensors.
-    Returns (loss, metrics) like the reference's ``loss_fn``."""
-    hidden = forward(cfg, params, batch["tokens"])
+    Returns ``(xent + aux, metrics)`` like the reference's ``loss_fn``."""
+    hidden, _, aux = _decoder(cfg, params, batch["tokens"])
     s, n = chunked_xent(cfg, params, hidden, batch["labels"])
     loss = s / n.clamp_min(1)
-    return loss, {"xent": loss, "aux": loss.new_zeros(()), "tokens": n}
-
+    return loss + aux, {"xent": loss, "aux": aux, "tokens": n}
 
 
 # ---------------------------------------------------------------------------
@@ -177,10 +219,14 @@ def _is_axes(x) -> bool:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, axes: bool = False, device=None):
-    """Zero KV cache (``axes=True``: the logical-axes tree instead)."""
+    """Zero cache, one per block's mixer (``axes=True``: the logical-axes
+    tree instead)."""
     period, n_groups, rem = _schedule_groups(cfg)
 
-    def one():
+    def one(bd):
+        if bd.mixer == "mla":
+            return (B.mla_cache_axes() if axes else
+                    B.mla_init_cache(cfg, batch, max_len, dtype, device=device))
         return (B.attn_cache_axes() if axes else
                 B.attn_init_cache(cfg, batch, max_len, dtype, device=device))
 
@@ -189,9 +235,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             return tree_map(lambda a: ("layers",) + a, c, is_leaf=_is_axes)
         return tree_map(lambda a: a[None].repeat((n_groups,) + (1,) * a.dim()), c)
 
-    group = tuple(stack(one()) for _ in range(period))
+    group = tuple(stack(one(cfg.blocks[i])) for i in range(period))
     return {"layers": group if n_groups else (),
-            "rem": tuple(one() for _ in range(rem))}
+            "rem": tuple(one(cfg.block_at(n_groups * period + i))
+                         for i in range(rem))}
 
 
 def cache_axes_tree(cfg: ModelConfig):
@@ -224,7 +271,7 @@ def grow_cache(cfg: ModelConfig, cache, max_len: int):
 # ---------------------------------------------------------------------------
 
 def logits_from_hidden(cfg: ModelConfig, params, hidden):
-    logits = hidden @ params["embed"].t().to(hidden.dtype)
+    logits = hidden @ _head(cfg, params).to(hidden.dtype)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -242,7 +289,7 @@ def prefill(cfg: ModelConfig, params, tokens, *, max_len=None, lengths=None):
     the cache to that length (:func:`grow_cache`).
     """
     Bsz, S = tokens.shape
-    hidden, cache = _decoder(cfg, params, tokens, mode="prefill")
+    hidden, cache, _ = _decoder(cfg, params, tokens, mode="prefill")
     if lengths is None:
         last = hidden[:, -1:]
     else:
@@ -260,6 +307,6 @@ def decode_step(cfg: ModelConfig, params, token, cache, cache_len):
     """One decode step: ``token`` (B, 1); ``cache_len`` (int, 0-d or (B,))
     counts the new token.  Returns ``(logits (B, 1, V), cache)``, the
     cache updated in place."""
-    hidden, cache = _decoder(cfg, params, token, mode="decode", cache=cache,
-                             cache_len=cache_len)
+    hidden, cache, _ = _decoder(cfg, params, token, mode="decode",
+                                cache=cache, cache_len=cache_len)
     return logits_from_hidden(cfg, params, hidden), cache

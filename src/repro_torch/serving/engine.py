@@ -79,10 +79,14 @@ class DecodeEngine:
     (histories, lengths, page tables, the free-page list) is host-side
     numpy; the card holds the page pools, the params and the decode
     loop's mirrors.  Sampling is greedy.  ``on_logits(kind, rows,
-    logits)``, if given, sees every program's logits (``kind`` "prefill"
-    or "decode", ``rows`` the ``(slot, uid)`` pairs whose rows are live,
-    ``logits`` the (max_batch, 1, V) tensor on the card): the hook that
-    holds the engine against a reference.
+    logits, inputs)``, if given, sees every program's logits (``kind``
+    "prefill" or "decode", ``rows`` the ``(slot, uid)`` pairs whose rows
+    are live, ``logits`` the (max_batch, 1, V) tensor on the card) and
+    the program's inputs, ``(tokens, lengths)`` on the card: the padded
+    (max_batch, S) prompts and their lengths for a prefill, the
+    (max_batch, 1) tokens and the lengths including them (0 for an idle
+    slot) for a decode step.  It is the hook that holds the engine
+    against a reference run on the same batches.
     """
 
     def __init__(self, cfg, params, *, max_batch: int, max_len: int,
@@ -215,8 +219,8 @@ class DecodeEngine:
             toks[slot, :len(h)] = h
             lens[slot] = len(h)
         with self.tracer.span("prefill") as sp:
-            lens_dev = self._dev(lens)
-            logits, cache = lm.prefill(self.cfg, self.params, self._dev(toks),
+            toks_dev, lens_dev = self._dev(toks), self._dev(lens)
+            logits, cache = lm.prefill(self.cfg, self.params, toks_dev,
                                        lengths=lens_dev)
             paged.scatter_prefill(self.pl, self.pools, cache,
                                   self._dev(self.tables), lens_dev)
@@ -227,7 +231,8 @@ class DecodeEngine:
             return
         if self.on_logits is not None:
             self.on_logits("prefill", [(s, self.slot_req[s].uid)
-                                       for s, _ in work], logits)
+                                       for s, _ in work], logits,
+                           (toks_dev, lens_dev))
         for slot, history in work:
             tok = int(first[slot])
             self.hist[slot] = history + [tok]
@@ -272,6 +277,7 @@ class DecodeEngine:
                 self._lens_dev = self._dev(self.lens.astype(np.int64))
                 self._tab_dev = self._dev(self.tables.astype(np.int64))
                 self._dirty = False
+            inputs = (self._tok_dev, self._lens_dev)
             t0 = time.perf_counter()
             with self.tracer.span("decode") as sp:
                 logits = self._decode()
@@ -280,7 +286,7 @@ class DecodeEngine:
             dt = time.perf_counter() - t0
             if self.on_logits is not None:
                 self.on_logits("decode", [(int(b), self.slot_req[b].uid)
-                                          for b in active], logits)
+                                          for b in active], logits, inputs)
             for b in active:
                 tok = int(tk[b])
                 self.hist[b].append(tok)

@@ -779,7 +779,7 @@ def test_engine_on_card_matches_cpu(cuda):
         rows: dict = {}
         eng = build_engine(cfg, shape, tree_map(lambda t: t.to(dev), params),
                            page_size=4, device=dev,
-                           on_logits=lambda k, live, lg: [
+                           on_logits=lambda k, live, lg, inp: [
                                rows.setdefault(u, []).append(lg[s, -1].cpu())
                                for s, u in live])
         uids = [eng.submit(p, max_new=n) for p, n in reqs]
@@ -797,3 +797,99 @@ def test_engine_on_card_matches_cpu(cuda):
                 break
             compared += 1
     assert compared >= len(reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
+def test_cuda_bucket_kernels_on_moe_mla_layouts(cuda, arch):
+    """Kernels 1-4 (fused SGD, sq_sum, row_abs_sum, scale_sign_rows)
+    against their plain versions on W=2 buckets packed from the MoE / MLA
+    layout (smoke widths: expert stacks, the router padded to 128 lanes,
+    MLA's w_dkv, the stacked q/k/kv norms) with the layout's own weight-
+    decay rows and segments; the padding stays exactly zero; one launch
+    per call."""
+    from repro_torch.core import compression
+    from repro_torch.core import flatbuf
+    from repro_torch.models import lm
+
+    cfg = configs.get_smoke(arch)
+    specs = lm.param_specs(cfg)
+    layout = flatbuf.build_layout(mbase.abstract(specs),
+                                  wd_mask=mbase.norm_param_mask(specs))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def bucket(scale=1.0):
+        t = mbase.materialize(specs, gen, cuda)
+        return flatbuf.flatten(layout, tree_map(
+            lambda a: torch.stack([a, -0.5 * a]) * scale, t), leading=1)[0]
+
+    tkb.reset_launches()
+    p, gr, u = bucket(), bucket(), bucket(0.1)
+    wd_row = flatbuf.const("wd_rows", layout, 0, cuda)
+    gscale = torch.tensor([1.0, 0.5], device=cuda)
+    kw = dict(momentum=0.9, weight_decay=1e-2, nesterov=True, gscale=gscale,
+              stats=True)
+    p1, u1, p2, u2 = p.clone(), u.clone(), p.clone(), u.clone()
+    st_k = tkb.fused_sgd_bucket(p1, gr, u1, 0.05, wd_row, **kw)
+    st_p = tkb.fused_sgd_bucket_plain(p2, gr, u2, 0.05, wd_row, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(p1, p2, rtol=0, atol=2e-6 * p2.abs().max().item())
+    torch.testing.assert_close(u1, u2, rtol=0, atol=2e-6 * u2.abs().max().item())
+    for a, b in zip(st_k, st_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    assert torch.equal(flatbuf.mask_padding(layout, 0, p1), p1)
+    torch.testing.assert_close(tkb.sq_sum(gr), tkb.sq_sum_plain(gr), rtol=1e-5, atol=0)
+    torch.testing.assert_close(tkb.row_abs_sum(gr), tkb.row_abs_sum_plain(gr),
+                               rtol=1e-5, atol=1e-5)
+    seg = flatbuf.const("row_segments", layout, 0, cuda)
+    s = torch.rand((int(seg.max()) + 1,), generator=gen, device=cuda)[seg.long()]
+    assert torch.equal(tkb.scale_sign_rows(gr, s), tkb.scale_sign_rows_plain(gr, s))
+    y = compression.sign_compress_bucket(layout, 0, gr, leading=1)
+    assert torch.equal(flatbuf.mask_padding(layout, 0, y), y)
+    assert tkb.LAUNCHES == {"fused_sgd_bucket": 1, "sq_sum": 1,
+                            "row_abs_sum": 2, "scale_sign_rows": 2,
+                            "lars_row_norms": 0, "fused_lars_bucket": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
+def test_moe_trainer_and_decode_on_card_match_cpu(cuda, arch):
+    """The MoE smoke configs, one local step and one sync (olmoe mean sync
+    at W=4, deepseek EF-sign at W=2) on the card and on the CPU from the
+    same weights: loss within 1e-4 relative, all but 1e-4 of the param
+    elements within 1e-4 x the largest; then decode logits of the synced
+    model within 1e-4 x (1 + |logit|)."""
+    from repro_torch.core.local_sgd import mean_params
+    from repro_torch.models import lm
+
+    mode, W = {"olmoe-1b-7b": ("none", 4), "deepseek-v2-lite-16b": ("ef_sign", 2)}[arch]
+    B, S = 2, 64
+    cfg = configs.get_smoke(arch)
+    run = RunConfig(model=cfg, shape=InputShape("t", S, W * B, "train"),
+                    local_sgd=LocalSGDConfig(local_steps=1, sync_compression=mode),
+                    optim=OptimConfig(base_lr=0.3, base_batch=W * B, grad_clip=1.0))
+    p0 = mbase.materialize(lm.param_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+    batch = next(iter(ShardedBatches(lm_examples(markov_lm(
+        vocab=cfg.vocab_size, num_seqs=W * B, seq_len=S)), W, B)))
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 10), generator=g)
+    forced = torch.randint(0, cfg.vocab_size, (2, 3), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        tb = build_train(run, num_workers=W, device=dev)
+        st, m = tb.local_step(tb.init(tree_map(lambda t: t.to(dev), p0)), batch)
+        st = tb.sync(st, plan=tb.sync_plan)
+        params = mean_params(st)
+        with torch.no_grad():
+            lg, cache = lm.prefill(cfg, params, prompt.to(dev), max_len=16)
+            rows = [lg[:, -1].cpu()]
+            for i in range(forced.shape[1]):
+                lg, cache = lm.decode_step(cfg, params, forced[:, i:i + 1].to(dev),
+                                           cache, prompt.shape[1] + 1 + i)
+                rows.append(lg[:, -1].cpu())
+        out[dev] = (float(m["loss"]), st.params.buckets[0].cpu(), rows)
+    (lc, pc, rc), (lg, pg, rg) = out["cpu"], out[cuda]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert float(((pg - pc).abs() > 1e-4 * pc.abs().max()).float().mean()) <= 1e-4
+    for a, b in zip(rg, rc):
+        assert float(((a.double() - b.double()).abs() / (1 + b.double().abs())).max()) <= 1e-4

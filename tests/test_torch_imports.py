@@ -49,6 +49,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         assert f"src/repro_torch/kernels/{mod}.py" in names, mod
     for mod in ("controller", "noise", "syncplan", "local_sgd"):
         assert f"src/repro_torch/core/{mod}.py" in names, mod
+    for mod in ("olmoe_1b_7b", "deepseek_v2_lite", "paper_lm"):
+        assert f"src/repro_torch/configs/{mod}.py" in names, mod
     for mod in ("common", "paper_tables", "bench_convex", "run"):
         assert f"src/repro_torch/benchmarks/{mod}.py" in names, mod
     assert "src/repro_torch/telemetry/metrics.py" in names
@@ -87,6 +89,28 @@ def test_port_modules_import_without_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_registered_archs_import_without_jax():
+    """Every arch the port registers resolves (full and smoke) in a fresh
+    interpreter where importing jax or repro fails, and its modules
+    import nothing of either."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "from repro_torch import configs\n"
+            "from repro_torch.models import lm\n"
+            "for a in ('paper-lm', 'olmoe-1b-7b', 'deepseek-v2-lite-16b'):\n"
+            "    lm.param_specs(configs.get(a)); lm.param_specs(configs.get_smoke(a))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+            "print('ok' if not bad else bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", (out.stdout, out.stderr)
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     run = RunConfig(model=configs.get_smoke("paper-lm"))
@@ -96,6 +120,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--arch", "deepseek-v2-lite-16b", "--steps", "1"])
     assert build_train(run, num_workers=2, device="cpu").device.type == "cpu"
 
 

@@ -155,7 +155,7 @@ def test_decode_matches_prefill_positionwise():
     B, S = 2, 12
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, tcfg.vocab_size, (B, S)))
-    hidden, _ = lm._decoder(tcfg, tp, tokens, mode="prefill")
+    hidden, _, _ = lm._decoder(tcfg, tp, tokens, mode="prefill")
     full = lm.logits_from_hidden(tcfg, tp, hidden).detach().numpy()
     lg, cache = lm.prefill(tcfg, tp, tokens[:, :1], max_len=S)
     np.testing.assert_allclose(lg[:, 0].numpy(), full[:, 0], rtol=1e-4, atol=1e-4)
@@ -172,7 +172,7 @@ def test_prefill_forward_matches_train_forward():
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (2, 10)))
     with torch.no_grad():
         h_train = lm.forward(tcfg, tp, tokens)
-    h_pre, _ = lm._decoder(tcfg, tp, tokens, mode="prefill")
+    h_pre, _, _ = lm._decoder(tcfg, tp, tokens, mode="prefill")
     assert torch.equal(h_train, h_pre)
 
 
@@ -376,7 +376,7 @@ def test_engine_logits_match_reference_engine():
     shape = type("S", (), {"global_batch": 3, "seq_len": max_len})()
     seen: dict = {}
 
-    def on_logits(kind, rows, logits):
+    def on_logits(kind, rows, logits, inputs):
         for slot, uid in rows:
             seen.setdefault(uid, []).append(logits[slot, -1].clone())
 
