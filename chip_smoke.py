@@ -82,6 +82,19 @@ Phases:
            and the JSONL's stage seconds, each round's ``sync_s`` is its
            span's duration; span census, median span seconds, the fenced
            step time beside phase B's.
+  W        the 1-bit wire format: phase B's run with ``wire_pack=True``,
+           traced with a fenced tracer: per-step losses against phase B's
+           (1e-4 relative), the packed payload (934,040 rows x 16 bytes a
+           worker, 1/32 of the f32 bucket, plus one f32 scale a leaf), the
+           plan's and the ledger's wire bytes against B's (a payload and a
+           scale all-gather a round: 1/16 of B's all-reduce), the fenced
+           sync seconds against phase R's, launches as B's but kernel 3
+           twice a sync (the pack's row sums are the compressor's); the first
+           sync's uint8 payload on the card byte for byte against the same
+           pack of the same bucket on the CPU (scales within 2e-5: the
+           scatter-add's atomics); then 4 steps with ``sync_coalesce`` as
+           well: the same plan stages (one bucket: nothing to coalesce on
+           one card) and the same losses.
   K        checkpoints at full width: ``save_flat`` of the resident state
            after 6 steps of phase A's settings (3.83 GB), ``restore_flat``
            into a fresh state: buckets bit-equal, 2 more steps from each
@@ -116,6 +129,22 @@ Phases:
            then again beside the contiguous path run on the engine's own
            batches (an MoE layer's capacity drops depend on its batch):
            logits within 1e-4 x (1 + |logit|).
+  D        the dense variants at their published widths, phase A's
+           settings (mean sync) at W=2, depth cut by the reckoning in
+           ``D_RUNS``: D1 gemma3-1b (all 26 layers: 5 sliding-window : 1
+           global, GeGLU, post-norm, scaled embeddings, tied head; seq
+           1024 past its window of 512, local batch 4), D2
+           qwen3-32b (1 layer), D3 phi4-mini-3.8b (4), D4 minitron-4b (1),
+           8 steps each: losses finite and falling from about
+           ln V, comm rounds equal to the schedule's, median step, tokens/s,
+           peak memory against the reckoning, launches (the update and
+           sq_sum every step); D1's step under torch.profiler split into
+           matmuls, the S x S score ops and the elementwise tail; the
+           worker-mean model on the card against the port on the CPU (loss
+           1e-4 relative; D1 on 768 tokens, past its window of 512); 16
+           requests on the paged engine (D1 up to 648 tokens, past the
+           window), timed, then beside the contiguous path on the engine's
+           own batches: logits within 1e-4 x (1 + |logit|).
   T        the per-tensor kernel API at full width: paper-lm's parameter
            tree (W=1) on the card; one SGD step with ops.fused_sgd on every
            leaf against the same step by the bucket kernel on the flat bus;
@@ -173,6 +202,7 @@ Phases:
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -942,13 +972,15 @@ def phase_t(cfg) -> dict:
 
 def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
               lars: bool = False, block_steps: int = 1, controller=None,
-              noise_eta: float = 0.0, workers: int = W):
+              noise_eta: float = 0.0, workers: int = W,
+              wire_pack: bool = False, coalesce: bool = False):
     """The phases' RunConfig (``workers`` x ``local_batch`` sequences a
     step); ``lars`` switches to LARS with telemetry
     (grad_clip stays set: LARS ignores it); ``block_steps`` > 1 is
     hierarchical local SGD (Alg. 5, the default two blocks);
     ``controller`` a ``ControllerConfig`` keyword dict (an adaptive
-    policy); ``noise_eta`` the gradient noise."""
+    policy); ``noise_eta`` the gradient noise; ``wire_pack`` /
+    ``coalesce`` the 1-bit wire format and coalesced syncs."""
     from repro_torch.configs.base import (ControllerConfig, InputShape,
                                           LocalSGDConfig, OptimConfig, RunConfig)
     opt = (dict(optimizer="lars", base_lr=LARS_LR, lars_trust=LARS_TRUST)
@@ -957,7 +989,8 @@ def phase_run(mode: str, cfg, seq: int, local_batch: int, *, steps=STEPS,
         model=cfg, shape=InputShape("chip", seq, workers * local_batch, "train"),
         local_sgd=LocalSGDConfig(local_steps=4, post_local_switch=4,
                                  sync_compression=mode,
-                                 block_steps=block_steps),
+                                 block_steps=block_steps, wire_pack=wire_pack,
+                                 sync_coalesce=coalesce),
         optim=OptimConfig(base_batch=32, lr_warmup_steps=2, grad_clip=1.0,
                           noise_eta=noise_eta, **opt),
         controller=ControllerConfig(**(controller or dict(telemetry=lars))),
@@ -1327,10 +1360,11 @@ def phase_e(cfg) -> dict:
     del p0
     return launches
 
-def phase_r(cfg, b_losses: list, b_step_s: float) -> dict:
+def phase_r(cfg, b_losses: list, b_step_s: float):
     """Phase R: phase B's run (EF-sign, full width, 12 steps) traced with a
     fenced, annotating tracer and a metrics registry, its artifacts in
-    ``build/phase_r/``; returns its launch counts."""
+    ``build/phase_r/``; returns its launch counts and the median fenced
+    global sync's seconds."""
     import torch
     from repro_torch.kernels import fused_bucket as fb
     from repro_torch.telemetry import export as texport
@@ -1403,7 +1437,7 @@ def phase_r(cfg, b_losses: list, b_step_s: float) -> dict:
         raise AssertionError(f"phase R: {', '.join(bad)} (problems {problems}, "
                              f"loss diff {loss_rel}, launches {counts})")
     del state
-    return counts
+    return counts, statistics.median(syncs)
 
 
 def phase_k(cfg) -> dict:
@@ -2372,9 +2406,12 @@ def shadowed_engine(cfg, shape, params, **kw):
         isinstance(e, (str, type(None))) for e in x)
     bdim = [ax.index("batch") for ax in
             tree_leaves(lm.cache_axes_tree(cfg), is_leaf=is_axes)]
+    # the hook holds what it reads, not the engine: an engine -> hook ->
+    # engine cycle would keep the engine's weights on the card until the
+    # cyclic garbage collector ran, into the next phase
+    weights, device, max_tokens = eng.params, eng.device, eng.pl.max_tokens
     cont, treedef = tree_flatten(lm.init_cache(
-        cfg, eng.max_batch, eng.pl.max_tokens, dtype=torch.float32,
-        device=eng.device))
+        cfg, eng.max_batch, max_tokens, dtype=torch.float32, device=device))
     check = {"worst": 0.0, "rows": 0, "kept": {}}
 
     @torch.no_grad()
@@ -2383,16 +2420,15 @@ def shadowed_engine(cfg, shape, params, **kw):
         for slot, uid in rows:
             check["kept"].setdefault(uid, []).append(logits[slot, -1].clone())
         if kind == "prefill":
-            _, c = lm.prefill(cfg, eng.params, tok, lengths=lens,
-                              max_len=eng.pl.max_tokens)
-            idx = torch.tensor([s for s, _ in rows], device=eng.device)
+            _, c = lm.prefill(cfg, weights, tok, lengths=lens, max_len=max_tokens)
+            idx = torch.tensor([s for s, _ in rows], device=device)
             for dst, src, d in zip(cont, tree_leaves(c), bdim):
                 dst.index_copy_(d, idx, src.index_select(d, idx).to(dst.dtype))
             return
         idle = torch.nonzero(lens == 0)[:, 0]
         for leaf, d in zip(cont, bdim):
             leaf.index_fill_(d, idle, 0.0)
-        want, _ = lm.decode_step(cfg, eng.params, tok,
+        want, _ = lm.decode_step(cfg, weights, tok,
                                  tree_unflatten(treedef, cont), lens)
         live = lens > 0
         err = ((logits.double() - want.double()).abs()
@@ -2443,18 +2479,21 @@ def m_profile_step(bundle, state, batch, cfg) -> dict:
     """torch.profiler over one full-width local step: device time by
     part, each kernel booked to the innermost aten op that launched it —
     the experts' batched matmuls (``aten::bmm`` whose batch is the
-    expert count), the rest of the matmuls by whether they touch the
-    vocabulary (the head) or not (attention projections, router, shared
-    experts), attention's own batched matmuls, the MoE routing, dispatch
-    and combine (every other op under ``moe_apply``'s spans, and its
+    expert count; MoE configs only), the rest of the matmuls by whether
+    they touch the vocabulary (the head) or not (attention projections,
+    FFN, router, shared experts), attention's own batched matmuls, the
+    other ops on an (S, S) score tensor (mask, softcap, softmax and
+    their backward: the S x S attention), the MoE routing, dispatch and
+    combine (every other op under ``moe_apply``'s spans, and its
     backward by autograd sequence number), the index ops outside them
     (embedding, the loss's label gather), the port's bucket kernels, and
-    everything else."""
+    everything else (the elementwise tail)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    X, V = cfg.moe.num_experts, cfg.vocab_size
+    X = cfg.moe.num_experts if cfg.moe is not None else None
+    V, S = cfg.vocab_size, batch["tokens"].shape[-1]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -2465,8 +2504,8 @@ def m_profile_step(bundle, state, batch, cfg) -> dict:
     events = prof.events()
     moe = moe_span_ops(events)
     parts = {"expert_bmm": 0.0, "moe_dispatch": 0.0, "attention_bmm": 0.0,
-             "head_mm": 0.0, "other_mm": 0.0, "embed_xent_index": 0.0,
-             "bucket_kernels": 0.0, "other": 0.0}
+             "attention_scores": 0.0, "head_mm": 0.0, "other_mm": 0.0,
+             "embed_xent_index": 0.0, "bucket_kernels": 0.0, "other": 0.0}
     busy = 0.0
     for e in events:
         if e.name in M_SPANS:              # the spans' own (CPU and device) ranges
@@ -2489,6 +2528,8 @@ def m_profile_step(bundle, state, batch, cfg) -> dict:
             part = "head_mm" if any(V in x for x in shapes) else "other_mm"
         elif id(e) in moe:
             part = "moe_dispatch"
+        elif any(len(x) >= 2 and x[-1] == x[-2] == S for x in shapes):
+            part = "attention_scores"
         elif e.name in M_INDEX_OPS:
             part = "embed_xent_index"
         else:
@@ -2691,6 +2732,326 @@ def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
         raise AssertionError(f"phase {tag}: {', '.join(bad)} ({rec})")
     return counts
 
+# phase W: the 1-bit wire format at phase B's settings; the coalesced run's
+# steps (4: the syncs of steps 0-3, before the post-local switch)
+W_COALESCE_STEPS = 4
+
+
+def phase_w(cfg, b_losses: list, b_wire_bytes: float, b_sync_s: float,
+            b_step_s: float) -> dict:
+    """Phase W: phase B's run (EF-sign, paper-lm at full width, W=4, 12
+    steps) with ``wire_pack=True``, traced with a fenced tracer: per-step
+    losses against phase B's (1e-4 relative), the plan's and the ledger's
+    wire bytes against B's, the fenced sync seconds against phase R's
+    (B traced the same way), launches (kernel 3 twice a sync: the
+    compressor's and the pack's row sums); the first sync's uint8 payload on
+    the card held byte for byte against the same pack of the same bucket
+    on the CPU (scales within 2e-5: atomics); then W_COALESCE_STEPS steps
+    with ``sync_coalesce=True`` too: the same plan stages and losses.
+    Returns the launch counts of the first run."""
+    import torch
+    from repro_torch.core import compression as comp
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.steps import build_train
+    from repro_torch.telemetry.trace import Tracer
+
+    run = phase_run("ef_sign", cfg, seq=512, local_batch=8, wire_pack=True)
+    bundle = build_train(run, num_workers=W, device="cuda")
+    layout, plan = bundle.layout, bundle.sync_plan
+    first = {}
+    pack = comp.pack_bucket_signs
+
+    def capture(x, seg, sizes):
+        # the first sync's bucket and payload, kept on the card (nothing
+        # writes to them after the pack) and moved off it after the run
+        out = pack(x, seg, sizes)
+        if not first:
+            first.update(x=x, packed=out[0], scales=out[1])
+        return out
+
+    tracer = Tracer(fence=True)
+    torch.cuda.reset_peak_memory_stats()
+    fb.reset_launches()
+    comp.pack_bucket_signs = capture
+    try:
+        state, hist, summ, step_s = train_run(run, device="cuda", steps=STEPS,
+                                              bundle=bundle, tracer=tracer)
+    finally:
+        comp.pack_bucket_signs = pack
+    counts = dict(fb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    first = {k: v.cpu() for k, v in first.items()}
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, b_losses))
+    syncs = [sp.dur_s for sp in tracer.spans
+             if sp.name == "sync" and sp.attrs.get("scope") == "global"]
+    led = summ["ledger"]
+    round_bytes, round_colls = plan.scope_cost("global")
+    rows = layout.bucket_rows[0]
+
+    # the card's payload against the same pack on the CPU
+    t0 = time.perf_counter()
+    seg = flatbuf.const("row_segments", layout, 0, "cpu")
+    sizes = flatbuf.const("segment_sizes", layout, 0, "cpu")
+    packed_cpu, scales_cpu = comp.pack_bucket_signs(first["x"], seg, sizes)
+    cpu_pack_s = time.perf_counter() - t0
+    payload_equal = torch.equal(first["packed"], packed_cpu)
+    scale_rel = float(((first["scales"] - scales_cpu).abs()
+                       / scales_cpu.abs().clamp_min(1e-30)).max())
+
+    # coalesced: on one card every bucket is its own dtype class, so the
+    # plan and the trajectory are the wire-packed run's
+    crun = phase_run("ef_sign", cfg, seq=512, local_batch=8, wire_pack=True,
+                     coalesce=True, steps=W_COALESCE_STEPS)
+    cb = build_train(crun, num_workers=W, device="cuda")
+    stage = lambda p: [(s.kind, s.scope, s.buckets, s.compression, s.wire_bytes,
+                        s.collectives, s.coalesced) for s in p.stages]
+    cstate, chist, csumm, _ = train_run(crun, device="cuda", steps=W_COALESCE_STEPS,
+                                        bundle=cb)
+    del cstate
+    torch.cuda.empty_cache()
+    closses = [h["loss"] for h in chist]
+    c_rel = max(abs(a - b) / abs(b) for a, b in zip(closses, losses))
+    emit({"phase": "W", "model": cfg.name, "W": W, "local_batch": 8, "seq": 512,
+          "sync_compression": "ef_sign", "wire_pack": True, "steps": STEPS,
+          "loss": losses, "phase_B_loss": b_losses,
+          "loss_max_rel_diff_vs_B": loss_rel, "loss_tol": 1e-4,
+          "comm_rounds": summ["comm_rounds"],
+          "payload_bytes_per_worker": first["packed"][0].numel(),
+          "payload_shape": list(first["packed"].shape),
+          "f32_bytes_per_worker": rows * flatbuf.LANE * 4,
+          "scales_per_worker": first["scales"].shape[-1],
+          "payload_equal_cpu_pack": payload_equal,
+          "scales_max_rel_diff_cpu": scale_rel, "scales_tol": 2e-5,
+          "cpu_pack_s": cpu_pack_s,
+          "plan": plan.describe(), "plan_round_wire_bytes": round_bytes,
+          "plan_round_collectives": round_colls,
+          "ledger_wire_bytes": led["wire_bytes"],
+          "phase_B_ledger_wire_bytes": b_wire_bytes,
+          "ledger_over_B": led["wire_bytes"] / b_wire_bytes,
+          "sync_s_fenced": syncs, "sync_s_median": statistics.median(syncs),
+          "phase_R_sync_s_median": b_sync_s,
+          "sync_s_over_phase_R": statistics.median(syncs) / b_sync_s,
+          "step_s": step_s, "step_s_median": statistics.median(step_s[1:]),
+          "phase_B_step_s_median": b_step_s, "peak_mem_GB": peak,
+          "launches": counts,
+          "coalesce": {"steps": W_COALESCE_STEPS, "plan": cb.sync_plan.describe(),
+                       "stages_equal_W": stage(cb.sync_plan) == stage(plan),
+                       "loss": closses, "loss_max_rel_diff_vs_W": c_rel,
+                       "comm_rounds": csumm["comm_rounds"]}})
+    want = {k: 0 for k in fb.LAUNCHES}
+    # kernel 3 twice a sync: the compressor's row sums, then the pack's
+    want.update(fused_sgd_bucket=STEPS, sq_sum=STEPS, row_abs_sum=12,
+                scale_sign_rows=6)
+    bad = [k for k, ok in (
+        ("loss", all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+        ("loss vs phase B", loss_rel <= 1e-4),
+        ("comm rounds", summ["comm_rounds"] == {"block": 0, "global": 6}),
+        ("payload", payload_equal and first["packed"].dtype == torch.uint8
+         and tuple(first["packed"].shape) == (W, rows, 16)),
+        ("scales", scale_rel <= 2e-5),
+        ("plan", plan.wire_pack and round_colls == 2),
+        ("ledger", math.isclose(led["wire_bytes"], 6 * round_bytes, rel_tol=1e-12)
+         and led["wire_bytes"] < b_wire_bytes / 15),
+        ("syncs", len(syncs) == 6),
+        ("launches", counts == want),
+        ("coalesce plan", stage(cb.sync_plan) == stage(plan)
+         and cb.sync_plan.coalesce),
+        ("coalesce loss", c_rel <= 1e-4
+         and csumm["comm_rounds"] == {"block": 0, "global": W_COALESCE_STEPS})) if not ok]
+    if bad:
+        raise AssertionError(f"phase W: {', '.join(bad)} (loss diff {loss_rel}, "
+                             f"scales {scale_rel}, launches {counts})")
+    return counts
+
+
+D_SLOTS, D_PAGE, D_PREFILL, D_REQUESTS, D_NEW = 8, 16, 128, 16, (16, 48)
+D_STEPS = 8     # phase M's count: the 4 sync steps before the post-local
+                # switch, then 4 local steps (the loss first falls there)
+# (part, arch, W, layers, serving max_len, prompt lengths, the card-vs-CPU
+# forward's length).  Published widths; only depth, W and steps are cut.
+# m_reckon counts 7 copies of the params at the mean sync (W=2); a step
+# adds the leaf gradients (one copy), several (8, 512, V) f32 tensors in
+# the loss's backward (2.5-4.3 GB each) and the layers' activations.
+# Peaks measured at these depths and at one more layer (H100 80GB HBM3,
+# 700 W, expandable segments): qwen3-32b 1 layer 73.9 GB (57.2 reckoned;
+# its untied embedding and head alone are 1.56 B params, so 1 layer is
+# the floor); phi4-mini-3.8b 4 layers 67.8 GB (45.7 reckoned);
+# minitron-4b 2 layers 74.3 GB (50.2), so it runs 1 (47.1 reckoned).
+# gemma3-1b runs all 26 layers (28.0 reckoned); its window is 512, so it
+# trains at seq 1024 with local batch 4 (phase A's tokens a step), and its
+# sliding layers' mask and its backward run in every step; its serving
+# prompts and its CPU forward run past the window too.  The last two
+# fields are each part's training seq and local batch.
+D_RUNS = (("D1", "gemma3-1b", 2, 26, 768, (16, 600), 768, 1024, 4),
+          ("D2", "qwen3-32b", 2, 1, 256, (16, 128), 128, 512, 8),
+          ("D3", "phi4-mini-3.8b", 2, 4, 256, (16, 128), 128, 512, 8),
+          ("D4", "minitron-4b", 2, 1, 256, (16, 128), 128, 512, 8))
+
+
+def phase_d(tag: str, arch: str, workers: int, layers: int, max_len: int,
+            prompt: tuple, cpu_seq: int, seq: int, local_batch: int,
+            steps: int = D_STEPS) -> dict:
+    """Phase D: a dense variant at its published width, depth cut to
+    ``layers``: post-local SGD at phase A's settings (mean sync) at
+    ``workers`` workers of ``local_batch`` x ``seq`` tokens a step for
+    ``steps`` steps: losses finite and falling
+    from about ln V, comm rounds equal to the schedule's, median step,
+    tokens/s, peak memory against the reckoning, launches (the update
+    and sq_sum every step); D1's step under torch.profiler split by part;
+    the worker-mean model on the card against the port on the CPU on a
+    (1, cpu_seq) batch (loss 1e-4 relative); D_REQUESTS requests served on
+    the paged engine, timed, then beside the contiguous path on the
+    engine's own batches (logits within 1e-4 x (1 + |logit|)).  Returns
+    the training's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.local_sgd import mean_params
+    from repro_torch.core.schedule import sync_boundaries
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.steps import build_engine, build_train
+    from repro_torch.models import lm
+    from repro_torch.telemetry.trace import Tracer
+    from repro_torch.utils import tree_map
+
+    # what an earlier phase left in reference cycles (an engine and its
+    # weights) is freed before this one's peak is read
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    published = configs.get(arch)
+    cfg = published.replace(num_layers=layers)
+    run = phase_run("none", cfg, seq=seq, local_batch=local_batch, steps=steps,
+                    workers=workers)
+    want_syncs = sum(1 for _, lvl in sync_boundaries(run.local_sgd, steps)
+                     if lvl == 2)
+    reckon = m_reckon(cfg, workers, "none")
+    rec = {"phase": "D", "part": tag, "model": arch, "W": workers,
+           "local_batch": local_batch, "seq": seq, "sync_compression": "none",
+           "train_past_window": bool(cfg.sliding_window
+                                     and seq > cfg.sliding_window),
+           "base_lr": run.optim.base_lr, "grad_clip": run.optim.grad_clip,
+           "post_local_switch": run.local_sgd.post_local_switch,
+           "local_steps": run.local_sgd.local_steps,
+           "reduced": {"num_layers": [published.num_layers, cfg.num_layers],
+                       "W": workers, "steps": steps, "requests": D_REQUESTS,
+                       "widths": "published (unchanged)"},
+           "memory_reckoning": reckon, "ln_vocab": math.log(cfg.vocab_size)}
+
+    bundle = build_train(run, num_workers=workers, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    rec["mem_before_GB"] = torch.cuda.memory_allocated() / 1e9
+    fb.reset_launches()
+    state, hist, summ, step_s = train_run(run, device="cuda", steps=steps,
+                                          workers=workers, bundle=bundle)
+    counts = dict(fb.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    T = local_batch * seq
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec.update(loss=losses, comm_rounds=summ["comm_rounds"],
+               comm_rounds_scheduled=want_syncs, step_s=step_s,
+               step_s_median=statistics.median(step_s[1:]),
+               tokens_per_s=workers * T * len(step_s[1:]) / sum(step_s[1:]),
+               tokens_per_s_window="steps 1-%d: their tokens over their summed "
+                                   "seconds" % (len(step_s) - 1),
+               peak_mem_GB=peak,
+               peak_over_reckoned=peak * 1e9 / reckon["reckoned_peak_bytes"],
+               launches=counts)
+    params = mean_params(state)
+    if tag == "D1":
+        it = ShardedBatches(lm_examples(markov_lm(
+            vocab=cfg.vocab_size, num_seqs=workers * local_batch, seq_len=seq,
+            seed=9)), workers, local_batch)
+        rec["profile"], state = m_profile_step(bundle, state, next(it), cfg)
+    del state, bundle
+    torch.cuda.empty_cache()
+
+    # -- the card against the port on the CPU: one (1, cpu_seq) forward
+    toks = torch.from_numpy(markov_lm(vocab=cfg.vocab_size, num_seqs=1,
+                                      seq_len=cpu_seq + 1, seed=5)).long()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", None)):
+        if p is None:
+            p = tree_map(lambda t: t.cpu(), params)
+        with torch.no_grad():
+            loss, _ = lm.loss_fn(cfg, p, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = float(loss)
+        del p
+    loss_rel = abs(out["cuda"] - out["cpu"]) / abs(out["cpu"])
+    rec["card_vs_cpu"] = {"batch": [1, cpu_seq], "loss_gpu": out["cuda"],
+                          "loss_cpu": out["cpu"], "loss_rel_diff": loss_rel,
+                          "loss_tol": M_TOL,
+                          "past_window": bool(cfg.sliding_window
+                                              and cpu_seq > cfg.sliding_window)}
+
+    # -- serve: a timed engine run, then the shadowed engine
+    shape = InputShape("serve", max_len, D_SLOTS, "decode")
+    rng = np.random.default_rng(7)
+    corpus = markov_lm(vocab=cfg.vocab_size, num_seqs=D_REQUESTS,
+                       seq_len=prompt[1], seed=3)
+    reqs = [(corpus[i, :int(rng.integers(prompt[0], prompt[1] + 1))].tolist(),
+             int(rng.integers(D_NEW[0], D_NEW[1] + 1))) for i in range(D_REQUESTS)]
+    tracer = Tracer()
+    eng = build_engine(cfg, shape, params, page_size=D_PAGE, prefill_len=D_PREFILL,
+                       tracer=tracer)
+    uids = [eng.submit(p, max_new=n) for p, n in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = {r.uid: r.tokens for r in eng.run()}
+    wall = time.perf_counter() - t0
+    spans = lambda name: [sp.dur_s for sp in tracer.spans if sp.name == name]
+    desc = eng.describe()
+    del eng
+    sh, check = shadowed_engine(cfg, shape, params, page_size=D_PAGE,
+                                prefill_len=D_PREFILL)
+    suids = [sh.submit(p, max_new=n) for p, n in reqs]
+    shadow = {r.uid: r for r in sh.run()}
+    null_zero = not any(bool(pool[0].any()) for pool in sh.pools)
+    pages_back = len(sh.free_pages) == sh.pl.num_pages - 1
+    same_tokens = all(shadow[b].tokens == timed[a] for a, b in zip(uids, suids))
+    longest = max(len(p) + n for p, n in reqs)
+    del sh, params
+    torch.cuda.empty_cache()
+    rec["serve"] = {
+        "requests": D_REQUESTS, "completed": len(shadow), "slots": D_SLOTS,
+        "max_len": max_len, "page_size": D_PAGE, "prefill_len": D_PREFILL,
+        "prompt": list(prompt), "new_tokens": list(D_NEW),
+        "longest_sequence": longest,
+        "past_window": bool(cfg.sliding_window and longest > cfg.sliding_window),
+        "tokens_out": desc["tokens_out"], "wall_s": wall,
+        "tokens_per_s": desc["tokens_out"] / wall,
+        "decode_steps": len(spans("decode")),
+        "decode_step_ms_median": 1e3 * statistics.median(spans("decode")),
+        "prefill_ms_median": 1e3 * statistics.median(spans("prefill")),
+        "pool_bytes": desc["pool_bytes"],
+        "logits_vs_contiguous_max_rel_err": check["worst"],
+        "logit_rows_compared": check["rows"], "logits_tol": M_TOL,
+        "tokens_equal_timed_run": same_tokens,
+        "null_page_zero": null_zero, "free_pages_full": pages_back}
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec)
+    want_launches = {k: 0 for k in fb.LAUNCHES}
+    want_launches.update(fused_sgd_bucket=steps, sq_sum=steps)
+    bad = [k for k, ok in (
+        ("loss", all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+        ("comm rounds", summ["comm_rounds"] == {"block": 0, "global": want_syncs}),
+        ("launches", counts == want_launches),
+        ("card vs cpu", loss_rel <= M_TOL),
+        ("served", len(shadow) == D_REQUESTS and set(shadow) == set(suids)),
+        ("logits", check["worst"] <= M_TOL and check["rows"] > 0),
+        ("null page", null_zero), ("free pages", pages_back)) if not ok]
+    if bad:
+        raise AssertionError(f"phase {tag}: {', '.join(bad)} ({rec})")
+    return counts
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -2698,6 +3059,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # the CUDA allocator maps memory in growable segments: phase D's steps
+    # run within a few GB of the card, where a fragmented cache fails
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2756,7 +3120,7 @@ def main() -> int:
     from repro_torch.telemetry.stats import round_summary
     cfg = configs.get("paper-lm")
     launches = {k: 0 for k in fb.LAUNCHES}
-    step_median, phase_losses = {}, {}
+    step_median, phase_losses, phase_wire = {}, {}, {}
     for phase, mode, lars in (("A", "none", False), ("B", "ef_sign", False),
                               ("L", "ef_sign", True)):
         run = phase_run(mode, cfg, seq=512, local_batch=8, lars=lars)
@@ -2780,6 +3144,7 @@ def main() -> int:
                "launches": counts}
         step_median[phase] = rec["step_s_median"]
         phase_losses[phase] = losses
+        phase_wire[phase] = summ["ledger"]["wire_bytes"]
         summary = round_summary(state.stats) if lars else None
         if lars:
             rec["round_summary"] = summary
@@ -2818,8 +3183,12 @@ def main() -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # ---- R (traced training), K (checkpoints), S (serving) ----
-    for counts in (phase_r(cfg, phase_losses["B"], step_median["B"]),
+    # ---- R (traced training), W (the wire pack), K (checkpoints),
+    #      S (serving) ----
+    r_counts, r_sync_s = phase_r(cfg, phase_losses["B"], step_median["B"])
+    for counts in (r_counts,
+                   phase_w(cfg, phase_losses["B"], phase_wire["B"], r_sync_s,
+                           step_median["B"]),
                    phase_k(cfg), phase_s(cfg)):
         for k, v in counts.items():
             launches[k] += v
@@ -2828,6 +3197,12 @@ def main() -> int:
     # ---- M: the MoE and MLA decoders at full published width ----
     for m_run in M_RUNS:
         for k, v in phase_m(*m_run).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+
+    # ---- D: the dense variants at full published width ----
+    for d_run in D_RUNS:
+        for k, v in phase_d(*d_run).items():
             launches[k] += v
         torch.cuda.empty_cache()
 
@@ -2911,8 +3286,8 @@ def main() -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # launches: phases A, B, L, H, E, R, K, S, M, N, G and the noise check
-    # for the bucket kernels, T for the others
+    # launches: phases A, B, L, H, E, R, W, K, S, M, D, N, G and the noise
+    # check for the bucket kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"kernels": [

@@ -6,8 +6,8 @@ tested), while execution needs a real multi-process launch: on a single
 process :meth:`DistributedBackend.build` raises with launch guidance,
 and a multi-process build raises ``NotImplementedError`` until the
 across-GPU half of ROADMAP A.5 lands (NCCL process groups, the sharded
-layout, the 1-bit wire pack, coalesced collectives).  It never builds a
-local bundle under this backend's name.
+layout, the wire pack's payload all-gathers across processes).  It
+never builds a local bundle under this backend's name.
 """
 from __future__ import annotations
 
@@ -18,8 +18,8 @@ from repro_torch.backend.base import Backend
 ACROSS_GPUS_NOT_PORTED = (
     "DistributedBackend.build across processes is not ported yet: it needs "
     "the across-GPU half of ROADMAP A.5 (NCCL process groups, "
-    "sharding/layout, flatbuf.shard_classes, the 1-bit wire pack, coalesced "
-    "collectives and measured NCCL bytes)")
+    "sharding/layout, flatbuf.shard_classes, the wire pack's payload "
+    "all-gathers across processes and measured NCCL bytes)")
 
 
 class DistributedBackend(Backend):

@@ -1,20 +1,31 @@
-"""Architecture registry of the port: ``get(name)`` / ``get_smoke(name)``.
+"""Architecture registry of the port: ``get(name)`` / ``get_smoke(name)``
+/ ``ARCHS`` / ``runnable_pairs()``.
 
-The families ported so far: the dense ``paper-lm``, the MoE
-``olmoe-1b-7b`` and the MLA + MoE ``deepseek-v2-lite-16b``."""
+The families ported so far: the dense decoders ``paper-lm``, qwen3-32b,
+phi4-mini-3.8b, minitron-4b and gemma3-1b (sliding-window attention,
+GeGLU, post-norm), the MoE ``olmoe-1b-7b`` and the MLA + MoE
+``deepseek-v2-lite-16b``.  The recurrent, encoder-decoder and VLM
+families wait for their slices (ROADMAP A.3, A.4)."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (BlockDef, ControllerConfig, InputShape,
-                                      LocalSGDConfig, MLAConfig, ModelConfig,
-                                      MoEConfig, OptimConfig, RunConfig)
+from repro_torch.configs.base import (INPUT_SHAPES, BlockDef, ControllerConfig,
+                                      InputShape, LocalSGDConfig, MLAConfig,
+                                      ModelConfig, MoEConfig, OptimConfig,
+                                      RunConfig)
 
 _MODULES = {
+    "qwen3-32b": "qwen3_32b",
+    "gemma3-1b": "gemma3_1b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "phi4-mini-3.8b": "phi4_mini",
+    "minitron-4b": "minitron_4b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "paper-lm": "paper_lm",
 }
+
+ARCHS = tuple(k for k in _MODULES if k != "paper-lm")
 
 
 def _mod(name: str):
@@ -29,3 +40,19 @@ def get(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _mod(name).smoke()
+
+
+# (arch, shape) pairs left out of the arch x shape matrix, with the
+# reference's reasons
+SKIPS: dict[tuple[str, str], str] = {
+    ("qwen3-32b", "long_500k"): "pure full attention (no sub-quadratic variant)",
+    ("deepseek-v2-lite-16b", "long_500k"): "MLA is full attention over cache",
+    ("phi4-mini-3.8b", "long_500k"): "pure full attention",
+    ("minitron-4b", "long_500k"): "pure full attention",
+    ("olmoe-1b-7b", "long_500k"): "pure full attention",
+}
+
+
+def runnable_pairs():
+    """Every (arch, shape name) pair of the matrix, skips removed."""
+    return [(a, s) for a in ARCHS for s in INPUT_SHAPES if (a, s) not in SKIPS]

@@ -106,6 +106,13 @@ class InputShape:
 
 
 TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
 
 
 @dataclass(frozen=True)

@@ -1,16 +1,26 @@
 """Sync-payload compression on flat-bus buckets (paper Alg. 3 / Alg. 4):
-the port of the bucket compressors of ``repro.core.compression``.
+the port of the bucket compressors and the 1-bit wire format of
+``repro.core.compression``.
 
 The compressed quantity is the model difference accumulated over H
 local steps; workers exchange sign(Delta) with one L1 scale per leaf
 (signSGD), optionally with an error-feedback memory (EF-signSGD).
+
+The wire format packs the signs 8 to a ``uint8`` (bit i of byte k is
+element 8k + i) beside one f32 scale per leaf: 1/32 of the f32 payload.
+Packing and unpacking are plain PyTorch bit ops.  sign(0) packs as +1,
+where the unpacked compressor gives 0: an exact-zero delta differs
+between the two forms, in both packages.
 """
 from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.core import flatbuf
 from repro_torch.kernels import ops as kops
+from repro_torch.utils import tree_leaves
 
 
 def sign_compress_bucket(layout, b: int, x, *, leading: int = 0):
@@ -51,3 +61,77 @@ def compress_stage(layout, stage, d, e=None, *, leading: int = 0):
     if mode == "ef_sign":
         return ef_compress_bucket(layout, b, d, e, leading=leading)
     raise ValueError(f"unknown stage compression {mode!r}")
+
+
+def compressed_bytes(tree) -> int:
+    """Wire size of the compressed payload: 1 bit an element plus one f32
+    scale a tensor."""
+    return int(sum(-(-t.numel() // 8) + 4 for t in tree_leaves(tree)))
+
+
+def dense_bytes(tree) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)))
+
+
+# ---------------------------------------------------------------------------
+# The 1-bit wire format
+# ---------------------------------------------------------------------------
+
+def _pack_bits(x):
+    """(..., L) with L % 8 == 0 -> (..., L / 8) uint8: bit i of byte k is
+    set where x[..., 8k + i] >= 0 (sign(0) packs as +1)."""
+    xb = x.reshape(*x.shape[:-1], -1, 8)
+    packed = torch.zeros(xb.shape[:-1], dtype=torch.uint8, device=x.device)
+    for i in range(8):
+        packed |= (xb[..., i] >= 0).to(torch.uint8) << i
+    return packed
+
+
+def _unpack_bits(packed):
+    """(..., n) uint8 -> (..., 8n) f32 of +-1."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return (2.0 * bits.float() - 1.0).reshape(*packed.shape[:-1], -1)
+
+
+def pack_signs(x, axis: int = -1):
+    """x: (W, *shape) -> (packed uint8 with dim ``axis`` moved last and
+    8x smaller, padded to whole bytes; scale (W,) f32 = mean |x| per
+    worker).  ``axis`` must not be the worker dim."""
+    ax = axis % x.dim()
+    assert ax >= 1, "cannot pack along the worker dim"
+    xf = torch.movedim(x.float(), ax, -1)
+    scale = xf.abs().mean(dim=tuple(range(1, xf.dim())))
+    pad = (-xf.shape[-1]) % 8
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, pad))
+    return _pack_bits(xf), scale
+
+
+def unpack_signs(packed, scale, shape, axis: int = -1):
+    """Inverse of :func:`pack_signs` -> (W, *shape) f32 sign * scale."""
+    W = packed.shape[0]
+    full = (W,) + tuple(shape)
+    ax = axis % len(full)
+    signs = _unpack_bits(packed)[..., :full[ax]]
+    signs = torch.movedim(signs, -1, ax)
+    return signs * scale.reshape((W,) + (1,) * len(shape))
+
+
+def pack_bucket_signs(x2, seg_ids, seg_sizes):
+    """Buckets ``(*lead, rows, 128)`` -> (packed ``(*lead, rows, 16)``
+    uint8, per-leaf scales ``(*lead, num_segments)`` f32), each leading
+    index (worker) packed on its own, as the reference vmaps its
+    one-worker pack.  Scales are each worker's per-leaf |x| totals (the
+    compressor's row sums and scatter-add) over the TRUE element counts
+    ``seg_sizes``, so bucket padding never biases them."""
+    totals = kops.bucket_abs_totals(x2, seg_ids, int(seg_sizes.shape[0]),
+                                    per_lead=True)
+    return _pack_bits(x2), totals / seg_sizes
+
+
+def unpack_bucket_signs(packed, scales, seg_ids):
+    """Inverse of :func:`pack_bucket_signs` over gathered payloads: packed
+    ``(W, rows, 16)`` + scales ``(W, num_segments)`` -> ``(W, rows, 128)``
+    f32 sign * scale."""
+    return _unpack_bits(packed) * scales[..., seg_ids.long()][..., None]

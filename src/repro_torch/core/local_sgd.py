@@ -26,9 +26,16 @@ syncs — the tree view exists only at ``unpack_state`` / ``mean_params``.
   sign / EF-sign sync (global scope only) forms the per-worker delta
   against the anchor, compresses it (two kernel launches per bucket),
   averages it and steps the anchor, then broadcasts the new anchor into
-  every worker.  Stages run in the plan's order, and every order a
-  topology emits is a topological order of the same per-bucket dataflow:
-  overlap gives flat's bits.
+  every worker.  With the plan's ``wire_pack`` a compressed bucket's
+  average goes through the 1-bit wire format: each worker's row is
+  packed to ``uint8`` signs and per-leaf scales, unpacked and averaged
+  (the reference's meshless ``_packed_mean_flat_local``; on one card
+  there is no gather to make), and its padding is masked back to zero.
+  Every bucket is packed on its own, also in a coalesced stage: a shared
+  gather would only concatenate the packed bytes.  Stages
+  run in the plan's order, and every order a topology emits is a
+  topological order of the same per-bucket dataflow: overlap gives
+  flat's bits.
 
 With telemetry (``make_local_sgd(..., telemetry=True)``) ``state.stats``
 carries a ``telemetry.stats.StatsAccumulator``: the per-worker grad and
@@ -42,11 +49,10 @@ WOULD make: the controller's turn-on signal.
 The update is in place: ``local_step`` and ``sync`` return a state that
 shares (and has mutated) the buffers of the one they were given.
 
-Not ported yet, and raising ``NotImplementedError``: the 1-bit wire pack
-and coalesced collectives (they come with workers across GPUs) and the
-per-leaf tree path.  A change of W (``core/elastic.resize_state``) builds
-new functions for the new width: ``local_step`` and ``sync`` are built
-for one W.
+The port always runs the resident path; the reference's per-leaf tree
+path is not ported (ROADMAP A.7).  A change of W
+(``core/elastic.resize_state``) builds new functions for the new width:
+``local_step`` and ``sync`` are built for one W.
 """
 from __future__ import annotations
 
@@ -154,14 +160,21 @@ def _worker_grad(layout, loss_fn, pbs_w, batch_w, gw):
     return loss, metrics
 
 
+def _packed_mean_flat_local(bucket, layout, b):
+    """The worker mean of bucket ``b`` through the 1-bit wire format: each
+    worker's ``(rows, 128)`` row of the stacked ``(W, rows, 128)`` buffer
+    packed to signs and per-leaf scales, unpacked, averaged over W.  The
+    unpack writes sign(+1) * scale into padding; the caller masks it."""
+    seg = flatbuf.const("row_segments", layout, b, bucket.device)
+    sizes = flatbuf.const("segment_sizes", layout, b, bucket.device)
+    packed, scales = comp.pack_bucket_signs(bucket.float(), seg, sizes)
+    return comp.unpack_bucket_signs(packed, scales, seg).mean(dim=0)
+
+
 def _check_supported(run: RunConfig):
-    ls, opt = run.local_sgd, run.optim
+    opt = run.optim
     if opt.optimizer not in ("sgd", "lars"):
         raise NotImplementedError(f"optimizer {opt.optimizer!r} is not ported yet")
-    if ls.wire_pack or ls.sync_coalesce:
-        raise NotImplementedError("the 1-bit wire pack and coalesced "
-                                  "collectives are not ported yet: they come "
-                                  "with workers across GPUs (ROADMAP A.5)")
 
 
 def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
@@ -269,7 +282,9 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
             plan = splan.make_sync_plan(layout, num_workers=W,
                                         topology=splan.resolve_topology(ls, W),
                                         compression=ls.sync_compression,
-                                        anchored=needs_anchor(ls))
+                                        anchored=needs_anchor(ls),
+                                        wire_pack=ls.wire_pack,
+                                        coalesce=ls.sync_coalesce)
         stages = plan.schedule(scope)
         record = telemetry and scope == "global"
         modes = plan.modes if scope == "global" else ("none",) * len(plan.modes)
@@ -342,7 +357,13 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                     x_sq[b] = _sumsq(x[b], from_axis=1)
             elif st.kind == "collective":
                 for b in st.buckets:
-                    dbar[b] = x[b].mean(dim=0)
+                    if modes[b] != "none" and plan.wire_pack:
+                        # the unpack emits sign(+1) * scale in padding
+                        # slots: re-masked so that padding stays zero
+                        dbar[b] = flatbuf.mask_padding(
+                            layout, b, _packed_mean_flat_local(x[b], layout, b))
+                    else:
+                        dbar[b] = x[b].mean(dim=0)
                     x[b] = None
                     if telemetry:
                         dbar_sq[b] = _sumsq(dbar[b])

@@ -19,9 +19,13 @@ bytes (the same formulas as ``telemetry.ledger.analytic_sync_cost``).
 ``local_sgd.sync(state, plan=, scope=)`` executes ``plan.schedule(scope)``
 and ``telemetry.ledger.CommsLedger.record_plan`` prices its collective
 stages, and a controller's :class:`PlanDelta` rewrites the plan between
-rounds.  Not ported yet, and raising: coalesced collectives and the
-1-bit wire pack (with workers across GPUs).  The port has no mesh, so
-every stage's ``reduce_axes`` is ``()``.
+rounds.  With ``wire_pack`` a compressed bucket's collective is priced
+as the 1-bit payload's all-gather plus its scales' (two collectives).
+The port has no mesh, so every stage's ``reduce_axes`` is ``()``.  Its
+layout holds one bucket per dtype, and the reference's ``coalesce``
+groups the wire-packed buckets of one dtype, so every collective stage
+here holds one bucket: the plan carries ``coalesce`` for ``describe()``
+and the run manifest only.
 """
 from __future__ import annotations
 
@@ -123,7 +127,7 @@ class SyncStage:
     ``wire_bytes``  — per-worker ring-model bytes of the collective.
     ``collectives`` — collectives this stage launches (0 for pack/apply).
     ``coalesced``   — several buckets share this stage's payload gather
-                      (not ported: always False).
+                      (never in a plan the port compiles).
     """
     kind: str
     scope: str
@@ -136,12 +140,30 @@ class SyncStage:
     coalesced: bool = False
 
 
-def _collective_stage(layout, b: int, *, scope: str, group: int,
-                      mode: str) -> SyncStage:
-    """A dense collective stage of bucket ``b``: one all-reduce of the
-    bucket's bytes (f32 width once compressed, sign * scale unpacked),
-    priced like ``telemetry.ledger.analytic_sync_cost``."""
+def _bucket_gather_bytes(layout, b: int, group: int) -> tuple[float, float]:
+    """(payload, scales) result bytes of one wire-packed bucket's gathers:
+    8 signs a byte, one f32 scale a leaf, from each of ``group`` workers."""
+    rows = layout.bucket_local_rows(b)
+    payload = group * rows * (LANE // 8)
+    scales = group * len(layout.bucket_slots(b)) * 4
+    return float(payload), float(scales)
+
+
+def _collective_stage(layout, b: int, *, scope: str, group: int, mode: str,
+                      wire_pack: bool) -> SyncStage:
+    """The collective stage of bucket ``b``, priced like
+    ``telemetry.ledger.analytic_sync_cost``: wire-packed, it gathers the
+    bucket's payload and scales (two all-gathers); dense, it all-reduces
+    the bucket's bytes (f32 width once compressed, sign * scale
+    unpacked)."""
     n = max(int(group), 1)
+    if mode != "none" and wire_pack:
+        payload, scales = _bucket_gather_bytes(layout, b, n)
+        total = (_ring_bytes("all-gather", payload, n)
+                 + _ring_bytes("all-gather", scales, n))
+        return SyncStage(kind="collective", scope=scope, buckets=(b,),
+                         compression=mode, group=n, wire_bytes=total,
+                         collectives=2)
     itemsize = (4 if mode != "none"
                 else np.dtype(layout.bucket_dtypes[b]).itemsize)
     bytes_ = _ring_bytes("all-reduce",
@@ -152,7 +174,7 @@ def _collective_stage(layout, b: int, *, scope: str, group: int,
 
 
 def _compile_stages(layout, topology: Topology, modes, *, num_workers: int,
-                    anchored: bool) -> tuple[SyncStage, ...]:
+                    wire_pack: bool, anchored: bool) -> tuple[SyncStage, ...]:
     stages: list[SyncStage] = []
     nb = layout.num_buckets
     if topology.has_block:
@@ -162,7 +184,7 @@ def _compile_stages(layout, topology: Topology, modes, *, num_workers: int,
         for b in range(nb):
             stages.append(_collective_stage(layout, b, scope="block",
                                             group=topology.block_size,
-                                            mode="none"))
+                                            mode="none", wire_pack=False))
         stages.append(SyncStage(kind="apply", scope="block",
                                 buckets=tuple(range(nb)),
                                 group=topology.block_size))
@@ -173,7 +195,7 @@ def _compile_stages(layout, topology: Topology, modes, *, num_workers: int,
                             compression=modes[b], group=num_workers)]
                  if anchored else [])
         coll = _collective_stage(layout, b, scope="global", group=num_workers,
-                                 mode=modes[b])
+                                 mode=modes[b], wire_pack=wire_pack)
         applies = [SyncStage(kind="apply", scope="global", buckets=(b,),
                              group=num_workers)]
         triples.append((packs, coll, applies))
@@ -208,6 +230,8 @@ class SyncPlan:
     topology: Topology
     modes: tuple[str, ...]
     num_workers: int
+    wire_pack: bool = False
+    coalesce: bool = False
     anchored: bool = False
     stages: tuple[SyncStage, ...] = ()
 
@@ -252,13 +276,15 @@ class SyncPlan:
     def describe(self, scope: str | None = None) -> str:
         """Human-readable stage table."""
         rows = [f"SyncPlan topology={self.topology.describe()} "
-                f"buckets={self.num_buckets} modes={'|'.join(self.modes)}"]
+                f"buckets={self.num_buckets} modes={'|'.join(self.modes)} "
+                f"coalesce={self.coalesce} wire_pack={self.wire_pack}"]
         stages = self.stages if scope is None else self.schedule(scope)
         for i, s in enumerate(stages):
             extra = ""
             if s.kind == "collective":
                 extra = (f" wire_bytes={s.wire_bytes:.0f} "
-                         f"collectives={s.collectives}")
+                         f"collectives={s.collectives}"
+                         + (" coalesced" if s.coalesced else ""))
             rows.append(f"  [{i:2d}] {s.scope:6s} {s.kind:10s} "
                         f"buckets={list(s.buckets)} mode={s.compression} "
                         f"group={s.group}{extra}")
@@ -269,7 +295,7 @@ def _recompile(plan: SyncPlan, **changes) -> SyncPlan:
     plan = replace(plan, **changes)
     stages = _compile_stages(plan.layout, plan.topology, plan.modes,
                              num_workers=plan.num_workers,
-                             anchored=plan.anchored)
+                             wire_pack=plan.wire_pack, anchored=plan.anchored)
     return replace(plan, stages=stages)
 
 
@@ -282,17 +308,16 @@ def make_sync_plan(layout, *, num_workers: int, topology: Topology | None = None
     config to its own); ``compression`` follows
     :func:`resolve_comp_modes`; ``anchored`` marks a sync that consumes a
     delta against the global anchor (``local_sgd.needs_anchor``) and so
-    has pack stages.
+    has pack stages; ``wire_pack`` / ``coalesce`` are the config's
+    ``wire_pack`` / ``sync_coalesce``.
     """
-    if wire_pack or coalesce:
-        raise NotImplementedError("the 1-bit wire pack and coalesced "
-                                  "collectives are not ported yet")
     topology = topology or flat()
     modes = resolve_comp_modes(compression, layout.num_buckets, "none")
     if anchored is None:
         anchored = any(m != "none" for m in modes)
     plan = SyncPlan(layout=layout, topology=topology, modes=modes,
-                    num_workers=int(num_workers), anchored=bool(anchored))
+                    num_workers=int(num_workers), wire_pack=bool(wire_pack),
+                    coalesce=bool(coalesce), anchored=bool(anchored))
     return _recompile(plan)
 
 

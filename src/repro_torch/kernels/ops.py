@@ -93,6 +93,26 @@ def segment_sum(vals, seg_ids, num_segments: int):
     return out.index_add_(0, seg_ids.long(), vals)
 
 
+def bucket_abs_totals(x2, seg_ids, num_segments: int, *,
+                      per_lead: bool = False):
+    """Sum |x| per leaf segment of a ``(*lead, rows, 128)`` bucket: the
+    kernel's row sums scatter-added by ``seg_ids`` (rows,).  Over every
+    leading index together -> (num_segments,), or with ``per_lead`` each
+    leading index (worker) on its own -> (*lead, num_segments)."""
+    row_sums = _fb.row_abs_sum(x2)                         # (*lead, rows)
+    lead = row_sums.numel() // seg_ids.numel()
+    if per_lead:
+        # leading index w's segments land in slots [w * n, (w + 1) * n)
+        off = num_segments * torch.arange(lead, device=x2.device)[:, None]
+        ids, n = (seg_ids.long()[None] + off).reshape(-1), lead * num_segments
+    else:
+        # worker-major over all (*lead, rows) rows, like the reference's
+        # segment_sum over the row map tiled W times
+        ids, n = seg_ids.repeat(lead), num_segments
+    totals = segment_sum(row_sums.reshape(-1), ids, n)
+    return totals.reshape(*x2.shape[:-2], num_segments) if per_lead else totals
+
+
 def bucket_sign_compress(x2, seg_ids, seg_sizes):
     """Segment-aware sign compressor over a ``(*lead, rows, 128)`` bucket.
 
@@ -102,12 +122,6 @@ def bucket_sign_compress(x2, seg_ids, seg_sizes):
     share one scale across the leading (worker) dim, as the reference
     does.  Returns (y f32 like x2, scales (num_segments,) f32).
     """
-    row_sums = _fb.row_abs_sum(x2)                         # (*lead, rows)
-    lead = row_sums.numel() // seg_ids.numel()
-    # worker-major over all (*lead, rows) rows, like the reference's
-    # segment_sum over the row map tiled W times
-    totals = segment_sum(row_sums.reshape(-1), seg_ids.repeat(lead),
-                         int(seg_sizes.shape[0]))
-    scales = totals / seg_sizes
+    scales = bucket_abs_totals(x2, seg_ids, int(seg_sizes.shape[0])) / seg_sizes
     y = _fb.scale_sign_rows(x2, scales[seg_ids.long()])
     return y, scales

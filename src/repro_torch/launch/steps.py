@@ -83,7 +83,9 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
         layout, num_workers=num_workers,
         topology=splan.resolve_topology(run.local_sgd, num_workers),
         compression=run.local_sgd.sync_compression,
-        anchored=needs_anchor(run.local_sgd))
+        anchored=needs_anchor(run.local_sgd),
+        wire_pack=run.local_sgd.wire_pack,
+        coalesce=run.local_sgd.sync_coalesce)
     return TrainBundle(cfg=cfg, run=run, num_workers=num_workers, specs=specs,
                        init=init, local_step=local_step, sync=sync,
                        device=device, layout=layout, sync_plan=plan,

@@ -106,7 +106,8 @@ def _config_plan(run: RunConfig, bundle, state):
     return splan.make_sync_plan(
         state.params.layout, num_workers=bundle.num_workers,
         topology=splan.resolve_topology(ls, bundle.num_workers),
-        compression=ls.sync_compression, anchored=needs_anchor(ls))
+        compression=ls.sync_compression, anchored=needs_anchor(ls),
+        wire_pack=ls.wire_pack, coalesce=ls.sync_coalesce)
 
 
 def _worker_census(stats: dict, backend, h: int, measured_s):
@@ -422,8 +423,8 @@ def eval_lm(bundle, data: dict, batch: int = 8):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-lm",
-                    help="paper-lm, olmoe-1b-7b or deepseek-v2-lite-16b (the "
-                         "last two at their smoke size)")
+                    help="a registered arch (repro_torch.configs.ARCHS or "
+                         "paper-lm); every one but paper-lm at its smoke size")
     ap.add_argument("--smoke", action="store_true", help="use reduced config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--workers", type=int, default=4)

@@ -1,6 +1,6 @@
-"""Transformer blocks (the port of ``repro.models.blocks``): GQA attention,
-MLA (DeepSeek-V2's multi-head latent attention), the dense SwiGLU FFN and
-the capacity-routed MoE FFN, in the reference's three modes: ``train``,
+"""Transformer blocks (the port of ``repro.models.blocks``): GQA attention
+(global or sliding-window), MLA (DeepSeek-V2's multi-head latent
+attention), the dense SwiGLU / GeGLU FFN and the capacity-routed MoE FFN, in the reference's three modes: ``train``,
 ``prefill`` (an attention block also returns its cache) and ``decode``
 (one token against a cache)."""
 from __future__ import annotations
@@ -16,7 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.layers import (NEG_INF, apply_rope, cache_write,
                                        causal_attention, decode_attention,
-                                       rms_norm, swiglu)
+                                       geglu, rms_norm, swiglu)
 
 
 @dataclass
@@ -46,11 +46,15 @@ def attn_specs(cfg: ModelConfig, *, num_heads=None, num_kv_heads=None):
     return s
 
 
-def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, *,
+def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, *, window: int = 0,
                rope_theta: float | None = None):
     """Causal self-attention. x: (B, S, E).  Returns ``(y, new_cache)``:
     ``new_cache`` is None in train mode, this layer's k/v in prefill mode,
-    and ``ctx.cache`` with the new token written in place in decode mode."""
+    and ``ctx.cache`` with the new token written in place in decode mode.
+    ``window`` > 0 is a sliding layer: it attends to the last ``window``
+    positions, counted from each query's own position (its cache stays
+    full length and is masked by absolute position); scores take
+    ``cfg.logit_softcap``."""
     B, S, E = x.shape
     D = cfg.resolved_head_dim
     H = p["wq"].shape[1] // D
@@ -72,10 +76,12 @@ def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, *,
         kc = cache_write(ctx.cache["k"], k, write)
         vc = cache_write(ctx.cache["v"], v, write)
         out = decode_attention(q, kc, vc, cache_len=ctx.cache_len,
+                               window=window, softcap=cfg.logit_softcap,
                                scale=cfg.attn_scale)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = causal_attention(q, k, v, scale=cfg.attn_scale)
+        out = causal_attention(q, k, v, window=window,
+                               softcap=cfg.logit_softcap, scale=cfg.attn_scale)
         if ctx.mode == "prefill":
             new_cache = {"k": k, "v": v}
     return out.reshape(B, S, H * D) @ p["wo"], new_cache
@@ -94,9 +100,12 @@ def attn_cache_axes():
             "v": ("batch", "kv_seq", "kv_heads", None)}
 
 
+_GATED = {"swiglu": swiglu, "geglu": geglu}
+
+
 def ffn_specs(cfg: ModelConfig, kind: str, *, d_ff=None):
     E, F = cfg.d_model, d_ff or cfg.d_ff
-    if kind != "swiglu":
+    if kind not in _GATED:
         raise NotImplementedError(f"ffn kind {kind!r} is not ported yet")
     return {"wg": ParamSpec((E, F), ("embed", "mlp")),
             "wu": ParamSpec((E, F), ("embed", "mlp")),
@@ -104,9 +113,9 @@ def ffn_specs(cfg: ModelConfig, kind: str, *, d_ff=None):
 
 
 def ffn_apply(cfg: ModelConfig, p, x, kind: str = "swiglu"):
-    if kind != "swiglu":
+    if kind not in _GATED:
         raise NotImplementedError(f"ffn kind {kind!r} is not ported yet")
-    return swiglu(x @ p["wg"], x @ p["wu"]) @ p["wd"]
+    return _GATED[kind](x @ p["wg"], x @ p["wu"]) @ p["wd"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Shared layers in plain PyTorch: RMS norm, RoPE, causal attention, the
-decode step's cache write and single-token attention, SwiGLU (the port
-of the training and serving parts of ``repro.models.layers``).
+"""Shared layers in plain PyTorch: RMS norm (gemma's ``plus_one`` form
+too), RoPE, causal attention with an optional sliding window and score
+softcap, the decode step's cache write and single-token attention,
+SwiGLU and GeGLU (the port of the training and serving parts of
+``repro.models.layers``).
 
 All functions are single-worker, float32 in and out for float32 params.
 The training path's attention is plain ``matmul``/``softmax``, as the
@@ -44,14 +46,24 @@ def apply_rope(x, positions, *, theta: float):
     return out.to(x.dtype)
 
 
-def causal_attention(q, k, v, *, scale: float = 0.0):
+def _softcap(s, cap: float):
+    if cap and cap > 0:
+        s = torch.tanh(s / cap) * cap
+    return s
+
+
+def causal_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
+                     scale: float = 0.0):
     """Causal softmax attention with GQA, counterpart of the reference's
-    ``chunked_attention(causal=True, window=0)`` in train mode.
+    ``chunked_attention(causal=True)`` in train and prefill mode.
 
     q, k: (B, S, H | KH, D); v: (B, S, KH, Dv) with H % KH == 0 — v's
     head width may differ from q's (MLA's v is narrower than its
     nope + rope q/k; the reference pads v to q's width and slices after,
-    which gives the same numbers).  ``scale`` 0 means 1/sqrt(D).
+    which gives the same numbers).  ``window`` > 0 keeps the keys less
+    than ``window`` positions behind each query (gemma3's sliding
+    layers); ``softcap`` caps the scores as ``tanh(s / cap) * cap``
+    before the mask; ``scale`` 0 means 1/sqrt(D).
     """
     B, S, H, D = q.shape
     KH = k.shape[2]
@@ -59,18 +71,15 @@ def causal_attention(q, k, v, *, scale: float = 0.0):
     scale = scale or 1.0 / math.sqrt(D)
     qh = q.reshape(B, S, KH, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), k.float()) * scale
+    s = _softcap(s, softcap)
     pos = torch.arange(S, device=q.device)
     mask = pos[None, :] <= pos[:, None]                       # (q, k)
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
-
-
-def _softcap(s, cap: float):
-    if cap and cap > 0:
-        s = torch.tanh(s / cap) * cap
-    return s
 
 
 def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -155,3 +164,10 @@ def decode_attention(q, k_cache, v_cache, *, cache_len, window: int = 0,
 
 def swiglu(gate, up):
     return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+
+
+def geglu(gate, up):
+    """GELU (tanh approximation) of the gate in float32, cast back, times
+    up (gemma3's FFN)."""
+    return (torch.nn.functional.gelu(gate.float(), approximate="tanh")
+            .to(gate.dtype) * up)

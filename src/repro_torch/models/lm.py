@@ -1,8 +1,17 @@
-"""Decoder LM (the port of ``repro.models.lm`` for the pre-norm decoders
-whose blocks are GQA attention or MLA followed by a SwiGLU or MoE FFN:
-paper-lm, olmoe-1b-7b, deepseek-v2-lite-16b): the training forward and
-loss (cross-entropy plus the MoE layers' load-balance aux), and the
+"""Decoder LM (the port of ``repro.models.lm`` for the decoders whose
+blocks are GQA attention (global or sliding-window) or MLA followed by a
+SwiGLU, GeGLU or MoE FFN: paper-lm, olmoe-1b-7b, deepseek-v2-lite-16b,
+qwen3-32b, phi4-mini-3.8b, minitron-4b, gemma3-1b): the training forward
+and loss (cross-entropy plus the MoE layers' load-balance aux), and the
 serving entry points ``prefill`` / ``decode_step`` over a KV cache.
+
+gemma3's options ride the config: ``post_norm`` adds the ``ln1p`` /
+``ln2p`` norms after each sub-block and puts every norm in the
+``plus_one`` form, ``scale_embeddings`` multiplies the looked-up rows by
+sqrt(d_model) (a tied head uses the unscaled table), ``logit_softcap``
+caps the attention scores and the logits, and the global ``attn`` layers
+take ``rope_theta_global`` where the ``attn_sliding`` ones take
+``rope_theta`` and ``sliding_window``.
 
 The param tree has the reference's nesting: ``embed``, ``final_norm``,
 ``head`` (untied configs only), ``layers`` (a tuple with one dict per
@@ -18,6 +27,8 @@ writes the new token's entries into the cache it is given, in place.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.configs.base import BlockDef, ModelConfig
@@ -31,8 +42,6 @@ def _norm_spec(cfg):
     return ParamSpec((cfg.d_model,), (None,), init="ones")
 
 
-_DENSE_VARIANTS = ("the dense-variants slice (qwen3-32b, gemma3-1b, "
-                   "phi4-mini, minitron-4b)")
 _RECURRENT = "the recurrent-families slice (mamba2, xlstm, zamba2)"
 _ENC_PREFIX = "the whisper and internvl2 slices"
 
@@ -45,16 +54,6 @@ def _check_supported(cfg: ModelConfig):
                 or bd.ffn == "none":
             raise NotImplementedError(f"{cfg.name}: block {bd} waits for "
                                       f"{_RECURRENT}")
-        if bd.mixer not in ("attn", "mla") or bd.ffn not in ("swiglu", "moe"):
-            raise NotImplementedError(f"{cfg.name}: block {bd} waits for "
-                                      f"{_DENSE_VARIANTS}")
-    for flag, what in ((cfg.post_norm, "post-norm"),
-                       (cfg.logit_softcap, "logit softcap"),
-                       (cfg.sliding_window, "sliding windows"),
-                       (cfg.scale_embeddings, "scaled embeddings")):
-        if flag:
-            raise NotImplementedError(f"{cfg.name}: {what} waits for "
-                                      f"{_DENSE_VARIANTS}")
     if (cfg.cross_attention or cfg.encoder_layers or cfg.num_prefix_tokens
             or cfg.family in ("vlm", "audio")):
         raise NotImplementedError(f"{cfg.name}: encoders and prefix tokens "
@@ -62,10 +61,13 @@ def _check_supported(cfg: ModelConfig):
 
 
 def layer_specs(cfg: ModelConfig, bd: BlockDef):
-    return {"ln1": _norm_spec(cfg),
-            "mix": B.mla_specs(cfg) if bd.mixer == "mla" else B.attn_specs(cfg),
-            "ln2": _norm_spec(cfg),
-            "ffn": B.moe_specs(cfg) if bd.ffn == "moe" else B.ffn_specs(cfg, bd.ffn)}
+    mix = B.mla_specs(cfg) if bd.mixer == "mla" else B.attn_specs(cfg)
+    s = {"ln1": _norm_spec(cfg), "mix": mix, "ln2": _norm_spec(cfg),
+         "ffn": B.moe_specs(cfg) if bd.ffn == "moe" else B.ffn_specs(cfg, bd.ffn)}
+    if cfg.post_norm:
+        s["ln1p"] = _norm_spec(cfg)
+        s["ln2p"] = _norm_spec(cfg)
+    return s
 
 
 def _stack_specs(tree, n: int):
@@ -95,23 +97,46 @@ def param_specs(cfg: ModelConfig):
     return specs
 
 
-def apply_layer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx):
-    """Pre-norm residual block.  Returns ``(x, new_cache, aux)``: ``aux``
-    sums the load-balance losses the block appended to ``ctx``."""
-    h = rms_norm(x, p["ln1"], eps=cfg.norm_eps)
+def _apply_mixer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx):
     if bd.mixer == "mla":
-        y, new_cache = B.mla_apply(cfg, p["mix"], h, ctx)
-    else:
+        return B.mla_apply(cfg, p["mix"], x, ctx)
+    if bd.mixer == "attn_sliding":
+        return B.attn_apply(cfg, p["mix"], x, ctx, window=cfg.sliding_window)
+    if bd.mixer == "attn":
         theta = cfg.rope_theta_global or cfg.rope_theta
-        y, new_cache = B.attn_apply(cfg, p["mix"], h, ctx, rope_theta=theta)
+        return B.attn_apply(cfg, p["mix"], x, ctx, rope_theta=theta)
+    raise ValueError(bd.mixer)
+
+
+def apply_layer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx):
+    """Residual block, pre-norm (with ``post_norm``, each sub-block's
+    output normed again before the residual add).  Returns ``(x,
+    new_cache, aux)``: ``aux`` sums the load-balance losses the block
+    appended to ``ctx``."""
+    post = cfg.post_norm
+    h = rms_norm(x, p["ln1"], eps=cfg.norm_eps, plus_one=post)
+    y, new_cache = _apply_mixer(cfg, bd, p, h, ctx)
+    if post:
+        y = rms_norm(y, p["ln1p"], eps=cfg.norm_eps, plus_one=True)
     x = x + y
-    h = rms_norm(x, p["ln2"], eps=cfg.norm_eps)
+    h = rms_norm(x, p["ln2"], eps=cfg.norm_eps, plus_one=post)
     if bd.ffn == "moe":
         y = B.moe_apply(cfg, p["ffn"], h, ctx)
     else:
         y = B.ffn_apply(cfg, p["ffn"], h, bd.ffn)
+    if post:
+        y = rms_norm(y, p["ln2p"], eps=cfg.norm_eps, plus_one=True)
     aux = sum(ctx.aux_losses, x.new_zeros((), dtype=torch.float32))
     return x + y, new_cache, aux
+
+
+def _embed_tokens(cfg: ModelConfig, params, tokens):
+    """The embedding rows of ``tokens``, times sqrt(d_model) with
+    ``scale_embeddings`` (gemma)."""
+    x = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    return x
 
 
 def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
@@ -122,7 +147,7 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
     the repeats; decode writes the new token's entries into ``cache`` in
     place (through per-layer views) and returns it.  ``aux`` () f32 sums
     the layers' MoE load-balance losses in layer order (0 without MoE)."""
-    x = params["embed"][tokens]
+    x = _embed_tokens(cfg, params, tokens)
     Bsz, S = tokens.shape
     if mode == "decode":
         last = torch.as_tensor(cache_len, device=tokens.device).reshape(-1) - 1
@@ -158,7 +183,8 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
                                      cache_len=cache_len))
         aux = aux + a
         rem_caches.append(nc)
-    x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+    x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps,
+                 plus_one=cfg.post_norm)
     if mode != "prefill":
         return x, cache, aux
     layers = tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]}
@@ -176,6 +202,12 @@ def _head(cfg: ModelConfig, params):
     return params["embed"].t() if cfg.tie_embeddings else params["head"]
 
 
+def _softcap_logits(cfg: ModelConfig, logits):
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
 def chunked_xent(cfg: ModelConfig, params, hidden, labels, *, block: int = 512):
     """Cross-entropy over sequence blocks of at most ``block`` positions
     (the (B, block, V) logits of one block at a time).  Labels < 0 are
@@ -190,7 +222,7 @@ def chunked_xent(cfg: ModelConfig, params, hidden, labels, *, block: int = 512):
     for s0 in range(0, S, blk):
         h = hidden[:, s0:s0 + blk]
         y = labels[:, s0:s0 + blk]
-        lg = (h @ head).float()
+        lg = _softcap_logits(cfg, (h @ head).float())
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, y.clamp_min(0)[..., None])[..., 0]
         valid = y >= 0
@@ -224,6 +256,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     period, n_groups, rem = _schedule_groups(cfg)
 
     def one(bd):
+        # a sliding layer keeps a full-length cache, masked by position
         if bd.mixer == "mla":
             return (B.mla_cache_axes() if axes else
                     B.mla_init_cache(cfg, batch, max_len, dtype, device=device))
@@ -271,10 +304,7 @@ def grow_cache(cfg: ModelConfig, cache, max_len: int):
 # ---------------------------------------------------------------------------
 
 def logits_from_hidden(cfg: ModelConfig, params, hidden):
-    logits = hidden @ _head(cfg, params).to(hidden.dtype)
-    if cfg.logit_softcap:
-        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return _softcap_logits(cfg, hidden @ _head(cfg, params).to(hidden.dtype))
 
 
 @torch.no_grad()

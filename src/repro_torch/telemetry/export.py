@@ -128,6 +128,8 @@ def run_manifest(run=None, *, plan=None, device=None,
             "modes": list(plan.modes),
             "num_buckets": plan.num_buckets,
             "num_workers": plan.num_workers,
+            "coalesce": plan.coalesce,
+            "wire_pack": plan.wire_pack,
         }
     if extra:
         m.update(_jsonable(extra))

@@ -335,3 +335,85 @@ def test_save_restore_flat_roundtrips_moe_state(arch, tmp_path):
             for x, y in zip(a.buckets, b.buckets, strict=True):
                 assert torch.equal(x, y), f
     assert (state.ef_memory is not None) == (SYNC[arch] == "ef_sign")
+
+
+def _lars_run(cb, cfg, mode, wire_pack):
+    return cb.RunConfig(
+        model=cfg, shape=cb.InputShape("t", S, W * B, "train"),
+        local_sgd=cb.LocalSGDConfig(local_steps=1, sync_compression=mode,
+                                    wire_pack=wire_pack),
+        optim=cb.OptimConfig(optimizer="lars", base_lr=0.3, base_batch=W * B,
+                             weight_decay=1e-2, lars_trust=0.02))
+
+
+def _pinned(ts, js, fields):
+    """The port's state with the reference's buffers (new tensors: the
+    port's sync writes in place)."""
+    return dataclasses.replace(ts, **{
+        f: getattr(ts, f).with_buckets(tuple(
+            torch.tensor(np.asarray(x)).to(t.dtype)
+            for x, t in zip(getattr(js, f).buckets, getattr(ts, f).buckets, strict=True)))
+        for f in fields if getattr(ts, f) is not None})
+
+
+@pytest.mark.parametrize("mode,wire_pack", [("none", False), ("ef_sign", False),
+                                            ("ef_sign", True)])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lars_trajectory_matches_reference(arch, mode, wire_pack):
+    """LARS at W=2, 3 rounds of one local step + a global sync, through
+    the bucket path of both packages.  Every sync runs a second time on a
+    port state that holds the reference's own buffers (so both packages
+    compress the same bits, and no sign can flip): after it, params and
+    anchor within 1e-6 x their largest entry, momentum and EF memory
+    within 1e-5 x (sums of another order over up to 65,536 elements).
+    The free-running port trajectory beside it: each EF-sign sync's sign
+    flips are counted (an element whose compressor input, delta + EF
+    memory, is >= 0 in one package and < 0 in the other: an input within
+    rounding of zero) and printed; its loss is held at rtol 1e-5 until
+    the first flip, and its end state to the compressed trajectory
+    tolerance of ``test_torch_local_sgd`` (at most 1e-4 of the elements
+    beyond 1e-4 x the largest), as a flip moves its element by a whole
+    scale."""
+    jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
+    jb = jbuild(_lars_run(jcb, jcfg, mode, wire_pack), num_workers=W, use_kernel=True)
+    tb = tbuild(_lars_run(tcb, tcfg, mode, wire_pack), num_workers=W, device="cpu")
+    p0 = jmbase.materialize(jb.specs, jax.random.PRNGKey(0))
+    js = jb.init(jax.random.PRNGKey(1), p0)
+    ts = tb.init(params_from_reference(jax.tree.map(np.asarray, p0), "cpu"))
+    jstep = jax.jit(jb.local_step)
+    jsync = jax.jit(lambda s: jb.sync(s, plan=jb.sync_plan, scope="global"))
+    it = iter(ShardedBatches(lm_examples(markov_lm(
+        vocab=tcfg.vocab_size, num_seqs=16, seq_len=S)), W, B))
+    fields = ("params", "momentum", "anchor", "ef_memory")
+    flips = []
+    for _ in range(3):
+        batch = next(it)
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in batch.items()})
+        ts, tm = tb.local_step(ts, batch)
+        if not flips or sum(flips) == 0:
+            np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+        if mode != "none":
+            bufs = lambda st: [
+                [torch.as_tensor(np.asarray(x)) for x in getattr(st, f).buckets]
+                for f in ("anchor", "params", "ef_memory")]
+            ins = [[a[None] - p + e for a, p, e in zip(*bufs(st))] for st in (ts, js)]
+            flips.append(sum(int(((a >= 0) != (b >= 0)).sum()) for a, b in zip(*ins)))
+        pinned = _pinned(ts, js, fields)
+        js = jsync(js)
+        ts = tb.sync(ts, plan=tb.sync_plan)
+        pinned = tb.sync(pinned, plan=tb.sync_plan)
+        for f in fields:
+            jf, tf = getattr(js, f), getattr(pinned, f)
+            assert (jf is None) == (tf is None), f
+            for a, b in zip(tf.buckets if tf else (), jf.buckets if jf else ()):
+                b = np.asarray(b)
+                tol = 1e-5 if f in ("momentum", "ef_memory") else 1e-6
+                err = np.abs(a.numpy() - b).max() / np.abs(b).max()
+                assert err <= tol, (f, err)
+    print(f"{arch} LARS {mode} wire_pack={wire_pack}: sign flips per sync {flips}")
+    for f in fields:
+        jf, tf = getattr(js, f), getattr(ts, f)
+        for a, b in zip(tf.buckets if tf else (), jf.buckets if jf else ()):
+            b = np.asarray(b)
+            frac = float(np.mean(np.abs(a.numpy() - b) > 1e-4 * np.abs(b).max()))
+            assert frac <= 1e-4, (f, frac, flips)

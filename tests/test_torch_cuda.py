@@ -893,3 +893,75 @@ def test_moe_trainer_and_decode_on_card_match_cpu(cuda, arch):
     assert float(((pg - pc).abs() > 1e-4 * pc.abs().max()).float().mean()) <= 1e-4
     for a, b in zip(rg, rc):
         assert float(((a.double() - b.double()).abs() / (1 + b.double().abs())).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3096 + 5, 264])
+def test_cuda_wire_pack_matches_cpu(cuda, rows):
+    """The 1-bit wire pack of a (4, rows, 128) bucket on the card against
+    the same pack on the CPU: the uint8 payload byte for byte, the per-leaf
+    scales within rtol 2e-5 (the scatter-add's atomics add in another
+    order), the unpacked packed mean within 2e-5 x its largest entry."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core import flatbuf
+    from repro_torch.core.local_sgd import _packed_mean_flat_local
+    from repro_torch.models import lm
+
+    layout = flatbuf.build_layout(mbase.abstract(lm.param_specs(
+        configs.get_smoke("paper-lm"))))
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randn((4, rows, 128), generator=g)
+    x[torch.rand(x.shape, generator=g) < 0.01] = 0.0
+    seg = torch.arange(rows, dtype=torch.int32) * 7 // rows
+    sizes = torch.bincount(seg.long(), minlength=7).float() * 128 - 5
+    pc, sc = comp.pack_bucket_signs(x, seg, sizes)
+    pg, sg = comp.pack_bucket_signs(x.to(cuda), seg.to(cuda), sizes.to(cuda))
+    assert pg.dtype == torch.uint8 and torch.equal(pg.cpu(), pc)
+    torch.testing.assert_close(sg.cpu(), sc, rtol=2e-5, atol=0)
+    torch.testing.assert_close(comp.unpack_bucket_signs(pg, sg, seg.to(cuda)).cpu(),
+                               comp.unpack_bucket_signs(pc, sc, seg), rtol=2e-5, atol=0)
+    xb = torch.randn((4, layout.bucket_rows[0], 128), generator=g)
+    xb = flatbuf.mask_padding(layout, 0, xb)
+    mc = _packed_mean_flat_local(xb, layout, 0)
+    mg = _packed_mean_flat_local(xb.to(cuda), layout, 0).cpu()
+    assert float((mg - mc).abs().max()) <= 2e-5 * float(mc.abs().max())
+
+
+@pytest.mark.cuda
+def test_gemma3_forward_and_decode_on_card_match_cpu(cuda):
+    """gemma3-smoke (sliding window 16, GeGLU, post-norm, scaled
+    embeddings, tied head; ``logit_softcap`` set to 30 to drive the
+    softcap too) on the card and on the CPU from the same weights: the
+    loss of a (2, 64) batch past the window within 1e-4 relative and its
+    gradient (the window's mask in the backward) within 1e-4 x each
+    leaf's largest entry, then prefill of a 40-token prompt and 3 decode
+    steps within 1e-4 x (1 + |logit|)."""
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+
+    cfg = configs.get_smoke("gemma3-1b").replace(logit_softcap=30.0)
+    p0 = mbase.materialize(lm.param_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=g)
+    forced = torch.randint(0, cfg.vocab_size, (2, 3), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True), p0)
+        loss, _ = lm.loss_fn(cfg, params, {"tokens": toks[:, :-1].to(dev),
+                                           "labels": toks[:, 1:].to(dev)})
+        grads = [x.cpu() for x in torch.autograd.grad(loss, tree_leaves(params))]
+        with torch.no_grad():
+            lg, cache = lm.prefill(cfg, params, prompt.to(dev), max_len=48)
+            rows = [lg[:, -1].cpu()]
+            for i in range(forced.shape[1]):
+                lg, cache = lm.decode_step(cfg, params, forced[:, i:i + 1].to(dev),
+                                           cache, prompt.shape[1] + 1 + i)
+                rows.append(lg[:, -1].cpu())
+        out[dev] = (float(loss.detach()), grads, rows)
+    (lc, gc, rc), (lg_, gg, rg) = out["cpu"], out[cuda]
+    assert abs(lg_ - lc) <= 1e-4 * abs(lc)
+    for a, b in zip(gg, gc, strict=True):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for a, b in zip(rg, rc):
+        assert float(((a.double() - b.double()).abs() / (1 + b.double().abs())).max()) <= 1e-4

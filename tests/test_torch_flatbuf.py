@@ -271,6 +271,14 @@ def test_run_configs_match_reference():
         assert tf == jf, name
     for f in ("controller", "local_sgd", "optim", "seed", "steps"):
         assert f in {x.name for x in dataclasses.fields(tcb.RunConfig)}
+    # the shape registry and the arch x shape matrix of the archs ported
+    assert tcb.INPUT_SHAPES == {k: tcb.InputShape(*dataclasses.astuple(v))
+                                for k, v in jcb.INPUT_SHAPES.items()}
+    from repro import configs as jc
+    from repro_torch import configs as tc
+    assert set(tc.ARCHS) <= set(jc.ARCHS)
+    assert tc.runnable_pairs() == [p for p in jc.runnable_pairs() if p[0] in tc.ARCHS]
+    assert tc.SKIPS == {k: v for k, v in jc.SKIPS.items() if k[0] in tc.ARCHS}
     kinds = ("static", "diversity_h", "adaptive_batch", "auto_compress",
              "noise_adaptive", "elastic")
     for kind in kinds:
@@ -279,3 +287,18 @@ def test_run_configs_match_reference():
             t = tcb.ControllerConfig(kind=kind, telemetry=tel)
             assert (t.wants_telemetry, t.wants_speculation) == \
                 (j.wants_telemetry, j.wants_speculation), (kind, tel)
+
+
+@pytest.mark.parametrize("size", ["full", "smoke"])
+@pytest.mark.parametrize("arch", ["paper-lm", "qwen3-32b", "phi4-mini-3.8b",
+                                  "minitron-4b", "gemma3-1b", "olmoe-1b-7b",
+                                  "deepseek-v2-lite-16b"])
+def test_model_configs_match_reference(arch, size):
+    """The port's copy of each registered config, field for field, and
+    its citation."""
+    import dataclasses
+    get = "get" if size == "full" else "get_smoke"
+    jc, tc = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.citation == jc.citation
+    assert arch in tconfigs.ARCHS + ("paper-lm",)

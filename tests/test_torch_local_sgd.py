@@ -187,9 +187,10 @@ def test_mean_params_and_launch_counts_on_cpu():
 
 def test_unported_options_raise():
     """LARS, telemetry with the static schedule, hierarchical local SGD,
-    gradient noise and the adaptive and elastic controllers build; the
-    1-bit wire pack and coalesced collectives (they come with workers
-    across GPUs, ROADMAP A.5) raise."""
+    gradient noise, the adaptive and elastic controllers, the 1-bit wire
+    pack and coalesced syncs build (the last two take a local step and a
+    sync, with the flags in the bundle's plan); an optimizer the port
+    lacks and an unknown sync topology still raise."""
     smoke = tconfigs.get_smoke("paper-lm")
     kinds = ("diversity_h", "adaptive_batch", "noise_adaptive", "elastic")
     for kw in (dict(optim=tcb.OptimConfig(optimizer="lars")),
@@ -200,13 +201,27 @@ def test_unported_options_raise():
                dict(local_sgd=tcb.LocalSGDConfig(sync_compression="ef_sign"),
                     controller=tcb.ControllerConfig(kind="auto_compress"))):
         tbuild(tcb.RunConfig(model=smoke, **kw), num_workers=2, device="cpu")
-    for kw in (dict(local_sgd=tcb.LocalSGDConfig(wire_pack=True,
-                                                 sync_compression="sign")),
-               dict(local_sgd=tcb.LocalSGDConfig(sync_coalesce=True,
-                                                 sync_compression="sign"))):
-        run = tcb.RunConfig(model=smoke, **kw)
-        with pytest.raises(NotImplementedError):
-            tbuild(run, num_workers=2, device="cpu")
+    data = lm_examples(markov_lm(vocab=512, num_seqs=8, seq_len=S))
+    for ls in (tcb.LocalSGDConfig(wire_pack=True, sync_compression="sign"),
+               tcb.LocalSGDConfig(sync_coalesce=True, wire_pack=True,
+                                  sync_compression="ef_sign")):
+        tb = tbuild(tcb.RunConfig(model=smoke, shape=tcb.InputShape("t", S, 2 * B,
+                                                                    "train"),
+                                  local_sgd=ls), num_workers=2, device="cpu")
+        assert (tb.sync_plan.wire_pack, tb.sync_plan.coalesce) == \
+            (ls.wire_pack, ls.sync_coalesce)
+        ts = tb.init(tmbase.materialize(tb.specs, torch.Generator().manual_seed(0),
+                                        "cpu"))
+        ts, m = tb.local_step(ts, next(iter(ShardedBatches(data, 2, B))))
+        ts = tb.sync(ts, plan=tb.sync_plan)
+        assert torch.isfinite(m["loss"]) and torch.equal(ts.params.buckets[0][0],
+                                                         ts.params.buckets[0][1])
+    with pytest.raises(NotImplementedError, match="optimizer"):
+        tbuild(tcb.RunConfig(model=smoke, optim=tcb.OptimConfig(optimizer="adam")),
+               num_workers=2, device="cpu")
+    with pytest.raises(ValueError, match="unknown sync_topology"):
+        tbuild(tcb.RunConfig(model=smoke, local_sgd=tcb.LocalSGDConfig(
+            sync_topology="ring")), num_workers=2, device="cpu")
 
 
 class _FullBucketCensus(TorchDispatchMode):

@@ -87,10 +87,8 @@ def test_plan_stages_match_reference(tree, mode, topo):
     if not tp.topology.has_block:
         with pytest.raises(ValueError):
             tp.schedule("block")
-    # the port's table is the reference's without the wire-pack flags
-    jrows = jp.describe().splitlines()
-    assert tp.describe().splitlines()[1:] == jrows[1:]
-    assert jrows[0].startswith(tp.describe().splitlines()[0])
+    # the same table, the wire-pack and coalesce flags included
+    assert tp.describe() == jp.describe()
 
 
 def test_overlap_pipelines_the_global_stages():
@@ -148,10 +146,16 @@ def test_resolve_topology_matches_reference(kind, block_steps, workers):
 
 
 def test_unported_plan_options_raise():
-    _, tl = _layouts("mixed")
-    for kw in (dict(wire_pack=True), dict(coalesce=True)):
-        with pytest.raises(NotImplementedError):
-            tsp.make_sync_plan(tl, num_workers=W, compression="sign", **kw)
+    """The wire pack and coalescing build plans with their flags (their
+    stages: ``tests/test_torch_wire_pack.py``); an unknown topology still
+    raises."""
+    jl, tl = _layouts("mixed")
+    for kw in (dict(wire_pack=True), dict(coalesce=True),
+               dict(wire_pack=True, coalesce=True)):
+        tp = tsp.make_sync_plan(tl, num_workers=W, compression="sign", **kw)
+        jp = jsp.make_sync_plan(jl, num_workers=W, compression="sign", **kw)
+        assert (tp.wire_pack, tp.coalesce) == (jp.wire_pack, jp.coalesce)
+        assert _stages(tp) == _stages(jp) and tp.describe() == jp.describe()
     with pytest.raises(ValueError, match="unknown sync_topology"):
         tsp.resolve_topology(
             tcb.LocalSGDConfig(sync_topology="ring"), W)   # type: ignore
