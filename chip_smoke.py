@@ -145,6 +145,26 @@ Phases:
            requests on the paged engine (D1 up to 648 tokens, past the
            window), timed, then beside the contiguous path on the engine's
            own batches: logits within 1e-4 x (1 + |logit|).
+  Z        the recurrent families at their published widths (``Z_RUNS``),
+           phase A's settings at W=2, seq 512 x local batch 8, 8 steps:
+           Z1 xlstm-1.3b, 16 of 48 layers (14 mLSTM + 2 sLSTM), EF-sign;
+           Z2 zamba2-7b, 12 of 81 layers (10 mamba2 + 2 invocations of
+           the shared attention block), mean sync.  The memory reckoning
+           printed before each part; losses finite and falling, comm
+           rounds equal to the schedule's, median step, tokens/s, peak
+           memory against the reckoning, launches (the update and sq_sum
+           every step, the compressor pair every EF-sign sync); one step
+           under torch.profiler split by part (the mLSTM chunk loop, the
+           sLSTM cell loop and mamba2's Q x Q decay by their profiler
+           spans; attention, head and other matmuls, the tail); the
+           worker-mean model on the card against the port on the CPU (a
+           (1, 128) batch: loss 1e-4 relative, logits 1e-4 x (1 +
+           |logit|)); served through the contiguous path
+           (``build_serve``): 8 prompts of 128 tokens prefilled in one
+           batch, 32 greedy decode steps timed, every step's logits held
+           against the train-mode forward over the same tokens within
+           2e-4 x (1 + |logit|); ``build_engine`` refuses both (the paged
+           pool needs a kv_seq axis on every cache leaf).
   T        the per-tensor kernel API at full width: paper-lm's parameter
            tree (W=1) on the card; one SGD step with ops.fused_sgd on every
            leaf against the same step by the bucket kernel on the flat bus;
@@ -184,10 +204,13 @@ Phases:
            versions at W = 4 -> 2 -> 4 -> 8 on one stream (sq_sum's scratch
            reused across the changes), and the elastic trainer with phase
            E's resizes and straggler together: the same resize and
-           demotion decisions, losses within 1e-4; and the two MoE smoke
-           configs (phase M's sync modes and widths): one local step and a
-           sync, loss and params within the tolerances above, decode logits
-           within 1e-4 x (1 + |logit|).
+           demotion decisions, losses within 1e-4; the two MoE smoke
+           configs (phase M's sync modes and widths) and the two
+           recurrent ones (phase Z's): one local step and a sync, loss
+           and params within the tolerances above (the recurrent ones'
+           params counted over the elements whose EF-sign input has the
+           same sign on both devices), decode logits within 1e-4 x (1 +
+           |logit|).
   G        the paper's experiments (``repro_torch.benchmarks``) at the
            harness's full size (MLP width 256, 1,536 train / 2,048 test
            examples, K up to 8): Fig. 1's A5 and Table 4's EFsign_post_H8
@@ -1550,10 +1573,12 @@ S_CHECKED = 3                 # requests a version held against the contiguous p
 S_TOL = 1e-4                  # logits: |a - b| <= S_TOL * (1 + |b|)
 
 
-def _close(a, b) -> float:
-    """max |a - b| / (1 + |b|) of two logit rows (tensors)."""
+def _close(a, b, reduce="max") -> float:
+    """max (or ``reduce="mean"``: mean) |a - b| / (1 + |b|) of two logit
+    rows (tensors)."""
     a, b = a.double(), b.double()
-    return float(((a - b).abs() / (1 + b.abs())).max())
+    r = (a - b).abs() / (1 + b.abs())
+    return float(r.mean() if reduce == "mean" else r.max())
 
 
 def _forced_logits(cfg, params, prompt, tokens, max_len=S_MAX_LEN):
@@ -2087,13 +2112,51 @@ def phase_c_elastic(smoke, p0):
     torch.cuda.empty_cache()
 
 
-def phase_c_moe():
-    """Phase C for the MoE and MLA decoders at smoke size, the card against
-    the CPU from the same weights (phase M's sync modes and worker
-    counts): one local step and one global sync, loss and params within
-    phase C's tolerances (loss 1e-4 relative; all but 1e-4 of the param
-    elements within 1e-4 x the largest); then a prefill and 4 decode
-    steps of the synced model, logits within M_TOL x (1 + |logit|)."""
+def _leaf_paths(tree, pre=""):
+    """'/'-joined key paths of ``tree``'s leaves in tree-flatten order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{pre}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{pre}/{i}")
+    elif tree is not None:
+        yield pre
+
+
+def slstm_igate_mask(cfg, layout, params):
+    """bool (rows, LANE) mask of bucket 0: the sLSTM input-gate bias
+    entries (``mix/b``, the only ``b`` of a mixer, in its (H, 4, Dh) gate
+    layout, gate 1).  Their gradient is zero in exact arithmetic: the bias
+    shifts the input gate of every step alike, which scales the cell state
+    c and the normalizer n alike, and h = o c / n does not move."""
+    import torch
+    from repro_torch.core.flatbuf import LANE
+
+    Dh = cfg.d_model // cfg.num_heads
+    mask = torch.zeros(layout.bucket_rows[0] * LANE, dtype=torch.bool)
+    paths = list(_leaf_paths(params))
+    for s in layout.bucket_slots(0):
+        if paths[s.index].endswith("/mix/b"):
+            j = torch.arange(s.size)
+            lo = s.row_offset * LANE
+            mask[lo:lo + s.size] = (j % (4 * Dh)) // Dh == 1
+    return mask.view(-1, LANE)
+
+
+def phase_c_smoke(runs):
+    """Phase C for the decoders of ``runs`` (M_RUNS, Z_RUNS) at smoke size,
+    the card against the CPU from the same weights (the runs' sync modes
+    and worker counts): one local step and one global sync, loss and
+    params within phase C's tolerances (loss 1e-4 relative; all but 1e-4
+    of the param elements within 1e-4 x the largest); then a prefill and 4
+    decode steps of the synced model, logits within M_TOL x (1 + |logit|).
+    Under EF-sign the elements of the sLSTM input-gate bias whose
+    compressor input takes another sign on the card than on the CPU in
+    some worker are left out of the params count (``slstm_igate_mask``:
+    that input is the rounding of a zero, and the sync sends each worker
+    the mean, so a flip in one worker moves the element for all); the
+    flips are counted inside and outside that bias."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2105,7 +2168,7 @@ def phase_c_moe():
     from repro_torch.models import lm
     from repro_torch.utils import tree_map
 
-    for tag, arch, mode, workers, _ in M_RUNS:
+    for tag, arch, mode, workers, *_ in runs:
         smoke = configs.get_smoke(arch)
         run = phase_run(mode, smoke, seq=64, local_batch=2, steps=1,
                         workers=workers)
@@ -2122,6 +2185,10 @@ def phase_c_moe():
             tb = build_train(run, num_workers=workers, device=dev)
             st = tb.init(tree_map(lambda t: t.to(dev).clone(), p0))
             st, m = tb.local_step(st, batch)
+            inp = None
+            if st.ef_memory is not None:
+                inp = (st.anchor.buckets[0][None] - st.params.buckets[0]
+                       + st.ef_memory.buckets[0]).cpu()
             st = tb.sync(st, plan=tb.sync_plan)
             params = mean_params(st)
             with torch.no_grad():
@@ -2133,21 +2200,31 @@ def phase_c_moe():
                                                cache, prompt.shape[1] + 1 + i)
                     rows.append(lg[:, -1].cpu())
             out[dev] = (float(m["loss"]), float(m["aux"]),
-                        st.params.buckets[0].cpu(), rows)
-        (lg, ag, pg, rg), (lc, ac, pc, rc) = out["cuda"], out["cpu"]
+                        st.params.buckets[0].cpu(), rows, inp)
+        (lg, ag, pg, rg, ig), (lc, ac, pc, rc, ic) = out["cuda"], out["cpu"]
         loss_rel = abs(lg - lc) / abs(lc)
-        frac = float(((pg - pc).abs() > 1e-4 * pc.abs().max()).float().mean())
+        beyond = (pg - pc).abs() > 1e-4 * pc.abs().max()
+        rec = {}
+        if ig is not None:
+            flipped = (ig >= 0) != (ic >= 0)
+            gate = slstm_igate_mask(smoke, tb.layout, p0)
+            beyond &= ~(flipped.any(dim=0) & gate)
+            rec.update(sign_flips=int(flipped.sum()),
+                       sign_flips_slstm_igate_bias=int((flipped & gate).sum()),
+                       slstm_igate_bias_elements=int(gate.sum()))
+        frac = float(beyond.float().mean())
         logit_err = max(_close(a, b) for a, b in zip(rg, rc))
         emit({"phase": "C", "part": tag, "model": smoke.name, "W": workers,
               "sync_compression": mode, "steps": 1, "loss_gpu": lg,
               "loss_cpu": lc, "aux_gpu": ag, "aux_cpu": ac,
-              "loss_rel_diff": loss_rel, "loss_tol": 1e-4,
+              "loss_rel_diff": loss_rel, "loss_tol": 1e-4, **rec,
               "params_frac_beyond_1e-4_of_max": frac, "frac_tol": 1e-4,
               "decode_logits_max_rel_err": logit_err, "logits_tol": M_TOL})
         if loss_rel > 1e-4 or frac > 1e-4 or logit_err > M_TOL:
             raise AssertionError(f"phase C ({smoke.name}): the card disagrees "
                                  "with the CPU")
         torch.cuda.empty_cache()
+
 
 
 def phase_g() -> dict:
@@ -2440,60 +2517,41 @@ def shadowed_engine(cfg, shape, params, **kw):
     return eng, check
 
 
-# blocks.moe_apply's profiler spans: routing + dispatch, and the combine
-M_SPANS = ("moe.dispatch", "moe.combine")
-# index ops outside the MoE spans: the embedding lookup and its
-# accumulating scatter, chunked_xent's label gather and its backward
+# the profiler spans of the port's models, each with the part it books to:
+# the training attention (layers.causal_attention), blocks.moe_apply's
+# routing + dispatch and its combine, the mLSTM chunk loop, the sLSTM cell
+# loop and mamba2's Q x Q decay product
+M_SPANS = {"attention": "attention", "moe.dispatch": "moe_dispatch",
+           "moe.combine": "moe_dispatch", "mlstm.chunks": "mlstm_chunks",
+           "slstm.cells": "slstm_cells", "mamba2.decay": "mamba2_decay"}
+# index ops outside the spans: the embedding lookup and its accumulating
+# scatter, chunked_xent's label gather and its backward
 M_INDEX_OPS = ("aten::index", "aten::index_put_", "aten::_index_put_impl_",
                "aten::gather", "aten::scatter_add_", "aten::index_select",
                "aten::index_add_", "aten::embedding_dense_backward")
 EVAL_FN = "autograd::engine::evaluate_function: "
 
 
-def moe_span_ops(events) -> set:
-    """ids of the profiled CPU events that belong to an MoE span: the ops
-    under a span in the forward, and everything under the backward's
-    ``evaluate_function`` of a node whose sequence number a forward op
-    under a span carries."""
-    def root(e):
-        while e.cpu_parent is not None:
-            e = e.cpu_parent
-        return e
-
-    def in_span(e):
-        while e is not None and e.name not in M_SPANS:
-            e = e.cpu_parent
-        return e is not None
-
-    fwd = {id(e): e for e in events if e.cpu_parent is not None and in_span(e)}
-    seqs = {e.sequence_nr for e in fwd.values() if e.sequence_nr >= 0}
-    bwd = set()
-    for e in events:
-        r = root(e)
-        if r.name.startswith(EVAL_FN) and r.sequence_nr in seqs:
-            bwd.add(id(e))
-    return set(fwd) | bwd
-
-
 def m_profile_step(bundle, state, batch, cfg) -> dict:
     """torch.profiler over one full-width local step: device time by
-    part, each kernel booked to the innermost aten op that launched it —
-    the experts' batched matmuls (``aten::bmm`` whose batch is the
-    expert count; MoE configs only), the rest of the matmuls by whether
-    they touch the vocabulary (the head) or not (attention projections,
-    FFN, router, shared experts), attention's own batched matmuls, the
-    other ops on an (S, S) score tensor (mask, softcap, softmax and
-    their backward: the S x S attention), the MoE routing, dispatch and
-    combine (every other op under ``moe_apply``'s spans, and its
-    backward by autograd sequence number), the index ops outside them
-    (embedding, the loss's label gather), the port's bucket kernels, and
-    everything else (the elementwise tail)."""
+    part, each kernel booked to the op that launched it (read from the
+    profiler's raw events: building the event tree of an xlstm step, 0.7
+    M events with the sLSTM loop, takes minutes).  In order: the spans of
+    M_SPANS take the ops under them in the forward and, in the backward,
+    the ops under an ``evaluate_function`` whose node a forward op in the
+    span created (its sequence number); then the experts' batched matmuls
+    (``aten::bmm`` with a 3-D operand whose batch is the expert count),
+    the other matmuls by whether they touch the vocabulary (the head) or
+    not, the index ops (embedding, the loss's gather), the port's bucket
+    kernels (launched through ctypes, under no op), and the rest (the
+    elementwise tail)."""
+    import bisect
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     X = cfg.moe.num_experts if cfg.moe is not None else None
-    V, S = cfg.vocab_size, batch["tokens"].shape[-1]
+    V = cfg.vocab_size
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -2501,44 +2559,74 @@ def m_profile_step(bundle, state, batch, cfg) -> dict:
         state, _ = bundle.local_step(state, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.events()
-    moe = moe_span_ops(events)
-    parts = {"expert_bmm": 0.0, "moe_dispatch": 0.0, "attention_bmm": 0.0,
-             "attention_scores": 0.0, "head_mm": 0.0, "other_mm": 0.0,
-             "embed_xent_index": 0.0, "bucket_kernels": 0.0, "other": 0.0}
+    raw = prof.profiler.kineto_results.events()
+    ops = [e for e in raw if e.device_type() == DeviceType.CPU]
+    by_corr = {e.correlation_id(): e for e in ops if e.correlation_id() > 0}
+    # per thread: span intervals (forward) and evaluate_function intervals
+    spans, evals = {}, {}
+    for e in ops:
+        key = e.start_thread_id()
+        if e.name() in M_SPANS:
+            spans.setdefault(key, []).append((e.start_ns(), e.end_ns(), M_SPANS[e.name()]))
+        elif e.name().startswith(EVAL_FN):
+            evals.setdefault(key, []).append((e.start_ns(), e.end_ns(), e.sequence_nr()))
+    for d in (spans, evals):
+        for v in d.values():
+            v.sort()
+
+    def enclosing(table, e):
+        iv = table.get(e.start_thread_id(), [])
+        i = bisect.bisect_right(iv, (e.start_ns(), float("inf"), "")) - 1
+        while i >= 0 and iv[i][1] < e.end_ns():
+            i -= 1          # intervals of one thread nest or are disjoint
+        return iv[i] if i >= 0 else None
+
+    seq_part = {}
+    for e in ops:
+        if e.sequence_nr() >= 0 and not e.name().startswith(EVAL_FN):
+            sp = enclosing(spans, e)
+            if sp is not None:
+                seq_part[e.sequence_nr()] = sp[2]
+
+    def part_of(op):
+        sp = enclosing(spans, op)
+        if sp is not None:
+            return sp[2]
+        ev = enclosing(evals, op)
+        if ev is not None and ev[2] in seq_part:
+            return seq_part[ev[2]]
+        name = op.name()
+        shapes = [tuple(x) for x in (op.shapes() or []) if x]
+        if name == "aten::bmm" and X is not None and any(
+                len(x) == 3 and x[0] == X for x in shapes):
+            return "expert_bmm"
+        if name in ("aten::mm", "aten::addmm", "aten::bmm"):
+            return "head_mm" if any(V in x for x in shapes) else "other_mm"
+        if name in M_INDEX_OPS:
+            return "embed_xent_index"
+        return "other"
+
+    parts = {p: 0.0 for p in (
+        "expert_bmm", "moe_dispatch", "attention", "mlstm_chunks",
+        "slstm_cells", "mamba2_decay", "head_mm", "other_mm",
+        "embed_xent_index", "bucket_kernels", "other")}
+    # kernels, copies and fills (not the spans' device-side ranges)
     busy = 0.0
-    for e in events:
-        if e.name in M_SPANS:              # the spans' own (CPU and device) ranges
+    for e in raw:
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.name() in M_SPANS):
             continue
-        ms = e.self_device_time_total / 1e3
-        if ms <= 0:
+        ms = e.duration_ns() / 1e6
+        busy += ms
+        if kernel_family(e.name()) == "bucket kernels (this port)":
+            parts["bucket_kernels"] += ms
             continue
-        if e.device_type == DeviceType.CUDA:
-            # kernels: the busy total, and the port's own (launched from
-            # Python through ctypes, so under no aten op)
-            busy += ms
-            if kernel_family(e.name) == "bucket kernels (this port)":
-                parts["bucket_kernels"] += ms
-            continue
-        shapes = [tuple(x) for x in (e.input_shapes or []) if x]
-        if e.name == "aten::bmm":
-            part = ("expert_bmm" if any(len(x) == 3 and x[0] == X for x in shapes)
-                    else "attention_bmm")
-        elif e.name in ("aten::mm", "aten::addmm"):
-            part = "head_mm" if any(V in x for x in shapes) else "other_mm"
-        elif id(e) in moe:
-            part = "moe_dispatch"
-        elif any(len(x) >= 2 and x[-1] == x[-2] == S for x in shapes):
-            part = "attention_scores"
-        elif e.name in M_INDEX_OPS:
-            part = "embed_xent_index"
-        else:
-            part = "other"
-        parts[part] += ms
+        op = by_corr.get(e.linked_correlation_id())
+        parts[part_of(op) if op is not None else "other"] += ms
     return {"window": "1 local step", "wall_ms_under_profiler": wall_ms,
             "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
-            "by_part_ms": parts, "moe_span_ops": len(moe),
-            "parts_sum_ms": sum(parts.values()),
+            "by_part_ms": {k: v for k, v in parts.items() if v},
+            "span_ops": len(seq_part), "parts_sum_ms": sum(parts.values()),
             "unattributed_ms": busy - sum(parts.values())}, state
 
 
@@ -3053,6 +3141,294 @@ def phase_d(tag: str, arch: str, workers: int, layers: int, max_len: int,
     return counts
 
 
+# phase Z: the recurrent families at their published widths.  (part, arch,
+# sync, W, layers, seq, local batch, float32 rule).  Only depth, W, steps
+# (and, had a probe run out of memory, the local batch) are cut.  The depth
+# floors are part of what is run: xlstm needs 8 layers for one sLSTM block
+# (its pattern is 7 mLSTM : 1 sLSTM) and zamba2 12 for two invocations of
+# the shared attention block (every 6th layer).  Z1 xlstm-1.3b at 16 of 48
+# layers (14 mLSTM + 2 sLSTM, 785,487,984 params, a 3.14 GB bucket copy;
+# m_reckon: 15 copies at the EF-sign sync, 47.1 GB); Z2 zamba2-7b at 12 of
+# 81 (10 mamba2 + 2 shared-block invocations, 1,522,983,968 params, 6.09
+# GB a copy; 7 copies at the mean sync, 42.6 GB).
+Z_RUNS = (("Z1", "xlstm-1.3b", "ef_sign", 2, 16, 512, 8, "cpu"),
+          ("Z2", "zamba2-7b", "none", 2, 12, 512, 8, "tol"))
+Z_STEPS = 8                    # phase M's count
+Z_PROMPTS, Z_PROMPT_LEN, Z_NEW = 8, 128, 32
+Z_DECODE_TOL = 2e-4            # decode vs the train-mode forward, x (1 + |logit|)
+# The card-vs-CPU forward and the decode are held at their tolerances
+# twice: in float32, and with the same weights widened to float64 (the
+# float64 checks bind every part).  A part's float32 rule says how its
+# float32 logits are held.  "tol": at the tolerances (zamba2).  "cpu":
+# xlstm at 16 layers is ill-conditioned in float32 (the per-head norm of
+# the mLSTM output divides by an RMS as small as 4e-4, the sLSTM layers
+# amplify rounding further), so its float32 logits sit 3e-4 to 0.5 from
+# their float64 values on the CPU as on the card, beyond both tolerances.
+# There the card's float32 logits, forward and decode, are held within
+# Z_F32_FACTOR times the CPU's own float32 error against the float64
+# logits (the CPU evaluating the same weights and tokens: the forward's
+# batch, and the first Z_CPU_PROMPTS prompts of the decode), and their
+# error at the tolerances is recorded.  Over this script's runs on an
+# H100 (700 W) the card/CPU ratio of those errors read 0.06-4.7 for the
+# forward and 1.0-3.9 for the decode; with TF32 matmuls on the card,
+# 1,389-1,500 and 940-2,619 (PERF.md section 6).
+Z_F32_FACTOR = 16.0
+Z_CPU_PROMPTS = 2
+
+
+def phase_z(tag: str, arch: str, mode: str, workers: int, layers: int, seq: int,
+            local_batch: int, f32_rule: str) -> dict:
+    """Phase Z: a recurrent family at its published width, depth cut to
+    ``layers``: post-local SGD at phase A's settings with ``mode`` sync at
+    ``workers`` workers of ``local_batch`` x ``seq`` tokens for Z_STEPS
+    steps: losses finite and falling, comm rounds equal to the schedule's,
+    median step, tokens/s, peak memory against the reckoning (printed
+    before the run), launches (the update and sq_sum every step, the
+    compressor pair every EF-sign sync); one step under torch.profiler
+    split by part; the worker-mean model on the card against the port on
+    the CPU on a (1, M_CPU_SEQ) batch (loss 1e-4 relative, logits within
+    1e-4 x (1 + |logit|)); then served through the contiguous path
+    (``build_serve``): Z_PROMPTS prompts of Z_PROMPT_LEN tokens prefilled
+    in one batch (exact length), Z_NEW greedy decode steps timed, every
+    step's logits held against the train-mode forward over prompt +
+    generated tokens within Z_DECODE_TOL x (1 + |logit|).  Both checks run
+    in float32 and in float64 (the weights widened), as ``f32_rule`` says
+    (see Z_F32_FACTOR); ``build_engine`` refuses the model (ValueError:
+    the paged pool needs a kv_seq axis).  Returns the training's launch
+    counts."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.local_sgd import mean_params
+    from repro_torch.core.schedule import sync_boundaries
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.steps import build_engine, build_serve, build_train
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    published = configs.get(arch)
+    cfg = published.replace(num_layers=layers)
+    run = phase_run(mode, cfg, seq=seq, local_batch=local_batch, steps=Z_STEPS,
+                    workers=workers)
+    want_syncs = sum(1 for _, lvl in sync_boundaries(run.local_sgd, Z_STEPS)
+                     if lvl == 2)
+    reckon = m_reckon(cfg, workers, mode)
+    schedule = [bd.mixer for bd in cfg.layer_schedule()]
+    emit({"phase": "Z", "part": tag, "model": arch, "before": "training",
+          "memory_reckoning": reckon, "layer_mixers": schedule})
+    rec = {"phase": "Z", "part": tag, "model": arch, "W": workers,
+           "local_batch": local_batch, "seq": seq, "sync_compression": mode,
+           "base_lr": run.optim.base_lr, "grad_clip": run.optim.grad_clip,
+           "post_local_switch": run.local_sgd.post_local_switch,
+           "local_steps": run.local_sgd.local_steps,
+           "layer_mixers": {m: schedule.count(m) for m in sorted(set(schedule))},
+           "reduced": {"num_layers": [published.num_layers, cfg.num_layers],
+                       "W": workers, "steps": Z_STEPS,
+                       "local_batch": local_batch,
+                       "widths": "published (unchanged)"},
+           "memory_reckoning": reckon}
+
+    bundle = build_train(run, num_workers=workers, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    rec["mem_before_GB"] = torch.cuda.memory_allocated() / 1e9
+    fb.reset_launches()
+    state, hist, summ, step_s = train_run(run, device="cuda", steps=Z_STEPS,
+                                          workers=workers, bundle=bundle)
+    counts = dict(fb.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    T = local_batch * seq
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec.update(loss=losses, comm_rounds=summ["comm_rounds"],
+               comm_rounds_scheduled=want_syncs, step_s=step_s,
+               step_s_median=statistics.median(step_s[1:]),
+               tokens_per_s=workers * T * len(step_s[1:]) / sum(step_s[1:]),
+               tokens_per_s_window="steps 1-%d: their tokens over their summed "
+                                   "seconds" % (len(step_s) - 1),
+               peak_mem_GB=peak,
+               peak_over_reckoned=peak * 1e9 / reckon["reckoned_peak_bytes"],
+               launches=counts)
+    split = {"train": time.perf_counter() - t_start}
+    it = ShardedBatches(lm_examples(markov_lm(
+        vocab=cfg.vocab_size, num_seqs=workers * local_batch, seq_len=seq,
+        seed=9)), workers, local_batch)
+    t0 = time.perf_counter()
+    rec["profile"], state = m_profile_step(bundle, state, next(it), cfg)
+    split["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = mean_params(state)
+    del state, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the card against the port on the CPU: one (1, M_CPU_SEQ) forward,
+    #    in float32 and, the same weights widened, in float64
+    toks = torch.from_numpy(markov_lm(vocab=cfg.vocab_size, num_seqs=1,
+                                      seq_len=M_CPU_SEQ + 1, seed=5)).long()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+    for dev, dt in (("cuda", f32), ("cpu", f32), ("cuda", f64), ("cpu", f64)):
+        p = tree_map(lambda t: t.to(dev, dt), params)
+        with torch.no_grad():
+            b = {k: v.to(dev) for k, v in batch.items()}
+            loss, _ = lm.loss_fn(cfg, p, b)
+            lg = lm.logits_from_hidden(cfg, p, lm.forward(cfg, p, b["tokens"]))
+        out[dev, dt] = (float(loss), lg.cpu())
+        del p, lg
+    (lg_, ag), (lc, ac) = out["cuda", f32], out["cpu", f32]
+    (lg64, ag64), (lc64, ac64) = out["cuda", f64], out["cpu", f64]
+    loss_rel, logit_err = abs(lg_ - lc) / abs(lc), _close(ag, ac)
+    loss_rel64, logit_err64 = abs(lg64 - lc64) / abs(lc64), _close(ag64, ac64)
+    card32, cpu32 = _close(ag, ac64), _close(ac, ac64)
+    f32_ok = (logit_err <= M_TOL if f32_rule == "tol"
+              else card32 <= Z_F32_FACTOR * cpu32)
+    cv_ok = (loss_rel <= M_TOL and loss_rel64 <= M_TOL and logit_err64 <= M_TOL
+             and f32_ok)
+    rec["card_vs_cpu"] = {"batch": [1, M_CPU_SEQ], "float32_rule": f32_rule,
+                          "loss_gpu": lg_, "loss_cpu": lc,
+                          "loss_rel_diff": loss_rel, "loss_tol": M_TOL,
+                          "logits_max_rel_err": logit_err, "logits_tol": M_TOL,
+                          "float32_logits_within_tol": logit_err <= M_TOL,
+                          "float64": {"loss_rel_diff": loss_rel64,
+                                      "logits_max_rel_err": logit_err64},
+                          "float32_vs_float64_logits": {
+                              "card": card32, "cpu": cpu32,
+                              "card_over_cpu": card32 / cpu32,
+                              "card_mean": _close(ag, ac64, "mean"),
+                              "cpu_mean": _close(ac, ac64, "mean")},
+                          "ok": cv_ok}
+    if f32_rule == "cpu":
+        rec["card_vs_cpu"]["factor"] = Z_F32_FACTOR
+    del out, ag, ac, ag64, ac64
+    split["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # -- serve through the contiguous path: prefill, greedy decode; then the
+    #    same tokens through prefill + decode against the train-mode forward
+    #    in float64 (and, under the "cpu" rule, through the CPU's float32)
+    serve = build_serve(cfg, device="cuda")
+    prompt = torch.from_numpy(markov_lm(vocab=cfg.vocab_size, num_seqs=Z_PROMPTS,
+                                        seq_len=Z_PROMPT_LEN, seed=3)
+                              [:, :Z_PROMPT_LEN]).long()
+
+    def decode_rows(serve, p, prompt, tokens):
+        """Prefill and decode logits over ``tokens`` fed after the prompt
+        (row i: the logits after prompt + i tokens)."""
+        lg, cache = serve.prefill(p, {"tokens": prompt})
+        cache = lm.grow_cache(cfg, cache, Z_PROMPT_LEN + Z_NEW)
+        rows = [lg[:, -1].cpu()]
+        for i in range(Z_NEW):
+            lg, cache = serve.decode_step(p, {"tokens": tokens[:, i:i + 1]}, cache,
+                                          Z_PROMPT_LEN + 1 + i)
+            rows.append(lg[:, -1].cpu())
+        return torch.stack(rows)
+
+    def forward_rows(p, prompt, tokens):
+        """The train-mode forward's logits at the same positions."""
+        full = lm.logits_from_hidden(cfg, p, lm.forward(
+            cfg, p, torch.cat([prompt, tokens], dim=1)))
+        return full[:, Z_PROMPT_LEN - 1:].transpose(0, 1).cpu()
+
+    with torch.no_grad():
+        prompt_d = prompt.cuda()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, cache = serve.prefill(params, {"tokens": prompt_d})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t1)
+        cache = lm.grow_cache(cfg, cache, Z_PROMPT_LEN + Z_NEW)
+        rows, tokens, dec_s = [lg[:, -1].cpu()], [], []
+        nxt = lg[:, -1].argmax(-1)
+        for i in range(Z_NEW):
+            tokens.append(nxt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, cache = serve.decode_step(params, {"tokens": nxt[:, None]}, cache,
+                                          Z_PROMPT_LEN + 1 + i)
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t1)
+            rows.append(lg[:, -1].cpu())
+            nxt = lg[:, -1].argmax(-1)
+        del cache
+        tokens = torch.stack(tokens, dim=1)
+        rows = torch.stack(rows)
+        want = forward_rows(params, prompt_d, tokens)
+        p64 = tree_map(lambda t: t.double(), params)
+        rows64 = decode_rows(serve, p64, prompt_d, tokens)
+        want64 = forward_rows(p64, prompt_d, tokens)
+        del p64
+        if f32_rule == "cpu":
+            k = Z_CPU_PROMPTS
+            rows_cpu = decode_rows(build_serve(cfg, device="cpu"),
+                                   tree_map(lambda t: t.cpu(), params),
+                                   prompt[:k], tokens[:k].cpu())
+    decode_err, decode_err64 = _close(rows, want), _close(rows64, want64)
+    dec_card32 = _close(rows, want64)
+    f32_dec = {"decode": dec_card32, "train_forward": _close(want, want64),
+               "decode_mean": _close(rows, want64, "mean"),
+               "train_forward_mean": _close(want, want64, "mean")}
+    if f32_rule == "tol":
+        dec32_ok = decode_err <= Z_DECODE_TOL
+    else:
+        sub = _close(rows[:, :k], want64[:, :k])
+        dec_cpu32 = _close(rows_cpu, want64[:, :k])
+        f32_dec.update(cpu_prompts=k, decode_card_those_prompts=sub,
+                       decode_cpu=dec_cpu32, decode_card_over_cpu=sub / dec_cpu32,
+                       decode_cpu_mean=_close(rows_cpu, want64[:, :k], "mean"))
+        dec32_ok = sub <= Z_F32_FACTOR * dec_cpu32
+    decode_ok = decode_err64 <= Z_DECODE_TOL and dec32_ok
+    refused = []
+    for kw in (dict(), dict(page_size=16)):
+        try:
+            build_engine(cfg, InputShape("serve", Z_PROMPT_LEN + Z_NEW, Z_PROMPTS,
+                                         "decode"), params, device="cuda", **kw)
+        except ValueError as e:
+            refused.append(str(e)[:160])
+    del params, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["serve"] = {
+        "route": "launch.steps.build_serve (contiguous cache)",
+        "prompts": Z_PROMPTS, "prompt_len": Z_PROMPT_LEN, "new_tokens": Z_NEW,
+        "prefill_ms": prefill_ms,
+        "decode_step_ms_median": 1e3 * statistics.median(dec_s),
+        "decode_steps": len(dec_s),
+        "decode_tokens_per_s": Z_PROMPTS * len(dec_s) / sum(dec_s),
+        "float32_rule": f32_rule,
+        "decode_vs_train_forward_max_rel_err": decode_err,
+        "float32_decode_within_tol": decode_err <= Z_DECODE_TOL,
+        "logit_rows_compared": rows.shape[0], "decode_tol": Z_DECODE_TOL,
+        "float64": {"decode_vs_train_forward_max_rel_err": decode_err64},
+        "float32_vs_float64_logits": f32_dec,
+        "ok": decode_ok,
+        "build_engine_refused": refused}
+    if f32_rule == "cpu":
+        rec["serve"]["factor"] = Z_F32_FACTOR
+    split["serve"] = time.perf_counter() - t0
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["seconds_by_part"] = split
+    emit(rec)
+    comp = want_syncs if mode != "none" else 0
+    want_launches = {k: 0 for k in fb.LAUNCHES}
+    want_launches.update(fused_sgd_bucket=Z_STEPS, sq_sum=Z_STEPS,
+                         row_abs_sum=comp, scale_sign_rows=comp)
+    bad = [k for k, ok in (
+        ("loss", all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+        ("comm rounds", summ["comm_rounds"] == {"block": 0, "global": want_syncs}),
+        ("launches", counts == want_launches),
+        ("card vs cpu", cv_ok),
+        ("decode", decode_ok),
+        ("engine refusal", len(refused) == 2)) if not ok]
+    if bad:
+        raise AssertionError(f"phase {tag}: {', '.join(bad)} ({rec})")
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run this from a "
@@ -3206,6 +3582,12 @@ def main() -> int:
             launches[k] += v
         torch.cuda.empty_cache()
 
+    # ---- Z: the recurrent families at full published width ----
+    for z_run in Z_RUNS:
+        for k, v in phase_z(*z_run).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+
     launches.update(phase_t(cfg))
     torch.cuda.empty_cache()
 
@@ -3280,13 +3662,13 @@ def main() -> int:
 
     phase_c_controllers(smoke, p0)
     phase_c_elastic(smoke, p0)
-    phase_c_moe()
+    phase_c_smoke(M_RUNS + Z_RUNS)
 
     for k, v in phase_g().items():
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # launches: phases A, B, L, H, E, R, W, K, S, M, D, N, G and the noise
+    # launches: phases A, B, L, H, E, R, W, K, S, M, D, Z, N, G and the noise
     # check for the bucket kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")

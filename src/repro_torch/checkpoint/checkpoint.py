@@ -170,8 +170,10 @@ def _target_device(leaf, device):
     return dev
 
 
-def _from_numpy(arr: np.ndarray, tmpl, path: str, data, device):
-    """The restored value for template leaf ``tmpl`` from ``arr``."""
+def _from_numpy(arr: np.ndarray, tmpl, path: str, data, device,
+                saved_dtype=None):
+    """The restored value for template leaf ``tmpl`` from ``arr`` (stored
+    as ``saved_dtype`` where that differs from the template's)."""
     if isinstance(tmpl, torch.Generator):
         dev = _target_device(tmpl, device)
         member = path + _GEN_SUFFIX
@@ -191,8 +193,10 @@ def _from_numpy(arr: np.ndarray, tmpl, path: str, data, device):
     dt = tmpl.dtype if isinstance(tmpl.dtype, torch.dtype) else \
         flatbuf.torch_dtype(flatbuf.dtype_name(tmpl.dtype))
     a = np.ascontiguousarray(arr)
-    if dt == torch.bfloat16:
-        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    # a bfloat16 member is stored as its raw 16-bit words; ``saved_dtype``
+    # names the stored dtype where a widening restore converts it
+    if (saved_dtype or dt) == torch.bfloat16:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dt)
     else:
         t = torch.from_numpy(a.copy()).to(dt)
     return t.reshape(tuple(tmpl.shape)).to(_target_device(tmpl, device))
@@ -364,22 +368,58 @@ def _elastic_leaves(path, layout, meta, template_leaves):
     return data, out
 
 
+def _widened_leaves(path, layout, meta):
+    """The leaves of a snapshot with the template's shapes where some
+    leaf is stored in bf16 or float16 and the template's is float32 (a
+    reference state saved before its first EF-sign sync holds a bf16
+    bucket's EF memory in bf16; the port's is float32 from ``init`` on):
+    ``(data, arrays, saved dtypes)``, parsed with the saved layout, the
+    saved torch dtype None where it equals the template's.  None for any
+    other mismatch."""
+    saved = meta["leaf_dtypes"]
+    if [list(s.shape) for s in layout.slots] != meta["leaf_shapes"] or \
+            len(saved) != layout.num_leaves:
+        return None
+    widened = []
+    for s, d in zip(layout.slots, saved):
+        if d == s.dtype:
+            widened.append(None)
+        elif s.dtype == "float32" and d in ("bfloat16", "float16"):
+            widened.append(flatbuf.torch_dtype(d))
+        else:
+            return None
+    specs = [ShapeDtype(tuple(s.shape), flatbuf.torch_dtype(d))
+             for s, d in zip(layout.slots, saved)]
+    slay = flatbuf.build_layout(specs)
+    if list(slay.bucket_dtypes) != meta["bucket_dtypes"] or \
+            list(slay.bucket_rows) != meta["bucket_rows"]:
+        return None
+    data, arrs = _unpack_buckets(path, slay, specs)
+    return data, arrs, widened
+
+
 def restore_flat(path: str, template, *, device=None):
     """Restore a :func:`save_flat` snapshot into the structure, shapes and
     dtypes of ``template`` (see :func:`restore` for where leaves land).
 
     A snapshot saved at another worker count restores through the elastic
     re-bucket (shrink keeps the surviving workers bit for bit, grow
-    repeats them); any other layout mismatch raises."""
+    repeats them); a float32 template leaf saved in bf16 or float16 is
+    widened, exactly; any other layout mismatch raises."""
     paths, leaves = _flatten(template)
     layout = _layout_of(leaves)
     meta = load_meta(path)
+    widened = [None] * layout.num_leaves
     if list(layout.bucket_dtypes) != meta["bucket_dtypes"] or \
             list(layout.bucket_rows) != meta["bucket_rows"] or \
             layout.num_leaves != meta["num_leaves"] or \
             [list(s.shape) for s in layout.slots] != meta["leaf_shapes"] or \
             [s.dtype for s in layout.slots] != meta["leaf_dtypes"]:
-        got = _elastic_leaves(path, layout, meta, leaves)
+        got = _widened_leaves(path, layout, meta)
+        if got is not None:
+            got, widened = got[:2], got[2]
+        else:
+            got = _elastic_leaves(path, layout, meta, leaves)
         if got is None:
             raise ValueError(
                 f"flat checkpoint layout mismatch: saved "
@@ -390,8 +430,8 @@ def restore_flat(path: str, template, *, device=None):
         data, arrs = got
     else:
         data, arrs = _unpack_buckets(path, layout, [_spec(x) for x in leaves])
-    vals = [_from_numpy(a, leaf, p, data, device)
-            for a, leaf, p in zip(arrs, leaves, paths)]
+    vals = [_from_numpy(a, leaf, p, data, device, saved_dtype=w)
+            for a, leaf, p, w in zip(arrs, leaves, paths, widened)]
     return _rebuild(template, vals)
 
 

@@ -3,9 +3,10 @@
 
 The families ported so far: the dense decoders ``paper-lm``, qwen3-32b,
 phi4-mini-3.8b, minitron-4b and gemma3-1b (sliding-window attention,
-GeGLU, post-norm), the MoE ``olmoe-1b-7b`` and the MLA + MoE
-``deepseek-v2-lite-16b``.  The recurrent, encoder-decoder and VLM
-families wait for their slices (ROADMAP A.3, A.4)."""
+GeGLU, post-norm), the MoE ``olmoe-1b-7b``, the MLA + MoE
+``deepseek-v2-lite-16b``, and the recurrent ``xlstm-1.3b`` (mLSTM +
+sLSTM) and ``zamba2-7b`` (mamba2 + a shared attention block).  The
+encoder-decoder and VLM families wait for their slice (ROADMAP A.4)."""
 from __future__ import annotations
 
 import importlib
@@ -13,12 +14,14 @@ import importlib
 from repro_torch.configs.base import (INPUT_SHAPES, BlockDef, ControllerConfig,
                                       InputShape, LocalSGDConfig, MLAConfig,
                                       ModelConfig, MoEConfig, OptimConfig,
-                                      RunConfig)
+                                      RunConfig, SSMConfig)
 
 _MODULES = {
     "qwen3-32b": "qwen3_32b",
     "gemma3-1b": "gemma3_1b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "zamba2-7b": "zamba2_7b",
+    "xlstm-1.3b": "xlstm_1_3b",
     "phi4-mini-3.8b": "phi4_mini",
     "minitron-4b": "minitron_4b",
     "olmoe-1b-7b": "olmoe_1b_7b",

@@ -1,14 +1,14 @@
 """Config dataclasses: the port's own copy of ``repro.configs.base``.
 
 Field names and defaults match the reference so that a run described in
-one package reads the same in the other.  The MoE and MLA sub-configs are
-ported; the SSM slot stays ``None`` until its family is.
+one package reads the same in the other, the MoE, MLA and SSM (mamba2 /
+xLSTM) sub-configs included.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Literal
+from typing import Literal
 
 MixerKind = Literal["attn", "attn_sliding", "mla", "mamba2", "mlstm", "slstm", "shared_attn"]
 FFNKind = Literal["swiglu", "geglu", "gelu", "moe", "none"]
@@ -42,6 +42,16 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 64            # N (mamba2) / head dim (mLSTM)
+    conv_dim: int = 4              # depthwise conv kernel size
+    expand: int = 2                # inner dim = expand * d_model
+    num_heads: int = 0             # mamba2 heads (inner_dim / head_dim); 0 => derive
+    head_dim: int = 64
+    chunk: int = 256               # chunked-scan block length
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: Literal["dense", "moe", "vlm", "audio", "hybrid", "ssm"]
@@ -68,7 +78,7 @@ class ModelConfig:
 
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
-    ssm: Any = None
+    ssm: SSMConfig | None = None
 
     encoder_layers: int = 0
     cross_attention: bool = False

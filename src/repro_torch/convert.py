@@ -39,7 +39,10 @@ def key_from_generator(gen: torch.Generator) -> np.ndarray:
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    a = np.array(x, copy=True)
+    if a.dtype.name == "bfloat16":         # ml_dtypes' bfloat16: raw words
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_reference(np_tree, device):
@@ -64,12 +67,17 @@ def state_from_reference(ref_state, *, layout: flatbuf.FlatLayout, device,
     ``layout`` is the port's layout for the same model (e.g.
     ``TrainBundle.layout``); every buffer must have its bucket rows.
     The state's generator (the gradient noise's stream) comes from the
-    reference's key by :func:`generator_from_key`.
+    reference's key by :func:`generator_from_key`.  EF memory becomes
+    float32 in every bucket, as the port keeps it: the reference holds a
+    bf16 bucket's memory in bf16 until its first EF-sign sync writes the
+    f32 residual there, so the cast is exact either way.
     """
-    def conv(field, leading):
+    def conv(field, leading, dtype=None):
         if field is None:
             return None
         bufs = tuple(_tensor(b, device) for b in field.buckets)
+        if dtype is not None:
+            bufs = tuple(x.to(dtype) for x in bufs)
         for b, buf in enumerate(bufs):
             want = layout.bucket_rows[b]
             if buf.shape[leading:] != (want, flatbuf.LANE):
@@ -87,6 +95,6 @@ def state_from_reference(ref_state, *, layout: flatbuf.FlatLayout, device,
                          momentum=conv(ref_state.momentum, 1),
                          anchor=conv(ref_state.anchor, 0),
                          global_u=conv(ref_state.global_u, 0),
-                         ef_memory=conv(ref_state.ef_memory, 1),
+                         ef_memory=conv(ref_state.ef_memory, 1, torch.float32),
                          step=int(np.asarray(ref_state.step)), stats=stats,
                          rng=generator_from_key(ref_state.rng, device))

@@ -199,8 +199,9 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         layout = flatbuf.build_layout(params_single, wd_mask=wd_mask)
         pb = flatbuf.flatten(layout, params_single)
         stacked = lambda: tuple(b[None].repeat(W, 1, 1) for b in pb)
-        zeros = lambda: tuple(torch.zeros((W,) + b.shape, dtype=b.dtype,
-                                          device=b.device) for b in pb)
+        zeros = lambda dtype=None: tuple(
+            torch.zeros((W,) + b.shape, dtype=dtype or b.dtype, device=b.device)
+            for b in pb)
         return LocalSGDState(
             params=flatbuf.BucketState(layout, stacked(), leading=1),
             momentum=flatbuf.BucketState(layout, zeros(), leading=1),
@@ -209,7 +210,11 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
             global_u=(flatbuf.BucketState(layout, tuple(torch.zeros_like(b)
                                                         for b in pb))
                       if ls.global_momentum > 0 else None),
-            ef_memory=(flatbuf.BucketState(layout, zeros(), leading=1)
+            # EF memory is float32 for every bucket: the reference's first
+            # EF-sign sync replaces its param-dtype zeros with the f32
+            # residual d + e - compressed, which a bf16 memory would round
+            ef_memory=(flatbuf.BucketState(layout, zeros(torch.float32),
+                                           leading=1)
                        if ls.sync_compression == "ef_sign" else None),
             step=0,
             stats=(tstats.init_stats(W, layout.num_buckets, pb[0].device)

@@ -26,6 +26,7 @@ class Ctx:
     positions: Any = None                # (B, S) absolute positions
     cache: Any = None                    # this layer's cache dict (decode)
     cache_len: Any = None                # int, 0-d or (B,): valid entries incl. current
+    emb0: Any = None                     # the embedding output (zamba2's shared-block skip)
     aux_losses: list = field(default_factory=list)   # MoE load-balance terms
 
 

@@ -4,7 +4,10 @@ softcap, the decode step's cache write and single-token attention,
 SwiGLU and GeGLU (the port of the training and serving parts of
 ``repro.models.layers``).
 
-All functions are single-worker, float32 in and out for float32 params.
+All functions are single-worker, float32 in and out for float32 params;
+they compute in float32 or wider (:func:`f32up`), so a float64 input
+runs the same code in float64 (the reference for a float32 run's
+rounding).
 The training path's attention is plain ``matmul``/``softmax``, as the
 reference runs jnp ``chunked_attention`` there (no Pallas kernel); the
 flash kernel is reached only through ``kernels.ops.flash_attention``.
@@ -18,12 +21,19 @@ import torch
 NEG_INF = -1e30
 
 
+def f32up(x):
+    """x in float32, or as it is when float64: the dtype the layers
+    compute in (the reference's ``astype(float32)``, widened for a
+    float64 evaluation)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x, scale, *, eps: float = 1e-6, plus_one: bool = False):
     dtype = x.dtype
-    xf = x.float()
+    xf = f32up(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
-    s = scale.float()
+    s = f32up(scale)
     if plus_one:
         s = 1.0 + s
     return (xf * s).to(dtype)
@@ -38,10 +48,10 @@ def apply_rope(x, positions, *, theta: float):
     """x: (..., S, H, D); positions: (..., S) int."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, device=x.device)              # (d/2,)
-    ang = positions[..., None].float() * inv                  # (..., S, d/2)
+    ang = positions[..., None].to(inv.dtype) * inv            # (..., S, d/2)
     cos = torch.cos(ang)[..., None, :]                        # (..., S, 1, d/2)
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(f32up(x), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -69,17 +79,20 @@ def causal_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     KH = k.shape[2]
     G = H // KH
     scale = scale or 1.0 / math.sqrt(D)
-    qh = q.reshape(B, S, KH, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), k.float()) * scale
-    s = _softcap(s, softcap)
-    pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] <= pos[:, None]                       # (q, k)
-    if window:
-        mask &= pos[:, None] - pos[None, :] < window
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+    # a profiler span: a profile books these ops and their backward to
+    # attention
+    with torch.profiler.record_function("attention"):
+        qh = q.reshape(B, S, KH, G, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", f32up(qh), f32up(k)) * scale
+        s = _softcap(s, softcap)
+        pos = torch.arange(S, device=q.device)
+        mask = pos[None, :] <= pos[:, None]                       # (q, k)
+        if window:
+            mask &= pos[:, None] - pos[None, :] < window
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, f32up(v))
+        return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -146,7 +159,7 @@ def decode_attention(q, k_cache, v_cache, *, cache_len, window: int = 0,
     S = k_cache.shape[1]
     scale = scale or 1.0 / math.sqrt(D)
     qh = q.reshape(B, KH, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qh.float(), k_cache.float()) * scale
+    s = torch.einsum("bhgd,bkhd->bhgk", f32up(qh), f32up(k_cache)) * scale
     s = _softcap(s, softcap)
     pos = torch.arange(S, device=q.device)
     clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
@@ -157,13 +170,13 @@ def decode_attention(q, k_cache, v_cache, *, cache_len, window: int = 0,
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    out = torch.einsum("bhgk,bkhd->bhgd", p, f32up(v_cache))
     out = out / p.sum(dim=-1)[..., None]
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def swiglu(gate, up):
-    return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+    return torch.nn.functional.silu(f32up(gate)).to(gate.dtype) * up
 
 
 def geglu(gate, up):

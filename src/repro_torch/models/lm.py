@@ -1,9 +1,18 @@
-"""Decoder LM (the port of ``repro.models.lm`` for the decoders whose
-blocks are GQA attention (global or sliding-window) or MLA followed by a
-SwiGLU, GeGLU or MoE FFN: paper-lm, olmoe-1b-7b, deepseek-v2-lite-16b,
-qwen3-32b, phi4-mini-3.8b, minitron-4b, gemma3-1b): the training forward
-and loss (cross-entropy plus the MoE layers' load-balance aux), and the
-serving entry points ``prefill`` / ``decode_step`` over a KV cache.
+"""Decoder LM (the port of ``repro.models.lm`` for the decoder-only
+families: blocks of GQA attention (global or sliding-window), MLA,
+mamba2, mLSTM, sLSTM or zamba2's shared attention, followed by a SwiGLU,
+GeGLU or MoE FFN or by none: paper-lm, olmoe-1b-7b, deepseek-v2-lite-16b,
+qwen3-32b, phi4-mini-3.8b, minitron-4b, gemma3-1b, xlstm-1.3b,
+zamba2-7b): the training forward and loss (cross-entropy plus the MoE
+layers' load-balance aux), and the serving entry points ``prefill`` /
+``decode_step`` over a cache.
+
+zamba2's ``shared_attn`` layers run one attention + FFN block whose
+weights live once, in ``params["shared"]`` (``ln1``, ``attn``, ``ln2``,
+``ffn``), fed the hidden state plus the embedding output ``emb0``; such
+a layer keeps its own ``ln1`` / ``ln2`` / ``ffn`` leaves, as the
+reference's specs give them, and never reads them (they take no
+gradient, only weight decay).
 
 gemma3's options ride the config: ``post_norm`` adds the ``ln1p`` /
 ``ln2p`` norms after each sub-block and puts every norm in the
@@ -19,11 +28,16 @@ block of the repeating pattern, each leaf stacked over the pattern's
 repeats) and ``rem`` (the unstacked remainder).  A Python loop over the
 stacked layers takes the place of ``lax.scan``.  The cache has the same
 nesting: ``{"layers": (one dict per block, stacked over the repeats),
-"rem": (...)}``; an attention block caches ``k`` / ``v`` (repeats, B, S,
-KH, D), axes ``("layers", "batch", "kv_seq", "kv_heads", None)``, an MLA
-block ``ckv`` (repeats, B, S, kv_lora) and ``k_rope`` (repeats, B, S,
-qk_rope), axes ``("layers", "batch", "kv_seq", None)``.  ``decode_step``
-writes the new token's entries into the cache it is given, in place.
+"rem": (...)}``; an attention or shared-attention block caches ``k`` /
+``v`` (repeats, B, S, KH, D), axes ``("layers", "batch", "kv_seq",
+"kv_heads", None)``, an MLA block ``ckv`` (repeats, B, S, kv_lora) and
+``k_rope`` (repeats, B, S, qk_rope), axes ``("layers", "batch",
+"kv_seq", None)``; a recurrent block its fixed-size state (mamba2 ``ssm``
+/ ``conv``, mLSTM ``C`` / ``n`` / ``m`` / ``conv``, sLSTM ``c`` / ``n``
+/ ``m`` / ``h``), with no ``kv_seq`` axis.  ``decode_step`` writes the
+new token's entries and the new recurrent states into the cache it is
+given, in place.  A recurrent cache serves from this contiguous path
+only: the paged engine needs a ``kv_seq`` axis on every leaf.
 """
 from __future__ import annotations
 
@@ -33,8 +47,10 @@ import torch
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import blocks as B
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import xlstm as XL
 from repro_torch.models.base import ParamSpec, is_spec
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import f32up, rms_norm
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 
@@ -42,32 +58,50 @@ def _norm_spec(cfg):
     return ParamSpec((cfg.d_model,), (None,), init="ones")
 
 
-_RECURRENT = "the recurrent-families slice (mamba2, xlstm, zamba2)"
 _ENC_PREFIX = "the whisper and internvl2 slices"
 
 
 def _check_supported(cfg: ModelConfig):
     """Raise on what the port does not run yet, naming the slice it waits
     for."""
-    for bd in cfg.blocks:
-        if bd.mixer in ("mamba2", "mlstm", "slstm", "shared_attn") \
-                or bd.ffn == "none":
-            raise NotImplementedError(f"{cfg.name}: block {bd} waits for "
-                                      f"{_RECURRENT}")
     if (cfg.cross_attention or cfg.encoder_layers or cfg.num_prefix_tokens
             or cfg.family in ("vlm", "audio")):
         raise NotImplementedError(f"{cfg.name}: encoders and prefix tokens "
                                   f"wait for {_ENC_PREFIX}")
 
 
+def _mixer_specs(cfg: ModelConfig, bd: BlockDef):
+    k = bd.mixer
+    if k in ("attn", "attn_sliding"):
+        return B.attn_specs(cfg)
+    if k == "mla":
+        return B.mla_specs(cfg)
+    if k == "mamba2":
+        return M2.mamba2_specs(cfg)
+    if k == "mlstm":
+        return XL.mlstm_specs(cfg)
+    if k == "slstm":
+        return XL.slstm_specs(cfg)
+    if k == "shared_attn":
+        return {}                       # the weights live in params["shared"]
+    raise ValueError(k)
+
+
 def layer_specs(cfg: ModelConfig, bd: BlockDef):
-    mix = B.mla_specs(cfg) if bd.mixer == "mla" else B.attn_specs(cfg)
-    s = {"ln1": _norm_spec(cfg), "mix": mix, "ln2": _norm_spec(cfg),
-         "ffn": B.moe_specs(cfg) if bd.ffn == "moe" else B.ffn_specs(cfg, bd.ffn)}
+    s = {"ln1": _norm_spec(cfg), "mix": _mixer_specs(cfg, bd)}
+    if bd.ffn != "none":
+        s["ln2"] = _norm_spec(cfg)
+        s["ffn"] = B.moe_specs(cfg) if bd.ffn == "moe" else B.ffn_specs(cfg, bd.ffn)
     if cfg.post_norm:
         s["ln1p"] = _norm_spec(cfg)
-        s["ln2p"] = _norm_spec(cfg)
+        if bd.ffn != "none":
+            s["ln2p"] = _norm_spec(cfg)
     return s
+
+
+def _shared_block(cfg: ModelConfig):
+    """The BlockDef of the first ``shared_attn`` layer, or None."""
+    return next((bd for bd in cfg.blocks if bd.mixer == "shared_attn"), None)
 
 
 def _stack_specs(tree, n: int):
@@ -94,40 +128,73 @@ def param_specs(cfg: ModelConfig):
     specs["layers"] = _stack_specs(group, n_groups) if n_groups else ()
     specs["rem"] = tuple(layer_specs(cfg, cfg.block_at(n_groups * period + i))
                          for i in range(rem))
+    shared_bd = _shared_block(cfg)
+    if shared_bd is not None:
+        specs["shared"] = {
+            "ln1": _norm_spec(cfg),
+            "attn": B.attn_specs(cfg),
+            "ln2": _norm_spec(cfg),
+            "ffn": (B.ffn_specs(cfg, shared_bd.ffn) if shared_bd.ffn != "none"
+                    else {}),
+        }
     return specs
 
 
-def _apply_mixer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx):
-    if bd.mixer == "mla":
+def _apply_mixer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx, shared=None):
+    k = bd.mixer
+    if k == "mla":
         return B.mla_apply(cfg, p["mix"], x, ctx)
-    if bd.mixer == "attn_sliding":
+    if k == "attn_sliding":
         return B.attn_apply(cfg, p["mix"], x, ctx, window=cfg.sliding_window)
-    if bd.mixer == "attn":
+    if k == "attn":
         theta = cfg.rope_theta_global or cfg.rope_theta
         return B.attn_apply(cfg, p["mix"], x, ctx, rope_theta=theta)
-    raise ValueError(bd.mixer)
+    if k == "mamba2":
+        return M2.mamba2_apply(cfg, p["mix"], x, ctx)
+    if k == "mlstm":
+        return XL.mlstm_apply(cfg, p["mix"], x, ctx)
+    if k == "slstm":
+        return XL.slstm_apply(cfg, p["mix"], x, ctx)
+    if k == "shared_attn":
+        # zamba2: the shared attention, fed the hidden state plus the
+        # embedding output, under the shared block's own first norm
+        xin = x if ctx.emb0 is None else x + ctx.emb0
+        xin = rms_norm(xin, shared["ln1"], eps=cfg.norm_eps)
+        return B.attn_apply(cfg, shared["attn"], xin, ctx)
+    raise ValueError(k)
 
 
-def apply_layer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx):
+def apply_layer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx, shared=None):
     """Residual block, pre-norm (with ``post_norm``, each sub-block's
-    output normed again before the residual add).  Returns ``(x,
-    new_cache, aux)``: ``aux`` sums the load-balance losses the block
-    appended to ``ctx``."""
+    output normed again before the residual add); ``ffn == "none"`` has
+    no FFN sub-block.  A ``shared_attn`` layer runs ``shared``'s
+    attention and FFN (``params["shared"]``; no ``ln1`` of its own, no
+    post-norm).  Returns
+    ``(x, new_cache, aux)``: ``aux`` sums the load-balance losses the
+    block appended to ``ctx``."""
     post = cfg.post_norm
-    h = rms_norm(x, p["ln1"], eps=cfg.norm_eps, plus_one=post)
-    y, new_cache = _apply_mixer(cfg, bd, p, h, ctx)
-    if post:
-        y = rms_norm(y, p["ln1p"], eps=cfg.norm_eps, plus_one=True)
-    x = x + y
-    h = rms_norm(x, p["ln2"], eps=cfg.norm_eps, plus_one=post)
-    if bd.ffn == "moe":
-        y = B.moe_apply(cfg, p["ffn"], h, ctx)
+    shared_mix = bd.mixer == "shared_attn"
+    if shared_mix:
+        y, new_cache = _apply_mixer(cfg, bd, p, x, ctx, shared)
     else:
-        y = B.ffn_apply(cfg, p["ffn"], h, bd.ffn)
-    if post:
-        y = rms_norm(y, p["ln2p"], eps=cfg.norm_eps, plus_one=True)
+        h = rms_norm(x, p["ln1"], eps=cfg.norm_eps, plus_one=post)
+        y, new_cache = _apply_mixer(cfg, bd, p, h, ctx, shared)
+        if post:
+            y = rms_norm(y, p["ln1p"], eps=cfg.norm_eps, plus_one=True)
+    x = x + y
+    if bd.ffn != "none":
+        fp = shared["ffn"] if shared_mix else p["ffn"]
+        fln = shared["ln2"] if shared_mix else p["ln2"]
+        h = rms_norm(x, fln, eps=cfg.norm_eps, plus_one=post)
+        if bd.ffn == "moe":
+            y = B.moe_apply(cfg, fp, h, ctx)
+        else:
+            y = B.ffn_apply(cfg, fp, h, bd.ffn)
+        if post and not shared_mix:
+            y = rms_norm(y, p["ln2p"], eps=cfg.norm_eps, plus_one=True)
+        x = x + y
     aux = sum(ctx.aux_losses, x.new_zeros((), dtype=torch.float32))
-    return x + y, new_cache, aux
+    return x, new_cache, aux
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens):
@@ -144,10 +211,13 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
     """The decoder stack in any mode: (hidden (B, S, E), new cache, aux).
 
     Train mode returns no cache; prefill stacks each block's cache over
-    the repeats; decode writes the new token's entries into ``cache`` in
-    place (through per-layer views) and returns it.  ``aux`` () f32 sums
-    the layers' MoE load-balance losses in layer order (0 without MoE)."""
+    the repeats; decode writes the new token's entries and the new
+    recurrent states into ``cache`` in place (through per-layer views)
+    and returns it.  ``aux`` () f32 sums the layers' MoE load-balance
+    losses in layer order (0 without MoE)."""
     x = _embed_tokens(cfg, params, tokens)
+    emb0 = x if _shared_block(cfg) is not None else None
+    shared = params.get("shared")
     Bsz, S = tokens.shape
     if mode == "decode":
         last = torch.as_tensor(cache_len, device=tokens.device).reshape(-1) - 1
@@ -164,23 +234,30 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
         groups.append((treedef, [leaf.unbind(0) for leaf in leaves]))
     group_caches = [[] for _ in groups]
     aux = x.new_zeros((), dtype=torch.float32)
+
+    def one(bd, lp, x, lc):
+        x, nc, a = apply_layer(cfg, bd, lp, x,
+                               B.Ctx(mode=mode, positions=positions, cache=lc,
+                                     cache_len=cache_len, emb0=emb0), shared)
+        if mode == "decode":
+            # the cache contract: the caller's cache holds the new state
+            for k, v in nc.items():
+                if v is not lc[k]:
+                    lc[k].copy_(v)
+        return x, nc, a
+
     for g in range(n_groups):
         for i, (treedef, per_layer) in enumerate(groups):
             lp = tree_unflatten(treedef, [p[g] for p in per_layer])
             lc = (None if cache is None else
                   {k: v[g] for k, v in cache["layers"][i].items()})
-            x, nc, a = apply_layer(cfg, cfg.blocks[i], lp, x,
-                                   B.Ctx(mode=mode, positions=positions,
-                                         cache=lc, cache_len=cache_len))
+            x, nc, a = one(cfg.blocks[i], lp, x, lc)
             aux = aux + a
             group_caches[i].append(nc)
     rem_caches = []
     for i in range(rem):
         lc = None if cache is None else cache["rem"][i]
-        x, nc, a = apply_layer(cfg, cfg.block_at(n_groups * period + i),
-                               params["rem"][i], x,
-                               B.Ctx(mode=mode, positions=positions, cache=lc,
-                                     cache_len=cache_len))
+        x, nc, a = one(cfg.block_at(n_groups * period + i), params["rem"][i], x, lc)
         aux = aux + a
         rem_caches.append(nc)
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps,
@@ -222,7 +299,7 @@ def chunked_xent(cfg: ModelConfig, params, hidden, labels, *, block: int = 512):
     for s0 in range(0, S, blk):
         h = hidden[:, s0:s0 + blk]
         y = labels[:, s0:s0 + blk]
-        lg = _softcap_logits(cfg, (h @ head).float())
+        lg = _softcap_logits(cfg, f32up(h @ head))
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, y.clamp_min(0)[..., None])[..., 0]
         valid = y >= 0
@@ -252,10 +329,17 @@ def _is_axes(x) -> bool:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, axes: bool = False, device=None):
     """Zero cache, one per block's mixer (``axes=True``: the logical-axes
-    tree instead)."""
+    tree instead).  A ``shared_attn`` layer gets an attention cache of its
+    own: each invocation of the shared block attends over its own keys."""
     period, n_groups, rem = _schedule_groups(cfg)
+    recurrent = {"mamba2": (M2.mamba2_cache_axes, M2.mamba2_init_cache),
+                 "mlstm": (XL.mlstm_cache_axes, XL.mlstm_init_cache),
+                 "slstm": (XL.slstm_cache_axes, XL.slstm_init_cache)}
 
     def one(bd):
+        if bd.mixer in recurrent:
+            ax, mk = recurrent[bd.mixer]
+            return ax() if axes else mk(cfg, batch, max_len, dtype, device=device)
         # a sliding layer keeps a full-length cache, masked by position
         if bd.mixer == "mla":
             return (B.mla_cache_axes() if axes else
@@ -281,12 +365,16 @@ def cache_axes_tree(cfg: ModelConfig):
 
 def grow_cache(cfg: ModelConfig, cache, max_len: int):
     """Zero-extend every cache leaf along its ``kv_seq`` axis to
-    ``max_len`` (dtype kept)."""
+    ``max_len`` (dtype kept); recurrent leaves (no ``kv_seq`` axis) pass
+    through."""
     leaves, treedef = tree_flatten(cache)
     axes = tree_flatten(cache_axes_tree(cfg), is_leaf=_is_axes)[0]
     assert len(leaves) == len(axes), (len(leaves), len(axes))
     grown = []
     for leaf, ax in zip(leaves, axes):
+        if "kv_seq" not in ax:
+            grown.append(leaf)
+            continue
         si = ax.index("kv_seq")
         if leaf.shape[si] >= max_len:
             grown.append(leaf)
@@ -315,8 +403,10 @@ def prefill(cfg: ModelConfig, params, tokens, *, max_len=None, lengths=None):
     ``lengths`` ((B,) int): true prompt lengths of right-padded
     ``tokens`` — the logits are read at ``lengths - 1``; causal attention
     keeps the positions before it independent of the padding, so a padded
-    prefill reads what an exact-length prefill reads.  ``max_len`` grows
-    the cache to that length (:func:`grow_cache`).
+    prefill reads what an exact-length prefill reads.  A recurrent
+    block's final state has run over the padding, as in the reference:
+    its cache is an exact-length prefill's only when no row is padded.
+    ``max_len`` grows the cache to that length (:func:`grow_cache`).
     """
     Bsz, S = tokens.shape
     hidden, cache, _ = _decoder(cfg, params, tokens, mode="prefill")

@@ -82,7 +82,9 @@ def _is_axes(x):
 def build_page_layout(cfg, *, page_size: int, max_len: int, num_pages: int,
                       dtype=torch.float32) -> PageLayout:
     """Derive the page layout from the model's cache structure (every
-    cache leaf carries a ``batch`` and a ``kv_seq`` axis)."""
+    cache leaf carries a ``batch`` and a ``kv_seq`` axis; a recurrent
+    model's fixed-size states have none, and raise: they serve from the
+    contiguous path, ``launch.steps.build_serve``)."""
     from repro_torch.models import lm
 
     flat_axes = tree_leaves(lm.cache_axes_tree(cfg), is_leaf=_is_axes)
@@ -94,7 +96,9 @@ def build_page_layout(cfg, *, page_size: int, max_len: int, num_pages: int,
         if "batch" not in ax or "kv_seq" not in ax:
             raise ValueError(
                 f"paged KV cache needs (batch, kv_seq) axes on every cache "
-                f"leaf; got {ax} for shape {tuple(sd.shape)}")
+                f"leaf; got {ax} for shape {tuple(sd.shape)} — recurrent "
+                f"caches (mamba2/xLSTM) serve from the contiguous path "
+                f"(launch.steps.build_serve)")
         keep = [i for i, a in enumerate(ax) if a not in ("batch", "kv_seq")]
         per_token.append(ShapeDtype(tuple(sd.shape[i] for i in keep), dtype))
     token_layout = flatbuf.build_layout(tree_unflatten(treedef, per_token))

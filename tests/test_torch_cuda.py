@@ -965,3 +965,84 @@ def test_gemma3_forward_and_decode_on_card_match_cpu(cuda):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
     for a, b in zip(rg, rc):
         assert float(((a.double() - b.double()).abs() / (1 + b.double().abs())).max()) <= 1e-4
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-7b"])
+def test_recurrent_forward_grads_and_decode_on_card_match_cpu(cuda, arch):
+    """The recurrent smoke models (mLSTM + sLSTM; mamba2 + the shared
+    attention block, invoked twice) on the card and on the CPU from the
+    same weights: the loss of a (2, 64) batch within 1e-4 relative and
+    every gradient within 1e-4 x its leaf's largest entry (zamba2's
+    unused shared-layer leaves get none on either device); then on the
+    card, prefill of a 12-token prompt and 4 decode steps held against
+    the train-mode forward over the same tokens within 2e-4 x (1 +
+    |logit|), the reference's decode tolerance, and the card's decode
+    logits against the CPU's within 1e-4 x (1 + |logit|)."""
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+
+    cfg = configs.get_smoke(arch)
+    p0 = mbase.materialize(lm.param_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g)
+    seq = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True), p0)
+        loss, _ = lm.loss_fn(cfg, params, {"tokens": toks[:, :-1].to(dev),
+                                           "labels": toks[:, 1:].to(dev)})
+        grads = [None if x is None else x.cpu() for x in torch.autograd.grad(
+            loss, tree_leaves(params), allow_unused=True)]
+        with torch.no_grad():
+            params = tree_map(lambda t: t.detach(), params)
+            full = lm.logits_from_hidden(cfg, params, lm.forward(cfg, params, seq.to(dev)))
+            lg, cache = lm.prefill(cfg, params, seq[:, :12].to(dev), max_len=16)
+            rows, want = [lg[:, -1]], [full[:, 11]]
+            for i in range(12, 16):
+                lg, cache = lm.decode_step(cfg, params, seq[:, i:i + 1].to(dev), cache,
+                                           i + 1)
+                rows.append(lg[:, -1])
+                if i < 15:
+                    want.append(full[:, i])
+        rel = lambda a, b: float(((a.double() - b.double()).abs()
+                                  / (1 + b.double().abs())).max())
+        assert max(rel(a, b) for a, b in zip(rows, want)) <= 2e-4, dev
+        out[dev] = (float(loss.detach()), grads, [r.cpu() for r in rows])
+    (lc, gc, rc), (lg_, gg, rg) = out["cpu"], out[cuda]
+    assert abs(lg_ - lc) <= 1e-4 * abs(lc)
+    assert [a is None for a in gg] == [b is None for b in gc]
+    assert sum(a is None for a in gg) == (5 if arch == "zamba2-7b" else 0)
+    for a, b in zip(gg, gc, strict=True):
+        if a is not None:
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for a, b in zip(rg, rc):
+        assert float(((a.double() - b.double()).abs() / (1 + b.double().abs())).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ef_memory_is_float32_on_card(cuda):
+    """A bf16 bucket's EF memory is float32 on the card from ``init`` on,
+    and one EF-sign sync of a mixed f32 + bf16 tree on the card gives the
+    CPU's memory within 1e-6 x its largest entry."""
+    from repro_torch.core import flatbuf
+    from repro_torch.core import local_sgd as tsgd
+
+    mixed = {"a": ((3, 200), torch.float32), "b": ((5, 7), torch.bfloat16),
+             "c": ((130,), torch.float32), "d": ((40,), torch.bfloat16)}
+    run = RunConfig(model=configs.get_smoke("paper-lm"),
+                    local_sgd=LocalSGDConfig(sync_compression="ef_sign"))
+    init, _, sync = tsgd.make_local_sgd(run, lambda p, b: None, num_workers=4)
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for dev in ("cpu", cuda):
+        st = init({k: torch.zeros(s, dtype=d, device=dev) for k, (s, d) in mixed.items()})
+        assert [b.dtype for b in st.ef_memory.buckets] == [torch.float32] * 2
+        g.manual_seed(0)
+        for b, x in enumerate(st.params.buckets):
+            x.copy_(flatbuf.mask_padding(st.params.layout, b, torch.randn(
+                x.shape, generator=g)).to(dev))
+        st = sync(st)
+        assert [b.dtype for b in st.ef_memory.buckets] == [torch.float32] * 2
+        out[dev] = [b.cpu() for b in st.ef_memory.buckets]
+    for a, b in zip(out[cuda], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())

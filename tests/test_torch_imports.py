@@ -50,8 +50,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for mod in ("controller", "noise", "syncplan", "local_sgd"):
         assert f"src/repro_torch/core/{mod}.py" in names, mod
     for mod in ("olmoe_1b_7b", "deepseek_v2_lite", "paper_lm", "qwen3_32b",
-                "phi4_mini", "minitron_4b", "gemma3_1b"):
+                "phi4_mini", "minitron_4b", "gemma3_1b", "xlstm_1_3b", "zamba2_7b"):
         assert f"src/repro_torch/configs/{mod}.py" in names, mod
+    for mod in ("lm", "blocks", "layers", "mamba2", "xlstm"):
+        assert f"src/repro_torch/models/{mod}.py" in names, mod
     for mod in ("common", "paper_tables", "bench_convex", "run"):
         assert f"src/repro_torch/benchmarks/{mod}.py" in names, mod
     assert "src/repro_torch/telemetry/metrics.py" in names
@@ -102,7 +104,7 @@ def test_registered_archs_import_without_jax():
             "sys.meta_path.insert(0, Block())\n"
             "from repro_torch import configs\n"
             "from repro_torch.models import lm\n"
-            "assert len(configs.ARCHS) == 6, configs.ARCHS\n"
+            "assert len(configs.ARCHS) == 8, configs.ARCHS\n"
             "for a in ('paper-lm',) + configs.ARCHS:\n"
             "    lm.param_specs(configs.get(a)); lm.param_specs(configs.get_smoke(a))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"

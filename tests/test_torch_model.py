@@ -135,15 +135,22 @@ def test_materialize_follows_the_init_law():
 
 
 def test_unported_model_families_raise():
-    """What waits for a later slice raises, naming that slice (the
-    recurrent families, whisper's encoder, internvl2's prefix tokens);
-    an untied head (olmoe, deepseek, the dense variants) is ported."""
+    """What waits for a later slice raises, naming that slice (whisper's
+    encoder, internvl2's prefix tokens); an untied head (olmoe, deepseek,
+    the dense variants) and the recurrent blocks (mamba2, mLSTM, with or
+    without an FFN) are ported and build."""
+    from repro_torch.configs import base as tcb
     from repro_torch.configs.base import BlockDef
     cfg = tconfigs.get_smoke("paper-lm")
     assert "head" in tlm.param_specs(cfg.replace(tie_embeddings=False))
+    ssm = tcb.SSMConfig(state_dim=16, head_dim=32, chunk=16)
+    for blocks, mixer in (((BlockDef("mamba2", "none"),), "wxbc"),
+                          ((BlockDef("mlstm", "swiglu"),), "w_up")):
+        specs = tlm.param_specs(cfg.replace(blocks=blocks, ssm=ssm))
+        layer = specs["layers"][0]
+        assert mixer in layer["mix"]
+        assert ("ffn" in layer) == (blocks[0].ffn != "none")
     for kw, slice_ in (
-            (dict(blocks=(BlockDef("mamba2", "none"),)), "recurrent"),
-            (dict(blocks=(BlockDef("mlstm", "swiglu"),)), "recurrent"),
             (dict(encoder_layers=2, cross_attention=True), "whisper"),
             (dict(num_prefix_tokens=16), "internvl2")):
         with pytest.raises(NotImplementedError, match=slice_):

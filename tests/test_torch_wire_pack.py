@@ -237,10 +237,13 @@ def test_coalesced_stage_sync_matches_reference():
 
     ts = fresh()
     js = jinit(jax.random.PRNGKey(0), jtree)
-    # copies: the port's sync updates its buffers in place
+    # copies: the port's sync updates its buffers in place.  The port's EF
+    # memory is float32 in every bucket: the reference gets it as float32,
+    # the dtype its own first EF-sign sync gives it
     js = dataclasses.replace(js, **{
         f: getattr(js, f).with_buckets(tuple(
-            jnp.asarray(np.array(x.float().numpy(), copy=True)).astype(y.dtype)
+            jnp.asarray(np.array(x.float().numpy(), copy=True)).astype(
+                jnp.float32 if x.dtype == torch.float32 else y.dtype)
             for x, y in zip(getattr(ts, f).buckets, getattr(js, f).buckets)))
         for f in ("params", "anchor", "ef_memory")})
     tl, jl = ts.params.layout, js.params.layout
@@ -260,11 +263,8 @@ def test_coalesced_stage_sync_matches_reference():
     js = jsync(js, plan=jplan, scope="global")
     for f in ("params", "anchor", "ef_memory"):
         for a, b in zip(getattr(out, f).buckets, getattr(js, f).buckets, strict=True):
-            # the port keeps a bf16 bucket's EF memory in bf16, where the
-            # reference's first sync promotes it to f32: one bf16 rounding
-            rtol = 2 ** -8 if a.dtype != b.dtype else 1e-6
             b = np.asarray(b, np.float32)
-            np.testing.assert_allclose(a.float().numpy(), b, rtol=rtol,
+            np.testing.assert_allclose(a.float().numpy(), b, rtol=1e-6,
                                        atol=1e-6 * float(np.abs(b).max()), err_msg=f)
     for fld in ("pre_sync_sq", "post_sync_sq", "comp_err_sq", "comp_ref_sq"):
         np.testing.assert_allclose(getattr(out.stats, fld).numpy(),
@@ -280,6 +280,68 @@ def test_coalesced_stage_sync_matches_reference():
     for f in ("params", "anchor", "ef_memory"):
         for a, b in zip(getattr(out2, f).buckets, getattr(out, f).buckets):
             assert torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("wire_pack", [False, True])
+def test_ef_memory_stays_float32_over_two_syncs(wire_pack):
+    """Two EF-sign syncs on the mixed f32 + bf16 tree from both packages'
+    ``init`` (zero EF memory; random params and anchor, the same bf16
+    values in both): the port's EF memory is float32 in every bucket
+    from ``init`` on, and after each sync it equals the reference's (whose
+    first sync turns its bf16 memory into the f32 residual) within 1e-6
+    x the largest entry.  Between the syncs both packages get the same
+    new params, and the port the reference's anchor, so both compress
+    the same deltas; each carries its own EF memory."""
+    run = lambda cb: cb.RunConfig(
+        model=tconfigs.get_smoke("paper-lm") if cb is tcb else jconfigs.get_smoke("paper-lm"),
+        local_sgd=cb.LocalSGDConfig(sync_compression="ef_sign",
+                                    wire_pack=wire_pack))
+    ttree = {k: torch.zeros(s, dtype=getattr(torch, d)) for k, (s, d) in MIXED.items()}
+    jtree = {k: jnp.zeros(s, jnp.dtype(d)) for k, (s, d) in MIXED.items()}
+    tinit, _, tsync = tsgd.make_local_sgd(run(tcb), lambda p, b: None, num_workers=W)
+    jinit, _, jsync = jsgd.make_local_sgd(run(jcb), lambda p, b: None, num_workers=W,
+                                          use_kernel=True)
+    ts, js = tinit(ttree), jinit(jax.random.PRNGKey(0), jtree)
+    tl = ts.params.layout
+    assert [str(b.dtype) for b in js.ef_memory.buckets] == ["float32", "bfloat16"]
+    assert all(b.dtype == torch.float32 and not b.any() for b in ts.ef_memory.buckets)
+    gen = np.random.default_rng(6)
+
+    def put(fields):
+        """The same random values (rounded to each bucket's dtype) into
+        the port's and the reference's ``fields``."""
+        out = {}
+        for f in fields:
+            tb = []
+            for b, x in enumerate(getattr(ts, f).buckets):
+                x.copy_(tflat.mask_padding(tl, b, torch.from_numpy(
+                    gen.normal(size=x.shape).astype(np.float32))))
+                # a copy: the port's sync updates its buffers in place
+                tb.append(jnp.asarray(np.array(x.float().numpy(), copy=True))
+                          .astype(getattr(js, f).buckets[b].dtype))
+            out[f] = getattr(js, f).with_buckets(tuple(tb))
+        return dataclasses.replace(js, **out)
+
+    js = put(("params", "anchor"))
+    for rnd in range(2):
+        ts = tsync(ts, plan=tsp.make_sync_plan(tl, num_workers=W, compression="ef_sign",
+                                               anchored=True, wire_pack=wire_pack))
+        js = jsync(js, plan=jsp.make_sync_plan(js.params.layout, num_workers=W,
+                                               compression="ef_sign", anchored=True,
+                                               wire_pack=wire_pack), scope="global")
+        assert all(b.dtype == torch.float32 for b in ts.ef_memory.buckets)
+        assert [str(b.dtype) for b in js.ef_memory.buckets] == ["float32"] * 2
+        for a, b in zip(ts.ef_memory.buckets, js.ef_memory.buckets, strict=True):
+            b = np.asarray(b)
+            assert np.abs(b).max() > 0
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-6,
+                                       atol=1e-6 * float(np.abs(b).max()),
+                                       err_msg=f"sync {rnd}")
+        if rnd == 0:
+            # new local params for both, and the reference's anchor in the port
+            js = put(("params",))
+            for x, y in zip(ts.anchor.buckets, js.anchor.buckets):
+                x.copy_(torch.from_numpy(np.asarray(y, np.float32)).to(x.dtype))
 
 
 def _run(cb, cfg, mode, telemetry):
@@ -407,3 +469,52 @@ def test_wire_pack_trajectory_matches_reference(mode):
             b = np.asarray(b)
             frac = float(np.mean(np.abs(a.numpy() - b) > 1e-4 * np.abs(b).max()))
             assert frac <= 1e-4, (f, frac, flips)
+
+
+@pytest.mark.parametrize("synced", [False, True])
+def test_reference_ef_memory_restores_as_float32(synced, tmp_path):
+    """A reference EF-sign state of the mixed tree, taken before its first
+    sync (bf16 EF memory in the bf16 bucket) or after it (f32), reaches
+    the port with float32 EF memory of the same values, through
+    ``state_from_reference`` and through a reference ``save_flat`` file
+    restored by ``restore_flat``; an elastic resize keeps it float32."""
+    from repro.checkpoint.checkpoint import save_flat as jsave_flat
+    from repro_torch.checkpoint.checkpoint import restore_flat
+    from repro_torch.convert import state_from_reference
+    from repro_torch.core.elastic import resize_state
+
+    run = lambda cb: cb.RunConfig(
+        model=tconfigs.get_smoke("paper-lm") if cb is tcb else jconfigs.get_smoke("paper-lm"),
+        local_sgd=cb.LocalSGDConfig(sync_compression="ef_sign"))
+    ttree = {k: torch.zeros(s, dtype=getattr(torch, d)) for k, (s, d) in MIXED.items()}
+    jtree = {k: jnp.zeros(s, jnp.dtype(d)) for k, (s, d) in MIXED.items()}
+    tinit = tsgd.make_local_sgd(run(tcb), lambda p, b: None, num_workers=W)[0]
+    jinit, _, jsync = jsgd.make_local_sgd(run(jcb), lambda p, b: None, num_workers=W,
+                                          use_kernel=True)
+    js = jinit(jax.random.PRNGKey(0), jtree)
+    gen = np.random.default_rng(7)
+    js = dataclasses.replace(js, params=js.params.with_buckets(tuple(
+        jnp.asarray(gen.normal(size=b.shape)).astype(b.dtype) for b in js.params.buckets)))
+    if synced:
+        js = jsync(js, plan=jsp.make_sync_plan(js.params.layout, num_workers=W,
+                                               compression="ef_sign", anchored=True),
+                   scope="global")
+    want = [np.asarray(b, np.float32) for b in js.ef_memory.buckets]
+    assert [str(b.dtype) for b in js.ef_memory.buckets] == \
+        ["float32", "float32" if synced else "bfloat16"]
+    assert (max(np.abs(w).max() for w in want) > 0) == synced
+    template = tinit(ttree)
+    path = str(tmp_path / "ref")
+    jsave_flat(path, js, step=int(js.step))
+    for got in (state_from_reference(jax.tree.map(np.asarray, js),
+                                     layout=template.params.layout, device="cpu"),
+                restore_flat(path, template)):
+        assert [b.dtype for b in got.ef_memory.buckets] == [torch.float32] * 2
+        for a, b in zip(got.ef_memory.buckets, want, strict=True):
+            assert np.array_equal(a.numpy(), b)
+        for a, b, t in zip(got.params.buckets, js.params.buckets,
+                           template.params.buckets, strict=True):
+            assert a.dtype == t.dtype
+            assert np.array_equal(a.float().numpy(), np.asarray(b, np.float32))
+        small = resize_state(got, 2)
+        assert [b.dtype for b in small.ef_memory.buckets] == [torch.float32] * 2
