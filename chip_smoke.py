@@ -165,6 +165,28 @@ Phases:
            against the train-mode forward over the same tokens within
            2e-4 x (1 + |logit|); ``build_engine`` refuses both (the paged
            pool needs a kv_seq axis on every cache leaf).
+  X        the encoder-decoder and prefix-token families at their
+           published widths (``X_RUNS``), phase A's settings, 8 steps:
+           X1 whisper-small, all 12 + 12 layers, 8 examples of 1,500
+           frames (the stubbed conv frontend's output) + 448 decoder
+           tokens a worker, EF-sign, W=4; X2 internvl2-76b, 256 stubbed
+           patch embeddings + 256 text tokens x 8, mean sync, W=1 (W=2
+           does not fit the card at any depth), its depth the deepest
+           whose reckoning stays under 72 GB (``x_depth``: 2 of 80).  The
+           reckoning printed first; losses finite and falling, comm rounds
+           equal to the schedule's, median step, tokens/s, peak memory,
+           launches; kernels 1-4 against their plain versions on the
+           trained buckets (X2's is 3.88 G elements); one step under
+           torch.profiler split by part (the ``encoder``,
+           ``cross_attention`` and ``prefix_projection`` spans); the
+           worker-mean model on the card against the port on the CPU on
+           one example (loss 1e-4 relative, logits 1e-4 x (1 + |logit|));
+           8 prompts (with their frames / prefix) served through
+           ``build_serve``, 32 greedy decode steps timed and held against
+           the train-mode forward within 2e-4 x (1 + |logit|); whisper
+           refused by ``build_engine`` (it feeds no frames), internvl2
+           served text-only on the paged engine (16 requests), held
+           against the contiguous path on the engine's own batches.
   T        the per-tensor kernel API at full width: paper-lm's parameter
            tree (W=1) on the card; one SGD step with ops.fused_sgd on every
            leaf against the same step by the bucket kernel on the flat bus;
@@ -205,8 +227,9 @@ Phases:
            reused across the changes), and the elastic trainer with phase
            E's resizes and straggler together: the same resize and
            demotion decisions, losses within 1e-4; the two MoE smoke
-           configs (phase M's sync modes and widths) and the two
-           recurrent ones (phase Z's): one local step and a sync, loss
+           configs (phase M's sync modes and widths), the two
+           recurrent ones (phase Z's) and whisper / internvl2 (phase X's,
+           with 64 frames / 8 prefix embeddings): one local step and a sync, loss
            and params within the tolerances above (the recurrent ones'
            params counted over the elements whose EF-sign input has the
            same sign on both devices), decode logits within 1e-4 x (1 +
@@ -766,12 +789,13 @@ def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
 
 
 def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None,
-              tracer=None, manifest_path=None, workers=W, bundle=None):
+              tracer=None, manifest_path=None, workers=W, bundle=None, data=None):
     """fit() on markov_lm data at ``workers`` workers (through ``bundle``
-    when given, else a fresh ``build_train``); returns (state, history,
-    summary, step_s): host seconds per step, each from one local step's
-    start to the next's (a device synchronize before each), the sync
-    included on sync steps."""
+    when given, else a fresh ``build_train``), or on ``data`` (a dict of
+    example arrays) when given; returns (state, history, summary,
+    step_s): host seconds per step, each from one local step's start to
+    the next's (a device synchronize before each), the sync included on
+    sync steps."""
     import torch
     from repro_torch.data.partition import ShardedBatches
     from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -780,8 +804,9 @@ def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None,
 
     S = run.shape.seq_len
     B = run.shape.global_batch // workers
-    data = lm_examples(markov_lm(vocab=run.model.vocab_size,
-                                 num_seqs=workers * B * 4, seq_len=S, seed=seed))
+    if data is None:
+        data = lm_examples(markov_lm(vocab=run.model.vocab_size,
+                                     num_seqs=workers * B * 4, seq_len=S, seed=seed))
     if bundle is None:
         bundle = build_train(run, num_workers=workers, device=device)
     step_s = []
@@ -2144,8 +2169,35 @@ def slstm_igate_mask(cfg, layout, params):
     return mask.view(-1, LANE)
 
 
+def family_inputs(cfg, n: int, frames: int, seed: int) -> dict:
+    """The float inputs of ``n`` examples of ``cfg``'s family (numpy
+    float32, standard normal from ``seed``): whisper's ``frames`` (n,
+    ``frames``, E), the stub of its conv frontend's output; internvl2's
+    ``prefix_embed`` (n, Np, E), the stub of its ViT patch embeddings;
+    none for a decoder-only family."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal((n, frames, cfg.d_model),
+                                              dtype=np.float32)}
+    if cfg.num_prefix_tokens:
+        return {"prefix_embed": rng.standard_normal(
+            (n, cfg.num_prefix_tokens, cfg.d_model), dtype=np.float32)}
+    return {}
+
+
+def model_kw(extra: dict, device) -> dict:
+    """``lm``'s keyword arguments for a batch's float inputs, on
+    ``device`` (a batch's ``frames`` are the model's ``enc_frames``)."""
+    import torch
+    return {("enc_frames" if k == "frames" else k): torch.as_tensor(v).to(device)
+            for k, v in extra.items()}
+
+
 def phase_c_smoke(runs):
-    """Phase C for the decoders of ``runs`` (M_RUNS, Z_RUNS) at smoke size,
+    """Phase C for the models of ``runs`` (M_RUNS, Z_RUNS, X_RUNS) at smoke
+    size (whisper's batches and prompts with 64 frames, internvl2's with
+    its 8 prefix embeddings),
     the card against the CPU from the same weights (the runs' sync modes
     and worker counts): one local step and one global sync, loss and
     params within phase C's tolerances (loss 1e-4 relative; all but 1e-4
@@ -2174,12 +2226,15 @@ def phase_c_smoke(runs):
                         workers=workers)
         p0 = mbase.materialize(lm.param_specs(smoke),
                                torch.Generator().manual_seed(0), "cpu")
-        batch = next(iter(ShardedBatches(lm_examples(markov_lm(
-            vocab=smoke.vocab_size, num_seqs=workers * 2, seq_len=64)),
-            workers, 2)))
+        data = lm_examples(markov_lm(vocab=smoke.vocab_size,
+                                     num_seqs=workers * 2, seq_len=64))
+        data.update(family_inputs(smoke, workers * 2, 64, seed=1))
+        batch = next(iter(ShardedBatches(data, workers, 2)))
         rng = np.random.default_rng(1)
         prompt = torch.from_numpy(rng.integers(0, smoke.vocab_size, (2, 12)))
         forced = torch.from_numpy(rng.integers(0, smoke.vocab_size, (2, 4)))
+        extra = family_inputs(smoke, 2, 64, seed=2)
+        Np = smoke.num_prefix_tokens if "prefix_embed" in extra else 0
         out = {}
         for dev in ("cuda", "cpu"):
             tb = build_train(run, num_workers=workers, device=dev)
@@ -2192,12 +2247,13 @@ def phase_c_smoke(runs):
             st = tb.sync(st, plan=tb.sync_plan)
             params = mean_params(st)
             with torch.no_grad():
-                lg, cache = lm.prefill(smoke, params, prompt.to(dev), max_len=16)
+                lg, cache = lm.prefill(smoke, params, prompt.to(dev),
+                                       max_len=Np + 16, **model_kw(extra, dev))
                 rows = [lg[:, -1].cpu()]
                 for i in range(forced.shape[1]):
                     lg, cache = lm.decode_step(smoke, params,
                                                forced[:, i:i + 1].to(dev),
-                                               cache, prompt.shape[1] + 1 + i)
+                                               cache, Np + prompt.shape[1] + 1 + i)
                     rows.append(lg[:, -1].cpu())
             out[dev] = (float(m["loss"]), float(m["aux"]),
                         st.params.buckets[0].cpu(), rows, inp)
@@ -2520,10 +2576,14 @@ def shadowed_engine(cfg, shape, params, **kw):
 # the profiler spans of the port's models, each with the part it books to:
 # the training attention (layers.causal_attention), blocks.moe_apply's
 # routing + dispatch and its combine, the mLSTM chunk loop, the sLSTM cell
-# loop and mamba2's Q x Q decay product
+# loop, mamba2's Q x Q decay product, whisper's encoder (lm._encode: the
+# frontend, positions and every encoder layer) and cross-attention
+# (blocks.cross_attn_apply), and internvl2's prefix projection
 M_SPANS = {"attention": "attention", "moe.dispatch": "moe_dispatch",
            "moe.combine": "moe_dispatch", "mlstm.chunks": "mlstm_chunks",
-           "slstm.cells": "slstm_cells", "mamba2.decay": "mamba2_decay"}
+           "slstm.cells": "slstm_cells", "mamba2.decay": "mamba2_decay",
+           "encoder": "encoder", "cross_attention": "cross_attention",
+           "prefix_projection": "prefix_projection"}
 # index ops outside the spans: the embedding lookup and its accumulating
 # scatter, chunked_xent's label gather and its backward
 M_INDEX_OPS = ("aten::index", "aten::index_put_", "aten::_index_put_impl_",
@@ -2608,7 +2668,8 @@ def m_profile_step(bundle, state, batch, cfg) -> dict:
 
     parts = {p: 0.0 for p in (
         "expert_bmm", "moe_dispatch", "attention", "mlstm_chunks",
-        "slstm_cells", "mamba2_decay", "head_mm", "other_mm",
+        "slstm_cells", "mamba2_decay", "encoder", "cross_attention",
+        "prefix_projection", "head_mm", "other_mm",
         "embed_xent_index", "bucket_kernels", "other")}
     # kernels, copies and fills (not the spans' device-side ranges)
     busy = 0.0
@@ -2630,6 +2691,66 @@ def m_profile_step(bundle, state, batch, cfg) -> dict:
             "unattributed_ms": busy - sum(parts.values())}, state
 
 
+def engine_check(cfg, params):
+    """M_REQUESTS markov-corpus requests on the paged engine (M_SLOTS
+    slots, max_len M_MAX_LEN, pages of M_PAGE, prefill M_PREFILL): timed,
+    then again on ``shadowed_engine`` beside the contiguous path on the
+    engine's own batches.  Returns (record, ok, (reqs, suids, shadow,
+    check)): ``ok`` when every request completes, the logits hold within
+    M_TOL x (1 + |logit|), the null page stays zero and every page comes
+    back."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import markov_lm
+    from repro_torch.launch.steps import build_engine
+    from repro_torch.telemetry.trace import Tracer
+
+    shape = InputShape("serve", M_MAX_LEN, M_SLOTS, "decode")
+    rng = np.random.default_rng(7)
+    corpus = markov_lm(vocab=cfg.vocab_size, num_seqs=M_REQUESTS,
+                       seq_len=M_PROMPT[1], seed=3)
+    reqs = [(corpus[i, :int(rng.integers(M_PROMPT[0], M_PROMPT[1] + 1))].tolist(),
+             int(rng.integers(M_NEW[0], M_NEW[1] + 1))) for i in range(M_REQUESTS)]
+    tracer = Tracer()
+    eng = build_engine(cfg, shape, params, page_size=M_PAGE,
+                       prefill_len=M_PREFILL, tracer=tracer)
+    uids = [eng.submit(p, max_new=n) for p, n in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = {r.uid: r.tokens for r in eng.run()}
+    wall = time.perf_counter() - t0
+    spans = lambda name: [sp.dur_s for sp in tracer.spans if sp.name == name]
+    desc = eng.describe()
+    del eng
+    sh, check = shadowed_engine(cfg, shape, params, page_size=M_PAGE,
+                                prefill_len=M_PREFILL)
+    suids = [sh.submit(p, max_new=n) for p, n in reqs]
+    shadow = {r.uid: r for r in sh.run()}
+    null_zero = not any(bool(pool[0].any()) for pool in sh.pools)
+    pages_back = len(sh.free_pages) == sh.pl.num_pages - 1
+    same_tokens = all(shadow[b].tokens == timed[a] for a, b in zip(uids, suids))
+    del sh
+    rec = {
+        "requests": M_REQUESTS, "completed": len(shadow), "slots": M_SLOTS,
+        "max_len": M_MAX_LEN, "page_size": M_PAGE, "prefill_len": M_PREFILL,
+        "prompt": list(M_PROMPT), "new_tokens": list(M_NEW),
+        "tokens_out": desc["tokens_out"], "wall_s": wall,
+        "tokens_per_s": desc["tokens_out"] / wall,
+        "decode_steps": len(spans("decode")),
+        "decode_step_ms_median": 1e3 * statistics.median(spans("decode")),
+        "prefill_ms_median": 1e3 * statistics.median(spans("prefill")),
+        "pool_bytes": desc["pool_bytes"],
+        "logits_vs_contiguous_max_rel_err": check["worst"],
+        "logit_rows_compared": check["rows"], "logits_tol": M_TOL,
+        "tokens_equal_timed_run": same_tokens,
+        "null_page_zero": null_zero, "free_pages_full": pages_back}
+    ok = (len(shadow) == M_REQUESTS and set(shadow) == set(suids)
+          and check["worst"] <= M_TOL and check["rows"] > 0
+          and null_zero and pages_back)
+    return rec, ok, (reqs, suids, shadow, check)
+
+
 def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
     """Phase M: ``arch`` at its published width, cut in depth only (to
     ``layers``): post-local SGD at phase A's settings with ``mode`` sync
@@ -2638,18 +2759,15 @@ def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
     against the port on the CPU; then M_REQUESTS requests served from it
     by the paged engine, held against the contiguous path.  Returns the
     training's launch counts."""
-    import numpy as np
     import torch
     from repro_torch import configs
-    from repro_torch.configs.base import InputShape
     from repro_torch.core.local_sgd import mean_params
     from repro_torch.core.schedule import sync_boundaries
     from repro_torch.data.partition import ShardedBatches
     from repro_torch.data.synthetic import lm_examples, markov_lm
     from repro_torch.kernels import fused_bucket as fb
-    from repro_torch.launch.steps import build_engine, build_train
+    from repro_torch.launch.steps import build_train
     from repro_torch.models import blocks, lm
-    from repro_torch.telemetry.trace import Tracer
     from repro_torch.utils import tree_map
 
     t_start = time.perf_counter()
@@ -2751,30 +2869,7 @@ def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
 
     # -- serve: a timed engine run, then the same requests on the shadowed
     #    engine, held against the contiguous path on the engine's batches
-    shape = InputShape("serve", M_MAX_LEN, M_SLOTS, "decode")
-    rng = np.random.default_rng(7)
-    corpus = markov_lm(vocab=cfg.vocab_size, num_seqs=M_REQUESTS,
-                       seq_len=M_PROMPT[1], seed=3)
-    reqs = [(corpus[i, :int(rng.integers(M_PROMPT[0], M_PROMPT[1] + 1))].tolist(),
-             int(rng.integers(M_NEW[0], M_NEW[1] + 1))) for i in range(M_REQUESTS)]
-    tracer = Tracer()
-    eng = build_engine(cfg, shape, params, page_size=M_PAGE,
-                       prefill_len=M_PREFILL, tracer=tracer)
-    uids = [eng.submit(p, max_new=n) for p, n in reqs]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    timed = {r.uid: r.tokens for r in eng.run()}
-    wall = time.perf_counter() - t0
-    spans = lambda name: [sp.dur_s for sp in tracer.spans if sp.name == name]
-    desc = eng.describe()
-    del eng
-    sh, check = shadowed_engine(cfg, shape, params, page_size=M_PAGE,
-                                prefill_len=M_PREFILL)
-    suids = [sh.submit(p, max_new=n) for p, n in reqs]
-    shadow = {r.uid: r for r in sh.run()}
-    null_zero = not any(bool(pool[0].any()) for pool in sh.pools)
-    pages_back = len(sh.free_pages) == sh.pl.num_pages - 1
-    same_tokens = all(shadow[b].tokens == timed[a] for a, b in zip(uids, suids))
+    rec["serve"], serve_ok, (reqs, suids, shadow, check) = engine_check(cfg, params)
     # request by request (batch of one), for the record: capacity drops
     # depend on the batch, so this is a reading, not a check
     iso = []
@@ -2782,24 +2877,10 @@ def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
         want = _forced_logits(cfg, params, reqs[uid][0], shadow[uid].tokens,
                               max_len=M_MAX_LEN)
         iso.append(max(_close(a, b) for a, b in zip(check["kept"][uid], want)))
-    del sh, params
+    del params
     torch.cuda.empty_cache()
-    rec["serve"] = {
-        "requests": M_REQUESTS, "completed": len(shadow), "slots": M_SLOTS,
-        "max_len": M_MAX_LEN, "page_size": M_PAGE, "prefill_len": M_PREFILL,
-        "prompt": list(M_PROMPT), "new_tokens": list(M_NEW),
-        "tokens_out": desc["tokens_out"], "wall_s": wall,
-        "tokens_per_s": desc["tokens_out"] / wall,
-        "decode_steps": len(spans("decode")),
-        "decode_step_ms_median": 1e3 * statistics.median(spans("decode")),
-        "prefill_ms_median": 1e3 * statistics.median(spans("prefill")),
-        "pool_bytes": desc["pool_bytes"],
-        "logits_vs_contiguous_max_rel_err": check["worst"],
-        "logit_rows_compared": check["rows"], "logits_tol": M_TOL,
-        "tokens_equal_timed_run": same_tokens,
-        "null_page_zero": null_zero, "free_pages_full": pages_back,
-        "isolated_request_max_rel_err": iso,
-        "moe_capacity_decode": blocks.moe_capacity(cfg, M_SLOTS)}
+    rec["serve"].update(isolated_request_max_rel_err=iso,
+                        moe_capacity_decode=blocks.moe_capacity(cfg, M_SLOTS))
     rec["seconds"] = time.perf_counter() - t_start
     emit(rec)
     comp = want_syncs if mode != "none" else 0
@@ -2813,9 +2894,7 @@ def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
         ("launches", counts == want_launches),
         ("kernels vs plain", all(k["ok"] for k in rec["kernels_vs_plain"])),
         ("card vs cpu", loss_rel <= M_TOL),
-        ("served", len(shadow) == M_REQUESTS and set(shadow) == set(suids)),
-        ("logits", check["worst"] <= M_TOL and check["rows"] > 0),
-        ("null page", null_zero), ("free pages", pages_back)) if not ok]
+        ("served", serve_ok)) if not ok]
     if bad:
         raise AssertionError(f"phase {tag}: {', '.join(bad)} ({rec})")
     return counts
@@ -3429,6 +3508,273 @@ def phase_z(tag: str, arch: str, mode: str, workers: int, layers: int, seq: int,
     return counts
 
 
+# phase X: the encoder-decoder and prefix-token families at their published
+# widths.  (part, arch, sync, W, layers, seq, local batch): X1 whisper-small
+# at its full 12 + 12 layers, 1,500 frames (Whisper's 30-second window
+# after the conv stride) under 448 decoder tokens (``train_batch_shapes``),
+# EF-sign at W=4 (m_reckon: 1.11 GB a copy, 29 copies at the sync, 32.3
+# GB); X2 internvl2-76b, 256 prefix embeddings + 256 text tokens, mean
+# sync at W=1 (W=2 reckons 7 copies at the sync, 84.7 GB at 1 layer), its
+# depth the deepest whose reckoning stays under X_CAP_BYTES (None: found
+# by ``x_depth``; 2 layers, 15.5 GB a copy, 62.1 GB).
+X_RUNS = (("X1", "whisper-small", "ef_sign", 4, 12, 1500, 8),
+          ("X2", "internvl2-76b", "none", 1, None, 512, 8))
+X_STEPS = 8                    # phase M's count
+X_CAP_BYTES = 72e9             # the reckoned peak a cut depth must stay under
+X_PROMPTS, X_NEW = 8, 32
+X_PROMPT_LEN = {"X1": 16, "X2": 64}   # text tokens (after 1,500 frames / 256 prefix)
+X_CPU_TEXT = {"X1": 448, "X2": 128}   # the card-vs-CPU batch's text tokens
+X_DECODE_TOL = 2e-4            # decode vs the train-mode forward, x (1 + |logit|)
+
+
+def x_depth(published, workers: int, mode: str, cap: float = X_CAP_BYTES) -> int:
+    """The deepest cut of ``published`` (at least 1 layer) whose m_reckon
+    peak stays under ``cap`` bytes."""
+    depth = 1
+    while (depth < published.num_layers and m_reckon(
+            published.replace(num_layers=depth + 1), workers, mode)
+            ["reckoned_peak_bytes"] <= cap):
+        depth += 1
+    return depth
+
+
+def phase_x(tag: str, arch: str, mode: str, workers: int, layers, seq: int,
+            local_batch: int) -> dict:
+    """Phase X: an encoder-decoder (whisper) or prefix-token (internvl2)
+    family at its published width, depth ``layers`` (None: ``x_depth``),
+    fed its stubbed modality (``family_inputs``: frames or patch
+    embeddings, standard normal from the seed) beside markov-corpus text:
+    post-local SGD at phase A's settings with ``mode`` sync at ``workers``
+    workers of ``local_batch`` examples (``seq`` as ``train_batch_shapes``
+    reads it) for X_STEPS steps: losses finite and falling, comm rounds
+    equal to the schedule's, median step, tokens/s, peak memory against
+    the reckoning (printed before the run), launches (the update and
+    sq_sum every step, the compressor pair every EF-sign sync); kernels
+    1-4 against their plain versions on the trained buckets
+    (``m_check_kernels``); one step under torch.profiler split by part
+    (the encoder, the cross-attention and the prefix projection by their
+    spans); the worker-mean model on the card against the port on the CPU
+    (one example: whisper 1,500 frames + 448 tokens, internvl2 256 prefix
+    + 128 text; loss 1e-4 relative, logits 1e-4 x (1 + |logit|)); served
+    through ``build_serve``: X_PROMPTS prompts (with their frames /
+    prefix) prefilled in one batch, X_NEW greedy decode steps timed, every
+    step's logits held against the train-mode forward over the same
+    inputs within X_DECODE_TOL x (1 + |logit|); whisper refused by
+    ``build_engine`` (ValueError: the engine feeds no frames), internvl2
+    served text-only on the paged engine (phase M's requests), timed,
+    then beside the contiguous path on the engine's own batches.  Returns
+    the training's launch counts."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.local_sgd import mean_params
+    from repro_torch.core.schedule import sync_boundaries
+    from repro_torch.data.partition import ShardedBatches
+    from repro_torch.data.synthetic import lm_examples, markov_lm
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.inputs import train_batch_shapes
+    from repro_torch.launch.steps import build_engine, build_serve, build_train
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    published = configs.get(arch)
+    if layers is None:
+        layers = x_depth(published, workers, mode)
+    cfg = published.replace(num_layers=layers)
+    run = phase_run(mode, cfg, seq=seq, local_batch=local_batch, steps=X_STEPS,
+                    workers=workers)
+    shapes = train_batch_shapes(cfg, run.shape, workers)
+    S_text = shapes["tokens"][0][-1]
+    audio = cfg.family == "audio"
+    S_x = seq if audio else cfg.num_prefix_tokens      # frames / prefix rows
+    Np = 0 if audio else cfg.num_prefix_tokens
+    want_syncs = sum(1 for _, lvl in sync_boundaries(run.local_sgd, X_STEPS)
+                     if lvl == 2)
+    reckon = m_reckon(cfg, workers, mode)
+    emit({"phase": "X", "part": tag, "model": arch, "before": "training",
+          "memory_reckoning": reckon,
+          "batch_shapes": {k: list(v[0]) for k, v in shapes.items()}})
+    rec = {"phase": "X", "part": tag, "model": arch, "W": workers,
+           "local_batch": local_batch, "seq": seq, "text_tokens": S_text,
+           ("frames" if audio else "prefix_tokens"): S_x,
+           "sync_compression": mode, "base_lr": run.optim.base_lr,
+           "grad_clip": run.optim.grad_clip,
+           "post_local_switch": run.local_sgd.post_local_switch,
+           "local_steps": run.local_sgd.local_steps,
+           "reduced": {"num_layers": [published.num_layers, cfg.num_layers],
+                       "encoder_layers": published.encoder_layers,
+                       "W": workers, "steps": X_STEPS,
+                       "local_batch": local_batch,
+                       "widths": "published (unchanged)"},
+           "memory_reckoning": reckon}
+
+    # -- train: markov text, the modality stub beside it
+    n = workers * local_batch * 4
+    data = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=n,
+                                 seq_len=S_text, seed=0))
+    data.update(family_inputs(cfg, n, S_x, seed=11))
+    bundle = build_train(run, num_workers=workers, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    rec["mem_before_GB"] = torch.cuda.memory_allocated() / 1e9
+    fb.reset_launches()
+    state, hist, summ, step_s = train_run(run, device="cuda", steps=X_STEPS,
+                                          workers=workers, bundle=bundle,
+                                          data=data)
+    counts = dict(fb.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    T = local_batch * S_text
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec.update(loss=losses, ln_vocab=math.log(cfg.vocab_size),
+               comm_rounds=summ["comm_rounds"], comm_rounds_scheduled=want_syncs,
+               step_s=step_s, step_s_median=statistics.median(step_s[1:]),
+               tokens_per_s=workers * T * len(step_s[1:]) / sum(step_s[1:]),
+               tokens_per_s_window="steps 1-%d: their text tokens over their "
+                                   "summed seconds" % (len(step_s) - 1),
+               peak_mem_GB=peak,
+               peak_over_reckoned=peak * 1e9 / reckon["reckoned_peak_bytes"],
+               launches=counts)
+    split = {"train": time.perf_counter() - t_start}
+    del data
+
+    # -- kernels 1-4 on the trained buckets, then one profiled step
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec["mem_before_kernel_check_GB"] = torch.cuda.memory_allocated() / 1e9
+    rec["kernels_vs_plain"] = m_check_kernels(state, run, bundle.layout)
+    rec["peak_mem_kernel_check_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    split["kernels_vs_plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pb = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=workers * local_batch,
+                               seq_len=S_text, seed=9))
+    pb.update(family_inputs(cfg, workers * local_batch, S_x, seed=12))
+    rec["profile"], state = m_profile_step(
+        bundle, state, next(iter(ShardedBatches(pb, workers, local_batch))), cfg)
+    split["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = mean_params(state)
+    del state, bundle, pb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the card against the port on the CPU: one example
+    toks = torch.from_numpy(markov_lm(vocab=cfg.vocab_size, num_seqs=1,
+                                      seq_len=X_CPU_TEXT[tag] + 1, seed=5)).long()
+    extra = family_inputs(cfg, 1, S_x, seed=13)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else tree_map(lambda t: t.cpu(), params)
+        with torch.no_grad():
+            kw = model_kw(extra, dev)
+            b = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev),
+                 **{k: torch.from_numpy(v).to(dev) for k, v in extra.items()}}
+            loss, _ = lm.loss_fn(cfg, p, b)
+            lg = lm.logits_from_hidden(cfg, p, lm.forward(cfg, p, b["tokens"], **kw))
+        out[dev] = (float(loss), lg.cpu())
+        del p, lg
+    (lg_, ag), (lc, ac) = out["cuda"], out["cpu"]
+    loss_rel, logit_err = abs(lg_ - lc) / abs(lc), _close(ag, ac)
+    cv_ok = loss_rel <= M_TOL and logit_err <= M_TOL
+    rec["card_vs_cpu"] = {"batch": {"text": [1, X_CPU_TEXT[tag]],
+                                    ("frames" if audio else "prefix"): [1, S_x]},
+                          "loss_gpu": lg_, "loss_cpu": lc,
+                          "loss_rel_diff": loss_rel, "loss_tol": M_TOL,
+                          "logits_max_rel_err": logit_err, "logits_tol": M_TOL,
+                          "ok": cv_ok}
+    del out, ag, ac
+    split["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # -- serve through the contiguous path: prefill with the modality,
+    #    greedy decode; each step against the train-mode forward
+    P = X_PROMPT_LEN[tag]
+    serve = build_serve(cfg, device="cuda")
+    prompt = torch.from_numpy(markov_lm(vocab=cfg.vocab_size, num_seqs=X_PROMPTS,
+                                        seq_len=P, seed=3)[:, :P]).long().cuda()
+    sx = {k: torch.from_numpy(v).cuda()
+          for k, v in family_inputs(cfg, X_PROMPTS, S_x, seed=14).items()}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, cache = serve.prefill(params, {"tokens": prompt, **sx})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t1)
+        cache = lm.grow_cache(cfg, cache, Np + P + X_NEW)
+        rows, tokens, dec_s = [lg[:, -1].cpu()], [], []
+        nxt = lg[:, -1].argmax(-1)
+        for i in range(X_NEW):
+            tokens.append(nxt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, cache = serve.decode_step(params, {"tokens": nxt[:, None]}, cache,
+                                          Np + P + 1 + i)
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t1)
+            rows.append(lg[:, -1].cpu())
+            nxt = lg[:, -1].argmax(-1)
+        del cache
+        tokens = torch.stack(tokens, dim=1)
+        rows = torch.stack(rows)
+        full = lm.logits_from_hidden(cfg, params, lm.forward(
+            cfg, params, torch.cat([prompt, tokens], dim=1), **model_kw(sx, "cuda")))
+        want = full[:, Np + P - 1:].transpose(0, 1).cpu()
+        del full
+    decode_err = _close(rows, want)
+    refused = []
+    if audio:
+        try:
+            build_engine(cfg, InputShape("serve", M_MAX_LEN, M_SLOTS, "decode"),
+                         params, device="cuda")
+        except ValueError as e:
+            refused.append(str(e)[:200])
+    rec["serve"] = {
+        "route": "launch.steps.build_serve (contiguous cache)",
+        "prompts": X_PROMPTS, "prompt_text_len": P,
+        ("frames" if audio else "prefix_tokens"): S_x, "new_tokens": X_NEW,
+        "prefill_ms": prefill_ms,
+        "decode_step_ms_median": 1e3 * statistics.median(dec_s),
+        "decode_steps": len(dec_s),
+        "decode_tokens_per_s": X_PROMPTS * len(dec_s) / sum(dec_s),
+        "decode_vs_train_forward_max_rel_err": decode_err,
+        "logit_rows_compared": rows.shape[0] * rows.shape[1],
+        "decode_tol": X_DECODE_TOL, "build_engine_refused": refused}
+    del serve, sx, prompt
+    split["serve"] = time.perf_counter() - t0
+    engine_ok = bool(refused)
+
+    # -- internvl2 on the paged engine, text-only (as the reference's):
+    #    timed, then shadowed by the contiguous path on its own batches
+    if not audio:
+        t0 = time.perf_counter()
+        rec["engine"], engine_ok, _ = engine_check(cfg, params)
+        rec["engine"]["inputs"] = "text only (no prefix), as the reference's engine"
+        split["engine"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["seconds_by_part"] = split
+    emit(rec)
+    comp = want_syncs if mode != "none" else 0
+    want_launches = {k: 0 for k in fb.LAUNCHES}
+    want_launches.update(fused_sgd_bucket=X_STEPS, sq_sum=X_STEPS,
+                         row_abs_sum=comp, scale_sign_rows=comp)
+    bad = [k for k, ok in (
+        ("loss", all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+        ("comm rounds", summ["comm_rounds"] == {"block": 0, "global": want_syncs}),
+        ("launches", counts == want_launches),
+        ("kernels vs plain", all(k["ok"] for k in rec["kernels_vs_plain"])),
+        ("card vs cpu", cv_ok),
+        ("decode", decode_err <= X_DECODE_TOL),
+        ("engine", engine_ok)) if not ok]
+    if bad:
+        raise AssertionError(f"phase {tag}: {', '.join(bad)} ({rec})")
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run this from a "
@@ -3588,6 +3934,12 @@ def main() -> int:
             launches[k] += v
         torch.cuda.empty_cache()
 
+    # ---- X: the encoder-decoder and prefix-token families ----
+    for x_run in X_RUNS:
+        for k, v in phase_x(*x_run).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+
     launches.update(phase_t(cfg))
     torch.cuda.empty_cache()
 
@@ -3662,13 +4014,13 @@ def main() -> int:
 
     phase_c_controllers(smoke, p0)
     phase_c_elastic(smoke, p0)
-    phase_c_smoke(M_RUNS + Z_RUNS)
+    phase_c_smoke(M_RUNS + Z_RUNS + X_RUNS)
 
     for k, v in phase_g().items():
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # launches: phases A, B, L, H, E, R, W, K, S, M, D, Z, N, G and the noise
+    # launches: phases A, B, L, H, E, R, W, K, S, M, D, Z, X, N, G and the noise
     # check for the bucket kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")

@@ -103,14 +103,17 @@ class ServeBundle:
 
 
 def build_serve(cfg: ModelConfig, *, device=None) -> ServeBundle:
-    """Contiguous-cache serving functions for ``cfg`` (``batch["tokens"]``
-    in, ``lm.prefill`` / ``lm.decode_step`` out), on the card unless
+    """Contiguous-cache serving functions for ``cfg`` (``batch["tokens"]``,
+    and a prefill's ``batch["prefix_embed"]`` or ``batch["frames"]``, in;
+    ``lm.prefill`` / ``lm.decode_step`` out), on the card unless
     ``device`` says otherwise (the reference's ``shape`` sizes its
     shardings, which the single-device port has none of)."""
     device = resolve_device(device)
 
     def prefill_fn(params, batch):
-        return lm.prefill(cfg, params, batch["tokens"])
+        return lm.prefill(cfg, params, batch["tokens"],
+                          prefix_embed=batch.get("prefix_embed"),
+                          enc_frames=batch.get("frames"))
 
     def decode_fn(params, batch, cache, cache_len):
         return lm.decode_step(cfg, params, batch["tokens"], cache, cache_len)
@@ -128,9 +131,17 @@ def build_engine(cfg: ModelConfig, shape, params=None, *, page_size: int = 8,
     slots, ``shape.seq_len`` max sequence length, a paged KV pool sized
     for full occupancy, on the card unless ``device`` says otherwise.
     ``params=None`` draws weights from the specs with a
-    ``torch.Generator(seed)`` on that device."""
+    ``torch.Generator(seed)`` on that device.  The engine admits token
+    prompts only: a VLM serves text-only (no prefix), as the reference's
+    engine does, and an encoder-decoder is refused (it has no frames to
+    encode; the reference's engine fails at its first prefill)."""
     from repro_torch.serving.engine import DecodeEngine
 
+    if cfg.cross_attention:
+        raise ValueError(
+            f"{cfg.name}: the paged engine feeds no encoder frames, so a "
+            f"cross-attention decoder has no encoder output to attend to; "
+            f"serve it from the contiguous path (launch.steps.build_serve)")
     device = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)

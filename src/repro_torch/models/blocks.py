@@ -1,6 +1,8 @@
 """Transformer blocks (the port of ``repro.models.blocks``): GQA attention
-(global or sliding-window), MLA (DeepSeek-V2's multi-head latent
-attention), the dense SwiGLU / GeGLU FFN and the capacity-routed MoE FFN, in the reference's three modes: ``train``,
+(global or sliding-window, causal or not, with or without RoPE),
+whisper's cross-attention over the encoder output, MLA (DeepSeek-V2's
+multi-head latent attention), the dense SwiGLU / GeGLU / GELU FFN and the
+capacity-routed MoE FFN, in the reference's three modes: ``train``,
 ``prefill`` (an attention block also returns its cache) and ``decode``
 (one token against a cache)."""
 from __future__ import annotations
@@ -16,7 +18,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.layers import (NEG_INF, apply_rope, cache_write,
                                        causal_attention, decode_attention,
-                                       geglu, rms_norm, swiglu)
+                                       full_attention, geglu, gelu, rms_norm,
+                                       swiglu)
 
 
 @dataclass
@@ -27,10 +30,12 @@ class Ctx:
     cache: Any = None                    # this layer's cache dict (decode)
     cache_len: Any = None                # int, 0-d or (B,): valid entries incl. current
     emb0: Any = None                     # the embedding output (zamba2's shared-block skip)
+    enc_out: Any = None                  # the encoder output (whisper's cross-attention)
     aux_losses: list = field(default_factory=list)   # MoE load-balance terms
 
 
-def attn_specs(cfg: ModelConfig, *, num_heads=None, num_kv_heads=None):
+def attn_specs(cfg: ModelConfig, *, num_heads=None, num_kv_heads=None,
+               cross: bool = False):
     H = num_heads or cfg.num_heads
     KH = num_kv_heads or cfg.num_kv_heads or H
     D = cfg.resolved_head_dim
@@ -41,21 +46,24 @@ def attn_specs(cfg: ModelConfig, *, num_heads=None, num_kv_heads=None):
         "wv": ParamSpec((E, KH * D), ("embed", "kv_heads")),
         "wo": ParamSpec((H * D, E), ("heads", "embed")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         s["q_norm"] = ParamSpec((D,), (None,), init="ones")
         s["k_norm"] = ParamSpec((D,), (None,), init="ones")
     return s
 
 
 def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, *, window: int = 0,
-               rope_theta: float | None = None):
-    """Causal self-attention. x: (B, S, E).  Returns ``(y, new_cache)``:
+               rope_theta: float | None = None, causal: bool = True,
+               use_rope: bool = True):
+    """Self-attention. x: (B, S, E).  Returns ``(y, new_cache)``:
     ``new_cache`` is None in train mode, this layer's k/v in prefill mode,
     and ``ctx.cache`` with the new token written in place in decode mode.
     ``window`` > 0 is a sliding layer: it attends to the last ``window``
     positions, counted from each query's own position (its cache stays
     full length and is masked by absolute position); scores take
-    ``cfg.logit_softcap``."""
+    ``cfg.logit_softcap``.  ``causal=False, use_rope=False`` is
+    whisper's encoder layer (train mode only: the encoder keeps no
+    cache; it takes no window)."""
     B, S, E = x.shape
     D = cfg.resolved_head_dim
     H = p["wq"].shape[1] // D
@@ -68,11 +76,15 @@ def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, *, window: int = 0,
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
-    q = apply_rope(q, ctx.positions, theta=theta)
-    k = apply_rope(k, ctx.positions, theta=theta)
+    if use_rope:
+        q = apply_rope(q, ctx.positions, theta=theta)
+        k = apply_rope(k, ctx.positions, theta=theta)
 
     new_cache = None
-    if ctx.mode == "decode":
+    if not causal:
+        out = full_attention(q, k, v, softcap=cfg.logit_softcap,
+                             scale=cfg.attn_scale)
+    elif ctx.mode == "decode":
         write = torch.as_tensor(ctx.cache_len, device=x.device) - 1
         kc = cache_write(ctx.cache["k"], k, write)
         vc = cache_write(ctx.cache["v"], v, write)
@@ -101,22 +113,61 @@ def attn_cache_axes():
             "v": ("batch", "kv_seq", "kv_heads", None)}
 
 
+def cross_attn_apply(cfg: ModelConfig, p, x, ctx: Ctx):
+    """Cross-attention of the decoder's x (B, S, E) over the encoder
+    output ``ctx.enc_out`` (B, Se, E), non-causal, without RoPE, without
+    ``cfg.attn_scale`` and the softcap (the reference passes neither).
+    Train computes k / v from ``enc_out``; prefill does too and returns
+    them as ``{"xk", "xv"}``; decode reads them from ``ctx.cache`` and
+    returns that cache, re-encoding nothing.  Returns ``(y, new_cache)``."""
+    B_, S, _ = x.shape
+    D = cfg.resolved_head_dim
+    H = p["wq"].shape[1] // D
+    KH = p["wk"].shape[1] // D
+    # a profiler span: a profile books these ops and their backward to
+    # the cross-attention
+    with torch.profiler.record_function("cross_attention"):
+        q = (x @ p["wq"]).reshape(B_, S, H, D)
+        if ctx.mode == "decode":
+            k, v = ctx.cache["xk"], ctx.cache["xv"]
+            new_cache = ctx.cache
+        else:
+            enc = ctx.enc_out
+            if enc is None:
+                raise ValueError(f"{cfg.name}: cross-attention needs the encoder "
+                                 f"output: pass enc_frames (a batch's frames)")
+            k = (enc @ p["wk"]).reshape(B_, enc.shape[1], KH, D)
+            v = (enc @ p["wv"]).reshape(B_, enc.shape[1], KH, D)
+            new_cache = {"xk": k, "xv": v} if ctx.mode == "prefill" else None
+        out = full_attention(q, k, v)
+        return out.reshape(B_, S, H * D) @ p["wo"], new_cache
+
+
 _GATED = {"swiglu": swiglu, "geglu": geglu}
 
 
 def ffn_specs(cfg: ModelConfig, kind: str, *, d_ff=None):
     E, F = cfg.d_model, d_ff or cfg.d_ff
-    if kind not in _GATED:
-        raise NotImplementedError(f"ffn kind {kind!r} is not ported yet")
-    return {"wg": ParamSpec((E, F), ("embed", "mlp")),
-            "wu": ParamSpec((E, F), ("embed", "mlp")),
-            "wd": ParamSpec((F, E), ("mlp", "embed"))}
+    if kind in _GATED:
+        return {"wg": ParamSpec((E, F), ("embed", "mlp")),
+                "wu": ParamSpec((E, F), ("embed", "mlp")),
+                "wd": ParamSpec((F, E), ("mlp", "embed"))}
+    if kind == "gelu":
+        return {"w1": ParamSpec((E, F), ("embed", "mlp")),
+                "b1": ParamSpec((F,), ("mlp",), init="zeros"),
+                "w2": ParamSpec((F, E), ("mlp", "embed")),
+                "b2": ParamSpec((E,), (None,), init="zeros")}
+    raise ValueError(kind)
 
 
 def ffn_apply(cfg: ModelConfig, p, x, kind: str = "swiglu"):
-    if kind not in _GATED:
-        raise NotImplementedError(f"ffn kind {kind!r} is not ported yet")
-    return _GATED[kind](x @ p["wg"], x @ p["wu"]) @ p["wd"]
+    """A gated FFN (SwiGLU / GeGLU), or whisper's ``gelu`` one: GELU (tanh
+    approximation, in float32) of ``x @ w1 + b1``, then ``@ w2 + b2``."""
+    if kind in _GATED:
+        return _GATED[kind](x @ p["wg"], x @ p["wu"]) @ p["wd"]
+    if kind == "gelu":
+        return gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------

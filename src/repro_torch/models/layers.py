@@ -1,8 +1,9 @@
 """Shared layers in plain PyTorch: RMS norm (gemma's ``plus_one`` form
-too), RoPE, causal attention with an optional sliding window and score
-softcap, the decode step's cache write and single-token attention,
-SwiGLU and GeGLU (the port of the training and serving parts of
-``repro.models.layers``).
+too), layer norm, RoPE, sinusoidal positions (whisper's encoder), causal
+attention with an optional sliding window and score softcap, non-causal
+attention over keys of another length (whisper's encoder and
+cross-attention), the decode step's cache write and single-token
+attention, SwiGLU and GeGLU (the port of ``repro.models.layers``).
 
 All functions are single-worker, float32 in and out for float32 params;
 they compute in float32 or wider (:func:`f32up`), so a float64 input
@@ -39,6 +40,18 @@ def rms_norm(x, scale, *, eps: float = 1e-6, plus_one: bool = False):
     return (xf * s).to(dtype)
 
 
+def layer_norm(x, scale, bias, *, eps: float = 1e-5):
+    """Layer norm over the last axis in float32 (or wider), cast back.
+    No model of the registry calls it: the reference defines it beside
+    ``rms_norm``, and the port keeps the module whole."""
+    dtype = x.dtype
+    xf = f32up(x)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * f32up(scale) + f32up(bias)).to(dtype)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None):
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)
@@ -54,6 +67,19 @@ def apply_rope(x, positions, *, theta: float):
     x1, x2 = torch.chunk(f32up(x), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(num_pos: int, dim: int, device=None):
+    """(num_pos, dim) float32 table: sin in the even columns, cos in the
+    odd ones, frequencies 10000^(-2i/dim) (whisper's encoder positions;
+    the caller casts it to the activations' dtype)."""
+    pos = torch.arange(num_pos, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((num_pos, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def _softcap(s, cap: float):
@@ -93,6 +119,25 @@ def causal_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bhgqk,bkhd->bqhgd", p, f32up(v))
         return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def full_attention(q, k, v, *, softcap: float = 0.0, scale: float = 0.0):
+    """Non-causal softmax attention with GQA, counterpart of the
+    reference's ``chunked_attention(causal=False)`` in train and prefill
+    mode (no mask): q (B, Sq, H, D) against k, v (B, Sk, KH,
+    D), Sq and Sk free (whisper's encoder attends over its own frames,
+    cross-attention from the decoder's tokens over the encoder's
+    output).  ``softcap`` caps the scores as ``tanh(s / cap) * cap``;
+    ``scale`` 0 means 1/sqrt(D)."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    scale = scale or 1.0 / math.sqrt(D)
+    qh = q.reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", f32up(qh), f32up(k)) * scale
+    p = torch.softmax(_softcap(s, softcap), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, f32up(v))
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
 def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -179,8 +224,13 @@ def swiglu(gate, up):
     return torch.nn.functional.silu(f32up(gate)).to(gate.dtype) * up
 
 
+def gelu(x):
+    """GELU in its tanh approximation (``jax.nn.gelu``'s default, not
+    torch's exact erf form), in float32 or wider, cast back."""
+    return torch.nn.functional.gelu(f32up(x), approximate="tanh").to(x.dtype)
+
+
 def geglu(gate, up):
     """GELU (tanh approximation) of the gate in float32, cast back, times
     up (gemma3's FFN)."""
-    return (torch.nn.functional.gelu(gate.float(), approximate="tanh")
-            .to(gate.dtype) * up)
+    return gelu(gate) * up

@@ -84,7 +84,10 @@ def build_page_layout(cfg, *, page_size: int, max_len: int, num_pages: int,
     """Derive the page layout from the model's cache structure (every
     cache leaf carries a ``batch`` and a ``kv_seq`` axis; a recurrent
     model's fixed-size states have none, and raise: they serve from the
-    contiguous path, ``launch.steps.build_serve``)."""
+    contiguous path, ``launch.steps.build_serve``).  A cross-attention
+    decoder's ``xk`` / ``xv`` take their per-token slices like ``k`` /
+    ``v``: the reference's ``enc_len`` sizes only their length, which a
+    per-token layout drops."""
     from repro_torch.models import lm
 
     flat_axes = tree_leaves(lm.cache_axes_tree(cfg), is_leaf=_is_axes)

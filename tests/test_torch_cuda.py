@@ -1046,3 +1046,65 @@ def test_ef_memory_is_float32_on_card(cuda):
         out[dev] = [b.cpu() for b in st.ef_memory.buckets]
     for a, b in zip(out[cuda], out["cpu"]):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-76b"])
+def test_encdec_and_prefix_trainer_and_decode_on_card_match_cpu(cuda, arch):
+    """whisper-smoke (the encoder over 48 frames, cross-attention; EF-sign
+    at W=2) and internvl2-smoke (8 prefix embeddings; mean sync at W=2):
+    one local step and one sync on the card and on the CPU from the same
+    weights and batch: loss within 1e-4 relative, all but 1e-4 of the
+    param elements within 1e-4 x the largest; then, with the synced
+    model, a prefill of a 12-token prompt (with its frames / prefix) and
+    4 decode steps held against the train-mode forward within 2e-4 x (1 +
+    |logit|) on each device, and the card's logits against the CPU's
+    within 1e-4 x (1 + |logit|)."""
+    from repro_torch.core.local_sgd import mean_params
+    from repro_torch.models import lm
+
+    mode = "ef_sign" if arch == "whisper-small" else "none"
+    W, B, S, SE = 2, 2, 32, 48
+    cfg = configs.get_smoke(arch)
+    run = RunConfig(model=cfg, shape=InputShape("t", S, W * B, "train"),
+                    local_sgd=LocalSGDConfig(local_steps=1, sync_compression=mode),
+                    optim=OptimConfig(base_lr=0.3, base_batch=W * B, grad_clip=1.0))
+    p0 = mbase.materialize(lm.param_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    key, n = (("frames", SE) if arch == "whisper-small"
+              else ("prefix_embed", cfg.num_prefix_tokens))
+    data = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=W * B, seq_len=S))
+    data[key] = rng.normal(size=(W * B, n, cfg.d_model)).astype(np.float32)
+    batch = next(iter(ShardedBatches(data, W, B)))
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    extra = torch.from_numpy(rng.normal(size=(2, n, cfg.d_model)).astype(np.float32))
+    kw_name = "enc_frames" if key == "frames" else key
+    Np = n if key == "prefix_embed" else 0
+    out = {}
+    for dev in ("cpu", cuda):
+        tb = build_train(run, num_workers=W, device=dev)
+        st, m = tb.local_step(tb.init(tree_map(lambda t: t.to(dev), p0)), batch)
+        st = tb.sync(st, plan=tb.sync_plan)
+        params = mean_params(st)
+        kw = {kw_name: extra.to(dev)}
+        with torch.no_grad():
+            full = lm.logits_from_hidden(cfg, params, lm.forward(cfg, params,
+                                                                 seq.to(dev), **kw))
+            lg, cache = lm.prefill(cfg, params, seq[:, :12].to(dev), max_len=Np + 16,
+                                   **kw)
+            rows, want = [lg[:, -1]], [full[:, Np + 11]]
+            for i in range(12, 16):
+                lg, cache = lm.decode_step(cfg, params, seq[:, i:i + 1].to(dev), cache,
+                                           Np + i + 1)
+                rows.append(lg[:, -1])
+                if i < 15:
+                    want.append(full[:, Np + i])
+        rel = lambda a, b: float(((a.double() - b.double()).abs()
+                                  / (1 + b.double().abs())).max())
+        assert max(rel(a, b) for a, b in zip(rows, want)) <= 2e-4, dev
+        out[dev] = (float(m["loss"]), st.params.buckets[0].cpu(), [r.cpu() for r in rows])
+    (lc, pc, rc), (lg_, pg, rg) = out["cpu"], out[cuda]
+    assert abs(lg_ - lc) <= 1e-4 * abs(lc)
+    assert float(((pg - pc).abs() > 1e-4 * pc.abs().max()).float().mean()) <= 1e-4
+    for a, b in zip(rg, rc):
+        assert float(((a.double() - b.double()).abs() / (1 + b.double().abs())).max()) <= 1e-4

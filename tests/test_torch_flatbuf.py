@@ -292,7 +292,8 @@ def test_run_configs_match_reference():
 @pytest.mark.parametrize("size", ["full", "smoke"])
 @pytest.mark.parametrize("arch", ["paper-lm", "qwen3-32b", "phi4-mini-3.8b",
                                   "minitron-4b", "gemma3-1b", "olmoe-1b-7b",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "whisper-small",
+                                  "internvl2-76b"])
 def test_model_configs_match_reference(arch, size):
     """The port's copy of each registered config, field for field, and
     its citation."""

@@ -50,13 +50,15 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for mod in ("controller", "noise", "syncplan", "local_sgd"):
         assert f"src/repro_torch/core/{mod}.py" in names, mod
     for mod in ("olmoe_1b_7b", "deepseek_v2_lite", "paper_lm", "qwen3_32b",
-                "phi4_mini", "minitron_4b", "gemma3_1b", "xlstm_1_3b", "zamba2_7b"):
+                "phi4_mini", "minitron_4b", "gemma3_1b", "xlstm_1_3b", "zamba2_7b",
+                "whisper_small", "internvl2_76b"):
         assert f"src/repro_torch/configs/{mod}.py" in names, mod
     for mod in ("lm", "blocks", "layers", "mamba2", "xlstm"):
         assert f"src/repro_torch/models/{mod}.py" in names, mod
     for mod in ("common", "paper_tables", "bench_convex", "run"):
         assert f"src/repro_torch/benchmarks/{mod}.py" in names, mod
     assert "src/repro_torch/telemetry/metrics.py" in names
+    assert "src/repro_torch/launch/inputs.py" in names
     for mod in ("telemetry/trace", "telemetry/export", "checkpoint/checkpoint",
                 "checkpoint/__init__", "core/elastic", "serving/paged",
                 "serving/engine", "serving/publish", "serving/__init__",
@@ -104,7 +106,7 @@ def test_registered_archs_import_without_jax():
             "sys.meta_path.insert(0, Block())\n"
             "from repro_torch import configs\n"
             "from repro_torch.models import lm\n"
-            "assert len(configs.ARCHS) == 8, configs.ARCHS\n"
+            "assert len(configs.ARCHS) == 10, configs.ARCHS\n"
             "for a in ('paper-lm',) + configs.ARCHS:\n"
             "    lm.param_specs(configs.get(a)); lm.param_specs(configs.get_smoke(a))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
@@ -126,6 +128,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ttrain.main(["--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--arch", "deepseek-v2-lite-16b", "--steps", "1"])
+    from repro_torch.launch.steps import build_engine, build_serve
+    for arch in ("whisper-small", "internvl2-76b"):
+        cfg = configs.get_smoke(arch)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_serve(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_train(RunConfig(model=cfg), num_workers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine(configs.get_smoke("internvl2-76b"),
+                     type("S", (), {"global_batch": 2, "seq_len": 16})())
     assert build_train(run, num_workers=2, device="cpu").device.type == "cpu"
 
 

@@ -135,10 +135,12 @@ def test_materialize_follows_the_init_law():
 
 
 def test_unported_model_families_raise():
-    """What waits for a later slice raises, naming that slice (whisper's
-    encoder, internvl2's prefix tokens); an untied head (olmoe, deepseek,
-    the dense variants) and the recurrent blocks (mamba2, mLSTM, with or
-    without an FFN) are ported and build."""
+    """No family waits for a later slice any more: an untied head (olmoe,
+    deepseek, the dense variants), the recurrent blocks (mamba2, mLSTM,
+    with or without an FFN), whisper's encoder + cross-attention and
+    internvl2's prefix tokens build; what the port does not run raises,
+    naming why (an unknown FFN kind; a cross-attention decoder on the
+    paged engine, which feeds no encoder frames)."""
     from repro_torch.configs import base as tcb
     from repro_torch.configs.base import BlockDef
     cfg = tconfigs.get_smoke("paper-lm")
@@ -150,8 +152,15 @@ def test_unported_model_families_raise():
         layer = specs["layers"][0]
         assert mixer in layer["mix"]
         assert ("ffn" in layer) == (blocks[0].ffn != "none")
-    for kw, slice_ in (
-            (dict(encoder_layers=2, cross_attention=True), "whisper"),
-            (dict(num_prefix_tokens=16), "internvl2")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            tlm.param_specs(cfg.replace(**kw))
+    enc = tlm.param_specs(cfg.replace(encoder_layers=2, cross_attention=True,
+                                      family="audio"))
+    assert "enc" in enc and "frontend" in enc and "xattn" in enc["layers"][0]
+    vlm = tlm.param_specs(cfg.replace(num_prefix_tokens=16))
+    assert "frontend" in vlm and "enc" not in vlm
+    with pytest.raises(ValueError, match="relu"):
+        tlm.param_specs(cfg.replace(blocks=(BlockDef("attn", "relu"),)))
+    from repro_torch.launch.steps import build_engine
+    with pytest.raises(ValueError, match="encoder frames"):
+        build_engine(tconfigs.get_smoke("whisper-small"),
+                     type("S", (), {"global_batch": 2, "seq_len": 16})(),
+                     device="cpu")
