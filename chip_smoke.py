@@ -95,6 +95,30 @@ Phases:
            scatter-add's atomics); then 4 steps with ``sync_coalesce`` as
            well: the same plan stages (one bucket: nothing to coalesce on
            one card) and the same losses.
+  Y        workers across processes: ``DistributedBackend`` ranks spawned
+           with ``torch.multiprocessing``, over ``gloo`` with every rank on
+           card 0 (the machine's one card; NCCL takes one rank a card),
+           paper-lm at full width, W=4, local batch 8, seq 512, 12 steps.
+           Y1: 4 ranks x 1 worker at phase W's settings (EF-sign +
+           ``wire_pack``): per-step losses against phase W's (1e-4
+           relative), comm rounds, the first sync's gathered ``uint8``
+           payload byte for byte against phase W's first payload (the
+           scales within 1e-4 of phase W's: both runs' compressor scales
+           and packs are atomic scatter-adds; rank 0's own scales within
+           2e-5 of the CPU's pack of its bucket), the ledger's measured
+           bytes (W x (rows x 16 + 4 a leaf) a sync) equal to the tensors
+           handed to the collectives.  Y2: 4 x 1 at phase H's settings
+           (Alg. 5, blocks of two workers on two ranks: a two-member
+           sub-group): losses, block / global rounds.  Y3: 2 ranks x 2
+           workers at phase L's settings (LARS + EF-sign + telemetry):
+           losses and the gathered ``round_summary`` at phase C's
+           tolerances.  Each part: fenced sync seconds by scope, measured
+           against ring-model bytes, median step per rank, peak memory per
+           rank, launches per rank, the ops staged through the host; then
+           the dense all-reduce (Y2) against the packed all-gather (Y1).
+           With two or more cards Y1 also runs over NCCL, one rank a card;
+           with one, a line says why it did not.  Results in
+           ``build/phase_y/``.
   K        checkpoints at full width: ``save_flat`` of the resident state
            after 6 steps of phase A's settings (3.83 GB), ``restore_flat``
            into a fresh state: buckets bit-equal, 2 more steps from each
@@ -324,6 +348,11 @@ G_ROUNDS = {"fig1/A1_small_mb": (240, 0), "fig1/A2_large_mb": (240, 0),
 # round_summary fields computed from ||mean_k x_k||^2 (post_sync_sq)
 SYNC_MEAN_KEYS = ("post_sync_sq", "dispersion", "diversity", "signal_sq",
                   "noise_sq", "noise_ratio")
+
+
+# what later phases hold against: phase -> its losses, rounds, ... (A, B,
+# L, H, W fill it; phase Y reads it)
+REFS: dict = {}
 
 
 def emit(obj):
@@ -789,7 +818,8 @@ def check_flash(spec, bw: float, flops_peak: float, bf16_peak: float,
 
 
 def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None,
-              tracer=None, manifest_path=None, workers=W, bundle=None, data=None):
+              tracer=None, manifest_path=None, workers=W, bundle=None, data=None,
+              backend=None):
     """fit() on markov_lm data at ``workers`` workers (through ``bundle``
     when given, else a fresh ``build_train``), or on ``data`` (a dict of
     example arrays) when given; returns (state, history, summary,
@@ -824,7 +854,7 @@ def train_run(run, *, device, steps, params0=None, seed=0, telemetry_path=None,
             run, ShardedBatches(data, workers, B, seed=seed), bundle=bundle,
             num_steps=steps, seed=seed, params0=params0, log=lambda *a: None,
             telemetry_path=telemetry_path, tracer=tracer,
-            manifest_path=manifest_path)
+            manifest_path=manifest_path, backend=backend)
     finally:
         bundle.local_step = local_step
     step_s.append(summ["wall_s"] + step_s[0])
@@ -1095,6 +1125,8 @@ def phase_h(cfg, a_step_s: float) -> dict:
     if bad:
         raise AssertionError(f"phase H: {', '.join(bad)} (syncs {syncs}, ledger "
                              f"{topo}, launches {counts})")
+    REFS["H"] = {"loss": losses, "comm_rounds": summ["comm_rounds"],
+                 "syncs": syncs}
     del state
     return counts
 
@@ -3032,6 +3064,9 @@ def phase_w(cfg, b_losses: list, b_wire_bytes: float, b_sync_s: float,
     if bad:
         raise AssertionError(f"phase W: {', '.join(bad)} (loss diff {loss_rel}, "
                              f"scales {scale_rel}, launches {counts})")
+    REFS["W"] = {"loss": losses, "comm_rounds": summ["comm_rounds"],
+                 "packed": first["packed"], "scales": first["scales"],
+                 "sync_s_median": statistics.median(syncs)}
     return counts
 
 
@@ -3775,6 +3810,332 @@ def phase_x(tag: str, arch: str, mode: str, workers: int, layers, seq: int,
     return counts
 
 
+# phase Y: workers across processes (DistributedBackend over gloo, all
+# ranks on card 0; over NCCL one rank a card when the machine has two or
+# more).  Each part: (tag, ranks, the phase it is held against)
+Y_PARTS = (("Y1", 4, "W"), ("Y2", 4, "H"), ("Y3", 2, "L"))
+Y_TIMEOUT_S = 300              # a collective that waits longer fails the rank
+Y_LOSS_TOL = 1e-4              # losses against the one-process phase (relative)
+
+
+def y_run(tag: str, cfg, seq: int = 512, local_batch: int = 8):
+    """Phase W's (Y1), H's (Y2) and L's (Y3) RunConfig."""
+    if tag == "Y1":
+        return phase_run("ef_sign", cfg, seq=seq, local_batch=local_batch,
+                         wire_pack=True)
+    if tag == "Y2":
+        return phase_run("none", cfg, seq=seq, local_batch=local_batch,
+                         block_steps=2)
+    return phase_run("ef_sign", cfg, seq=seq, local_batch=local_batch, lars=True)
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def y_rank(r: int, port: int, P: int, tags: tuple, backend: str, out: str,
+           spec: dict):
+    """One rank of phase Y (``torch.multiprocessing.spawn``'s target):
+    builds each part through ``DistributedBackend`` on this rank's device
+    (card 0 under gloo with one card, card r under NCCL; ``spec["device"]``
+    overrides it for a CPU rehearsal), trains it with ``train_run`` under a
+    fenced tracer and writes what it measured to ``out/rank{r}.json``; rank
+    0 also keeps Y1's first gathered payload (``out/y1_payload.pt``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.backend.distributed import DistributedBackend
+    from repro_torch.core import compression as comp
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.telemetry.stats import round_summary
+    from repro_torch.telemetry.trace import Tracer
+
+    cfg = (configs.get_smoke if spec.get("smoke") else configs.get)("paper-lm")
+    be = DistributedBackend(W, backend=backend, process_id=r, num_processes=P,
+                            coordinator_address=f"localhost:{port}",
+                            local_rank=r, device=spec.get("device"),
+                            timeout_s=Y_TIMEOUT_S)
+    results = {}
+    try:
+        for tag in tags:
+            run = y_run(tag, cfg, spec.get("seq", 512), spec.get("local_batch", 8))
+            bundle = be.build(run)
+            dev = bundle.device
+            cuda = dev.type == "cuda"
+            if cuda:
+                torch.cuda.set_device(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            first, own = {}, {}
+            pack = comp.pack_bucket_signs
+            if tag == "Y1" and r == 0:
+                gather = bundle.dist.gather_workers
+
+                def capture(x, *, scope, stage=None):
+                    # the first sync's payload and scales, as gathered
+                    g = gather(x, scope=scope, stage=stage)
+                    key = "packed" if g.dtype == torch.uint8 else "scales"
+                    if scope == "global" and key not in first:
+                        first[key] = g.cpu()
+                    return g
+
+                def capture_pack(x, seg, sizes):
+                    # this rank's first bucket and its own pack, kept on
+                    # the device until the run ends
+                    out = pack(x, seg, sizes)
+                    if not own:
+                        own.update(x=x, scales=out[1])
+                    return out
+                bundle.dist.gather_workers = capture
+                comp.pack_bucket_signs = capture_pack
+            fb.reset_launches()
+            tracer = Tracer(fence=True)
+            try:
+                state, hist, summ, step_s = train_run(
+                    run, device=dev, steps=STEPS, bundle=bundle, tracer=tracer,
+                    backend=be)
+            finally:
+                comp.pack_bucket_signs = pack
+            counts = dict(fb.LAUNCHES)
+            syncs = {}
+            for sp in tracer.spans:
+                if sp.name == "sync":
+                    syncs.setdefault(sp.attrs["scope"], []).append(sp.dur_s)
+            led = summ["ledger"]
+            rec = {"rank": r, "device": str(dev), "backend": backend,
+                   "workers": list(bundle.worker_ids),
+                   "loss": [h["loss"] for h in hist],
+                   "synced": [h["synced"] for h in hist],
+                   "comm_rounds": summ["comm_rounds"],
+                   "step_s_median": statistics.median(step_s[1:]),
+                   "sync_s": syncs,
+                   "ledger": {k: led[k] for k in ("sync_rounds", "wire_bytes",
+                                                  "measured_bytes",
+                                                  "cost_sources", "topologies")},
+                   "collectives": bundle.dist.describe(),
+                   "peak_mem_GB": (torch.cuda.max_memory_allocated(dev) / 1e9
+                                   if cuda else None),
+                   "launches": counts}
+            if bundle.telemetry:
+                rec["round_summary"] = round_summary(state.stats,
+                                                     dist=bundle.dist)
+            if own:
+                # this rank's own scales on the card against the same pack
+                # of the same bucket on the CPU (phase W's check)
+                seg = flatbuf.const("row_segments", bundle.layout, 0, "cpu")
+                sizes = flatbuf.const("segment_sizes", bundle.layout, 0, "cpu")
+                cpu = pack(own["x"].cpu(), seg, sizes)[1]
+                rec["own_scales_max_rel_diff_cpu"] = float(
+                    ((own["scales"].cpu() - cpu).abs()
+                     / cpu.abs().clamp_min(1e-30)).max())
+                own.clear()
+            if first:
+                torch.save(first, f"{out}/y1_payload.pt")
+            results[tag] = rec
+            del state, bundle
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        with open(f"{out}/rank{r}.json", "w") as f:
+            json.dump(results, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def y_spawn(P: int, tags: tuple, backend: str, out: Path, spec: dict) -> list:
+    """Spawn P ranks of ``y_rank``; returns each rank's results.  A rank
+    that raises ends the spawn (the others are stopped) and fails the
+    phase."""
+    import torch.multiprocessing as mp
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    mp.spawn(y_rank, args=(free_port(), P, tags, backend, str(out), spec),
+             nprocs=P)
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(P)]
+
+
+def y_check(tag: str, P: int, ranks: list, ref: dict, layout, *,
+            payload=None) -> list:
+    """Phase Y's checks of one part against its one-process phase; returns
+    the failures."""
+    recs = [rk[tag] for rk in ranks]
+    r0 = recs[0]
+    rows = layout.bucket_rows[0]
+    bucket = rows * 128 * 4
+    packed = rows * 16 + 4 * len(layout.bucket_slots(0))
+    rounds = r0["comm_rounds"]["global"] + r0["comm_rounds"]["block"]
+    wl = W // P
+    want_launch = {k: 0 for k in r0["launches"]}
+    if tag == "Y3":
+        want_launch.update(lars_row_norms=STEPS, fused_lars_bucket=STEPS,
+                           row_abs_sum=6, scale_sign_rows=6)
+    else:
+        want_launch.update(fused_sgd_bucket=STEPS, sq_sum=STEPS)
+    if tag == "Y1":
+        # kernel 3 twice a sync: the compressor's row sums, then the pack's
+        want_launch.update(row_abs_sum=12, scale_sign_rows=6)
+    per_round = W * packed if tag == "Y1" else P * bucket
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["loss"], ref["loss"]))
+    tot = r0["collectives"]["totals"]
+    handed = sum(v["bytes"] for k, v in tot.items()
+                 if k.endswith("/global") or k.endswith("/block"))
+    bad = [k for k, ok in (
+        ("ranks disagree", all(rc["loss"] == r0["loss"]
+                               and rc["comm_rounds"] == r0["comm_rounds"]
+                               and rc["ledger"] == r0["ledger"] for rc in recs)),
+        ("workers", [rc["workers"] for rc in recs]
+         == [list(range(p * wl, (p + 1) * wl)) for p in range(P)]),
+        ("loss", loss_rel <= Y_LOSS_TOL),
+        ("comm rounds", r0["comm_rounds"] == ref["comm_rounds"]),
+        ("measured bytes", r0["ledger"]["cost_sources"] == ["measured"]
+         and r0["ledger"]["measured_bytes"] == rounds * per_round
+         and handed * P == r0["ledger"]["measured_bytes"]),
+        ("launches", all(rc["launches"] == want_launch for rc in recs))) if not ok]
+    out = {"loss_max_rel_diff": loss_rel, "measured_bytes_per_round":
+           r0["ledger"]["measured_bytes"] / rounds,
+           "ring_bytes_per_round_per_rank": r0["ledger"]["wire_bytes"] / rounds}
+    if tag == "Y1" and payload is not None:
+        # the signs do not depend on the scale: byte for byte.  Rank 0's own
+        # scales against the CPU's pack of its bucket: 2e-5 (phase W's
+        # check, one scatter-add's atomics).  All W workers' scales against
+        # phase W's: each run's compressor scale is itself an atomic
+        # scatter-add of 4 x the leaf's row sums, then the pack adds
+        # another: TOL["scatter_add"]
+        ok = torch_equal(payload["packed"], ref["packed"])
+        rel = float(((payload["scales"] - ref["scales"]).abs()
+                     / ref["scales"].abs().clamp_min(1e-30)).max())
+        own = r0["own_scales_max_rel_diff_cpu"]
+        out.update(payload_equal_phase_W=ok, scales_max_rel_diff=rel,
+                   scales_tol=TOL["scatter_add"],
+                   own_scales_max_rel_diff_cpu=own, own_scales_tol=2e-5,
+                   payload_shape=list(payload["packed"].shape))
+        if not ok or rel > TOL["scatter_add"] or own > 2e-5:
+            bad.append("payload")
+    if tag == "Y3":
+        got, want = r0["round_summary"], ref["round_summary"]
+        rel = lambda a, b: abs(a - b) / abs(b) if b else abs(a)
+        errs = {k: rel(got[k], v) for k, v in want.items() if isinstance(v, float)}
+        errs["comp_rel_err"] = max(rel(a, b) for a, b in
+                                   zip(got["comp_rel_err"], want["comp_rel_err"]))
+        # phase C's tolerances for LARS + EF-sign (its flips move the
+        # fields read from ||mean_k x_k||^2 by about an element's share)
+        tols = {k: 1e-2 if k in SYNC_MEAN_KEYS else 1e-4 for k in errs}
+        out.update(round_summary_rel_diff=errs, round_summary_tol=tols)
+        if [k for k in errs if errs[k] > tols[k]] or \
+                got["rounds"] != want["rounds"] or \
+                got["num_workers"] != want["num_workers"]:
+            bad.append("round_summary")
+    out["bad"] = bad
+    return out
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b))
+
+
+def phase_y(cfg, spec: dict | None = None) -> dict:
+    """Phase Y: workers across processes at full width (see the module
+    docstring); returns the summed launch counts of every rank."""
+    import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+
+    spec = dict(spec or {})
+    specs = lm.param_specs(cfg)
+    layout = flatbuf.build_layout(
+        mbase.abstract(specs, flatbuf.torch_dtype(cfg.param_dtype)),
+        wd_mask=mbase.norm_param_mask(specs))
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    launches: dict = {}
+    parts = {}
+    base = ROOT / "build" / "phase_y"
+    t_phase = time.perf_counter()
+    for P, tags in ((4, ("Y1", "Y2")), (2, ("Y3",))):
+        t0 = time.perf_counter()
+        out = base / f"gloo{P}"
+        ranks = y_spawn(P, tags, "gloo", out, spec)
+        spawn_s = time.perf_counter() - t0
+        payload = (torch.load(out / "y1_payload.pt") if "Y1" in tags else None)
+        for tag in tags:
+            ref = REFS[dict((t, ph) for t, _, ph in Y_PARTS)[tag]]
+            chk = y_check(tag, P, ranks, ref, layout, payload=payload)
+            r0 = ranks[0][tag]
+            rec = {"phase": "Y", "part": tag, "model": cfg.name, "W": W,
+                   "ranks": P, "workers_per_rank": W // P, "backend": "gloo",
+                   "devices": [rk[tag]["device"] for rk in ranks],
+                   "loss": r0["loss"], "reference_loss": ref["loss"],
+                   "comm_rounds": r0["comm_rounds"],
+                   "sync_s_fenced": {s: statistics.median(v)
+                                     for s, v in r0["sync_s"].items()},
+                   "sync_s_fenced_max_rank": {
+                       s: max(statistics.median(rk[tag]["sync_s"][s])
+                              for rk in ranks) for s in r0["sync_s"]},
+                   "step_s_median": [rk[tag]["step_s_median"] for rk in ranks],
+                   "peak_mem_GB": [rk[tag]["peak_mem_GB"] for rk in ranks],
+                   "ledger_measured_bytes": r0["ledger"]["measured_bytes"],
+                   "ledger_ring_bytes_per_rank": r0["ledger"]["wire_bytes"],
+                   "collectives": r0["collectives"]["totals"],
+                   # the port hands gloo CUDA tensors; gloo copies each
+                   # through host memory itself
+                   "staged_through_host": {"by_the_port": [],
+                                           "by_gloo": sorted({
+                                               k.split("/")[0] for k in
+                                               r0["collectives"]["totals"]})},
+                   "spawn_s": spawn_s, **chk}
+            if tag == "Y1":
+                rec["phase_W_sync_s_median"] = REFS["W"].get("sync_s_median")
+            parts[tag] = rec
+            emit(rec)
+            for rk in ranks:
+                for k, v in rk[tag]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    bad = [f"{t}: {', '.join(r['bad'])}" for t, r in parts.items() if r["bad"]]
+    # the dense all-reduce (Y2's global syncs) against the packed all-gather
+    # (Y1's), both over four ranks
+    y1 = parts["Y1"]["sync_s_fenced"]["global"]
+    y2 = parts["Y2"]["sync_s_fenced"]["global"]
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    nccl = {"phase": "Y", "part": "Y1-nccl"}
+    if spec.get("device") == "cpu" or count < 2:
+        nccl["ran"] = False
+        nccl["why"] = (f"{count} card(s): NCCL takes one rank a card, and "
+                       f"W=4 workers need 2 or 4 ranks")
+    else:
+        P = 4 if count >= 4 else 2
+        ranks = y_spawn(P, ("Y1",), "nccl", base / f"nccl{P}", spec)
+        chk = y_check("Y1", P, ranks, REFS["W"], layout)
+        r0 = ranks[0]["Y1"]
+        nccl.update(ran=True, ranks=P, loss=r0["loss"],
+                    sync_s_fenced=statistics.median(r0["sync_s"]["global"]),
+                    devices=[rk["Y1"]["device"] for rk in ranks], **chk)
+        for rk in ranks:
+            for k, v in rk["Y1"]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        if chk["bad"]:
+            bad.append(f"Y1-nccl: {', '.join(chk['bad'])}")
+    emit(nccl)
+    emit({"phase": "Y", "summary": True,
+          "packed_sync_s_Y1": y1, "dense_sync_s_Y2": y2,
+          "dense_over_packed": y2 / y1,
+          "phase_s": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError(f"phase Y: {'; '.join(bad)}")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run this from a "
@@ -3870,6 +4231,8 @@ def main() -> int:
         summary = round_summary(state.stats) if lars else None
         if lars:
             rec["round_summary"] = summary
+        REFS[phase] = {"loss": losses, "comm_rounds": summ["comm_rounds"],
+                       "round_summary": summary}
         emit(rec)
         if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
             raise AssertionError(f"phase {phase}: loss not finite or not "
@@ -3915,6 +4278,11 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
         torch.cuda.empty_cache()
+
+    # ---- Y: workers across processes (held against phases W, H, L) ----
+    for k, v in phase_y(cfg).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
 
     # ---- M: the MoE and MLA decoders at full published width ----
     for m_run in M_RUNS:
@@ -4020,8 +4388,8 @@ def main() -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # launches: phases A, B, L, H, E, R, W, K, S, M, D, Z, X, N, G and the noise
-    # check for the bucket kernels, T for the others
+    # launches: phases A, B, L, H, E, R, W, K, S, Y (every rank), M, D, Z,
+    # X, N, G and the noise check for the bucket kernels, T for the others
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"kernels": [

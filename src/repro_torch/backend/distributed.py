@@ -1,13 +1,28 @@
-"""Multi-process ``torch.distributed`` backend (structural).
+"""Multi-process ``torch.distributed`` backend: the worker axis across
+ranks (the port of ``repro.backend.distributed``).
 
-One process per card, each holding its workers' rows; the WorkerSet
-census and the resize / demote bookkeeping are the local backend's (and
-tested), while execution needs a real multi-process launch: on a single
-process :meth:`DistributedBackend.build` raises with launch guidance,
-and a multi-process build raises ``NotImplementedError`` until the
-across-GPU half of ROADMAP A.5 lands (NCCL process groups, the sharded
-layout, the wire pack's payload all-gathers across processes).  It
-never builds a local bundle under this backend's name.
+Each of the P ranks holds ``W / P`` consecutive workers as the leading
+rows of its own buckets, on its own device (``cuda:LOCAL_RANK %
+device_count``, or the CPU when the caller asks for it), and
+:meth:`DistributedBackend.build` returns a bundle from
+``launch.steps.build_train(run, worker_set=..., dist=...)`` whose syncs
+run collectives over the process group
+(``backend.collectives.Collectives``): the layout of the reference's
+default ``train_layout(("data",), worker_axes=("data",))``, where no
+worker is split within itself.
+
+Launch one process per rank, e.g.::
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --backend distributed ...
+
+It refuses up front: a single process (as the reference does), W not a
+multiple of P, NCCL with more ranks on a host than it has cards (before
+``init_process_group``: :func:`check_nccl_ranks`), a within-worker
+layout, and a worker set with demoted workers.  Resizes, demotion and
+checkpoints across processes come with a later slice of ROADMAP A.5
+(``launch.train.fit`` refuses them before any state changes).  It never
+builds a one-process bundle under this backend's name.
 """
 from __future__ import annotations
 
@@ -15,11 +30,25 @@ import os
 
 from repro_torch.backend.base import Backend
 
-ACROSS_GPUS_NOT_PORTED = (
-    "DistributedBackend.build across processes is not ported yet: it needs "
-    "the across-GPU half of ROADMAP A.5 (NCCL process groups, "
-    "sharding/layout, flatbuf.shard_classes, the wire pack's payload "
-    "all-gathers across processes and measured NCCL bytes)")
+ACROSS_PROCESSES_NOT_PORTED = (
+    "is not ported across processes yet: it comes with a later slice of "
+    "ROADMAP A.5 (cross-process resizes and demotion, sharded "
+    "checkpoints)")
+
+
+def check_nccl_ranks(backend: str, ranks_on_host: int, cards: int) -> None:
+    """Raise ``ValueError`` when NCCL would put two ranks on one card: NCCL
+    takes one rank a GPU (use ``gloo`` to run several ranks on one)."""
+    if backend == "nccl" and ranks_on_host > cards:
+        raise ValueError(
+            f"NCCL needs one card a rank: {ranks_on_host} ranks on a host "
+            f"with {cards} card(s); launch at most {cards} ranks per host, "
+            f"or use the gloo backend (several ranks may share a card)")
+
+
+def _env_int(name: str):
+    v = os.environ.get(name)
+    return int(v) if v not in (None, "") else None
 
 
 class DistributedBackend(Backend):
@@ -28,15 +57,33 @@ class DistributedBackend(Backend):
     def __init__(self, num_workers: int | None = None, *,
                  coordinator_address: str | None = None,
                  process_id: int | None = None,
-                 num_processes: int | None = None, backend: str = "nccl"):
+                 num_processes: int | None = None, backend: str = "nccl",
+                 device=None, local_rank: int | None = None,
+                 within_worker_size: int = 1,
+                 timeout_s: float | None = None):
+        """Explicit arguments win over torchrun's environment (``RANK``,
+        ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``).
+        ``device=None`` means ``cuda:LOCAL_RANK % device_count`` (and
+        raises without CUDA); ``"cpu"`` runs the plain versions there.
+        ``timeout_s`` bounds every collective's wait (torch's default when
+        None).  ``within_worker_size`` > 1 (a worker split over
+        processes, the reference's FSDP / TP layouts) is refused."""
         super().__init__(num_workers)
         if coordinator_address is None and os.environ.get("MASTER_ADDR"):
             coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
                                    f"{os.environ.get('MASTER_PORT', '29500')}")
         self.coordinator_address = coordinator_address
-        self.process_id = process_id
-        self.num_processes = num_processes
+        self.process_id = (process_id if process_id is not None
+                           else _env_int("RANK"))
+        self.num_processes = (num_processes if num_processes is not None
+                              else _env_int("WORLD_SIZE"))
+        self.local_rank = (local_rank if local_rank is not None
+                           else _env_int("LOCAL_RANK"))
         self.backend = backend
+        self.device = device
+        self.within_worker_size = int(within_worker_size)
+        self.timeout_s = timeout_s
+        self.collectives = None
 
     def ensure_initialized(self):
         """Bring up the default process group once (a no-op when the
@@ -50,20 +97,43 @@ class DistributedBackend(Backend):
                 "coordinator_address='host:port' (or set MASTER_ADDR / "
                 "MASTER_PORT), with process_id and num_processes, and launch "
                 "one process per card, e.g.\n"
-                "  MASTER_ADDR=localhost MASTER_PORT=29500 torchrun "
-                "--nproc-per-node 4 -m repro_torch.launch.train --backend "
-                "distributed ...\n"
+                "  python -m torch.distributed.run --nproc-per-node 4 -m "
+                "repro_torch.launch.train --backend distributed ...\n"
                 "For single-process runs use --backend local or "
                 "--backend simulated.")
         if self.process_id is None or self.num_processes is None:
             raise RuntimeError(
                 "DistributedBackend: a multi-process launch needs "
-                "process_id= and num_processes= with the coordinator")
+                "process_id= and num_processes= (or RANK / WORLD_SIZE) with "
+                "the coordinator")
+        if self.backend == "nccl":
+            import torch
+            on_host = _env_int("LOCAL_WORLD_SIZE") or int(self.num_processes)
+            check_nccl_ranks("nccl", on_host, torch.cuda.device_count())
+        kw = {}
+        if self.timeout_s is not None:
+            import datetime
+            kw["timeout"] = datetime.timedelta(seconds=float(self.timeout_s))
         dist.init_process_group(
             self.backend, init_method=f"tcp://{self.coordinator_address}",
-            world_size=int(self.num_processes), rank=int(self.process_id))
+            world_size=int(self.num_processes), rank=int(self.process_id), **kw)
+
+    def rank_device(self):
+        """This rank's device: the caller's, else ``cuda:LOCAL_RANK %
+        device_count`` (raising without CUDA)."""
+        import torch
+        from repro_torch.utils import resolve_device
+        if self.device is not None:
+            return resolve_device(self.device)
+        resolve_device(None)
+        local = self.local_rank if self.local_rank is not None else (
+            self.process_id or 0)
+        return torch.device("cuda", local % torch.cuda.device_count())
 
     def build(self, run, **kw):
+        from repro_torch.sharding.layout import (check_within_worker_size,
+                                                 train_layout)
+        check_within_worker_size(self.within_worker_size)
         self.ensure_initialized()
         import torch.distributed as dist
         if dist.get_world_size() <= 1:
@@ -71,4 +141,30 @@ class DistributedBackend(Backend):
                 "DistributedBackend requires a multi-process launch "
                 f"(world_size={dist.get_world_size()}); use LocalBackend / "
                 "SimulatedBackend for single-process runs.")
-        raise NotImplementedError(ACROSS_GPUS_NOT_PORTED)
+        from repro_torch.backend.collectives import Collectives
+        from repro_torch.launch import steps as steps_mod
+        ws = self._census()
+        if ws.demoted:
+            raise NotImplementedError(
+                f"demoted workers {list(ws.demoted)}: demotion "
+                + ACROSS_PROCESSES_NOT_PORTED)
+        layout = train_layout(ws.num_workers, dist.get_world_size(),
+                              dist.get_rank())
+        # one Collectives a bundle: its byte counts are the bundle's
+        self.collectives = Collectives(layout)
+        kw.setdefault("device", self.rank_device())
+        bundle = steps_mod.build_train(run, worker_set=ws,
+                                       dist=self.collectives, **kw)
+        self._worker_set = bundle.worker_set
+        return bundle
+
+    def resize(self, run, new_w: int, **kw):
+        raise NotImplementedError("a resize " + ACROSS_PROCESSES_NOT_PORTED)
+
+    def describe(self) -> dict:
+        out = super().describe()
+        if self.collectives is not None:
+            out.update(rank=self.collectives.rank,
+                       ranks=self.collectives.size,
+                       local_workers=list(self.collectives.layout.worker_ids))
+        return out

@@ -23,7 +23,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.utils import tree_leaves
 
 
-def sign_compress_bucket(layout, b: int, x, *, leading: int = 0):
+def sign_compress_bucket(layout, b: int, x, *, leading: int = 0,
+                         across=None):
     """sign(x) * mean|x| per leaf segment of bucket ``b``, straight on a
     ``(*lead, rows, 128)`` buffer; returns f32 of x's shape.
 
@@ -31,35 +32,54 @@ def sign_compress_bucket(layout, b: int, x, *, leading: int = 0):
     (the reference tiles the row map W times and divides by size * W),
     so one scale per leaf is shared by every worker.  Padding compresses
     to sign(0) * scale = 0.
+
+    ``across`` (a ``backend.collectives.Collectives``) holds the other
+    workers on other ranks: the totals then add this rank's row sums to
+    the previous ranks' in worker order
+    (:meth:`~repro_torch.backend.collectives.Collectives.ordered_segment_sum`),
+    the additions one process makes, in its order.
     """
     seg = flatbuf.const("row_segments", layout, b, x.device)
     sizes = flatbuf.const("segment_sizes", layout, b, x.device)
     W = math.prod(x.shape[:leading])
-    y, _ = kops.bucket_sign_compress(x.float().contiguous(), seg, sizes * W)
-    return y
+    xf = x.float().contiguous()
+    if across is None:
+        y, _ = kops.bucket_sign_compress(xf, seg, sizes * W)
+        return y
+    assert leading == 1, leading
+    rows = kops.bucket_row_abs_sums(xf)                  # (W_local, rows)
+    totals = across.ordered_segment_sum(rows.reshape(-1), seg.repeat(W),
+                                        int(sizes.shape[0]), scope="compress")
+    scales = totals / (sizes * across.layout.num_workers)
+    return kops.bucket_scale_sign(xf, seg, scales)
 
 
-def ef_compress_bucket(layout, b: int, d, e, *, leading: int = 0):
+def ef_compress_bucket(layout, b: int, d, e, *, leading: int = 0,
+                       across=None):
     """EF compression of one bucket: returns (compressed, new_memory,
     input) with input = d + e and new_memory = input - compressed."""
     inp = d.float() + e.float()
-    out = sign_compress_bucket(layout, b, inp, leading=leading)
+    out = sign_compress_bucket(layout, b, inp, leading=leading, across=across)
     return out, inp - out, inp
 
 
-def compress_stage(layout, stage, d, e=None, *, leading: int = 0):
+def compress_stage(layout, stage, d, e=None, *, leading: int = 0,
+                   across=None):
     """Apply a pack stage's declared mode to its bucket's delta ``d``
-    (``e`` is the EF memory for ``ef_sign``).  Returns (compressed,
-    new_memory, input) uniformly; for ``none`` that is (d, e, d)."""
+    (``e`` is the EF memory for ``ef_sign``; ``across`` as in
+    :func:`sign_compress_bucket`).  Returns (compressed, new_memory,
+    input) uniformly; for ``none`` that is (d, e, d)."""
     assert stage.kind == "pack" and len(stage.buckets) == 1, stage
     b = stage.buckets[0]
     mode = stage.compression
     if mode == "none":
         return d, e, d
     if mode == "sign":
-        return sign_compress_bucket(layout, b, d, leading=leading), e, d
+        return (sign_compress_bucket(layout, b, d, leading=leading,
+                                     across=across), e, d)
     if mode == "ef_sign":
-        return ef_compress_bucket(layout, b, d, e, leading=leading)
+        return ef_compress_bucket(layout, b, d, e, leading=leading,
+                                  across=across)
     raise ValueError(f"unknown stage compression {mode!r}")
 
 

@@ -49,6 +49,20 @@ WOULD make: the controller's turn-on signal.
 The update is in place: ``local_step`` and ``sync`` return a state that
 shares (and has mutated) the buffers of the one they were given.
 
+Across processes (``make_local_sgd(..., dist=Collectives)``, built by
+``backend.DistributedBackend``) each rank holds its ``W_local = W / P``
+consecutive workers as the leading rows of its own buckets and takes
+its rows of the global ``(W, B_loc, ...)`` batch.  A global mean sync
+sums the rank's rows, all-reduces them and divides by W; an Alg. 5
+block mean stays on the rank when the block lies inside it and uses the
+block's sub-group when it spans ranks; sign / EF-sign compress each
+worker's delta on its rank (the shared per-leaf scale from all W
+workers' |x| totals, added rank after rank in worker order); the wire
+pack gathers every worker's ``uint8`` payload and scales and unpacks and
+averages them in worker order, as the one-process path does.
+Per-worker values (losses, metrics, telemetry norms) are gathered,
+summed ones all-reduced, so every rank holds the same numbers.
+
 The port always runs the resident path; the reference's per-leaf tree
 path is not ported (ROADMAP A.7).  A change of W
 (``core/elastic.resize_state``) builds new functions for the new width:
@@ -100,10 +114,25 @@ def unpack_state(state: LocalSGDState) -> LocalSGDState:
                          stats=state.stats, rng=state.rng)
 
 
-def mean_params(state: LocalSGDState):
-    """Single-copy tree of the worker-averaged model (eval boundary)."""
-    return flatbuf.unflatten(state.params.layout,
-                             [b.mean(dim=0) for b in state.params.buckets])
+def mean_params(state: LocalSGDState, dist=None):
+    """Single-copy tree of the worker-averaged model (eval boundary);
+    across processes (``dist``, a ``backend.collectives.Collectives``)
+    the mean over all W workers of every rank."""
+    if dist is None:
+        means = [b.mean(dim=0) for b in state.params.buckets]
+    else:
+        means = [_global_mean(dist, b, scope="eval")
+                 for b in state.params.buckets]
+    return flatbuf.unflatten(state.params.layout, means)
+
+
+def _global_mean(dist, x, *, scope: str, stage=None, group=None, n=None):
+    """The mean over all ``n`` workers (default W) of this rank's rows of
+    ``x``: the local rows' f32 sum, all-reduced, divided by n, in x's
+    dtype."""
+    s = x.float().sum(dim=0)
+    dist.all_reduce_sum(s, scope=scope, stage=stage, group=group)
+    return s.div_(n or dist.layout.num_workers).to(x.dtype)
 
 
 def _sumsq(x, *, from_axis: int = 0):
@@ -171,6 +200,20 @@ def _packed_mean_flat_local(bucket, layout, b):
     return comp.unpack_bucket_signs(packed, scales, seg).mean(dim=0)
 
 
+def _packed_mean_flat(dist, bucket, layout, b, *, stage=None):
+    """The port of the reference's ``make_packed_mean_flat`` across
+    processes: this rank's ``(W_local, rows, 128)`` rows packed to
+    ``uint8`` signs and per-leaf scales, the payload and the scales
+    all-gathered into ``(W, ...)``, unpacked and averaged in worker
+    order: given equal inputs, the one-process path's bits."""
+    seg = flatbuf.const("row_segments", layout, b, bucket.device)
+    sizes = flatbuf.const("segment_sizes", layout, b, bucket.device)
+    packed, scales = comp.pack_bucket_signs(bucket.float(), seg, sizes)
+    allp = dist.gather_workers(packed, scope="global", stage=stage)
+    alls = dist.gather_workers(scales, scope="global", stage=stage)
+    return comp.unpack_bucket_signs(allp, alls, seg).mean(dim=0)
+
+
 def _check_supported(run: RunConfig):
     opt = run.optim
     if opt.optimizer not in ("sgd", "lars"):
@@ -179,18 +222,41 @@ def _check_supported(run: RunConfig):
 
 def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                    wd_mask=None, telemetry: bool = False,
-                   speculate_compression: bool = False):
+                   speculate_compression: bool = False, dist=None):
     """Build (init, local_step, sync) for a single-worker
     ``loss_fn(params, batch) -> (loss, metrics)`` on resident buckets.
     ``telemetry`` carries a ``StatsAccumulator`` in ``state.stats``; it
     observes only, the trajectory is the same with it on or off.
     ``speculate_compression`` (with telemetry) records the would-be sign
-    error of every bucket a global sync sends uncompressed."""
+    error of every bucket a global sync sends uncompressed.  ``dist`` (a
+    ``backend.collectives.Collectives``) splits the W workers over its
+    ranks (see the module docstring); ``None`` keeps them all here."""
     _check_supported(run)
     ls = run.local_sgd
     opt = run.optim
     W = num_workers
     global_batch = run.shape.global_batch
+    if dist is not None and dist.layout.num_workers != W:
+        raise ValueError(f"num_workers={W} disagrees with the worker layout "
+                         f"({dist.layout.num_workers} workers)")
+    # this rank's workers: rows lo .. lo + wl - 1 of the global worker axis
+    wl = W if dist is None else dist.layout.w_local
+    lo = 0 if dist is None else dist.layout.worker_lo
+    gather = (None if dist is None else
+              (lambda x, scope: dist.gather_workers(x, scope=scope)))
+
+    def _mean(x, group: int, *, scope: str, stage: int):
+        """Mean over blocks of ``group`` consecutive workers (all W at
+        global scope), broadcast back to this rank's rows: on the rank
+        when its blocks lie inside it, else over the block's ranks."""
+        if dist is None or (group < W and dist.layout.block_is_local(group)):
+            return group_mean(x, group)
+        sub = None
+        if group < W:
+            ranks = dist.layout.block_ranks(group)[lo // group]
+            sub = dist.block_groups(group)[ranks]
+        m = _global_mean(dist, x, scope=scope, stage=stage, group=sub, n=group)
+        return m[None].expand_as(x)
 
     def init(params_single, seed: int = 0) -> LocalSGDState:
         """Enter resident form from a single-copy param tree (tensors on
@@ -198,9 +264,9 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         gradient noise's stream)."""
         layout = flatbuf.build_layout(params_single, wd_mask=wd_mask)
         pb = flatbuf.flatten(layout, params_single)
-        stacked = lambda: tuple(b[None].repeat(W, 1, 1) for b in pb)
+        stacked = lambda: tuple(b[None].repeat(wl, 1, 1) for b in pb)
         zeros = lambda dtype=None: tuple(
-            torch.zeros((W,) + b.shape, dtype=dtype or b.dtype, device=b.device)
+            torch.zeros((wl,) + b.shape, dtype=dtype or b.dtype, device=b.device)
             for b in pb)
         return LocalSGDState(
             params=flatbuf.BucketState(layout, stacked(), leading=1),
@@ -217,9 +283,11 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                                            leading=1)
                        if ls.sync_compression == "ef_sign" else None),
             step=0,
-            stats=(tstats.init_stats(W, layout.num_buckets, pb[0].device)
+            stats=(tstats.init_stats(wl, layout.num_buckets, pb[0].device)
                    if telemetry else None),
-            rng=torch.Generator(device=pb[0].device).manual_seed(seed))
+            # one noise stream a rank, from (seed, rank)
+            rng=torch.Generator(device=pb[0].device).manual_seed(
+                seed if dist is None else seed * 1_000_003 + dist.rank))
 
     def local_step(state: LocalSGDState, batch, lr_scale=None):
         """One local step of every worker.  ``batch``: dict of (W, B_loc,
@@ -233,12 +301,19 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         lr = lr_at(opt, state.step, global_batch=global_batch)
         if lr_scale is not None:
             lr = lr * np.float32(lr_scale)
+        if dist is not None:
+            # every rank is handed the global batch and takes its rows
+            bad = [k for k, v in batch.items() if len(v) != W]
+            if bad:
+                raise ValueError(f"batch fields {bad} do not have the W={W} "
+                                 f"rows of the global batch")
+            batch = {k: v[lo:lo + wl] for k, v in batch.items()}
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
         # every worker's gradient lands in its row once; zeroed here once
         # for all W, so the padding is exact zero
         gbs = [torch.zeros_like(b) for b in pbs]
         losses, metrics_w = [], []
-        for w in range(W):
+        for w in range(wl):
             gw = [g[w] for g in gbs]
             loss, metrics = _worker_grad(layout, loss_fn, [b[w] for b in pbs],
                                          {k: v[w] for k, v in batch.items()},
@@ -264,9 +339,21 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         if telemetry:
             gsq_w, usq_w = out[2]
             stats = tstats.accumulate_step(stats, gsq_w, usq_w)
-        metrics = {k: torch.stack([m[k].float() for m in metrics_w]).mean()
-                   for k in metrics_w[0]}
-        metrics["loss"] = torch.stack(losses).mean()
+        if dist is None:
+            metrics = {k: torch.stack([m[k].float() for m in metrics_w]).mean()
+                       for k in metrics_w[0]}
+            metrics["loss"] = torch.stack(losses).mean()
+        else:
+            # every worker's values gathered (one collective a step), then
+            # averaged over the same W numbers as one process averages
+            keys = list(metrics_w[0])
+            local = torch.stack([torch.stack([m[k].float() for k in keys]
+                                             + [losses[i].float()])
+                                 for i, m in enumerate(metrics_w)])
+            allv = gather(local, scope="metrics")
+            metrics = {k: allv[:, j].contiguous().mean()
+                       for j, k in enumerate(keys)}
+            metrics["loss"] = allv[:, -1].contiguous().mean()
         metrics["lr"] = float(lr)
         new = LocalSGDState(params=state.params, momentum=state.momentum,
                             anchor=state.anchor, global_u=state.global_u,
@@ -294,6 +381,7 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         record = telemetry and scope == "global"
         modes = plan.modes if scope == "global" else ("none",) * len(plan.modes)
         pb = list(state.params.buckets)
+        ci = -1         # the collective stage's id: its index in the scope
         if not needs_anchor(ls):
             if any(m != "none" for m in modes):
                 raise ValueError(
@@ -302,8 +390,9 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
             pre_w = 0
             for st in stages:
                 if st.kind == "collective":
+                    ci += 1
                     for b in st.buckets:
-                        m = group_mean(pb[b], st.group)
+                        m = _mean(pb[b], st.group, scope=scope, stage=ci)
                         if record:
                             # centred pair: x_k = p_k - pbar, taken before the
                             # in-place copy; pre IS the dispersion, post = 0
@@ -312,6 +401,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                         pb[b].copy_(m)
             if not record:
                 return state
+            if dist is not None:
+                pre_w = gather(pre_w, scope="telemetry")
             stats = tstats.record_sync(state.stats, pre_sync_sq=pre_w.mean(),
                                        post_sync_sq=0.0)
             return dataclasses.replace(state, stats=stats)
@@ -342,7 +433,7 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                 if modes[b] != "none":
                     x[b], e_new, inp = comp.compress_stage(
                         layout, st, delta, efb[b] if efb is not None else None,
-                        leading=1)
+                        leading=1, across=dist)
                     if modes[b] == "ef_sign":
                         efb[b].copy_(e_new)
                     if telemetry:
@@ -354,21 +445,28 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                         # the WOULD-BE sign error of this uncompressed
                         # bucket: the escalating controllers' turn-on
                         # signal
-                        cs = comp.sign_compress_bucket(layout, b, delta,
-                                                       leading=1)
+                        cs = comp.sign_compress_bucket(
+                            layout, b, delta, leading=1, across=dist)
                         err[b] = _sumsq(delta.float() - cs)
                         ref[b] = _sumsq(delta)
                 if telemetry:
                     x_sq[b] = _sumsq(x[b], from_axis=1)
             elif st.kind == "collective":
+                ci += 1
                 for b in st.buckets:
                     if modes[b] != "none" and plan.wire_pack:
                         # the unpack emits sign(+1) * scale in padding
                         # slots: re-masked so that padding stays zero
                         dbar[b] = flatbuf.mask_padding(
-                            layout, b, _packed_mean_flat_local(x[b], layout, b))
-                    else:
+                            layout, b,
+                            _packed_mean_flat_local(x[b], layout, b)
+                            if dist is None else
+                            _packed_mean_flat(dist, x[b], layout, b, stage=ci))
+                    elif dist is None:
                         dbar[b] = x[b].mean(dim=0)
+                    else:
+                        dbar[b] = _global_mean(dist, x[b], scope="global",
+                                               stage=ci)
                     x[b] = None
                     if telemetry:
                         dbar_sq[b] = _sumsq(dbar[b])
@@ -385,12 +483,21 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         if not telemetry:
             return state
         # summed in bucket order after the stage loop, as the reference does
-        pre_w = torch.zeros((W,), dtype=torch.float32, device=pb[0].device)
+        pre_w = torch.zeros((wl,), dtype=torch.float32, device=pb[0].device)
         for b in range(nb):
             pre_w = pre_w + x_sq[b]
+        if dist is not None:
+            pre_w = gather(pre_w, scope="telemetry")
         kw = {}
         if any(m != "none" for m in modes) or speculate_compression:
-            kw = dict(comp_err_sq=torch.stack(err), comp_ref_sq=torch.stack(ref))
+            err, ref = torch.stack(err), torch.stack(ref)
+            if dist is not None:
+                # the compressor's sums over this rank's workers, for both
+                # in one all-reduce
+                er = dist.all_reduce_sum(torch.stack([err, ref]),
+                                         scope="telemetry")
+                err, ref = er[0], er[1]
+            kw = dict(comp_err_sq=err, comp_ref_sq=ref)
         stats = tstats.record_sync(state.stats, pre_sync_sq=pre_w.mean(),
                                    post_sync_sq=sum(dbar_sq), **kw)
         return dataclasses.replace(state, stats=stats)

@@ -93,13 +93,19 @@ def segment_sum(vals, seg_ids, num_segments: int):
     return out.index_add_(0, seg_ids.long(), vals)
 
 
+def bucket_row_abs_sums(x2):
+    """Sum |x| per row of a ``(*lead, rows, 128)`` bucket: one
+    ``row_abs_sum`` launch -> (*lead, rows) f32."""
+    return _fb.row_abs_sum(x2)
+
+
 def bucket_abs_totals(x2, seg_ids, num_segments: int, *,
                       per_lead: bool = False):
     """Sum |x| per leaf segment of a ``(*lead, rows, 128)`` bucket: the
     kernel's row sums scatter-added by ``seg_ids`` (rows,).  Over every
     leading index together -> (num_segments,), or with ``per_lead`` each
     leading index (worker) on its own -> (*lead, num_segments)."""
-    row_sums = _fb.row_abs_sum(x2)                         # (*lead, rows)
+    row_sums = bucket_row_abs_sums(x2)                     # (*lead, rows)
     lead = row_sums.numel() // seg_ids.numel()
     if per_lead:
         # leading index w's segments land in slots [w * n, (w + 1) * n)
@@ -123,5 +129,10 @@ def bucket_sign_compress(x2, seg_ids, seg_sizes):
     does.  Returns (y f32 like x2, scales (num_segments,) f32).
     """
     scales = bucket_abs_totals(x2, seg_ids, int(seg_sizes.shape[0])) / seg_sizes
-    y = _fb.scale_sign_rows(x2, scales[seg_ids.long()])
-    return y, scales
+    return bucket_scale_sign(x2, seg_ids, scales), scales
+
+
+def bucket_scale_sign(x2, seg_ids, scales):
+    """sign(x) * scales[leaf of the row] over a ``(*lead, rows, 128)``
+    bucket: one ``scale_sign_rows`` launch."""
+    return _fb.scale_sign_rows(x2, scales[seg_ids.long()])

@@ -1,6 +1,7 @@
 """Step builders: paper-lm + resident local SGD as a ``TrainBundle``, and
 the serving forms ``build_serve`` / ``build_engine`` (the port of
-``repro.launch.steps``, single-device: no mesh, layout or shardings).
+``repro.launch.steps``: no mesh or shardings; a training bundle's workers
+may be split over processes, ``build_train(dist=)``).
 
 The port always builds the resident flat-bus path — the one the
 reference selects with ``use_kernel=True`` — so every local step runs the
@@ -43,16 +44,39 @@ class TrainBundle:
     telemetry: bool = False     # state.stats carries a StatsAccumulator
     n_comp: int = 1             # compression-error slots: one per bucket
     worker_set: Any = None      # backend.base.WorkerSet this bundle was built for
+    # across processes: the rank's backend.collectives.Collectives (its
+    # .layout: rank, W_local, worker ids); None with every worker here
+    dist: Any = None
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.dist is None else self.dist.rank
+
+    @property
+    def w_local(self) -> int:
+        """Workers whose state this process holds."""
+        return len(self.worker_ids)
+
+    @property
+    def worker_ids(self) -> tuple:
+        """The global worker ids (rows of the plan's worker axis) whose
+        state this process holds."""
+        if self.dist is None:
+            return tuple(range(self.num_workers))
+        return self.dist.layout.worker_ids
 
 
 def build_train(run: RunConfig, *, num_workers: int | None = None,
-                worker_set=None, device=None) -> TrainBundle:
+                worker_set=None, device=None, dist=None) -> TrainBundle:
     """Resident-bucket local SGD for ``run.model`` with its workers stacked
     on one device: ``worker_set`` (a ``backend.WorkerSet``) names them,
     else ``num_workers`` (default 1) and the bundle gets
     ``WorkerSet.of(num_workers)``; the two must agree when both are
     given.  ``device=None`` means the card and raises when CUDA is
-    absent; tests pass ``device="cpu"``."""
+    absent; tests pass ``device="cpu"``.  ``dist`` (a
+    ``backend.collectives.Collectives``) puts this process's ``W / P``
+    workers here and the rest on the other ranks; the sync plan stays
+    the global plan over all W."""
     if worker_set is not None:
         if num_workers is not None and num_workers != worker_set.num_workers:
             raise ValueError(
@@ -75,7 +99,7 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
     init, local_step, sync = make_local_sgd(
         run, loss, num_workers=num_workers, wd_mask=wd_mask,
         telemetry=telemetry,
-        speculate_compression=run.controller.wants_speculation)
+        speculate_compression=run.controller.wants_speculation, dist=dist)
     layout = flatbuf.build_layout(
         mbase.abstract(specs, flatbuf.torch_dtype(cfg.param_dtype)),
         wd_mask=wd_mask)
@@ -90,7 +114,7 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
                        init=init, local_step=local_step, sync=sync,
                        device=device, layout=layout, sync_plan=plan,
                        telemetry=telemetry, n_comp=layout.num_buckets,
-                       worker_set=worker_set)
+                       worker_set=worker_set, dist=dist)
 
 
 @dataclass

@@ -23,6 +23,15 @@ the straggler sensor) and actuates the elastic fields of the delta —
 through the backend, a recompiled plan, the data re-partitioned and the
 LR co-scaled with the global batch, Lau et al. 2024).
 
+Across processes (``backend.DistributedBackend``, one process a rank)
+every rank runs this loop on its own workers' rows of the same batches:
+the syncs, metrics, round statistics and eval are reduced over the
+ranks, so every rank takes the same decisions, and the ledger's rows
+carry the bytes the ranks handed to each collective (``"measured"``).
+Only rank 0 logs and writes files.  Resizes, demotion and
+``checkpoint_fn`` raise there, before any state changes (a later slice
+of ROADMAP A.5).
+
 With a ``telemetry.trace.Tracer`` the loop is span-instrumented —
 ``round`` / ``local_steps`` / ``sync`` (+ per-stage ``collective``
 attribution) / ``controller`` / ``resize`` / ``eval`` / ``checkpoint`` —
@@ -43,6 +52,9 @@ CLI:
         --backend simulated --straggler-s 0.05 --controller elastic
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
         --device cpu --steps 4      # any arch but paper-lm: its smoke config
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --backend distributed --device cpu \
+        --smoke --steps 4 --seq 32 --local-batch 2   # 2 ranks x 2 workers
 """
 from __future__ import annotations
 
@@ -134,6 +146,20 @@ def _worker_census(stats: dict, backend, h: int, measured_s):
     return wtimes
 
 
+def _measured(bundle, plan, scope: str):
+    """The bytes all ranks handed to each collective stage of the sync
+    just run (None with every worker in this process)."""
+    if bundle.dist is None:
+        return None
+    return bundle.dist.take_stage_bytes(
+        scope, len(plan.collective_stages(scope)))
+
+
+def _refuse_across_processes(what: str):
+    from repro_torch.backend.distributed import ACROSS_PROCESSES_NOT_PORTED
+    raise NotImplementedError(f"{what} {ACROSS_PROCESSES_NOT_PORTED}")
+
+
 def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
         eval_every=0, eval_fn=None, log=print, params0=None, device=None,
         controller=None, telemetry_path=None, tracer=None,
@@ -170,11 +196,23 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
         backend = LocalBackend(
             None if bundle is not None else getattr(data_iter, "W", 1),
             device=bundle.device if bundle is not None else device)
+    if getattr(backend, "kind", "") == "distributed" or (
+            bundle is not None and bundle.dist is not None):
+        # refused before anything is built or changed
+        if run.controller.kind == "elastic":
+            _refuse_across_processes("the elastic controller (resizes, "
+                                     "demotion)")
+        if checkpoint_fn is not None:
+            _refuse_across_processes("checkpoint_fn")
     if bundle is None:
         bundle = backend.build(run)
     elif hasattr(backend, "adopt"):
         backend.adopt(bundle)
     dev = bundle.device
+    if bundle.rank != 0:
+        # one rank logs and writes files; every rank computes the same
+        log = lambda *a, **k: None
+        telemetry_path = manifest_path = None
     num_steps = num_steps or run.steps
     ls = run.local_sgd
     if params0 is None:
@@ -243,9 +281,10 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                     state = bundle.sync(state, plan=plan, scope="block")
                     ssp.fence(state)
                 stage_s = ttrace.sync_stage_spans(tracer, plan, "block", ssp)
-                entry = ledger.record_plan(step=t, level=1, h=h_now, plan=plan,
-                                           scope="block", seconds=ssp.dur_s,
-                                           num_workers=bundle.num_workers)
+                entry = ledger.record_plan(
+                    step=t, level=1, h=h_now, plan=plan, scope="block",
+                    seconds=ssp.dur_s, num_workers=bundle.num_workers,
+                    measured_bytes=_measured(bundle, plan, "block"))
                 comm_rounds["block"] += 1
                 synced = "block"
                 if mreg is not None:
@@ -265,10 +304,12 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                     step=t, level=2, h=h_now, plan=plan, scope="global",
                     batch_scale=controller.batch_scale(),
                     lr_scale=lr_scale_now, seconds=sync_s,
-                    num_workers=bundle.num_workers)
+                    num_workers=bundle.num_workers,
+                    measured_bytes=_measured(bundle, plan, "global"))
                 comm_rounds["global"] += 1
                 synced = "global"
-                stats = round_summary(state.stats) if bundle.telemetry else {}
+                stats = (round_summary(state.stats, dist=bundle.dist)
+                         if bundle.telemetry else {})
                 wtimes = _worker_census(stats, backend, h_now, stp.dur_s)
                 report = RoundReport(
                     round=global_rounds, step=t, h=h_now,
@@ -327,6 +368,10 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                 # elastic actuation, after the round is recorded: the
                 # JSONL and the trace show each decision at the round that
                 # made it, and the next round runs under the new census
+                if bundle.dist is not None and any(
+                        getattr(delta, k) is not None
+                        for k in ("demote", "promote", "workers")):
+                    _refuse_across_processes("a resize or a demotion")
                 if delta.demote is not None:
                     backend.demote(int(delta.demote))
                 if delta.promote is not None:
@@ -408,7 +453,7 @@ def eval_lm(bundle, data: dict, batch: int = 8):
     cfg = bundle.cfg
 
     def fn(state):
-        params = mean_params(state)
+        params = mean_params(state, bundle.dist)
         losses = []
         n = len(next(iter(data.values())))
         with torch.no_grad():
@@ -445,6 +490,10 @@ def main(argv=None):
                     help="execution backend (repro_torch.backend); simulated "
                          "injects per-worker latency so the straggler "
                          "telemetry has real values on one card")
+    ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                    help="distributed backend's process group (default: "
+                         "gloo with --device cpu, else nccl); gloo lets "
+                         "several ranks share one card")
     ap.add_argument("--straggler-s", type=float, default=0.0,
                     help="simulated backend: extra per-step seconds injected "
                          "into the LAST worker (drives the worker_step_skew "
@@ -493,14 +542,28 @@ def main(argv=None):
     held = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=64,
                                  seq_len=args.seq, sample_seed=123))
     it = ShardedBatches(data, args.workers, args.local_batch)
-    be_kw = {} if args.backend == "distributed" else {"device": args.device}
+    be_kw = {"device": args.device}
+    if args.backend == "distributed":
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        be_kw["backend"] = args.dist_backend or ("gloo" if cpu else "nccl")
     if args.backend == "simulated" and args.straggler_s:
         be_kw["latency_s"] = {args.workers - 1: args.straggler_s}
     be = make_backend(args.backend, args.workers, **be_kw)
+    try:
+        _main_fit(args, run, be, it, held)
+    finally:
+        if args.backend == "distributed":
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _main_fit(args, run, be, it, held):
     bundle = be.build(run)
+    lead = bundle.rank == 0       # across processes only rank 0 prints
     tracer = None
     trace_kw = {}
-    if args.trace_dir:
+    if args.trace_dir and lead:
         os.makedirs(args.trace_dir, exist_ok=True)
         tracer = ttrace.Tracer(fence=args.fence, annotate=True,
                                metrics=tmetrics.MetricsRegistry())
@@ -513,6 +576,8 @@ def main(argv=None):
                                num_steps=args.steps,
                                eval_every=max(args.steps // 5, 1),
                                eval_fn=eval_lm(bundle, held), **trace_kw)
+    if not lead:
+        return
     if tracer is not None:
         texport.write_perfetto(os.path.join(args.trace_dir, "trace.json"),
                                tracer, extra={"wall_s": summary["wall_s"]})
@@ -524,7 +589,10 @@ def main(argv=None):
           f"comm={summary['comm_rounds']} topology={summary['topology']} "
           f"wire_bytes={summary['ledger']['wire_bytes']:.4g} "
           f"controller={summary['controller']} "
-          f"backend={summary['backend']}")
+          f"backend={summary['backend']} "
+          f"cost_sources={summary['ledger']['cost_sources']}"
+          + (f" measured_bytes={summary['ledger']['measured_bytes']:.6g}"
+             if "measured_bytes" in summary["ledger"] else ""))
 
 
 if __name__ == "__main__":

@@ -1,15 +1,19 @@
 """Host-side comms ledger: bytes and collectives per sync round (the port
-of ``repro.telemetry.ledger``, analytic cost source only).
+of ``repro.telemetry.ledger``).
 
 :func:`analytic_sync_cost` applies the ring formulas to the flat-bus
 bucket layout: one all-reduce per dense bucket, or one uint8 payload
-gather plus one scale gather per wire-packed bucket.  The W workers of
-the port live on one card, so nothing crosses a wire there: the bytes are
-the ring model's, as if each worker had its own device, and every row's
-``cost_source`` is ``"analytic"``.  The reference's ``hlo_sync_cost``
-parses XLA HLO and has no counterpart; a measured collective count comes
-with workers across GPUs (NCCL).  Seconds come from the tracer: ``fit``
-passes each traced sync's span duration to ``record_plan(seconds=)``.
+gather plus one scale gather per wire-packed bucket.  When the W workers
+live on one card nothing crosses a wire: the bytes are the ring model's,
+as if each worker had its own device, and the rows'
+``cost_source`` is ``"analytic"``.  Across processes
+(``backend.DistributedBackend``) ``fit`` also hands ``record_plan`` the
+bytes all ranks handed to each stage's collectives, counted by
+``backend.collectives.Collectives``: those rows carry
+``cost_source: "measured"`` and ``measured_bytes`` beside the ring
+model's ``bytes_on_wire`` (the reference's ``hlo_sync_cost`` parses XLA
+HLO instead).  Seconds come from the tracer: ``fit`` passes each traced
+sync's span duration to ``record_plan(seconds=)``.
 
 :class:`CommsLedger` accumulates one row per collective stage of each
 sync round (:meth:`CommsLedger.record_plan`) or one per round
@@ -133,7 +137,8 @@ class CommsLedger:
     def record_plan(self, *, step: int, level: int, h: int, plan,
                     scope: str = "global", batch_scale: int = 1,
                     lr_scale: float = 1.0, seconds: float | None = None,
-                    num_workers: int | None = None) -> dict:
+                    num_workers: int | None = None,
+                    measured_bytes=None) -> dict:
         """Append one row per collective stage of ``plan.schedule(scope)``;
         returns the round totals (a ``record``-shaped dict).
 
@@ -142,12 +147,19 @@ class CommsLedger:
         the stages' wire-byte weights, as ``trace.sync_stage_spans`` spreads
         it over the ``collective`` spans, and the totals carry it as
         ``sync_s``.  ``num_workers`` stamps the rows with the worker-set
-        width the round priced (default: the plan's)."""
+        width the round priced (default: the plan's).  ``measured_bytes``
+        (one number a collective stage: the bytes all ranks handed to
+        it) marks the rows ``"measured"``; the totals then carry
+        ``measured_bytes`` too."""
         nw = int(num_workers if num_workers is not None else plan.num_workers)
         stages = plan.collective_stages(scope)
         est = sum(s.wire_bytes for s in stages)
         shares = ([s.wire_bytes / est for s in stages] if est > 0
                   else [1.0 / max(len(stages), 1)] * len(stages))
+        source = "analytic" if measured_bytes is None else "measured"
+        if measured_bytes is not None and len(measured_bytes) != len(stages):
+            raise ValueError(f"{len(measured_bytes)} measured byte counts "
+                             f"for {len(stages)} collective stages")
         total_b, total_c = 0.0, 0
         for i, s in enumerate(stages):
             e = {"step": int(step), "level": int(level), "h": int(h),
@@ -159,10 +171,12 @@ class CommsLedger:
                  "num_workers": nw,
                  "bytes_on_wire": float(s.wire_bytes),
                  "collectives": int(s.collectives),
-                 "cost_source": "analytic",
+                 "cost_source": source,
                  "compression": s.compression,
                  "batch_scale": int(batch_scale),
                  "lr_scale": float(lr_scale)}
+            if measured_bytes is not None:
+                e["measured_bytes"] = float(measured_bytes[i])
             if seconds is not None:
                 e["stage_s"] = float(seconds * shares[i])
             self.entries.append(e)
@@ -170,10 +184,12 @@ class CommsLedger:
             total_c += e["collectives"]
         out = {"step": int(step), "level": int(level), "h": int(h),
                "bytes_on_wire": total_b, "collectives": total_c,
-               "cost_source": "analytic",
+               "cost_source": source,
                "compression": "|".join(plan.modes),
                "batch_scale": int(batch_scale),
                "lr_scale": float(lr_scale)}
+        if measured_bytes is not None:
+            out["measured_bytes"] = float(sum(measured_bytes))
         if seconds is not None:
             out["sync_s"] = float(seconds)
         return out
@@ -233,6 +249,9 @@ class CommsLedger:
                "scaling": self.scaling(),
                "topologies": self.by_topology(),
                "worker_sets": self.by_workers()}
+        if any("measured_bytes" in e for e in self.entries):
+            out["measured_bytes"] = float(sum(e.get("measured_bytes", 0.0)
+                                              for e in self.entries))
         if any("stage_s" in e for e in self.entries):
             # measured sync seconds rode in through record_plan(seconds=)
             out["sync_seconds"] = float(sum(e.get("stage_s", 0.0)

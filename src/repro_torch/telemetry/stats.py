@@ -21,7 +21,8 @@ params p_k - pbar on the plain mean path, where post = 0 exactly)
     dispersion = pre - post = mean_k ||x_k - mean x||^2   (>= 0)
 
 :func:`round_summary` turns the last round into host floats with the
-reference's keys.  Nothing in the port reads it yet but callers and
+reference's keys (across processes, after gathering every rank's
+per-worker slices).  Nothing in the port reads it yet but callers and
 tests: no JSONL record, ledger or controller.
 """
 from __future__ import annotations
@@ -98,15 +99,25 @@ def record_sync(stats: StatsAccumulator, *, pre_sync_sq, post_sync_sq,
         rounds=stats.rounds + 1)
 
 
-def round_summary(stats: StatsAccumulator, *, eps: float = 1e-12) -> dict:
+def round_summary(stats: StatsAccumulator, *, eps: float = 1e-12,
+                  dist=None) -> dict:
     """Host-side summary of the last completed round (floats/lists), with
-    the reference's keys.
+    the reference's keys.  Across processes (``dist``, a
+    ``backend.collectives.Collectives``) the rank's per-worker slices are
+    all-gathered first, so every rank summarizes all W workers, as one
+    process does.
 
     ``diversity`` is the worker dispersion at sync over the mean
     per-worker accumulated update norm^2; ``comp_rel_err`` the per-bucket
     relative L2 compression error; ``signal_sq``/``noise_sq``/
     ``noise_ratio`` split the update energy (:func:`noise_decomposition`).
     """
+    if dist is not None:
+        both = dist.gather_workers(
+            torch.stack([stats.round_grad_sq, stats.round_update_sq], dim=1),
+            scope="telemetry")
+        stats = dataclasses.replace(stats, round_grad_sq=both[:, 0].contiguous(),
+                                    round_update_sq=both[:, 1].contiguous())
     s = {f.name: getattr(stats, f.name).detach().cpu().numpy()
          for f in dataclasses.fields(stats)}
     num_workers = int(s["round_grad_sq"].shape[0])

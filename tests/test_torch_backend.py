@@ -21,11 +21,13 @@
   rounds, the same JSONL keys, ``controller`` and ``resize`` trace spans.
 * The W 4 -> 2 -> 4 acceptance run: the ledger's ``worker_sets`` equal
   the reference's.
-* Distributed gating (one process, and two ``gloo`` processes), the
-  ``make_backend`` kinds, and the CLI with a simulated straggler.
+* Distributed gating (one process), two ``gloo`` processes building
+  and taking a step and a sync, the up-front refusals, the
+  ``make_backend`` kinds, and the CLI with a simulated straggler
+  (``tests/test_torch_distributed.py`` holds the distributed runs).
 
-The reference's ``test_resize_fsdp_subbuckets`` waits for the across-GPU
-half of ROADMAP A.5: the port has no sharded sub-buckets
+The reference's ``test_resize_fsdp_subbuckets`` waits for a later slice
+of ROADMAP A.5: the port has no sharded sub-buckets
 (``flatbuf.shard_classes``) yet.
 """
 import dataclasses
@@ -714,23 +716,60 @@ def test_distributed_backend_gating(monkeypatch):
 
 
 _TWO_PROCESSES = textwrap.dedent("""
-    import socket, sys
+    import json, socket, sys
+    import numpy as np
+    import torch
     import torch.multiprocessing as mp
 
     def rank(r, port, out):
+        torch.set_num_threads(1)
+        from repro_torch import configs
         from repro_torch.backend import make_backend
+        from repro_torch.configs import base as tcb
+        from repro_torch.core.syncplan import PlanDelta
+        from repro_torch.data.partition import ShardedBatches
+        from repro_torch.data.synthetic import lm_examples, markov_lm
+        from repro_torch.launch import train as ttrain
+        from repro_torch.models import base as mbase
         import torch.distributed as dist
-        be = make_backend("distributed", 4, backend="gloo",
+        be = make_backend("distributed", 4, backend="gloo", device="cpu",
                           coordinator_address=f"localhost:{port}",
                           process_id=r, num_processes=2)
+        run = tcb.RunConfig(
+            model=configs.get_smoke("paper-lm"),
+            shape=tcb.InputShape("t", 16, 8, "train"),
+            local_sgd=tcb.LocalSGDConfig(local_steps=1,
+                                         sync_compression="ef_sign",
+                                         wire_pack=True))
+        bundle = be.build(run)
+        data = lm_examples(markov_lm(vocab=512, num_seqs=16, seq_len=16))
+        p0 = mbase.materialize(bundle.specs, torch.Generator().manual_seed(0),
+                               "cpu")
+        state = bundle.init(p0)
+        state, metrics = bundle.local_step(state, next(iter(
+            ShardedBatches(data, 4, 2))))
+        state = bundle.sync(state)
+        got = {"rows": list(state.params.buckets[0].shape),
+               "workers": list(bundle.worker_ids),
+               "loss": float(metrics["loss"]),
+               "param_sum": float(state.params.buckets[0].double().sum()),
+               "totals": bundle.dist.describe()["totals"]}
+        # a resize decision stops fit before the state changes
+        class Resize:
+            kind = "custom"
+            def h_at(self, t): return 1
+            def plan_delta(self, t): return PlanDelta(workers=2) if t else PlanDelta()
+            def update(self, report): pass
+            def batch_scale(self): return 1
+            def compression(self): return None
         try:
-            be.build(None)
+            ttrain.fit(run, ShardedBatches(data, 4, 2), bundle=bundle,
+                       backend=be, num_steps=2, controller=Resize(),
+                       params0=p0, log=lambda *a: None)
         except NotImplementedError as e:
-            msg = str(e)
-        else:
-            msg = "built"
+            got["resize"] = str(e)
         dist.destroy_process_group()
-        open(f"{out}.{r}", "w").write(msg)
+        open(f"{out}.{r}", "w").write(json.dumps(got))
 
     if __name__ == "__main__":
         s = socket.socket()
@@ -741,19 +780,65 @@ _TWO_PROCESSES = textwrap.dedent("""
 """)
 
 
-def test_distributed_backend_two_processes_refuses_to_build(tmp_path):
-    """Two real ``gloo`` processes: the build raises NotImplementedError
-    naming the across-GPU half of ROADMAP A.5 on every rank, and never
-    builds a local bundle."""
+def test_distributed_backend_two_processes_build_step_and_sync(tmp_path):
+    """Two real ``gloo`` processes build paper-lm smoke at W=4 (two workers
+    each), take a local step and a wire-packed EF-sign sync: both ranks
+    end with the same synced model and the same loss, their sync gathered
+    the payload and the scales; a resize decision raises
+    NotImplementedError naming ROADMAP A.5."""
     script = tmp_path / "two.py"
     script.write_text(_TWO_PROCESSES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, str(script), str(tmp_path / "r")],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    for r in (0, 1):
-        msg = (tmp_path / f"r.{r}").read_text()
-        assert "A.5" in msg and "NCCL" in msg, msg
+    got = [json.loads((tmp_path / f"r.{r}").read_text()) for r in (0, 1)]
+    assert [g["workers"] for g in got] == [[0, 1], [2, 3]]
+    assert got[0]["rows"][0] == got[1]["rows"][0] == 2
+    assert got[0]["loss"] == got[1]["loss"]
+    assert got[0]["param_sum"] == got[1]["param_sum"]
+    for g in got:
+        assert g["totals"]["all_gather/global"]["calls"] == 2   # payload, scales
+        assert "all_reduce/global" not in g["totals"]
+        assert "A.5" in g["resize"] and "resize" in g["resize"]
+
+
+def test_distributed_refuses_up_front(monkeypatch):
+    """NCCL with more ranks than cards (before init_process_group), a
+    worker count the ranks do not divide, within-worker layouts, blocks
+    that straddle ranks unevenly, and resizes / the elastic controller /
+    checkpoint_fn under the distributed backend, before anything is built."""
+    from repro_torch.backend.distributed import (DistributedBackend,
+                                                 check_nccl_ranks)
+    from repro_torch.sharding import layout as tlayout
+    check_nccl_ranks("gloo", 4, 1)
+    check_nccl_ranks("nccl", 2, 2)
+    with pytest.raises(ValueError, match="one card a rank"):
+        check_nccl_ranks("nccl", 4, 1)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    be = DistributedBackend(4, coordinator_address="localhost:1",
+                            process_id=0, num_processes=2)
+    with pytest.raises(ValueError, match="one card a rank"):
+        be.ensure_initialized()
+    with pytest.raises(ValueError, match="W % P"):
+        tlayout.WorkerLayout(6, 4, 0)
+    _, run = make_runs()
+    for call in (lambda: tlayout.train_layout(4, 2, 0, fsdp_axes=("model",)),
+                 lambda: tlayout.fsdp_within_worker_layout(4, 2, 0),
+                 lambda: DistributedBackend(4, within_worker_size=2).build(run)):
+        with pytest.raises(NotImplementedError, match="A.5"):
+            call()
+    assert tlayout.WorkerLayout(8, 4, 1).block_ranks(4) == ((0, 1), (2, 3))
+    assert tlayout.WorkerLayout(8, 2, 1).block_is_local(2)
+    with pytest.raises(ValueError, match="unevenly"):
+        tlayout.WorkerLayout(6, 2, 0).block_ranks(2)
+    with pytest.raises(NotImplementedError, match="A.5"):
+        DistributedBackend(4).resize(run, 2)
+    _, erun = make_runs(controller=dict(kind="elastic"))
+    for kw in (dict(run=erun), dict(run=run, checkpoint_fn=lambda s, t: None)):
+        be = DistributedBackend(4)       # never initialized: refused first
+        with pytest.raises(NotImplementedError, match="A.5"):
+            ttrain.fit(kw.pop("run"), iter(()), backend=be, **kw)
 
 
 def test_make_backend_kinds_and_no_card(monkeypatch):

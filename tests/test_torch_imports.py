@@ -63,7 +63,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "checkpoint/__init__", "core/elastic", "serving/paged",
                 "serving/engine", "serving/publish", "serving/__init__",
                 "backend/__init__", "backend/base", "backend/local",
-                "backend/simulated", "backend/distributed"):
+                "backend/simulated", "backend/distributed",
+                "backend/collectives", "sharding/__init__", "sharding/layout"):
         assert f"src/repro_torch/{mod}.py" in names, mod
     bad = []
     for f in PORT_FILES:
