@@ -1,34 +1,46 @@
 """Collectives across ranks: a thin layer over one ``torch.distributed``
 process group (what GSPMD lowers the reference's mean over a sharded
-worker axis to).
+worker axis, and its within-worker gathers, to).
 
 :class:`Collectives` holds the rank's :class:`~repro_torch.sharding.layout.WorkerLayout`
-and offers what the distributed local SGD needs:
+and offers what the distributed local SGD needs.  Over the rank's
+*worker group* (the G ranks that hold its shard index of every worker;
+the whole world when no worker is split):
 
-* :meth:`Collectives.all_reduce_sum` (in place), over the whole group or
+* :meth:`Collectives.all_reduce_sum` (in place), over the worker group or
   over an Alg. 5 block's sub-group;
 * :meth:`Collectives.all_gather` of equal-shaped tensors into one
-  ``(P, *shape)`` tensor, in rank order (:meth:`Collectives.gather_workers`
+  ``(G, *shape)`` tensor, in rank order (:meth:`Collectives.gather_workers`
   reshapes it to the W workers);
 * :meth:`Collectives.ordered_segment_sum`: a scatter-add whose additions
-  run rank after rank in worker order (P broadcasts), for the
-  compressor's shared per-leaf scales;
+  run rank after rank in worker order (G broadcasts), for the
+  compressor's shared per-leaf scales of a replicated bucket;
 * :meth:`Collectives.block_groups`: the sub-groups of the blocks that span
-  ranks, made once per block size with ``dist.new_group`` in block order
-  on every rank (``new_group`` must be called by every rank, members or
-  not, in the same order).
+  ranks.
+
+Over the rank's *shard group* (the S ranks of its worker, S > 1 only):
+:meth:`Collectives.gather_shards` (a sharded bucket's regions into its
+whole rows), :meth:`Collectives.reduce_scatter_shards` (FSDP's gradient
+sum into each rank's region), :meth:`Collectives.shard_total` (partial
+sums added in shard order) and :meth:`Collectives.shard_agree` (shard
+0's copy of a replicated bucket's scatter-add totals).  Sub-groups are made once, in the same
+order on every rank (``new_group`` must be called by every rank, members
+or not).
 
 Every call counts the bytes this rank hands to the collective, by op and
 scope (``totals``), and by sync stage (:meth:`Collectives.take_stage_bytes`,
 which the comms ledger reads as its measured bytes).  All ranks hand
-equal-shaped tensors to each call, so the bytes handed by all ranks
-together are P times this rank's.
+equal-shaped tensors to each sync collective, so the bytes handed by all
+ranks together are P times this rank's.  Shard-group traffic is never
+counted under a sync stage: the local step's bucket gathers and gradient
+reductions under the scope ``"within"``, the small cross-shard sums of
+partials under ``"shard_sums"``.
 
 The ``gloo`` backend of the torch the card runs (2.11) takes all-reduce,
-all-gather and broadcast on CUDA tensors (a probe on the card ran each
-of them; gloo copies the tensors through host memory itself), so
-nothing is staged here: a backend that refused a CUDA tensor would
-raise, never fall back to the CPU.
+all-gather, reduce-scatter and broadcast on CUDA tensors, on sub-groups
+too (a probe on the card ran each of them; gloo copies the tensors
+through host memory itself), so nothing is staged here: a backend that
+refused a CUDA tensor would raise, never fall back to the CPU.
 """
 from __future__ import annotations
 
@@ -52,6 +64,18 @@ class Collectives:
         self.totals: dict = {}          # "op/scope" -> {"calls", "bytes"}
         self._stage_bytes: dict = {}    # (scope, stage) -> bytes, until taken
         self._blocks: dict = {}         # block size -> sub-group per block
+        self.worker_group = group       # the world when no worker is split
+        self.shard_group = None
+        if layout.within_worker_size > 1:
+            # every rank makes every sub-group, in this order
+            for g in range(layout.num_groups):
+                pg = dist.new_group(list(layout.shard_group_ranks(g)))
+                if g == layout.group:
+                    self.shard_group = pg
+            for s in range(layout.within_worker_size):
+                pg = dist.new_group(list(layout.worker_group_ranks(s)))
+                if s == layout.shard:
+                    self.worker_group = pg
 
     @property
     def rank(self) -> int:
@@ -78,48 +102,53 @@ class Collectives:
         return [float(self.size * self._stage_bytes.pop((scope, i), 0))
                 for i in range(num_stages)]
 
-    # -- collectives ------------------------------------------------------
+    # -- over the worker group --------------------------------------------
     def all_reduce_sum(self, x: torch.Tensor, *, scope: str, stage=None,
                        group=None) -> torch.Tensor:
-        """Sum ``x`` (contiguous) over the group's ranks, in place; returns
-        ``x``.  ``group`` is a sub-group from :meth:`block_groups`."""
+        """Sum ``x`` (contiguous) over the worker group's ranks, in place;
+        returns ``x``.  ``group`` is a sub-group from :meth:`block_groups`."""
         import torch.distributed as dist
         self._count("all_reduce", x, scope, stage)
-        dist.all_reduce(x, group=self.group if group is None else group)
+        dist.all_reduce(x, group=self.worker_group if group is None else group)
         return x
 
-    def all_gather(self, x: torch.Tensor, *, scope: str, stage=None):
+    def all_gather(self, x: torch.Tensor, *, scope: str, stage=None,
+                   group=None, n: int | None = None):
         """Every rank's ``x`` (equal shapes) stacked in rank order:
-        ``(P, *x.shape)``."""
+        ``(G, *x.shape)`` over the worker group, or ``(n, ...)`` over
+        ``group``."""
         import torch.distributed as dist
         x = x.contiguous()
         self._count("all_gather", x, scope, stage)
-        out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype,
+        n = self.layout.num_groups if group is None else n
+        out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
                           device=x.device)
-        dist.all_gather(list(out.unbind(0)), x, group=self.group)
+        dist.all_gather(list(out.unbind(0)), x,
+                        group=self.worker_group if group is None else group)
         return out
 
     def broadcast(self, x: torch.Tensor, src: int, *, scope: str,
                   stage=None) -> torch.Tensor:
-        """Rank ``src``'s ``x`` (contiguous) into every rank's ``x``, in
-        place; returns ``x``.  Every rank counts the bytes it hands over
-        (the receivers' copies included), as for the other ops."""
+        """Rank ``src``'s ``x`` (contiguous) into every worker-group rank's
+        ``x``, in place; returns ``x``.  Every rank counts the bytes it
+        hands over (the receivers' copies included), as for the other
+        ops."""
         import torch.distributed as dist
         self._count("broadcast", x, scope, stage)
-        dist.broadcast(x, src, group=self.group)
+        dist.broadcast(x, src, group=self.worker_group)
         return x
 
     def ordered_segment_sum(self, vals: torch.Tensor, seg_ids: torch.Tensor,
                             num_segments: int, *, scope: str) -> torch.Tensor:
-        """``kernels.ops.segment_sum`` over every rank's ``vals`` in rank
-        order, as if concatenated: rank r scatter-adds its values onto
-        rank r - 1's running totals and broadcasts the result, so on the
-        CPU (where the adds run in index order) every rank ends with the
-        one-process totals bit for bit.  P broadcasts of
+        """``kernels.ops.segment_sum`` over every worker-group rank's
+        ``vals`` in rank order, as if concatenated: rank r scatter-adds its
+        values onto the previous ranks' running totals and broadcasts the
+        result, so on the CPU (where the adds run in index order) every
+        rank ends with the one-process totals bit for bit.  G broadcasts of
         ``num_segments`` floats, one after another."""
         acc = torch.zeros((num_segments,), dtype=vals.dtype,
                           device=vals.device)
-        for r in range(self.size):
+        for r in self.layout.worker_group_ranks():
             if r == self.rank:
                 acc.index_add_(0, seg_ids.long(), vals)
             self.broadcast(acc, r, scope=scope)
@@ -127,25 +156,82 @@ class Collectives:
 
     def gather_workers(self, x: torch.Tensor, *, scope: str, stage=None):
         """This rank's ``(W_local, ...)`` rows -> all W workers' ``(W, ...)``,
-        in worker order."""
+        in worker order (over the worker group: the same shard index)."""
         g = self.all_gather(x, scope=scope, stage=stage)
         return g.reshape((self.layout.num_workers,) + tuple(x.shape[1:]))
 
     def block_groups(self, group: int) -> dict:
         """The sub-group of every block of ``group`` workers that spans
-        ranks, keyed by the block's rank tuple; made on first use, on every
-        rank in block order (a block inside one rank needs none)."""
+        worker groups, keyed by the block's rank tuple (one per shard
+        index); made on first use, on every rank in block order (a block
+        inside one worker group needs none)."""
         import torch.distributed as dist
         if group not in self._blocks:
             made = {}
-            for ranks in self.layout.block_ranks(group):
-                if len(ranks) > 1 and ranks not in made:
-                    made[ranks] = dist.new_group(list(ranks))
+            for s in range(self.layout.within_worker_size):
+                for ranks in self.layout.block_ranks(group, s):
+                    if len(ranks) > 1 and ranks not in made:
+                        made[ranks] = dist.new_group(list(ranks))
             self._blocks[group] = made
         return self._blocks[group]
+
+    # -- over the shard group (within a worker) ---------------------------
+    def gather_shards(self, x: torch.Tensor, *, scope: str = "within"):
+        """The S shard ranks' ``x`` stacked in shard order: ``(S, *x.shape)``."""
+        return self.all_gather(x, scope=scope, group=self.shard_group,
+                               n=self.layout.within_worker_size)
+
+    def reduce_scatter_shards(self, x: torch.Tensor, *,
+                              scope: str = "within") -> torch.Tensor:
+        """``x`` ``(S * n, ...)`` summed over the shard group, rank s keeping
+        rows ``[s * n, (s + 1) * n)``: ``(n, ...)``."""
+        import torch.distributed as dist
+        x = x.contiguous()
+        S = self.layout.within_worker_size
+        self._count("reduce_scatter", x, scope, None)
+        out = torch.empty((x.shape[0] // S,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=self.shard_group)
+        return out
+
+    def all_reduce_shards(self, x: torch.Tensor, *,
+                          scope: str = "within") -> torch.Tensor:
+        """Sum ``x`` (contiguous) over the shard group, in place."""
+        import torch.distributed as dist
+        self._count("all_reduce", x, scope, None)
+        dist.all_reduce(x, group=self.shard_group)
+        return x
+
+    def shard_total(self, part: torch.Tensor, *,
+                    scope: str = "shard_sums") -> torch.Tensor:
+        """This shard's partial sums -> the worker's totals: the S partials
+        gathered and added in shard order, as one process adds its
+        ``S`` regions' partials (``core/local_sgd.shard_sum``)."""
+        parts = self.gather_shards(part, scope=scope)
+        acc = parts[0]
+        for s in range(1, parts.shape[0]):
+            acc = acc + parts[s]
+        return acc
+
+    def shard_agree(self, x: torch.Tensor, *,
+                    scope: str = "shard_sums") -> torch.Tensor:
+        """``x`` as the worker's first shard rank holds it, on every shard
+        rank (in place; a no-op without shards).  For a replicated
+        bucket's scatter-add totals: every shard rank computes them from
+        the same rows, but the card's atomic adds may round them
+        differently, and the copies of a worker's replicated leaves must
+        stay one value."""
+        if self.layout.within_worker_size == 1:
+            return x
+        import torch.distributed as dist
+        self._count("broadcast", x, scope, None)
+        dist.broadcast(x, self.layout.shard_group_ranks()[0],
+                       group=self.shard_group)
+        return x
 
     def describe(self) -> dict:
         return {"backend": self.backend, "rank": self.rank,
                 "ranks": self.size,
+                "within_worker_size": self.layout.within_worker_size,
                 "workers": list(self.layout.worker_ids),
                 "totals": {k: dict(v) for k, v in sorted(self.totals.items())}}

@@ -1,15 +1,22 @@
 """Multi-process ``torch.distributed`` backend: the worker axis across
-ranks (the port of ``repro.backend.distributed``).
+ranks, and optionally each worker across a shard group of ranks (the
+port of ``repro.backend.distributed``).
 
-Each of the P ranks holds ``W / P`` consecutive workers as the leading
-rows of its own buckets, on its own device (``cuda:LOCAL_RANK %
-device_count``, or the CPU when the caller asks for it), and
-:meth:`DistributedBackend.build` returns a bundle from
-``launch.steps.build_train(run, worker_set=..., dist=...)`` whose syncs
-run collectives over the process group
-(``backend.collectives.Collectives``): the layout of the reference's
-default ``train_layout(("data",), worker_axes=("data",))``, where no
-worker is split within itself.
+With ``within_worker_size=1`` (the default) each of the P ranks holds
+``W / P`` consecutive workers as the leading rows of its own buckets, on
+its own device (``cuda:LOCAL_RANK % device_count``, or the CPU when the
+caller asks for it): the layout of the reference's default
+``train_layout(("data",), worker_axes=("data",))``, where no worker is
+split within itself.  With ``within_worker_size=S`` the ranks form
+``P / S`` worker groups of S shard ranks (rank = group * S + shard,
+``sharding.layout.WorkerLayout``), and ``layout`` (a ``MeshLayout``,
+default ``train_layout(("data", "model"), worker_axes=("data",))``: tensor
+parallel over ``"model"``; ``fsdp_within_worker_layout`` for FSDP)
+classifies the leaves into sharded and replicated sub-buckets: each rank
+holds its shard's rows of the sharded ones.  :meth:`DistributedBackend.build`
+returns a bundle from ``launch.steps.build_train(run, worker_set=...,
+dist=..., layout=...)`` whose steps and syncs run collectives over the
+process group (``backend.collectives.Collectives``).
 
 Launch one process per rank, e.g.::
 
@@ -17,10 +24,10 @@ Launch one process per rank, e.g.::
         -m repro_torch.launch.train --backend distributed ...
 
 It refuses up front: a single process (as the reference does), W not a
-multiple of P, NCCL with more ranks on a host than it has cards (before
-``init_process_group``: :func:`check_nccl_ranks`), a within-worker
-layout, and a worker set with demoted workers.  Resizes, demotion and
-checkpoints across processes come with a later slice of ROADMAP A.5
+multiple of the worker groups, NCCL with more ranks on a host than it
+has cards (before ``init_process_group``: :func:`check_nccl_ranks`), and
+a worker set with demoted workers.  Resizes, demotion and checkpoints
+across processes come with a later slice of ROADMAP A.5
 (``launch.train.fit`` refuses them before any state changes).  It never
 builds a one-process bundle under this backend's name.
 """
@@ -59,15 +66,17 @@ class DistributedBackend(Backend):
                  process_id: int | None = None,
                  num_processes: int | None = None, backend: str = "nccl",
                  device=None, local_rank: int | None = None,
-                 within_worker_size: int = 1,
+                 within_worker_size: int = 1, layout=None,
                  timeout_s: float | None = None):
         """Explicit arguments win over torchrun's environment (``RANK``,
         ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``).
         ``device=None`` means ``cuda:LOCAL_RANK % device_count`` (and
         raises without CUDA); ``"cpu"`` runs the plain versions there.
         ``timeout_s`` bounds every collective's wait (torch's default when
-        None).  ``within_worker_size`` > 1 (a worker split over
-        processes, the reference's FSDP / TP layouts) is refused."""
+        None).  ``within_worker_size`` S > 1 splits every worker over S
+        ranks by ``layout`` (a ``sharding.layout.MeshLayout``; sizes it
+        lacks are filled in at build: its worker axis gets P / S, its
+        other axis S)."""
         super().__init__(num_workers)
         if coordinator_address is None and os.environ.get("MASTER_ADDR"):
             coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
@@ -82,6 +91,7 @@ class DistributedBackend(Backend):
         self.backend = backend
         self.device = device
         self.within_worker_size = int(within_worker_size)
+        self.layout = layout
         self.timeout_s = timeout_s
         self.collectives = None
 
@@ -130,10 +140,35 @@ class DistributedBackend(Backend):
             self.process_id or 0)
         return torch.device("cuda", local % torch.cuda.device_count())
 
+    def mesh_layout(self, num_ranks: int):
+        """The ``MeshLayout`` of a within-worker grid of ``num_ranks`` ranks
+        (None without one): the caller's, else tensor parallel over
+        ``"model"``, its missing axis sizes filled in (one worker axis:
+        P / S worker groups; one other axis: S shards)."""
+        from repro_torch.sharding.layout import train_layout
+        S = self.within_worker_size
+        lay = self.layout
+        if lay is None:
+            if S == 1:
+                return None
+            lay = train_layout(("data", "model"), worker_axes=("data",))
+        if not lay.sizes:
+            within = [a for a in lay.mesh_axes if a not in lay.worker_axes]
+            if len(lay.worker_axes) != 1 or len(within) != 1:
+                raise ValueError(
+                    f"layout axes {lay.mesh_axes}: give their sizes "
+                    f"(layout.with_sizes) when there is not one worker axis "
+                    f"and one within-worker axis")
+            lay = lay.with_sizes({lay.worker_axes[0]: num_ranks // S,
+                                  within[0]: S})
+        if lay.within_worker_size() != S:
+            raise ValueError(f"the layout splits a worker "
+                             f"{lay.within_worker_size()} ways, "
+                             f"within_worker_size={S}")
+        return lay
+
     def build(self, run, **kw):
-        from repro_torch.sharding.layout import (check_within_worker_size,
-                                                 train_layout)
-        check_within_worker_size(self.within_worker_size)
+        from repro_torch.sharding.layout import WorkerLayout
         self.ensure_initialized()
         import torch.distributed as dist
         if dist.get_world_size() <= 1:
@@ -148,11 +183,13 @@ class DistributedBackend(Backend):
             raise NotImplementedError(
                 f"demoted workers {list(ws.demoted)}: demotion "
                 + ACROSS_PROCESSES_NOT_PORTED)
-        layout = train_layout(ws.num_workers, dist.get_world_size(),
-                              dist.get_rank())
+        P = dist.get_world_size()
+        grid = WorkerLayout(ws.num_workers, P, dist.get_rank(),
+                            within_worker_size=self.within_worker_size)
         # one Collectives a bundle: its byte counts are the bundle's
-        self.collectives = Collectives(layout)
+        self.collectives = Collectives(grid)
         kw.setdefault("device", self.rank_device())
+        kw.setdefault("layout", self.mesh_layout(P))
         bundle = steps_mod.build_train(run, worker_set=ws,
                                        dist=self.collectives, **kw)
         self._worker_set = bundle.worker_set
@@ -167,4 +204,7 @@ class DistributedBackend(Backend):
             out.update(rank=self.collectives.rank,
                        ranks=self.collectives.size,
                        local_workers=list(self.collectives.layout.worker_ids))
+            if self.within_worker_size > 1:
+                out.update(within_worker_size=self.within_worker_size,
+                           shard=self.collectives.layout.shard)
         return out

@@ -2,7 +2,8 @@
 
 The reference's param pytree, converted to numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), becomes the port's param tree with
-the same nesting; a resident ``LocalSGDState`` of the reference whose
+the same nesting; a resident ``LocalSGDState`` of the reference (its
+sharded sub-buckets in their shard-major rows too) whose
 bucket buffers (and telemetry stats, if any) are numpy arrays becomes the
 port's resident state.  The
 bucket layouts agree row for row (``core/flatbuf``), so buffers move

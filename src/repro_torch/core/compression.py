@@ -23,6 +23,20 @@ from repro_torch.kernels import ops as kops
 from repro_torch.utils import tree_leaves
 
 
+def worker_abs_totals(layout, b: int, x, *, across=None):
+    """Sum |x| per leaf of bucket ``b``'s ``(*lead, rows, 128)`` buffer (the
+    whole bucket, or one shard's region on a rank of a shard group), each
+    leading index on its own -> ``(*lead, num_segments)`` f32: the
+    ``row_abs_sum`` launch on the shard regions' view, a scatter-add per
+    region, the regions' totals added in shard order
+    (``flatbuf.shard_sum``; ``across`` adds the shard group's)."""
+    xr = flatbuf.shard_regions(layout, b, x.float().contiguous())
+    seg = flatbuf.const("row_segments_local", layout, b, x.device)
+    n_seg = len(layout.bucket_slots(b))
+    part = kops.bucket_abs_totals(xr, seg, n_seg, per_lead=True)
+    return flatbuf.shard_sum(layout, b, part.movedim(-1, -2), across)
+
+
 def sign_compress_bucket(layout, b: int, x, *, leading: int = 0,
                          across=None):
     """sign(x) * mean|x| per leaf segment of bucket ``b``, straight on a
@@ -37,12 +51,29 @@ def sign_compress_bucket(layout, b: int, x, *, leading: int = 0,
     workers on other ranks: the totals then add this rank's row sums to
     the previous ranks' in worker order
     (:meth:`~repro_torch.backend.collectives.Collectives.ordered_segment_sum`),
-    the additions one process makes, in its order.
+    the additions one process makes, in its order.  A sharded sub-bucket
+    (whole, or one shard's region across ranks) totals each worker's
+    leaves over its shard regions in shard order
+    (:func:`worker_abs_totals`), then adds the workers' totals in worker
+    order: the same adds in one process and across ranks.
     """
-    seg = flatbuf.const("row_segments", layout, b, x.device)
     sizes = flatbuf.const("segment_sizes", layout, b, x.device)
     W = math.prod(x.shape[:leading])
     xf = x.float().contiguous()
+    if layout.bucket_shard_count(b) > 1:
+        per = worker_abs_totals(layout, b, xf, across=across)
+        n = W
+        if leading and across is not None:
+            per = across.gather_workers(per, scope="compress")
+            n = across.layout.num_workers
+        per = per.reshape(-1, per.shape[-1])
+        tot = per[0]
+        for i in range(1, per.shape[0]):
+            tot = tot + per[i]
+        seg = flatbuf.const("row_segments_local", layout, b, x.device)
+        return kops.bucket_scale_sign(flatbuf.shard_regions(layout, b, xf),
+                                      seg, tot / (sizes * n)).view(x.shape)
+    seg = flatbuf.const("row_segments", layout, b, x.device)
     if across is None:
         y, _ = kops.bucket_sign_compress(xf, seg, sizes * W)
         return y
@@ -50,6 +81,8 @@ def sign_compress_bucket(layout, b: int, x, *, leading: int = 0,
     rows = kops.bucket_row_abs_sums(xf)                  # (W_local, rows)
     totals = across.ordered_segment_sum(rows.reshape(-1), seg.repeat(W),
                                         int(sizes.shape[0]), scope="compress")
+    # the worker's shard ranks hold this replicated bucket alike
+    totals = across.shard_agree(totals)
     scales = totals / (sizes * across.layout.num_workers)
     return kops.bucket_scale_sign(xf, seg, scales)
 
@@ -155,3 +188,34 @@ def unpack_bucket_signs(packed, scales, seg_ids):
     ``(W, rows, 16)`` + scales ``(W, num_segments)`` -> ``(W, rows, 128)``
     f32 sign * scale."""
     return _unpack_bits(packed) * scales[..., seg_ids.long()][..., None]
+
+
+def pack_bucket(layout, b: int, x, *, across=None):
+    """The 1-bit wire pack of bucket ``b``'s ``(*lead, rows, 128)`` buffer
+    (the whole bucket, or one shard's region across ranks): packed
+    ``(*lead, rows, 16)`` uint8 and per-leaf scales ``(*lead,
+    num_segments)``, each leading index (worker) on its own.  A sharded
+    sub-bucket's scales are its workers' global per-leaf totals
+    (:func:`worker_abs_totals`) over the leaves' GLOBAL sizes; a
+    replicated one's are its first shard rank's (``across.shard_agree``).
+    """
+    sizes = flatbuf.const("segment_sizes", layout, b, x.device)
+    if layout.bucket_shard_count(b) == 1:
+        seg = flatbuf.const("row_segments", layout, b, x.device)
+        packed, scales = pack_bucket_signs(x, seg, sizes)
+        if across is not None:
+            # a replicated bucket's scales as its first shard rank has them
+            scales = across.shard_agree(scales.contiguous())
+        return packed, scales
+    return _pack_bits(x), worker_abs_totals(layout, b, x, across=across) / sizes
+
+
+def unpack_bucket(layout, b: int, packed, scales):
+    """Inverse of :func:`pack_bucket` over gathered payloads ``(W, rows,
+    16)`` + scales ``(W, num_segments)`` -> ``(W, rows, 128)`` f32, rows
+    the whole bucket's or one shard region's."""
+    rows = packed.shape[-2]
+    name = ("row_segments" if rows == layout.bucket_rows[b]
+            else "row_segments_local")
+    return unpack_bucket_signs(packed, scales,
+                               flatbuf.const(name, layout, b, packed.device))

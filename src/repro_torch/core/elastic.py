@@ -16,7 +16,11 @@ resize maps that axis to a new width without building the tree view:
   ``W' // W`` times.  The clones start from the same state and diverge
   through their data shards, as a fresh run from the synced model would.
 
-Single-copy state (anchor, global_u, step, the generator) has no worker
+The same fold serves sharded sub-bucket buffers (FSDP / TP classes in
+one process): a bucket's shard regions are rows of one worker's buffer,
+so folding the worker axis folds every leaf, region by region, as the
+tree view would (``tests/test_torch_sharded.py``).  Single-copy state
+(anchor, global_u, step, the generator) has no worker
 axis and passes through untouched.  The telemetry accumulator carries
 its ``(W,)`` fields through the same fold, so ``round_summary``'s
 ``num_workers`` follows the live worker set.

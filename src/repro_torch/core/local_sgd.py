@@ -31,8 +31,10 @@ syncs — the tree view exists only at ``unpack_state`` / ``mean_params``.
   packed to ``uint8`` signs and per-leaf scales, unpacked and averaged
   (the reference's meshless ``_packed_mean_flat_local``; on one card
   there is no gather to make), and its padding is masked back to zero.
-  Every bucket is packed on its own, also in a coalesced stage: a shared
-  gather would only concatenate the packed bytes.  Stages
+  A coalesced stage (``sync_coalesce``: the wire-packed sub-buckets of
+  one dtype) packs every bucket of its group on its own; across
+  processes their packed bytes and scales are concatenated into one
+  payload gather and one scale gather.  Stages
   run in the plan's order, and every order a topology emits is a
   topological order of the same per-bucket dataflow: overlap gives
   flat's bits.
@@ -63,6 +65,30 @@ averages them in worker order, as the one-process path does.
 Per-worker values (losses, metrics, telemetry norms) are gathered,
 summed ones all-reduced, so every rank holds the same numbers.
 
+Within-worker sharding (``make_local_sgd(..., shard_classes=)``, the
+classes of ``flatbuf.shard_classes`` under an FSDP or tensor-parallel
+``sharding.layout.MeshLayout``): leaves ride (dtype, class) sub-buckets,
+a sharded one in shard-major rows.  In one process every bucket is
+whole, as in the reference's meshless resident path, and every kernel
+sees its S shard regions as extra leading rows
+(``flatbuf.shard_regions``), each per-worker sum being the regions'
+partials added in shard order.  Across ranks with ``within_worker_size``
+S > 1 (``WorkerLayout``: rank = group * S + shard) a rank holds its
+shard's region of each sharded sub-bucket (momentum, EF memory and
+anchor too) and the replicated ones whole.  ``local_step`` all-gathers
+each sharded bucket over the shard group into its whole rows and reads
+the leaves from them; with ``batch_split`` = S (FSDP: the ``"batch"``
+rule shards the worker's batch) the rank differentiates its 1/S of the
+worker's batch and the mean gradient is reduce-scattered into its rows
+(replicated buckets all-reduced), while with ``batch_split`` = 1 (tensor
+parallel; Megatron-style split compute is not ported) every shard rank
+differentiates the whole batch and keeps its own rows, with no
+collective.  The kernels then run on the rank's rows and every sum that
+crosses shards (the clip norm, LARS's layer norms, the compressor's and
+the wire pack's per-leaf scales, telemetry) adds the shard group's
+partials in shard order: the adds one process makes.  Syncs average
+over each shard's worker group.
+
 The port always runs the resident path; the reference's per-leaf tree
 path is not ported (ROADMAP A.7).  A change of W
 (``core/elastic.resize_state``) builds new functions for the new width:
@@ -86,6 +112,7 @@ from repro_torch.core.schedule import lr_at
 from repro_torch.optim.lars import apply_lars_buckets
 from repro_torch.optim.sgd import apply_sgd_buckets
 from repro_torch.telemetry import stats as tstats
+from repro_torch.utils import tree_leaves
 
 
 @dataclass
@@ -106,7 +133,8 @@ def needs_anchor(cfg: LocalSGDConfig) -> bool:
 
 
 def unpack_state(state: LocalSGDState) -> LocalSGDState:
-    """The tree view of a resident state (tensors are views of the buckets)."""
+    """The tree view of a resident state (tensors are views of replicated
+    buckets, copies of sharded leaves)."""
     up = lambda x: x.unpack() if flatbuf.is_bucket_state(x) else x
     return LocalSGDState(params=up(state.params), momentum=up(state.momentum),
                          anchor=up(state.anchor), global_u=up(state.global_u),
@@ -114,16 +142,64 @@ def unpack_state(state: LocalSGDState) -> LocalSGDState:
                          stats=state.stats, rng=state.rng)
 
 
+def pack_state(state: LocalSGDState, *, wd_mask=None,
+               shard_classes=None) -> LocalSGDState:
+    """Re-enter resident bucket form from a tree state (the inverse of
+    :func:`unpack_state`).  ``wd_mask`` goes into the params layout;
+    ``shard_classes`` re-enters the (dtype, sharding-class) sub-buckets of
+    a sharded layout.  Every field takes the params layout's geometry,
+    each bucket in its own leaves' dtype (EF memory stays float32)."""
+    if flatbuf.is_bucket_state(state.params):
+        return state
+    layout = flatbuf.build_layout(state.params, wd_mask=wd_mask, leading=1,
+                                  shard_classes=shard_classes)
+
+    def pack(tree, leading):
+        if tree is None:
+            return None
+        dts = [flatbuf.dtype_name(x.dtype) for x in tree_leaves(tree)]
+        per_bucket = []
+        for b in range(layout.num_buckets):
+            bd = {dts[s.index] for s in layout.bucket_slots(b)}
+            if len(bd) != 1:
+                raise ValueError(f"cannot pack mixed dtypes {sorted(bd)} into "
+                                 f"params bucket {b} ({layout.bucket_dtypes[b]})")
+            per_bucket.append(bd.pop())
+        bufs = flatbuf.flatten(layout, tree, leading=leading,
+                               bucket_dtypes=tuple(per_bucket))
+        return flatbuf.BucketState(layout, tuple(bufs), leading=leading)
+
+    return LocalSGDState(params=pack(state.params, 1),
+                         momentum=pack(state.momentum, 1),
+                         anchor=pack(state.anchor, 0),
+                         global_u=pack(state.global_u, 0),
+                         ef_memory=pack(state.ef_memory, 1),
+                         step=state.step, rng=state.rng, stats=state.stats)
+
+
+def _is_region(layout, b: int, x) -> bool:
+    """True when ``x`` holds one shard region of sharded bucket ``b``."""
+    return (layout.bucket_shard_count(b) > 1
+            and x.shape[-2] != layout.bucket_rows[b])
+
+
 def mean_params(state: LocalSGDState, dist=None):
     """Single-copy tree of the worker-averaged model (eval boundary);
     across processes (``dist``, a ``backend.collectives.Collectives``)
-    the mean over all W workers of every rank."""
+    the mean over all W workers of every rank, a sharded bucket's shard
+    regions gathered into its whole rows."""
+    layout = state.params.layout
     if dist is None:
         means = [b.mean(dim=0) for b in state.params.buckets]
     else:
-        means = [_global_mean(dist, b, scope="eval")
-                 for b in state.params.buckets]
-    return flatbuf.unflatten(state.params.layout, means)
+        means = []
+        for b, x in enumerate(state.params.buckets):
+            m = _global_mean(dist, x, scope="eval")
+            if _is_region(layout, b, m):
+                m = dist.gather_shards(m, scope="eval").reshape(
+                    layout.bucket_rows[b], flatbuf.LANE)
+            means.append(m)
+    return flatbuf.unflatten(layout, means)
 
 
 def _global_mean(dist, x, *, scope: str, stage=None, group=None, n=None):
@@ -139,6 +215,26 @@ def _sumsq(x, *, from_axis: int = 0):
     """f32 sum of squares over all dims from ``from_axis`` on (telemetry)."""
     xf = x.float()
     return (xf * xf).sum(dim=tuple(range(from_axis, x.dim())))
+
+
+def _sumsq_w(layout, b: int, x, across=None):
+    """Per-worker f32 sum of squares of bucket ``b``'s ``(W, rows, 128)``
+    ``x`` (whole or one shard region), the shard regions' partials added
+    in shard order."""
+    return flatbuf.shard_sum(
+        layout, b, _sumsq(flatbuf.shard_regions(layout, b, x), from_axis=2),
+        across)
+
+
+def _sumsq_all(layout, b: int, x, across=None):
+    """f32 sum of squares of all of bucket ``b``'s ``x`` (any leading dims),
+    over every shard region; a replicated bucket's in one reduction."""
+    if layout.bucket_shard_count(b) == 1:
+        return _sumsq(x)
+    lead = x.dim() - 2
+    part = _sumsq(flatbuf.shard_regions(layout, b, x), from_axis=lead + 1)
+    return flatbuf.shard_sum(layout, b, part.reshape(-1, part.shape[-1])
+                             .sum(dim=0), across)
 
 
 def group_mean(x, group: int):
@@ -194,24 +290,53 @@ def _packed_mean_flat_local(bucket, layout, b):
     worker's ``(rows, 128)`` row of the stacked ``(W, rows, 128)`` buffer
     packed to signs and per-leaf scales, unpacked, averaged over W.  The
     unpack writes sign(+1) * scale into padding; the caller masks it."""
-    seg = flatbuf.const("row_segments", layout, b, bucket.device)
-    sizes = flatbuf.const("segment_sizes", layout, b, bucket.device)
-    packed, scales = comp.pack_bucket_signs(bucket.float(), seg, sizes)
-    return comp.unpack_bucket_signs(packed, scales, seg).mean(dim=0)
+    packed, scales = comp.pack_bucket(layout, b, bucket.float())
+    return comp.unpack_bucket(layout, b, packed, scales).mean(dim=0)
+
+
+def _packed_mean_coalesced_local(bufs, layout, bids):
+    """One process's coalesced wire mean: the same pack and unpack bucket
+    by bucket (there is no wire to share), so the values are the
+    across-ranks form's, which only concatenates the packed bytes."""
+    return [_packed_mean_flat_local(x, layout, b)
+            for x, b in zip(bufs, bids, strict=True)]
 
 
 def _packed_mean_flat(dist, bucket, layout, b, *, stage=None):
     """The port of the reference's ``make_packed_mean_flat`` across
-    processes: this rank's ``(W_local, rows, 128)`` rows packed to
-    ``uint8`` signs and per-leaf scales, the payload and the scales
-    all-gathered into ``(W, ...)``, unpacked and averaged in worker
-    order: given equal inputs, the one-process path's bits."""
-    seg = flatbuf.const("row_segments", layout, b, bucket.device)
-    sizes = flatbuf.const("segment_sizes", layout, b, bucket.device)
-    packed, scales = comp.pack_bucket_signs(bucket.float(), seg, sizes)
-    allp = dist.gather_workers(packed, scope="global", stage=stage)
+    processes: this rank's ``(W_local, rows, 128)`` rows (one shard region
+    of a sharded sub-bucket) packed to ``uint8`` signs and per-leaf
+    scales (their totals added across the shard group), the payload and
+    the scales all-gathered over the worker group into ``(W, ...)``,
+    unpacked and averaged in worker order: given equal inputs, the
+    one-process path's bits."""
+    return _packed_mean_coalesced(dist, [bucket], layout, (b,), stage=stage)[0]
+
+
+def _packed_mean_coalesced(dist, bufs, layout, bids, *, stage=None):
+    """The reference's ``make_packed_mean_coalesced`` across processes:
+    every bucket of the group packed on its own (shard-local rows), the
+    packed rows and the scales concatenated, ONE payload all-gather and
+    ONE scale all-gather over the worker group, split back per bucket,
+    unpacked and averaged: the per-bucket values, since concatenation and
+    splitting move no value."""
+    packs, scs = [], []
+    for x, b in zip(bufs, bids, strict=True):
+        pk, sc = comp.pack_bucket(layout, b, x.float(), across=dist)
+        packs.append(pk)
+        scs.append(sc)
+    payload = packs[0] if len(packs) == 1 else torch.cat(packs, dim=1)
+    scales = scs[0] if len(scs) == 1 else torch.cat(scs, dim=1)
+    allp = dist.gather_workers(payload, scope="global", stage=stage)
     alls = dist.gather_workers(scales, scope="global", stage=stage)
-    return comp.unpack_bucket_signs(allp, alls, seg).mean(dim=0)
+    outs, ro, so = [], 0, 0
+    for pk, sc, b in zip(packs, scs, bids):
+        r, ns = pk.shape[1], sc.shape[1]
+        outs.append(comp.unpack_bucket(layout, b, allp[:, ro:ro + r],
+                                       alls[:, so:so + ns]).mean(dim=0))
+        ro += r
+        so += ns
+    return outs
 
 
 def _check_supported(run: RunConfig):
@@ -222,7 +347,8 @@ def _check_supported(run: RunConfig):
 
 def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                    wd_mask=None, telemetry: bool = False,
-                   speculate_compression: bool = False, dist=None):
+                   speculate_compression: bool = False, dist=None,
+                   shard_classes=None, batch_split: int = 1):
     """Build (init, local_step, sync) for a single-worker
     ``loss_fn(params, batch) -> (loss, metrics)`` on resident buckets.
     ``telemetry`` carries a ``StatsAccumulator`` in ``state.stats``; it
@@ -230,7 +356,12 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
     ``speculate_compression`` (with telemetry) records the would-be sign
     error of every bucket a global sync sends uncompressed.  ``dist`` (a
     ``backend.collectives.Collectives``) splits the W workers over its
-    ranks (see the module docstring); ``None`` keeps them all here."""
+    ranks (see the module docstring); ``None`` keeps them all here.
+    ``shard_classes`` (``flatbuf.shard_classes``) buckets the leaves per
+    (dtype, sharding class); ``batch_split`` is the number of shard ranks
+    a worker's batch is split over (FSDP: the within-worker size; 1 keeps
+    it whole on every shard rank; one process always computes it
+    whole)."""
     _check_supported(run)
     ls = run.local_sgd
     opt = run.optim
@@ -242,6 +373,12 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
     # this rank's workers: rows lo .. lo + wl - 1 of the global worker axis
     wl = W if dist is None else dist.layout.w_local
     lo = 0 if dist is None else dist.layout.worker_lo
+    # within-worker grid: S shard ranks a worker, this rank holds shard si
+    S = 1 if dist is None else dist.layout.within_worker_size
+    si = 0 if dist is None else dist.layout.shard
+    if batch_split not in (1, S):
+        raise ValueError(f"batch_split={batch_split}: a worker's batch splits "
+                         f"over its S={S} shard ranks or not at all")
     gather = (None if dist is None else
               (lambda x, scope: dist.gather_workers(x, scope=scope)))
 
@@ -258,12 +395,55 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         m = _global_mean(dist, x, scope=scope, stage=stage, group=sub, n=group)
         return m[None].expand_as(x)
 
+    def _own(layout, b, x):
+        """This rank's rows of bucket ``b`` from its whole rows ``x``: its
+        shard region of a sharded bucket on a within-worker grid."""
+        if S == 1 or layout.bucket_shard_count(b) == 1:
+            return x
+        lr = layout.bucket_local_rows(b)
+        return x[..., si * lr:(si + 1) * lr, :]
+
+    def _whole(layout, b, x):
+        """A stacked bucket's whole rows ``(wl, rows, 128)`` from this rank's
+        ``x``: its shard group's regions gathered in shard order."""
+        if S == 1 or layout.bucket_shard_count(b) == 1:
+            return x
+        g = dist.gather_shards(x)                      # (S, wl, lr, 128)
+        return g.transpose(0, 1).reshape(wl, layout.bucket_rows[b], x.shape[-1])
+
+    def _reduce_grad(layout, b, g):
+        """A worker-stacked gradient over its whole rows -> this rank's rows
+        of the worker's gradient: with a split batch the shard ranks' mean
+        (reduce-scattered, or all-reduced for a replicated bucket), else
+        this rank's region of it."""
+        if S == 1:
+            return g
+        sharded = layout.bucket_shard_count(b) > 1
+        if batch_split == 1:
+            return _own(layout, b, g).contiguous() if sharded else g
+        if not sharded:
+            return dist.all_reduce_shards(g).div_(S)
+        lr = layout.bucket_local_rows(b)
+        regions = g.view(wl, S, lr, g.shape[-1]).transpose(0, 1)
+        out = dist.reduce_scatter_shards(
+            regions.reshape(S * wl, lr, g.shape[-1]))
+        return out.view(wl, lr, g.shape[-1]).div_(S)
+
     def init(params_single, seed: int = 0) -> LocalSGDState:
         """Enter resident form from a single-copy param tree (tensors on
         the training device); ``seed`` seeds the state's generator (the
         gradient noise's stream)."""
-        layout = flatbuf.build_layout(params_single, wd_mask=wd_mask)
-        pb = flatbuf.flatten(layout, params_single)
+        layout = flatbuf.build_layout(params_single, wd_mask=wd_mask,
+                                      shard_classes=shard_classes)
+        bad = [b for b in range(layout.num_buckets)
+               if S > 1 and layout.bucket_shard_count(b) not in (1, S)]
+        if bad:
+            raise ValueError(
+                f"buckets {bad} have {[layout.bucket_shard_count(b) for b in bad]}"
+                f" shards; a within-worker grid of {S} shard ranks holds "
+                f"sharded sub-buckets of {S} shards only")
+        pb = [_own(layout, b, x)
+              for b, x in enumerate(flatbuf.flatten(layout, params_single))]
         stacked = lambda: tuple(b[None].repeat(wl, 1, 1) for b in pb)
         zeros = lambda dtype=None: tuple(
             torch.zeros((wl,) + b.shape, dtype=dtype or b.dtype, device=b.device)
@@ -285,9 +465,10 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
             step=0,
             stats=(tstats.init_stats(wl, layout.num_buckets, pb[0].device)
                    if telemetry else None),
-            # one noise stream a rank, from (seed, rank)
+            # one noise stream a worker group, from (seed, group): a
+            # worker's shard ranks draw the same noise for its whole rows
             rng=torch.Generator(device=pb[0].device).manual_seed(
-                seed if dist is None else seed * 1_000_003 + dist.rank))
+                seed if dist is None else seed * 1_000_003 + dist.layout.group))
 
     def local_step(state: LocalSGDState, batch, lr_scale=None):
         """One local step of every worker.  ``batch``: dict of (W, B_loc,
@@ -308,14 +489,24 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                 raise ValueError(f"batch fields {bad} do not have the W={W} "
                                  f"rows of the global batch")
             batch = {k: v[lo:lo + wl] for k, v in batch.items()}
+            if batch_split > 1:
+                # FSDP: this shard rank's 1/S of every worker's batch
+                n = len(next(iter(batch.values()))[0])
+                if n % S:
+                    raise ValueError(f"a worker's batch of {n} does not split "
+                                     f"over its {S} shard ranks")
+                batch = {k: v[:, si * (n // S):(si + 1) * (n // S)]
+                         for k, v in batch.items()}
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
+        # a sharded bucket's whole rows, gathered over the shard group
+        full = [_whole(layout, b, x) for b, x in enumerate(pbs)]
         # every worker's gradient lands in its row once; zeroed here once
         # for all W, so the padding is exact zero
-        gbs = [torch.zeros_like(b) for b in pbs]
+        gbs = [torch.zeros_like(b) for b in full]
         losses, metrics_w = [], []
         for w in range(wl):
             gw = [g[w] for g in gbs]
-            loss, metrics = _worker_grad(layout, loss_fn, [b[w] for b in pbs],
+            loss, metrics = _worker_grad(layout, loss_fn, [b[w] for b in full],
                                          {k: v[w] for k, v in batch.items()},
                                          gw)
             if opt.noise_eta > 0:
@@ -323,18 +514,20 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                               eta=opt.noise_eta, gamma=opt.noise_gamma)
             losses.append(loss.detach())
             metrics_w.append({k: v.detach() for k, v in metrics.items()})
+        del full
+        gbs = [_reduce_grad(layout, b, g) for b, g in enumerate(gbs)]
         ubs = list(state.momentum.buckets)
         if opt.optimizer == "lars":
             # LARS takes no grad clip, as in the reference: no sq_sum launch
             out = apply_lars_buckets(
                 layout, pbs, gbs, ubs, lr=lr, trust=opt.lars_trust,
                 momentum_coef=ls.local_momentum, weight_decay=opt.weight_decay,
-                nesterov=ls.nesterov, want_stats=telemetry)
+                nesterov=ls.nesterov, want_stats=telemetry, across=dist)
         else:
             out = apply_sgd_buckets(
                 layout, pbs, gbs, ubs, lr=lr, momentum_coef=ls.local_momentum,
                 weight_decay=opt.weight_decay, nesterov=ls.nesterov,
-                grad_clip=opt.grad_clip, want_stats=telemetry)
+                grad_clip=opt.grad_clip, want_stats=telemetry, across=dist)
         stats = state.stats
         if telemetry:
             gsq_w, usq_w = out[2]
@@ -350,6 +543,9 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
             local = torch.stack([torch.stack([m[k].float() for k in keys]
                                              + [losses[i].float()])
                                  for i, m in enumerate(metrics_w)])
+            if batch_split > 1:
+                # a worker's values: the mean over its shard ranks' slices
+                local = dist.shard_total(local, scope="metrics") / S
             allv = gather(local, scope="metrics")
             metrics = {k: allv[:, j].contiguous().mean()
                        for j, k in enumerate(keys)}
@@ -396,8 +592,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                         if record:
                             # centred pair: x_k = p_k - pbar, taken before the
                             # in-place copy; pre IS the dispersion, post = 0
-                            pre_w = pre_w + _sumsq(pb[b].float() - m.float(),
-                                                   from_axis=1)
+                            pre_w = pre_w + _sumsq_w(
+                                layout, b, pb[b].float() - m.float(), dist)
                         pb[b].copy_(m)
             if not record:
                 return state
@@ -437,8 +633,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                     if modes[b] == "ef_sign":
                         efb[b].copy_(e_new)
                     if telemetry:
-                        err[b] = _sumsq(inp.float() - x[b])
-                        ref[b] = _sumsq(inp)
+                        err[b] = _sumsq_all(layout, b, inp.float() - x[b], dist)
+                        ref[b] = _sumsq_all(layout, b, inp, dist)
                 else:
                     x[b] = delta
                     if telemetry and speculate_compression:
@@ -447,29 +643,43 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                         # signal
                         cs = comp.sign_compress_bucket(
                             layout, b, delta, leading=1, across=dist)
-                        err[b] = _sumsq(delta.float() - cs)
-                        ref[b] = _sumsq(delta)
+                        err[b] = _sumsq_all(layout, b, delta.float() - cs, dist)
+                        ref[b] = _sumsq_all(layout, b, delta, dist)
                 if telemetry:
-                    x_sq[b] = _sumsq(x[b], from_axis=1)
+                    x_sq[b] = _sumsq_w(layout, b, x[b], dist)
             elif st.kind == "collective":
                 ci += 1
-                for b in st.buckets:
-                    if modes[b] != "none" and plan.wire_pack:
-                        # the unpack emits sign(+1) * scale in padding
-                        # slots: re-masked so that padding stays zero
-                        dbar[b] = flatbuf.mask_padding(
-                            layout, b,
-                            _packed_mean_flat_local(x[b], layout, b)
+                wire = [b for b in st.buckets
+                        if modes[b] != "none" and plan.wire_pack]
+                if st.coalesced and len(wire) == len(st.buckets) > 1:
+                    outs = (_packed_mean_coalesced_local(
+                                [x[b] for b in st.buckets], layout, st.buckets)
                             if dist is None else
-                            _packed_mean_flat(dist, x[b], layout, b, stage=ci))
-                    elif dist is None:
-                        dbar[b] = x[b].mean(dim=0)
-                    else:
-                        dbar[b] = _global_mean(dist, x[b], scope="global",
-                                               stage=ci)
+                            _packed_mean_coalesced(
+                                dist, [x[b] for b in st.buckets], layout,
+                                st.buckets, stage=ci))
+                else:
+                    outs = []
+                    for b in st.buckets:
+                        if b in wire:
+                            outs.append(
+                                _packed_mean_flat_local(x[b], layout, b)
+                                if dist is None else
+                                _packed_mean_flat(dist, x[b], layout, b,
+                                                  stage=ci))
+                        elif dist is None:
+                            outs.append(x[b].mean(dim=0))
+                        else:
+                            outs.append(_global_mean(dist, x[b],
+                                                     scope="global", stage=ci))
+                for b, db in zip(st.buckets, outs, strict=True):
+                    # the unpack emits sign(+1) * scale in padding slots:
+                    # re-masked so that padding stays zero
+                    dbar[b] = (flatbuf.mask_padding(layout, b, db)
+                               if b in wire else db)
                     x[b] = None
                     if telemetry:
-                        dbar_sq[b] = _sumsq(dbar[b])
+                        dbar_sq[b] = _sumsq_all(layout, b, dbar[b], dist)
             elif st.kind == "apply":
                 for b in st.buckets:
                     step_b = dbar[b]

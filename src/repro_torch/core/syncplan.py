@@ -21,11 +21,13 @@ and ``telemetry.ledger.CommsLedger.record_plan`` prices its collective
 stages, and a controller's :class:`PlanDelta` rewrites the plan between
 rounds.  With ``wire_pack`` a compressed bucket's collective is priced
 as the 1-bit payload's all-gather plus its scales' (two collectives).
-The port has no mesh, so every stage's ``reduce_axes`` is ``()``.  Its
-layout holds one bucket per dtype, and the reference's ``coalesce``
-groups the wire-packed buckets of one dtype, so every collective stage
-here holds one bucket: the plan carries ``coalesce`` for ``describe()``
-and the run manifest only.
+The port has no mesh, so every stage's ``reduce_axes`` is ``()``.  With
+``coalesce`` the wire-packed sub-buckets of one dtype (one per sharding
+class, ``flatbuf.shard_classes``) share one collective stage: one
+payload gather and one scale gather for the group (``coalesced=True``);
+dense buckets always ride alone.  A layout with one bucket per dtype
+has nothing to coalesce.  Gathers are priced on shard-local rows: a
+sharded sub-bucket's workers each hand one shard region.
 """
 from __future__ import annotations
 
@@ -126,8 +128,8 @@ class SyncStage:
     ``reduce_axes`` — mesh axes of the collective (``()``: no mesh).
     ``wire_bytes``  — per-worker ring-model bytes of the collective.
     ``collectives`` — collectives this stage launches (0 for pack/apply).
-    ``coalesced``   — several buckets share this stage's payload gather
-                      (never in a plan the port compiles).
+    ``coalesced``   — several same-dtype sub-buckets share this stage's
+                      payload gather.
     """
     kind: str
     scope: str
@@ -142,39 +144,70 @@ class SyncStage:
 
 def _bucket_gather_bytes(layout, b: int, group: int) -> tuple[float, float]:
     """(payload, scales) result bytes of one wire-packed bucket's gathers:
-    8 signs a byte, one f32 scale a leaf, from each of ``group`` workers."""
+    8 signs a byte of one shard region's rows, one f32 scale a leaf, from
+    each of ``group`` workers."""
     rows = layout.bucket_local_rows(b)
     payload = group * rows * (LANE // 8)
     scales = group * len(layout.bucket_slots(b)) * 4
     return float(payload), float(scales)
 
 
-def _collective_stage(layout, b: int, *, scope: str, group: int, mode: str,
-                      wire_pack: bool) -> SyncStage:
-    """The collective stage of bucket ``b``, priced like
+def _collective_stage(layout, buckets: tuple[int, ...], *, scope: str,
+                      group: int, mode: str, wire_pack: bool) -> SyncStage:
+    """The collective stage of ``buckets``, priced like
     ``telemetry.ledger.analytic_sync_cost``: wire-packed, it gathers the
-    bucket's payload and scales (two all-gathers); dense, it all-reduces
-    the bucket's bytes (f32 width once compressed, sign * scale
-    unpacked)."""
+    buckets' payload and scales (two all-gathers, shared by a coalesced
+    group); dense, it all-reduces one bucket's shard-local bytes (f32
+    width once compressed, sign * scale unpacked)."""
     n = max(int(group), 1)
     if mode != "none" and wire_pack:
-        payload, scales = _bucket_gather_bytes(layout, b, n)
+        payload = scales = 0.0
+        for b in buckets:
+            p, sc = _bucket_gather_bytes(layout, b, n)
+            payload += p
+            scales += sc
         total = (_ring_bytes("all-gather", payload, n)
                  + _ring_bytes("all-gather", scales, n))
-        return SyncStage(kind="collective", scope=scope, buckets=(b,),
+        return SyncStage(kind="collective", scope=scope, buckets=buckets,
                          compression=mode, group=n, wire_bytes=total,
-                         collectives=2)
+                         collectives=2, coalesced=len(buckets) > 1)
+    assert len(buckets) == 1, "dense stages are never coalesced"
+    b = buckets[0]
     itemsize = (4 if mode != "none"
                 else np.dtype(layout.bucket_dtypes[b]).itemsize)
     bytes_ = _ring_bytes("all-reduce",
                          layout.bucket_local_rows(b) * LANE * itemsize, n)
-    return SyncStage(kind="collective", scope=scope, buckets=(b,),
+    return SyncStage(kind="collective", scope=scope, buckets=buckets,
                      compression=mode, group=n, wire_bytes=bytes_,
                      collectives=1)
 
 
+def _global_groups(layout, modes, wire_pack: bool, coalesce: bool):
+    """Bucket ids in collective groups.  With ``coalesce`` the wire-packed
+    buckets of one dtype share a group (one payload gather a dtype, not a
+    sharding class); dense buckets always ride alone.  Groups keep the
+    buckets' first-appearance order."""
+    nb = layout.num_buckets
+    if not coalesce:
+        return [(b,) for b in range(nb)]
+    groups: list[list[int]] = []
+    by_dtype: dict[str, list[int]] = {}
+    for b in range(nb):
+        if modes[b] != "none" and wire_pack:
+            key = layout.bucket_dtypes[b]
+            if key in by_dtype:
+                by_dtype[key].append(b)
+                continue
+            by_dtype[key] = grp = [b]
+            groups.append(grp)
+        else:
+            groups.append([b])
+    return [tuple(g) for g in groups]
+
+
 def _compile_stages(layout, topology: Topology, modes, *, num_workers: int,
-                    wire_pack: bool, anchored: bool) -> tuple[SyncStage, ...]:
+                    wire_pack: bool, coalesce: bool,
+                    anchored: bool) -> tuple[SyncStage, ...]:
     stages: list[SyncStage] = []
     nb = layout.num_buckets
     if topology.has_block:
@@ -182,26 +215,29 @@ def _compile_stages(layout, topology: Topology, modes, *, num_workers: int,
         # level never compresses: compression needs the global anchor),
         # then one trivial apply covering the whole state
         for b in range(nb):
-            stages.append(_collective_stage(layout, b, scope="block",
+            stages.append(_collective_stage(layout, (b,), scope="block",
                                             group=topology.block_size,
                                             mode="none", wire_pack=False))
         stages.append(SyncStage(kind="apply", scope="block",
                                 buckets=tuple(range(nb)),
                                 group=topology.block_size))
 
-    triples = []
-    for b in range(nb):
+    def triple(grp):
         packs = ([SyncStage(kind="pack", scope="global", buckets=(b,),
-                            compression=modes[b], group=num_workers)]
-                 if anchored else [])
-        coll = _collective_stage(layout, b, scope="global", group=num_workers,
-                                 mode=modes[b], wire_pack=wire_pack)
+                            compression=modes[b], group=num_workers)
+                  for b in grp] if anchored else [])
+        coll = _collective_stage(layout, grp, scope="global",
+                                 group=num_workers, mode=modes[grp[0]],
+                                 wire_pack=wire_pack)
         applies = [SyncStage(kind="apply", scope="global", buckets=(b,),
-                             group=num_workers)]
-        triples.append((packs, coll, applies))
+                             group=num_workers) for b in grp]
+        return packs, coll, applies
+
+    triples = [triple(g) for g in _global_groups(layout, modes, wire_pack,
+                                                 coalesce)]
     if topology.kind == "overlap":
-        # software pipeline: issue bucket b's collective, THEN apply
-        # bucket b-1
+        # software pipeline: issue group i's collective, THEN apply
+        # group i-1
         pending: list[SyncStage] = []
         for packs, coll, applies in triples:
             stages.extend(packs)
@@ -295,7 +331,8 @@ def _recompile(plan: SyncPlan, **changes) -> SyncPlan:
     plan = replace(plan, **changes)
     stages = _compile_stages(plan.layout, plan.topology, plan.modes,
                              num_workers=plan.num_workers,
-                             wire_pack=plan.wire_pack, anchored=plan.anchored)
+                             wire_pack=plan.wire_pack, coalesce=plan.coalesce,
+                             anchored=plan.anchored)
     return replace(plan, stages=stages)
 
 

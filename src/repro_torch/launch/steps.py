@@ -1,7 +1,8 @@
 """Step builders: paper-lm + resident local SGD as a ``TrainBundle``, and
 the serving forms ``build_serve`` / ``build_engine`` (the port of
-``repro.launch.steps``: no mesh or shardings; a training bundle's workers
-may be split over processes, ``build_train(dist=)``).
+``repro.launch.steps``: no mesh; a training bundle's workers may be
+split over processes, ``build_train(dist=)``, and its leaves sharded
+within a worker by a ``sharding.layout.MeshLayout``, ``build_train(layout=)``).
 
 The port always builds the resident flat-bus path — the one the
 reference selects with ``use_kernel=True`` — so every local step runs the
@@ -47,6 +48,8 @@ class TrainBundle:
     # across processes: the rank's backend.collectives.Collectives (its
     # .layout: rank, W_local, worker ids); None with every worker here
     dist: Any = None
+    # sharding.layout.MeshLayout whose classes bucket the leaves, or None
+    mesh_layout: Any = None
 
     @property
     def rank(self) -> int:
@@ -67,7 +70,8 @@ class TrainBundle:
 
 
 def build_train(run: RunConfig, *, num_workers: int | None = None,
-                worker_set=None, device=None, dist=None) -> TrainBundle:
+                worker_set=None, device=None, dist=None,
+                layout=None) -> TrainBundle:
     """Resident-bucket local SGD for ``run.model`` with its workers stacked
     on one device: ``worker_set`` (a ``backend.WorkerSet``) names them,
     else ``num_workers`` (default 1) and the bundle gets
@@ -76,7 +80,17 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
     absent; tests pass ``device="cpu"``.  ``dist`` (a
     ``backend.collectives.Collectives``) puts this process's ``W / P``
     workers here and the rest on the other ranks; the sync plan stays
-    the global plan over all W."""
+    the global plan over all W.
+
+    ``layout`` (a ``sharding.layout.MeshLayout`` with its axis sizes:
+    ``train_layout`` for tensor parallel, ``fsdp_within_worker_layout``)
+    classifies ``lm.param_specs(cfg)`` with ``flatbuf.shard_classes``,
+    as the reference's build_train does on a mesh: the leaves ride
+    (dtype, class) sub-buckets.  In one process they stay whole; with a
+    ``dist`` of within-worker size S each rank holds its shard's rows,
+    and the layout's ``"batch"`` rule says whether a worker's batch is
+    split over its shard ranks (FSDP) or not (tensor parallel).  Without
+    a layout every leaf is of the replicated class, bit for bit."""
     if worker_set is not None:
         if num_workers is not None and num_workers != worker_set.num_workers:
             raise ValueError(
@@ -91,6 +105,24 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
     cfg = run.model
     specs = lm.param_specs(cfg)
     wd_mask = mbase.norm_param_mask(specs)
+    shard_cls = None
+    batch_split = 1
+    S = 1 if dist is None else dist.layout.within_worker_size
+    if layout is not None:
+        if not layout.sizes:
+            raise ValueError("the MeshLayout has no axis sizes: give them "
+                             "with layout.with_sizes({axis: size, ...})")
+        layout.validate()
+        shard_cls = flatbuf.shard_classes(specs, layout)
+        if S > 1:
+            if layout.within_worker_size() != S:
+                raise ValueError(
+                    f"the layout splits a worker {layout.within_worker_size()}"
+                    f" ways, the ranks {S} ways")
+            batch_split = layout.batch_split()
+    elif S > 1:
+        raise ValueError(f"a within-worker grid of {S} shard ranks needs a "
+                         f"MeshLayout that shards the leaves (layout=)")
 
     def loss(params, batch):
         return lm.loss_fn(cfg, params, batch)
@@ -99,12 +131,13 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
     init, local_step, sync = make_local_sgd(
         run, loss, num_workers=num_workers, wd_mask=wd_mask,
         telemetry=telemetry,
-        speculate_compression=run.controller.wants_speculation, dist=dist)
-    layout = flatbuf.build_layout(
+        speculate_compression=run.controller.wants_speculation, dist=dist,
+        shard_classes=shard_cls, batch_split=batch_split)
+    blayout = flatbuf.build_layout(
         mbase.abstract(specs, flatbuf.torch_dtype(cfg.param_dtype)),
-        wd_mask=wd_mask)
+        wd_mask=wd_mask, shard_classes=shard_cls)
     plan = splan.make_sync_plan(
-        layout, num_workers=num_workers,
+        blayout, num_workers=num_workers,
         topology=splan.resolve_topology(run.local_sgd, num_workers),
         compression=run.local_sgd.sync_compression,
         anchored=needs_anchor(run.local_sgd),
@@ -112,9 +145,9 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
         coalesce=run.local_sgd.sync_coalesce)
     return TrainBundle(cfg=cfg, run=run, num_workers=num_workers, specs=specs,
                        init=init, local_step=local_step, sync=sync,
-                       device=device, layout=layout, sync_plan=plan,
-                       telemetry=telemetry, n_comp=layout.num_buckets,
-                       worker_set=worker_set, dist=dist)
+                       device=device, layout=blayout, sync_plan=plan,
+                       telemetry=telemetry, n_comp=blayout.num_buckets,
+                       worker_set=worker_set, dist=dist, mesh_layout=layout)
 
 
 @dataclass

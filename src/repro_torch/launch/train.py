@@ -30,7 +30,9 @@ ranks, so every rank takes the same decisions, and the ledger's rows
 carry the bytes the ranks handed to each collective (``"measured"``).
 Only rank 0 logs and writes files.  Resizes, demotion and
 ``checkpoint_fn`` raise there, before any state changes (a later slice
-of ROADMAP A.5).
+of ROADMAP A.5).  A worker split over shard ranks
+(``DistributedBackend(within_worker_size=S, layout=)``) runs the same
+loop; eval reads ``mean_params``, which gathers the shard regions.
 
 With a ``telemetry.trace.Tracer`` the loop is span-instrumented —
 ``round`` / ``local_steps`` / ``sync`` (+ per-stage ``collective``
@@ -164,7 +166,7 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
         eval_every=0, eval_fn=None, log=print, params0=None, device=None,
         controller=None, telemetry_path=None, tracer=None,
         checkpoint_every=0, checkpoint_fn=None, manifest_path=None,
-        backend=None):
+        backend=None, layout=None):
     """Run the schedule; returns (state, history, summary).
 
     ``params0`` is the single-copy param tree to start from (e.g. weights
@@ -185,6 +187,10 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     ``LocalBackend`` that adopts ``bundle`` (a hand-made bundle without a
     ``worker_set`` warns) or, without one, builds it at
     ``data_iter.W`` workers on ``device``.
+    ``layout`` (a ``sharding.layout.MeshLayout`` with its sizes) goes to
+    the default ``LocalBackend``: the leaves ride its sharding classes'
+    sub-buckets (a backend of the caller's carries its own; across
+    processes ``DistributedBackend(within_worker_size=, layout=)``).
     ``summary`` has ``comm_rounds`` ({"block", "global"}), ``wall_s``
     (host clock, ending after a device synchronize), the plan's
     ``topology``, the ``backend``'s census, the number of ``resizes``,
@@ -195,7 +201,8 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
     if backend is None:
         backend = LocalBackend(
             None if bundle is not None else getattr(data_iter, "W", 1),
-            device=bundle.device if bundle is not None else device)
+            device=bundle.device if bundle is not None else device,
+            layout=layout)
     if getattr(backend, "kind", "") == "distributed" or (
             bundle is not None and bundle.dist is not None):
         # refused before anything is built or changed

@@ -18,7 +18,8 @@ from repro_torch.kernels import ops as kops
 
 def apply_lars_buckets(layout, pb, gb, ub, *, lr, trust: float,
                        momentum_coef: float, weight_decay: float,
-                       nesterov: bool, want_stats: bool = False):
+                       nesterov: bool, want_stats: bool = False,
+                       across=None):
     """Bucket-in/bucket-out fused LARS, IN PLACE on ``pb``/``ub``.
 
     Per bucket: one ``lars_row_norms`` launch gives the per-row sums of
@@ -29,6 +30,13 @@ def apply_lars_buckets(layout, pb, gb, ub, *, lr, trust: float,
     one ``fused_lars_bucket`` launch applies them as a per-worker, per-row
     operand.  Padding is zero in p and g, so it adds nothing to a norm.
 
+    A sharded sub-bucket's layer norms are global: each shard region's
+    per-leaf sums are added in shard order (``flatbuf.shard_sum``), over
+    the regions this process holds or across the shard group
+    (``across``), and every region takes the leaf's ratio.  A replicated
+    bucket's norms come from the worker's first shard rank
+    (``Collectives.shard_agree``), so its copies stay one value.
+
     Returns (pb, ub), or with ``want_stats`` (pb, ub, (grad_sq,
     update_sq)) with per-worker sums over all buckets from the same
     update launches (raw grad, before decay and ratio).
@@ -36,29 +44,37 @@ def apply_lars_buckets(layout, pb, gb, ub, *, lr, trust: float,
     gsq = usq = 0.0
     for b in range(layout.num_buckets):
         dev = pb[b].device
-        wd_row = flatbuf.const("wd_rows", layout, b, dev)
-        seg = flatbuf.const("row_segments", layout, b, dev).long()
+        p, g, u = (flatbuf.shard_regions(layout, b, x[b]) for x in (pb, gb, ub))
+        wd_row = flatbuf.const("wd_rows_local", layout, b, dev)
+        seg = flatbuf.const("row_segments_local", layout, b, dev).long()
         skip = flatbuf.const("segment_skip_wd", layout, b, dev)
         n_seg = int(skip.shape[0])
-        p_sq, g_sq = kops.bucket_lars_norms(pb[b], gb[b], wd_row,
+        p_sq, g_sq = kops.bucket_lars_norms(p, g, wd_row,
                                             weight_decay=weight_decay)
-        lead = p_sq.shape[:-1]
-        W = p_sq.numel() // seg.numel()
-        # one scatter-add over all workers' rows: worker w's segments are
-        # slots w * n_seg ... w * n_seg + n_seg - 1
-        seg_w = (seg[None, :] + n_seg * torch.arange(W, device=dev)[:, None]).reshape(-1)
-        wn = torch.sqrt(kops.segment_sum(p_sq.reshape(-1), seg_w, W * n_seg))
-        gn = torch.sqrt(kops.segment_sum(g_sq.reshape(-1), seg_w, W * n_seg))
+        lead = p_sq.shape[:-1]                        # (W, R)
+        n = p_sq.numel() // seg.numel()
+        # one scatter-add over all (worker, region) rows: pair i's
+        # segments are slots i * n_seg ... i * n_seg + n_seg - 1
+        seg_w = (seg[None, :] + n_seg * torch.arange(n, device=dev)[:, None]).reshape(-1)
+        tot = [flatbuf.shard_sum(layout, b, kops.segment_sum(
+                   x.reshape(-1), seg_w, n * n_seg).reshape(lead + (n_seg,))
+                   .movedim(-1, -2), across)
+               for x in (p_sq, g_sq)]                 # (W, n_seg) each
+        if across is not None and layout.bucket_shard_count(b) == 1:
+            # a replicated bucket's norms, as its first shard rank has them
+            tot = across.shard_agree(torch.stack(tot))
+        wn, gn = torch.sqrt(tot[0]), torch.sqrt(tot[1])
         ratio = torch.where((wn > 0) & (gn > 0), trust * wn / (gn + 1e-9), 1.0)
-        ratio = torch.where(skip.repeat(W), 1.0, ratio).reshape(W, n_seg)
-        ratio_row = ratio[:, seg].reshape(lead + seg.shape).contiguous()
-        out = kops.bucket_fused_lars(pb[b], gb[b], ub[b], wd_row, ratio_row,
+        ratio = torch.where(skip, 1.0, ratio)
+        ratio_row = ratio[..., seg][..., None, :].expand(
+            lead + seg.shape).contiguous()
+        out = kops.bucket_fused_lars(p, g, u, wd_row, ratio_row,
                                      lr=lr, momentum=momentum_coef,
                                      weight_decay=weight_decay,
                                      nesterov=nesterov, stats=want_stats)
         if want_stats:
-            gsq = gsq + out[0]
-            usq = usq + out[1]
+            gsq = gsq + flatbuf.shard_sum(layout, b, out[0], across)
+            usq = usq + flatbuf.shard_sum(layout, b, out[1], across)
     if want_stats:
         return pb, ub, (gsq, usq)
     return pb, ub

@@ -21,8 +21,11 @@ params p_k - pbar on the plain mean path, where post = 0 exactly)
     dispersion = pre - post = mean_k ||x_k - mean x||^2   (>= 0)
 
 :func:`round_summary` turns the last round into host floats with the
-reference's keys (across processes, after gathering every rank's
-per-worker slices).  Nothing in the port reads it yet but callers and
+reference's keys (across processes, after gathering every worker
+group's per-worker slices).  A worker split over shard ranks sums its
+shard regions' partials before anything is recorded (the optimizers'
+and the sync's ``flatbuf.shard_sum``), so the accumulator always holds
+unsharded per-worker values, the same on every shard rank.  Nothing in the port reads it yet but callers and
 tests: no JSONL record, ledger or controller.
 """
 from __future__ import annotations
@@ -113,6 +116,8 @@ def round_summary(stats: StatsAccumulator, *, eps: float = 1e-12,
     ``noise_ratio`` split the update energy (:func:`noise_decomposition`).
     """
     if dist is not None:
+        # over the worker group: one rank a worker group, each holding its
+        # workers' unsharded values
         both = dist.gather_workers(
             torch.stack([stats.round_grad_sq, stats.round_update_sq], dim=1),
             scope="telemetry")

@@ -805,9 +805,10 @@ def test_distributed_backend_two_processes_build_step_and_sync(tmp_path):
 
 def test_distributed_refuses_up_front(monkeypatch):
     """NCCL with more ranks than cards (before init_process_group), a
-    worker count the ranks do not divide, within-worker layouts, blocks
-    that straddle ranks unevenly, and resizes / the elastic controller /
-    checkpoint_fn under the distributed backend, before anything is built."""
+    worker count the ranks do not divide, blocks that straddle ranks
+    unevenly, and resizes / the elastic controller / checkpoint_fn under
+    the distributed backend, before anything is built.  Within-worker
+    layouts, refused until they were ported, build."""
     from repro_torch.backend.distributed import (DistributedBackend,
                                                  check_nccl_ranks)
     from repro_torch.sharding import layout as tlayout
@@ -823,11 +824,20 @@ def test_distributed_refuses_up_front(monkeypatch):
     with pytest.raises(ValueError, match="W % P"):
         tlayout.WorkerLayout(6, 4, 0)
     _, run = make_runs()
-    for call in (lambda: tlayout.train_layout(4, 2, 0, fsdp_axes=("model",)),
-                 lambda: tlayout.fsdp_within_worker_layout(4, 2, 0),
-                 lambda: DistributedBackend(4, within_worker_size=2).build(run)):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            call()
+    # within-worker layouts are ported now: they build, and a backend that
+    # splits workers over shard ranks gets as far as the coordinator
+    tp = tlayout.train_layout(("data", "model"), worker_axes=("data",),
+                              fsdp_axes=("model",))
+    assert tp.rules["batch"] == ("model",) and tp.rules["heads"] == "model"
+    fs = tlayout.fsdp_within_worker_layout(("data", "model"),
+                                           worker_axes=("data",))
+    assert fs.rules["embed"] == "model" and fs.rules["heads"] is None
+    assert fs.with_sizes({"data": 2, "model": 2}).batch_split() == 2
+    assert tlayout.WorkerLayout(4, 8, 5, within_worker_size=2).worker_ids == (2,)
+    with pytest.raises(RuntimeError, match="coordinator"):
+        DistributedBackend(4, within_worker_size=2).build(run)
+    assert DistributedBackend(4, within_worker_size=2).mesh_layout(8).sizes == \
+        {"data": 4, "model": 2}
     assert tlayout.WorkerLayout(8, 4, 1).block_ranks(4) == ((0, 1), (2, 3))
     assert tlayout.WorkerLayout(8, 2, 1).block_is_local(2)
     with pytest.raises(ValueError, match="unevenly"):

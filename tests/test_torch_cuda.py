@@ -1108,3 +1108,51 @@ def test_encdec_and_prefix_trainer_and_decode_on_card_match_cpu(cuda, arch):
     assert float(((pg - pc).abs() > 1e-4 * pc.abs().max()).float().mean()) <= 1e-4
     for a, b in zip(rg, rc):
         assert float(((a.double() - b.double()).abs() / (1 + b.double().abs())).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tp", "fsdp"])
+def test_sharded_layout_trainer_on_card_matches_cpu(cuda, kind):
+    """paper-lm smoke on sharded sub-buckets in one process (the TP or
+    FSDP classes with sizes {data: 2, model: 2}), EF-sign with the wire
+    pack and coalesced syncs: every kernel launched on the buckets' shard
+    regions (two sub-buckets, one launch each a step), the card against
+    the CPU as in test_trainer_on_card_matches_cpu."""
+    from repro_torch.sharding import layout as sl
+    W, B, S = 2, 2, 64
+    cfg = configs.get_smoke("paper-lm")
+    run = RunConfig(model=cfg, shape=InputShape("t", S, W * B, "train"),
+                    local_sgd=LocalSGDConfig(local_steps=2, post_local_switch=2,
+                                             sync_compression="ef_sign",
+                                             wire_pack=True, sync_coalesce=True),
+                    optim=OptimConfig(base_lr=0.3, base_batch=W * B,
+                                      lr_warmup_steps=2, grad_clip=1.0))
+    lay = (sl.train_layout(("data", "model"), worker_axes=("data",)) if kind == "tp"
+           else sl.fsdp_within_worker_layout(("data", "model"),
+                                             worker_axes=("data",)))
+    lay = lay.with_sizes({"data": 2, "model": 2})
+    data = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=64, seq_len=S))
+    p0 = mbase.materialize(build_train(run, num_workers=W, device="cpu").specs,
+                           torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tkb.reset_launches()
+        tb = build_train(run, num_workers=W, device=dev, layout=lay)
+        state, hist, summ = ttrain.fit(run, ShardedBatches(data, W, B), bundle=tb,
+                                       num_steps=6,
+                                       params0=tree_map(lambda t: t.to(dev), p0),
+                                       log=lambda *a: None)
+        out[dev] = ([b.cpu() for b in state.params.buckets],
+                    [h["loss"] for h in hist], dict(tkb.LAUNCHES),
+                    summ["comm_rounds"]["global"])
+    (pg, lg, cg, ng), (pc, lc, cc, nc) = out["cuda"], out["cpu"]
+    assert len(pg) == 2
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for a, b in zip(pg, pc):
+        d = (a - b).abs()
+        assert float((d > 1e-4 * b.abs().max()).float().mean()) <= 1e-4
+    assert ng == nc == 4
+    assert cg == {"fused_sgd_bucket": 12, "sq_sum": 12, "row_abs_sum": 16,
+                  "scale_sign_rows": 8, "lars_row_norms": 0,
+                  "fused_lars_bucket": 0}
+    assert all(v == 0 for v in cc.values())

@@ -187,10 +187,22 @@ def test_bucket_state_pack_unpack_roundtrip():
 
 
 def test_sharded_classes_not_ported_yet():
-    class Sharded:
-        axes = ("model",)
-    with pytest.raises(NotImplementedError):
-        tfb.build_layout({"w": torch.zeros(4)}, shard_classes={"w": Sharded()})
+    """Sharded classes are ported now (``tests/test_torch_sharded.py`` holds
+    them against the reference): a sharded class builds its own
+    shard-major sub-bucket instead of raising, and a replicated one keeps
+    the dtype bucket."""
+    cls = {"w": tfb.ShardClass(axes=("model",), dims=((0, 2),)),
+           "b": tfb.REPLICATED}
+    tree = {"w": torch.arange(8.0).reshape(4, 2), "b": torch.ones(3)}
+    lay = tfb.build_layout(tree, shard_classes=cls)
+    assert lay.bucket_classes == ((), ("model",))
+    assert lay.bucket_shards == (1, 2)
+    assert lay.bucket_local_rows(1) == 8 and lay.bucket_rows[1] == 16
+    bufs = tfb.flatten(lay, tree)
+    assert torch.equal(bufs[1].reshape(2, -1)[:, :4],
+                       tree["w"].reshape(2, 4))
+    out = tfb.unflatten(lay, bufs)
+    assert all(torch.equal(out[k], tree[k]) for k in tree)
 
 
 def test_data_matches_reference():

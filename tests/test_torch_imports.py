@@ -75,6 +75,18 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert not bad, bad
 
 
+def test_rank_helpers_import_no_jax():
+    """The helpers that spawned ranks import (``tests/_torch_*_variants.py``,
+    the within-worker grid's included) import no JAX and nothing of the
+    JAX package: the ranks run the port alone."""
+    helpers = sorted((ROOT / "tests").glob("_torch_*variants.py"))
+    assert {h.name for h in helpers} >= {"_torch_dist_variants.py",
+                                        "_torch_sharded_variants.py"}
+    bad = [f"{h.name}: {m}" for h in helpers for m in _imports(h)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
 def test_port_modules_import_without_jax():
     """Import every port module in a fresh interpreter where importing
     jax or repro fails."""
@@ -123,6 +135,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     run = RunConfig(model=configs.get_smoke("paper-lm"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_train(run, num_workers=2)
+    from repro_torch.sharding.layout import train_layout
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train(run, num_workers=2, layout=train_layout(
+            ("data", "model"), worker_axes=("data",)).with_sizes(
+                {"data": 2, "model": 2}))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
