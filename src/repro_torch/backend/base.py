@@ -14,8 +14,8 @@ talks about "the worker set" through two objects:
   Concrete backends: ``local`` (the W workers stacked on one device, the
   default), ``simulated`` (local execution plus an injected per-worker
   latency, so the straggler telemetry has real values on one card) and
-  ``distributed`` (``torch.distributed``; structural until the workers
-  sit on separate cards).
+  ``distributed`` (``torch.distributed``: the workers over processes,
+  one or more a rank, or split over shard ranks).
 
 The seam is thin: a Backend does not wrap the train loop, it answers
 "build me a bundle for THIS worker set" and "what did each worker's step
@@ -134,6 +134,11 @@ class Backend:
     def build(self, run, **kw):
         """Build a TrainBundle for the current worker set."""
         raise NotImplementedError
+
+    def check_resize(self, new_w: int) -> None:
+        """Raise ``ValueError`` when this backend cannot take ``new_w``
+        workers; called before any state changes (every width the census
+        and the fold accept, here)."""
 
     def resize(self, run, new_w: int, **kw):
         """Adopt a new worker-set width and rebuild the bundle.  The state

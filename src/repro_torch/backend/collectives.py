@@ -12,20 +12,24 @@ the whole world when no worker is split):
 * :meth:`Collectives.all_gather` of equal-shaped tensors into one
   ``(G, *shape)`` tensor, in rank order (:meth:`Collectives.gather_workers`
   reshapes it to the W workers);
-* :meth:`Collectives.ordered_segment_sum`: a scatter-add whose additions
+* :meth:`Collectives.ordered_segment_sum`: a segmented sum whose adds
   run rank after rank in worker order (G broadcasts), for the
   compressor's shared per-leaf scales of a replicated bucket;
 * :meth:`Collectives.block_groups`: the sub-groups of the blocks that span
   ranks.
 
+Over the whole process group: :meth:`Collectives.gather_ranks` (every
+rank's rows onto one rank, for a checkpoint of the whole state).
+
 Over the rank's *shard group* (the S ranks of its worker, S > 1 only):
 :meth:`Collectives.gather_shards` (a sharded bucket's regions into its
 whole rows), :meth:`Collectives.reduce_scatter_shards` (FSDP's gradient
 sum into each rank's region), :meth:`Collectives.shard_total` (partial
-sums added in shard order) and :meth:`Collectives.shard_agree` (shard
-0's copy of a replicated bucket's scatter-add totals).  Sub-groups are made once, in the same
+sums added in shard order).  Sub-groups are made once, in the same
 order on every rank (``new_group`` must be called by every rank, members
-or not).
+or not), and kept by their rank tuple in a cache that outlives a resize:
+the Collectives of the new W finds its shard and worker groups there,
+and makes only the Alg. 5 block groups that the new blocks need.
 
 Every call counts the bytes this rank hands to the collective, by op and
 scope (``totals``), and by sync stage (:meth:`Collectives.take_stage_bytes`,
@@ -50,7 +54,12 @@ import torch
 class Collectives:
     """Collectives of one rank over ``group`` (default: the world)."""
 
-    def __init__(self, layout, *, group=None):
+    def __init__(self, layout, *, group=None, groups: dict | None = None):
+        """``groups`` caches sub-groups by their rank tuple across the
+        Collectives of one process group (a resize builds a new one for
+        the new W; every rank asks for the same sub-groups in the same
+        order, so every rank finds them in its cache or makes them
+        together)."""
         import torch.distributed as dist
         self.layout = layout
         self.group = group
@@ -63,19 +72,29 @@ class Collectives:
                 f"{layout.num_ranks})")
         self.totals: dict = {}          # "op/scope" -> {"calls", "bytes"}
         self._stage_bytes: dict = {}    # (scope, stage) -> bytes, until taken
+        self._groups = groups if groups is not None else {}
         self._blocks: dict = {}         # block size -> sub-group per block
         self.worker_group = group       # the world when no worker is split
         self.shard_group = None
         if layout.within_worker_size > 1:
-            # every rank makes every sub-group, in this order
+            # every rank makes (or finds) every sub-group, in this order
             for g in range(layout.num_groups):
-                pg = dist.new_group(list(layout.shard_group_ranks(g)))
+                pg = self._sub_group(layout.shard_group_ranks(g))
                 if g == layout.group:
                     self.shard_group = pg
             for s in range(layout.within_worker_size):
-                pg = dist.new_group(list(layout.worker_group_ranks(s)))
+                pg = self._sub_group(layout.worker_group_ranks(s))
                 if s == layout.shard:
                     self.worker_group = pg
+
+    def _sub_group(self, ranks: tuple):
+        """The process sub-group of ``ranks``, made on first use (by every
+        rank: ``new_group`` is collective over the world)."""
+        import torch.distributed as dist
+        ranks = tuple(ranks)
+        if ranks not in self._groups:
+            self._groups[ranks] = dist.new_group(list(ranks))
+        return self._groups[ranks]
 
     @property
     def rank(self) -> int:
@@ -138,21 +157,40 @@ class Collectives:
         dist.broadcast(x, src, group=self.worker_group)
         return x
 
-    def ordered_segment_sum(self, vals: torch.Tensor, seg_ids: torch.Tensor,
-                            num_segments: int, *, scope: str) -> torch.Tensor:
-        """``kernels.ops.segment_sum`` over every worker-group rank's
-        ``vals`` in rank order, as if concatenated: rank r scatter-adds its
-        values onto the previous ranks' running totals and broadcasts the
-        result, so on the CPU (where the adds run in index order) every
-        rank ends with the one-process totals bit for bit.  G broadcasts of
-        ``num_segments`` floats, one after another."""
-        acc = torch.zeros((num_segments,), dtype=vals.dtype,
-                          device=vals.device)
+    def ordered_segment_sum(self, vals: torch.Tensor, index, *,
+                            scope: str) -> torch.Tensor:
+        """``kernels.ops.segment_totals`` over every worker-group rank's
+        ``vals`` (W_local, rows) in rank order, chained as if the ranks'
+        rows were one stack: rank r adds its rows onto the previous ranks'
+        running totals (``chain=True, init=``) and broadcasts the result,
+        so every rank ends with the one-process totals bit for bit, on the
+        CPU and on the card (whose segmented sum adds in the same fixed
+        order).  ``index`` is the rows' ``flatbuf.segment_index``.  G
+        broadcasts of ``num_segments`` floats, one after another: the
+        chain of adds runs through every rank in turn."""
+        from repro_torch.kernels import ops as kops
+        n_seg = index[2].numel() - 1
+        acc = torch.zeros((n_seg,), dtype=torch.float32, device=vals.device)
         for r in self.layout.worker_group_ranks():
             if r == self.rank:
-                acc.index_add_(0, seg_ids.long(), vals)
+                acc = kops.segment_totals(vals, index, chain=True, init=acc)
             self.broadcast(acc, r, scope=scope)
         return acc
+
+    def gather_ranks(self, x: torch.Tensor, *, scope: str):
+        """Every rank's ``x`` (equal shapes), stacked in rank order over the
+        whole process group: ``(P, *x.shape)`` on rank 0, None on the others
+        (the checkpoint's gather of a state, one bucket at a time)."""
+        import torch.distributed as dist
+        x = x.contiguous()
+        self._count("gather", x, scope, None)
+        out = None
+        if self.rank == 0:
+            out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype,
+                              device=x.device)
+        dist.gather(x, None if out is None else list(out.unbind(0)), dst=0,
+                    group=self.group)
+        return out
 
     def gather_workers(self, x: torch.Tensor, *, scope: str, stage=None):
         """This rank's ``(W_local, ...)`` rows -> all W workers' ``(W, ...)``,
@@ -171,7 +209,7 @@ class Collectives:
             for s in range(self.layout.within_worker_size):
                 for ranks in self.layout.block_ranks(group, s):
                     if len(ranks) > 1 and ranks not in made:
-                        made[ranks] = dist.new_group(list(ranks))
+                        made[ranks] = self._sub_group(ranks)
             self._blocks[group] = made
         return self._blocks[group]
 
@@ -212,22 +250,6 @@ class Collectives:
         for s in range(1, parts.shape[0]):
             acc = acc + parts[s]
         return acc
-
-    def shard_agree(self, x: torch.Tensor, *,
-                    scope: str = "shard_sums") -> torch.Tensor:
-        """``x`` as the worker's first shard rank holds it, on every shard
-        rank (in place; a no-op without shards).  For a replicated
-        bucket's scatter-add totals: every shard rank computes them from
-        the same rows, but the card's atomic adds may round them
-        differently, and the copies of a worker's replicated leaves must
-        stay one value."""
-        if self.layout.within_worker_size == 1:
-            return x
-        import torch.distributed as dist
-        self._count("broadcast", x, scope, None)
-        dist.broadcast(x, self.layout.shard_group_ranks()[0],
-                       group=self.shard_group)
-        return x
 
     def describe(self) -> dict:
         return {"backend": self.backend, "rank": self.rank,

@@ -24,23 +24,28 @@ Launch one process per rank, e.g.::
         -m repro_torch.launch.train --backend distributed ...
 
 It refuses up front: a single process (as the reference does), W not a
-multiple of the worker groups, NCCL with more ranks on a host than it
-has cards (before ``init_process_group``: :func:`check_nccl_ranks`), and
-a worker set with demoted workers.  Resizes, demotion and checkpoints
-across processes come with a later slice of ROADMAP A.5
-(``launch.train.fit`` refuses them before any state changes).  It never
-builds a one-process bundle under this backend's name.
+multiple of the worker groups and NCCL with more ranks on a host than it
+has cards (before ``init_process_group``: :func:`check_nccl_ranks`).  It
+never builds a one-process bundle under this backend's name.
+
+The worker set changes as on the other backends: :meth:`demote` /
+:meth:`promote` edit the census (a demoted worker keeps its rows and
+syncs on the outer scope: the plan's blocks, which may span ranks), and
+:meth:`resize` takes a new census for W' and builds again on the same
+process group and device.  W' must be a multiple of the worker groups
+(``WorkerLayout.resized``; ``ValueError`` before anything changes), so
+that ``core.elastic.resize_state`` folds each rank's own rows.  The
+Collectives of every build share one cache of sub-groups; a resize's
+carries the run's byte counts on.  Every rank must take every decision
+alike: the workers run in lockstep, so :meth:`worker_step_times` reads
+nothing (the base class's None), and a controller sees only numbers
+that every rank holds.
 """
 from __future__ import annotations
 
 import os
 
 from repro_torch.backend.base import Backend
-
-ACROSS_PROCESSES_NOT_PORTED = (
-    "is not ported across processes yet: it comes with a later slice of "
-    "ROADMAP A.5 (cross-process resizes and demotion, sharded "
-    "checkpoints)")
 
 
 def check_nccl_ranks(backend: str, ranks_on_host: int, cards: int) -> None:
@@ -94,6 +99,7 @@ class DistributedBackend(Backend):
         self.layout = layout
         self.timeout_s = timeout_s
         self.collectives = None
+        self._groups: dict = {}     # sub-groups by rank tuple, for every build
 
     def ensure_initialized(self):
         """Bring up the default process group once (a no-op when the
@@ -179,15 +185,11 @@ class DistributedBackend(Backend):
         from repro_torch.backend.collectives import Collectives
         from repro_torch.launch import steps as steps_mod
         ws = self._census()
-        if ws.demoted:
-            raise NotImplementedError(
-                f"demoted workers {list(ws.demoted)}: demotion "
-                + ACROSS_PROCESSES_NOT_PORTED)
         P = dist.get_world_size()
         grid = WorkerLayout(ws.num_workers, P, dist.get_rank(),
                             within_worker_size=self.within_worker_size)
-        # one Collectives a bundle: its byte counts are the bundle's
-        self.collectives = Collectives(grid)
+        # one Collectives a bundle, over the sub-groups made so far
+        self.collectives = Collectives(grid, groups=self._groups)
         kw.setdefault("device", self.rank_device())
         kw.setdefault("layout", self.mesh_layout(P))
         bundle = steps_mod.build_train(run, worker_set=ws,
@@ -195,8 +197,22 @@ class DistributedBackend(Backend):
         self._worker_set = bundle.worker_set
         return bundle
 
+    def check_resize(self, new_w: int) -> None:
+        """Raise ``ValueError`` unless the ranks can take ``new_w`` workers
+        without moving rows (``WorkerLayout.resized``: W' % G == 0)."""
+        if self.collectives is not None:
+            self.collectives.layout.resized(new_w)
+
     def resize(self, run, new_w: int, **kw):
-        raise NotImplementedError("a resize " + ACROSS_PROCESSES_NOT_PORTED)
+        """A new census for ``new_w`` workers, then :meth:`build` on the same
+        process group and device (the state surgery is the caller's:
+        ``core.elastic.resize_state(state, new_w, num_groups=G)``)."""
+        self.check_resize(new_w)
+        totals = self.collectives.totals if self.collectives else {}
+        bundle = super().resize(run, new_w, **kw)
+        # the run's byte counts carry on across the resize
+        self.collectives.totals = totals
+        return bundle
 
     def describe(self) -> dict:
         out = super().describe()

@@ -42,6 +42,18 @@ reference never reads.  So:
 
 Buckets, the step and the statistics cross in both directions row for
 row.
+
+**Across ranks** (``backend.DistributedBackend``) a snapshot is the
+one-process snapshot, never a file a rank: ``fit(checkpoint_fn=)`` hands
+rank 0 the whole state, gathered bucket by bucket into the one-process
+layout on its host (``core.local_sgd.gather_state``: P x one bucket's
+local rows on each card at a time, the whole state on rank 0's host),
+and :func:`save_flat` writes it as it writes one process's state.  A
+restore on P' ranks, at the saved W or another (the elastic restore),
+reads the file whole into ``core.local_sgd.state_template``'s shapes on
+the host and keeps each rank's rows (``core.local_sgd.local_state``).
+:func:`publish_flat` publishes the worker mean that every rank holds
+after ``core.local_sgd.mean_params(state, dist)``, from rank 0.
 """
 from __future__ import annotations
 

@@ -27,13 +27,13 @@ def worker_abs_totals(layout, b: int, x, *, across=None):
     """Sum |x| per leaf of bucket ``b``'s ``(*lead, rows, 128)`` buffer (the
     whole bucket, or one shard's region on a rank of a shard group), each
     leading index on its own -> ``(*lead, num_segments)`` f32: the
-    ``row_abs_sum`` launch on the shard regions' view, a scatter-add per
-    region, the regions' totals added in shard order
-    (``flatbuf.shard_sum``; ``across`` adds the shard group's)."""
+    ``row_abs_sum`` launch on the shard regions' view, one ``segment_sum``
+    launch over every (worker, region) row, the regions' totals added in
+    shard order (``flatbuf.shard_sum``; ``across`` adds the shard
+    group's)."""
     xr = flatbuf.shard_regions(layout, b, x.float().contiguous())
-    seg = flatbuf.const("row_segments_local", layout, b, x.device)
-    n_seg = len(layout.bucket_slots(b))
-    part = kops.bucket_abs_totals(xr, seg, n_seg, per_lead=True)
+    part = kops.bucket_abs_totals(
+        xr, flatbuf.segment_index(layout, b, x.device), per_lead=True)
     return flatbuf.shard_sum(layout, b, part.movedim(-1, -2), across)
 
 
@@ -48,14 +48,16 @@ def sign_compress_bucket(layout, b: int, x, *, leading: int = 0,
     to sign(0) * scale = 0.
 
     ``across`` (a ``backend.collectives.Collectives``) holds the other
-    workers on other ranks: the totals then add this rank's row sums to
-    the previous ranks' in worker order
+    workers on other ranks: the totals then add this rank's row sums onto
+    the previous ranks' running totals in worker order
     (:meth:`~repro_torch.backend.collectives.Collectives.ordered_segment_sum`),
-    the additions one process makes, in its order.  A sharded sub-bucket
-    (whole, or one shard's region across ranks) totals each worker's
-    leaves over its shard regions in shard order
-    (:func:`worker_abs_totals`), then adds the workers' totals in worker
-    order: the same adds in one process and across ranks.
+    the adds one process makes, in its order.  A sharded sub-bucket (whole,
+    or one shard's region across ranks) totals each worker's leaves over
+    its shard regions in shard order (:func:`worker_abs_totals`), then
+    adds the workers' totals in worker order: the same adds in one process
+    and across ranks.  Every add runs in a fixed order on either device
+    (``kernels.ops.segment_sum``), so a worker's shard ranks compute a
+    replicated bucket's totals from the same rows with the same bits.
     """
     sizes = flatbuf.const("segment_sizes", layout, b, x.device)
     W = math.prod(x.shape[:leading])
@@ -66,23 +68,18 @@ def sign_compress_bucket(layout, b: int, x, *, leading: int = 0,
         if leading and across is not None:
             per = across.gather_workers(per, scope="compress")
             n = across.layout.num_workers
-        per = per.reshape(-1, per.shape[-1])
-        tot = per[0]
-        for i in range(1, per.shape[0]):
-            tot = tot + per[i]
+        tot = kops.lead_total(per.reshape(-1, per.shape[-1]))
         seg = flatbuf.const("row_segments_local", layout, b, x.device)
         return kops.bucket_scale_sign(flatbuf.shard_regions(layout, b, xf),
                                       seg, tot / (sizes * n)).view(x.shape)
     seg = flatbuf.const("row_segments", layout, b, x.device)
+    index = flatbuf.segment_index(layout, b, x.device)
     if across is None:
-        y, _ = kops.bucket_sign_compress(xf, seg, sizes * W)
+        y, _ = kops.bucket_sign_compress(xf, seg, sizes * W, index=index)
         return y
     assert leading == 1, leading
     rows = kops.bucket_row_abs_sums(xf)                  # (W_local, rows)
-    totals = across.ordered_segment_sum(rows.reshape(-1), seg.repeat(W),
-                                        int(sizes.shape[0]), scope="compress")
-    # the worker's shard ranks hold this replicated bucket alike
-    totals = across.shard_agree(totals)
+    totals = across.ordered_segment_sum(rows, index, scope="compress")
     scales = totals / (sizes * across.layout.num_workers)
     return kops.bucket_scale_sign(xf, seg, scales)
 
@@ -171,15 +168,16 @@ def unpack_signs(packed, scale, shape, axis: int = -1):
     return signs * scale.reshape((W,) + (1,) * len(shape))
 
 
-def pack_bucket_signs(x2, seg_ids, seg_sizes):
+def pack_bucket_signs(x2, seg_ids, seg_sizes, *, index=None):
     """Buckets ``(*lead, rows, 128)`` -> (packed ``(*lead, rows, 16)``
     uint8, per-leaf scales ``(*lead, num_segments)`` f32), each leading
     index (worker) packed on its own, as the reference vmaps its
     one-worker pack.  Scales are each worker's per-leaf |x| totals (the
-    compressor's row sums and scatter-add) over the TRUE element counts
+    compressor's row sums and segmented sum) over the TRUE element counts
     ``seg_sizes``, so bucket padding never biases them."""
-    totals = kops.bucket_abs_totals(x2, seg_ids, int(seg_sizes.shape[0]),
-                                    per_lead=True)
+    if index is None:
+        index = kops.segment_index(seg_ids, int(seg_sizes.shape[0]))
+    totals = kops.bucket_abs_totals(x2, index, per_lead=True)
     return _pack_bits(x2), totals / seg_sizes
 
 
@@ -197,16 +195,14 @@ def pack_bucket(layout, b: int, x, *, across=None):
     num_segments)``, each leading index (worker) on its own.  A sharded
     sub-bucket's scales are its workers' global per-leaf totals
     (:func:`worker_abs_totals`) over the leaves' GLOBAL sizes; a
-    replicated one's are its first shard rank's (``across.shard_agree``).
-    """
+    replicated one's (:func:`pack_bucket_signs`) are summed in the same
+    fixed order on each of a worker's shard ranks, from the same rows."""
     sizes = flatbuf.const("segment_sizes", layout, b, x.device)
     if layout.bucket_shard_count(b) == 1:
         seg = flatbuf.const("row_segments", layout, b, x.device)
-        packed, scales = pack_bucket_signs(x, seg, sizes)
-        if across is not None:
-            # a replicated bucket's scales as its first shard rank has them
-            scales = across.shard_agree(scales.contiguous())
-        return packed, scales
+        return pack_bucket_signs(x, seg, sizes,
+                                 index=flatbuf.segment_index(layout, b,
+                                                             x.device))
     return _pack_bits(x), worker_abs_totals(layout, b, x, across=across) / sizes
 
 

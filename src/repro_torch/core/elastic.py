@@ -25,6 +25,16 @@ axis and passes through untouched.  The telemetry accumulator carries
 its ``(W,)`` fields through the same fold, so ``round_summary``'s
 ``num_workers`` follows the live worker set.
 
+Across ranks (``backend.DistributedBackend``) each rank folds its own
+``(W_local, rows, 128)`` rows -- its shard region of a sharded
+sub-bucket -- from W / G to W' / G workers (``num_groups`` = G, the
+worker groups): with W' a multiple of G
+(``sharding.layout.WorkerLayout.resized``) every fold group and every
+clone run lies inside one rank's rows, so the rank's new rows are the
+one-process ``resize_state``'s rows of its new workers, and no row moves
+between ranks.  The padding of a shard region stays zero: a mean of
+zeros and a clone of zeros.
+
 The LR co-scaling on a resize (Lau et al. 2024) lives in ``fit``, not
 here: this module is state surgery only.
 """
@@ -96,14 +106,22 @@ def resize_stats(stats, new_w: int, *, fold: str = "mean"):
         rounds=stats.rounds)
 
 
-def resize_state(state, new_w: int, *, fold: str = "mean"):
+def resize_state(state, new_w: int, *, fold: str = "mean",
+                 num_groups: int = 1):
     """``state`` with its worker axis resized to ``new_w``, staying
     resident.  ``fold`` sets the shrink semantics; grow always clones.
+    ``num_groups`` (G > 1 across ranks) says the state holds one worker
+    group's W / G rows: they become its W' / G rows (``new_w % G`` must
+    be 0).
     anchor / global_u / step / rng are single-copy and unchanged, which
     keeps an anchored resize consistent: the anchor still is the last
     synced model, and the next sync's model difference is taken against
     it per surviving or cloned worker."""
     from repro_torch.core.local_sgd import LocalSGDState
+    if new_w % num_groups:
+        raise ValueError(f"cannot resize to {new_w} workers over {num_groups}"
+                         f" worker groups: W' % G must be 0")
+    new_w //= num_groups
     return LocalSGDState(
         params=_resize_stacked(state.params, new_w, fold=fold),
         momentum=_resize_stacked(state.momentum, new_w, fold=fold),

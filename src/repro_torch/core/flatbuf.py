@@ -463,6 +463,32 @@ def row_segments_local(layout: FlatLayout, b: int) -> np.ndarray:
     return seg
 
 
+def row_order_local(layout: FlatLayout, b: int) -> np.ndarray:
+    """(local_rows,) int64: the rows of one shard's region listed leaf by
+    leaf, each leaf's rows in row order (a stable sort of
+    :func:`row_segments_local`): the ``order`` of
+    ``kernels.fused_bucket.segment_sum``."""
+    return np.argsort(row_segments_local(layout, b), kind="stable").astype(
+        np.int64)
+
+
+def segment_offsets_local(layout: FlatLayout, b: int) -> np.ndarray:
+    """(num_segments + 1,) int64: where each leaf's rows start in
+    :func:`row_order_local` (the ``offsets`` of ``segment_sum``)."""
+    counts = np.bincount(row_segments_local(layout, b),
+                         minlength=len(layout.bucket_slots(b)))
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+
+def segment_index(layout: FlatLayout, b: int, device) -> tuple:
+    """(seg_ids, order, offsets) tensors of bucket ``b``'s per-region
+    segments on ``device`` (``kernels.fused_bucket.segment_index``'s
+    form), built once per device."""
+    return (const("row_segments_local", layout, b, device),
+            const("row_order_local", layout, b, device),
+            const("segment_offsets_local", layout, b, device))
+
+
 def row_segments(layout: FlatLayout, b: int) -> np.ndarray:
     """(rows,) int32: bucket-local leaf segment id per row, tiled over the
     shard regions of a sharded sub-bucket."""

@@ -89,6 +89,10 @@ the wire pack's per-leaf scales, telemetry) adds the shard group's
 partials in shard order: the adds one process makes.  Syncs average
 over each shard's worker group.
 
+A checkpoint across ranks saves the whole state in the one-process layout
+(:func:`gather_state`, rank 0); a restore on P ranks reads it whole and
+keeps each rank's rows (:func:`state_template`, :func:`local_state`).
+
 The port always runs the resident path; the reference's per-leaf tree
 path is not ported (ROADMAP A.7).  A change of W
 (``core/elastic.resize_state``) builds new functions for the new width:
@@ -109,6 +113,7 @@ from repro_torch.core import compression as comp
 from repro_torch.core import flatbuf
 from repro_torch.core import syncplan as splan
 from repro_torch.core.schedule import lr_at
+from repro_torch.kernels import ops as kops
 from repro_torch.optim.lars import apply_lars_buckets
 from repro_torch.optim.sgd import apply_sgd_buckets
 from repro_torch.telemetry import stats as tstats
@@ -203,12 +208,169 @@ def mean_params(state: LocalSGDState, dist=None):
 
 
 def _global_mean(dist, x, *, scope: str, stage=None, group=None, n=None):
-    """The mean over all ``n`` workers (default W) of this rank's rows of
-    ``x``: the local rows' f32 sum, all-reduced, divided by n, in x's
-    dtype."""
+    """The mean over all ``n`` workers (default: this rank's rows times the
+    worker groups, W) of this rank's rows of ``x``: the local rows' f32
+    sum, all-reduced, divided by n, in x's dtype."""
     s = x.float().sum(dim=0)
     dist.all_reduce_sum(s, scope=scope, stage=stage, group=group)
-    return s.div_(n or dist.layout.num_workers).to(x.dtype)
+    return s.div_(n or x.shape[0] * dist.layout.num_groups).to(x.dtype)
+
+
+# the (W,) fields of a telemetry.stats.StatsAccumulator: one entry a worker
+_STATS_PER_WORKER = ("acc_grad_sq", "acc_update_sq", "round_grad_sq",
+                     "round_update_sq")
+_STACKED = ("params", "momentum", "ef_memory")
+_SINGLE = ("anchor", "global_u")
+
+
+def _group_seed(seed: int, group: int) -> int:
+    """The noise stream's seed of worker group ``group``: worker group 0
+    draws from ``seed``, as one process does."""
+    return seed + 1_000_003 * group
+
+
+def gather_state(state: LocalSGDState, dist, *, device="cpu"):
+    """The whole state in the one-process layout, from every rank's rows,
+    on rank 0 (on ``device``, the host by default); None on every other
+    rank.  A checkpoint of a run across ranks (``fit(checkpoint_fn=)``)
+    saves it, so the file is the one-process snapshot's.
+
+    Every bucket of every field is gathered onto rank 0 on its own
+    (``Collectives.gather_ranks``, scope ``"checkpoint"``), then assembled
+    in worker order, a sharded sub-bucket's shard regions in shard order
+    (a replicated one taken from shard 0), the single-copy anchor and
+    global momentum from worker group 0, and copied to ``device``.  Peak
+    memory: on rank 0's card, P times one bucket's local rows (the
+    gather's output) beside the state, on the other ranks nothing more;
+    on rank 0's host, the whole state.  The (W,) telemetry fields are
+    gathered too; the generator is worker group 0's, whose stream starts
+    from the run's seed as one process's does (the other groups' draws
+    are not saved: ``fit`` refuses to checkpoint a noisy run over several
+    worker groups)."""
+    lay, grid = state.params.layout, dist.layout
+    S, G = grid.within_worker_size, grid.num_groups
+    lead = dist.rank == 0
+
+    def assemble(parts, b: int, stacked: bool):
+        groups = []
+        for g in range(G if stacked else 1):
+            if S > 1 and lay.bucket_shard_count(b) > 1:
+                groups.append(torch.cat([parts[g * S + s] for s in range(S)],
+                                        dim=-2))
+            else:
+                groups.append(parts[g * S])
+        return torch.cat(groups, dim=0) if stacked else groups[0]
+
+    fields = {}
+    for name in _STACKED + _SINGLE:
+        bs = getattr(state, name)
+        if bs is None:
+            fields[name] = None
+            continue
+        out = []
+        for b, x in enumerate(bs.buckets):
+            parts = dist.gather_ranks(x, scope="checkpoint")
+            if lead:
+                out.append(assemble(parts, b, name in _STACKED).to(device))
+            del parts
+        fields[name] = bs.with_buckets(out) if lead else None
+    stats = state.stats
+    if stats is not None:
+        per = {}
+        for f in _STATS_PER_WORKER:
+            parts = dist.gather_ranks(getattr(stats, f), scope="checkpoint")
+            if lead:
+                per[f] = torch.cat([parts[g * S] for g in range(G)]).to(device)
+    if not lead:
+        return None
+    if stats is not None:
+        stats = dataclasses.replace(
+            stats, **per, **{f.name: getattr(stats, f.name).to(device)
+                             for f in dataclasses.fields(stats)
+                             if f.name not in _STATS_PER_WORKER})
+    return LocalSGDState(step=state.step, rng=state.rng, stats=stats, **fields)
+
+
+def state_template(state: LocalSGDState, dist, num_workers: int | None = None):
+    """A template of the whole state in the one-process layout (meta
+    tensors: a restore puts them on the host) at ``num_workers`` workers
+    (default the run's W), for ``checkpoint.restore_flat`` on a rank; the
+    generator is this rank's."""
+    lay, grid = state.params.layout, dist.layout
+    W = grid.num_workers if num_workers is None else int(num_workers)
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+
+    def field(name):
+        bs = getattr(state, name)
+        if bs is None:
+            return None
+        bufs = [meta(((W,) if name in _STACKED else ())
+                     + (lay.bucket_rows[b], x.shape[-1]), x.dtype)
+                for b, x in enumerate(bs.buckets)]
+        return bs.with_buckets(bufs)
+
+    stats = state.stats
+    if stats is not None:
+        stats = dataclasses.replace(stats, **{
+            f.name: meta(((W,) if f.name in _STATS_PER_WORKER else ())
+                         + tuple(getattr(stats, f.name).shape[
+                             1 if f.name in _STATS_PER_WORKER else 0:]),
+                         getattr(stats, f.name).dtype)
+            for f in dataclasses.fields(stats)})
+    return LocalSGDState(step=state.step, rng=state.rng, stats=stats,
+                         **{n: field(n) for n in _STACKED + _SINGLE})
+
+
+def local_state(full: LocalSGDState, dist, device) -> LocalSGDState:
+    """This rank's rows of a whole one-process state (a restored snapshot):
+    its workers' rows, its shard's region of every sharded sub-bucket, on
+    ``device``; the inverse of :func:`gather_state`.  Worker group 0 keeps
+    the snapshot's generator (on its own device; elsewhere a generator
+    seeded as the group's), the other groups a generator seeded as
+    ``init`` seeds theirs.  A generator that has drawn (a run with gradient
+    noise) is refused with ``ValueError`` where it cannot be kept as it
+    is: a new stream would replay the draws."""
+    lay, grid = full.params.layout, dist.layout
+    S, si = grid.within_worker_size, grid.shard
+    lo, wl = grid.worker_lo, grid.w_local
+
+    def own(name):
+        bs = getattr(full, name)
+        if bs is None:
+            return None
+        bufs = []
+        for b, x in enumerate(bs.buckets):
+            if name in _STACKED:
+                x = x[lo:lo + wl]
+            if S > 1 and lay.bucket_shard_count(b) > 1:
+                lr = lay.bucket_local_rows(b)
+                x = x[..., si * lr:(si + 1) * lr, :]
+            bufs.append(x.to(device=device, copy=True).contiguous())
+        return bs.with_buckets(bufs)
+
+    stats = full.stats
+    if stats is not None:
+        stats = dataclasses.replace(stats, **{
+            f.name: (getattr(stats, f.name)[lo:lo + wl]
+                     if f.name in _STATS_PER_WORKER
+                     else getattr(stats, f.name)).to(device=device, copy=True)
+            for f in dataclasses.fields(stats)})
+    rng = full.rng
+    if rng is not None and (grid.group != 0
+                            or rng.device != torch.device(device)):
+        seed = int(rng.initial_seed())
+        if not torch.equal(rng.get_state(), torch.Generator(
+                device=rng.device).manual_seed(seed).get_state()):
+            # the stream has drawn: a new one from the group's seed would
+            # replay those draws (a snapshot holds group 0's stream only)
+            raise ValueError(
+                "the snapshot's noise stream has drawn and holds worker "
+                f"group 0's draws only: worker group {grid.group} on "
+                f"{device} cannot continue it")
+        rng = torch.Generator(device=device).manual_seed(
+            _group_seed(seed, grid.group))
+    return LocalSGDState(step=full.step, rng=rng, stats=stats,
+                         **{n: own(n) for n in _STACKED + _SINGLE})
 
 
 def _sumsq(x, *, from_axis: int = 0):
@@ -468,7 +630,7 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
             # one noise stream a worker group, from (seed, group): a
             # worker's shard ranks draw the same noise for its whole rows
             rng=torch.Generator(device=pb[0].device).manual_seed(
-                seed if dist is None else seed * 1_000_003 + dist.layout.group))
+                seed if dist is None else _group_seed(seed, dist.layout.group)))
 
     def local_step(state: LocalSGDState, batch, lr_scale=None):
         """One local step of every worker.  ``batch``: dict of (W, B_loc,
@@ -620,8 +782,12 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         x_sq: list = [None] * nb
         dbar_sq: list = [None] * nb
         zero = lambda: torch.zeros((), dtype=torch.float32, device=pb[0].device)
-        err = [zero() for _ in range(nb)] if telemetry else None
-        ref = [zero() for _ in range(nb)] if telemetry else None
+        # the compressor's error and reference norms per worker, added in
+        # worker order after the stage loop: the same adds across ranks
+        wzero = lambda: torch.zeros((wl,), dtype=torch.float32,
+                                    device=pb[0].device)
+        err = [wzero() for _ in range(nb)] if telemetry else None
+        ref = [wzero() for _ in range(nb)] if telemetry else None
         for st in stages:
             if st.kind == "pack":
                 b = st.buckets[0]
@@ -633,8 +799,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                     if modes[b] == "ef_sign":
                         efb[b].copy_(e_new)
                     if telemetry:
-                        err[b] = _sumsq_all(layout, b, inp.float() - x[b], dist)
-                        ref[b] = _sumsq_all(layout, b, inp, dist)
+                        err[b] = _sumsq_w(layout, b, inp.float() - x[b], dist)
+                        ref[b] = _sumsq_w(layout, b, inp, dist)
                 else:
                     x[b] = delta
                     if telemetry and speculate_compression:
@@ -643,8 +809,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                         # signal
                         cs = comp.sign_compress_bucket(
                             layout, b, delta, leading=1, across=dist)
-                        err[b] = _sumsq_all(layout, b, delta.float() - cs, dist)
-                        ref[b] = _sumsq_all(layout, b, delta, dist)
+                        err[b] = _sumsq_w(layout, b, delta.float() - cs, dist)
+                        ref[b] = _sumsq_w(layout, b, delta, dist)
                 if telemetry:
                     x_sq[b] = _sumsq_w(layout, b, x[b], dist)
             elif st.kind == "collective":
@@ -700,13 +866,13 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
             pre_w = gather(pre_w, scope="telemetry")
         kw = {}
         if any(m != "none" for m in modes) or speculate_compression:
-            err, ref = torch.stack(err), torch.stack(ref)
+            # (wl, 2, nb): every worker's pair per bucket
+            er = torch.stack([torch.stack(err), torch.stack(ref)]).permute(
+                2, 0, 1).contiguous()
             if dist is not None:
-                # the compressor's sums over this rank's workers, for both
-                # in one all-reduce
-                er = dist.all_reduce_sum(torch.stack([err, ref]),
-                                         scope="telemetry")
-                err, ref = er[0], er[1]
+                er = gather(er, scope="telemetry")
+            er = kops.lead_total(er)
+            err, ref = er[0], er[1]
             kw = dict(comp_err_sq=err, comp_ref_sq=ref)
         stats = tstats.record_sync(state.stats, pre_sync_sq=pre_w.mean(),
                                    post_sync_sq=sum(dbar_sq), **kw)

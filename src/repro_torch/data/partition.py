@@ -50,7 +50,10 @@ class ShardedBatches:
         the CURRENT epoch's permutation is re-sharded among the live
         workers and the pass restarts, so every example is still drawn
         from a disjoint shard, now among W' workers.  ``local_batch``
-        optionally co-scales B."""
+        optionally co-scales B.  Across ranks every rank holds this
+        global iterator and resizes it alike; each takes its new
+        workers' rows of the (W', B, ...) batch, so the ranks together
+        draw the one-process batch."""
         if num_workers <= 0:
             raise ValueError(f"num_workers must be positive, got {num_workers}")
         self.W = int(num_workers)

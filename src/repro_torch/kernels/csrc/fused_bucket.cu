@@ -27,15 +27,17 @@
 //   fb_sq_sum          replaces fused_bucket.py::sq_sum_2d.  Reads x once:
 //                      1.913 GB -> 0.571 ms.  Design: one launch over a
 //                      (blocks per worker, W) grid of 512-thread blocks,
-//                      about 4 blocks per SM across all W; each thread
+//                      about 4 blocks per SM at W = 4; each thread
 //                      keeps four independent 16-byte streaming loads in
 //                      flight.  Each block writes its partial and takes its
 //                      worker's ticket (a counter, the one atomic, which
 //                      never touches a sum); the worker's last block folds
 //                      that worker's partials in block order, writes
-//                      out[w] and resets the ticket.  The grid depends on
-//                      the shape and the SM count only: two runs give the
-//                      same bits.  The scratch (partials, W tickets) is the
+//                      out[w] and resets the ticket.  A worker's blocks
+//                      depend on its rows and the SM count only, never on
+//                      W: two runs give the same bits, and so does a rank
+//                      that holds fewer workers than one process.  The
+//                      scratch (partials, W tickets) is the
 //                      caller's, kept per stream.
 //   fb_row_abs_sum     replaces fused_bucket.py::row_abs_sum_2d.  Reads x,
 //                      writes one float per row: 1.928 GB -> 0.576 ms.
@@ -56,6 +58,25 @@
 //                      clip scale before it: 9.57 GB + a 14.9 MB (W, rows)
 //                      ratio -> 2.86 ms.  The ratio is per worker, because
 //                      each worker's layer norms are its own.
+//
+//   fb_segment_sum     replaces no TPU kernel: it is the port's segmented
+//                      sum for the per-leaf totals that the reference takes
+//                      with jax.ops.segment_sum outside any Pallas kernel
+//                      (the compressor's and the wire pack's |x| scales,
+//                      LARS's layer norms).  Each total is added one value
+//                      after another in row order, as XLA's scatter and the
+//                      CPU's index_add_ add it, so the card takes the CPU's
+//                      bits and two runs take the same bits (index_add_ on
+//                      the card adds with atomics, in no fixed order).  One
+//                      warp per (segment, leading index), or per segment
+//                      with the leading indices chained one after another
+//                      (a total over all workers, in worker order, from an
+//                      optional running total): the 32 lanes load 32 rows
+//                      at once, the next 32 while the adds run, and the
+//                      adds go one after another through warp shuffles.
+//                      Reads the (L, rows) row sums once: at W = 4, 934,040
+//                      rows 14.9 MB -> 4.5 us; the chain of dependent adds
+//                      of the largest leaf sets the time, not the bytes.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a
@@ -324,6 +345,49 @@ scale_sign_rows_kernel(const float* __restrict__ x,
   }
 }
 
+// One warp per (segment s, leading index l) -- or per segment s with the
+// leading indices chained (chain != 0) -- adds vals[l * rows + order[i]]
+// for i in [offsets[s], offsets[s + 1]) one after another, starting from
+// 0 (or from init[s] when chained).  Every lane runs the same chain of
+// adds on values shuffled from the lane that loaded them.
+__device__ __forceinline__ float load_seg(const float* v,
+                                          const int64_t* __restrict__ order,
+                                          int64_t i, int64_t hi) {
+  return i < hi ? __ldg(v + __ldg(order + i)) : 0.f;
+}
+
+__global__ void __launch_bounds__(32)
+segment_sum_kernel(const float* __restrict__ vals, int64_t L, int64_t rows,
+                   const int64_t* __restrict__ order,
+                   const int64_t* __restrict__ offsets, int64_t n_seg,
+                   const float* __restrict__ init, int chain,
+                   float* __restrict__ out) {
+  const int64_t s = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int64_t lo = offsets[s], hi = offsets[s + 1];
+  const int64_t l0 = chain ? 0 : blockIdx.y;
+  const int64_t l1 = chain ? L : l0 + 1;
+  float acc = (chain && init != nullptr) ? init[s] : 0.f;
+  for (int64_t l = l0; l < l1; ++l) {
+    const float* v = vals + l * rows;
+    float x = load_seg(v, order, lo + lane, hi);
+    for (int64_t base = lo; base < hi; base += 32) {
+      const float xn = load_seg(v, order, base + 32 + lane, hi);
+      if (hi - base >= 32) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          acc = __fadd_rn(acc, __shfl_sync(0xffffffffu, x, j));
+      } else {
+        const int n = static_cast<int>(hi - base);
+        for (int j = 0; j < n; ++j)
+          acc = __fadd_rn(acc, __shfl_sync(0xffffffffu, x, j));
+      }
+      x = xn;
+    }
+  }
+  if (lane == 0) out[(chain ? 0 : l0 * n_seg) + s] = acc;
+}
+
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // The fused update over the stacked buffer (four template variants), then,
@@ -404,8 +468,8 @@ int fb_lars_row_norms(const void* p, const void* g, const void* wd_row,
   return static_cast<int>(cudaGetLastError());
 }
 
-// *blocks = the most blocks fb_sq_sum launches in all on the current device
-// (the partials it needs, given W <= *blocks): 4 a streaming multiprocessor.
+// *blocks = 4 a streaming multiprocessor on the current device: the caller
+// gives each worker *blocks / 4 of them at most, whatever W is.
 int fb_sq_sum_blocks(int* blocks) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -415,7 +479,8 @@ int fb_sq_sum_blocks(int* blocks) {
   return static_cast<int>(err);
 }
 
-// x: (W, rows, 128) f32; partials: max_blocks f32 scratch, max_blocks >= W;
+// x: (W, rows, 128) f32; partials: max_blocks f32 scratch, max_blocks >= W,
+// each worker taking at most max_blocks / W blocks;
 // tickets: W zeroed uint32, left zeroed, for this stream's calls only;
 // out: (W,) f32.
 int fb_sq_sum(const void* x, int64_t W, int64_t rows, void* partials,
@@ -450,6 +515,23 @@ int fb_scale_sign_rows(const void* x, const void* scale, int64_t n_rows,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(scale), n4,
       scale_rows, static_cast<float*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vals: (L, rows) f32; order: (rows,) int64, the rows segment by segment,
+// each segment's in row order; offsets: (n_seg + 1,) int64 into order.
+// chain == 0: out (L, n_seg); chain != 0: out (n_seg,), the leading
+// indices added one after another onto init (n_seg,) or 0 (init null).
+int fb_segment_sum(const void* vals, int64_t L, int64_t rows,
+                   const void* order, const void* offsets, int64_t n_seg,
+                   const void* init, int chain, void* out, void* stream) {
+  if (L < 1 || n_seg < 1) return 0;
+  const dim3 grid(static_cast<unsigned>(n_seg),
+                  static_cast<unsigned>(chain ? 1 : L));
+  segment_sum_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), L, rows,
+      static_cast<const int64_t*>(order), static_cast<const int64_t*>(offsets),
+      n_seg, static_cast<const float*>(init), chain, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

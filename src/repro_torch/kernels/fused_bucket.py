@@ -16,7 +16,16 @@ row_abs_sum        repro/kernels/fused_bucket.py::row_abs_sum_2d
 scale_sign_rows    repro/kernels/fused_bucket.py::scale_sign_rows_2d
 lars_row_norms     repro/kernels/fused_bucket.py::lars_row_norms_2d
 fused_lars_bucket  repro/kernels/fused_bucket.py::fused_lars_bucket_2d
+segment_sum        (no TPU kernel: ``jax.ops.segment_sum`` of the
+                   per-leaf totals, outside any Pallas kernel)
 =================  ================================================
+
+``segment_sum`` is the port's own kernel: a segmented sum whose adds run
+one after another in row order, as the CPU's ``index_add_`` and XLA's
+scatter run them, without atomics, so the compressor's and the wire
+pack's per-leaf scales and LARS's layer norms take the CPU's bits, and
+the same bits in every run, in one process and across ranks.  Its launches count in ``PORT_LAUNCHES``, apart
+from the six ports of the TPU kernels in ``LAUNCHES``.
 
 The SGD and LARS updates are IN PLACE on ``p`` and ``u`` on both routes:
 at the main path's width that saves a second copy of 2 x W x 478 MB.
@@ -31,12 +40,18 @@ from repro_torch.kernels import build
 
 LANE = 128
 THREADS = 256
-# blocks per worker for the grid-stride passes: about two waves of
-# 256-thread blocks over 132 SMs in total, whatever W is
-_BLOCKS_TOTAL = 2 * 132 * 8
+# blocks per worker for the grid-stride passes with stats: about two waves
+# of 256-thread blocks over 132 SMs at the main path's W = 4.  The count is
+# fixed by the rows alone, never by W, so a rank that holds W / P workers
+# adds each worker's partials in the one-process run's order (same bits)
+_BLOCKS_PER_WORKER = 2 * 132 * 8 // 4
+# sq_sum's blocks per worker: the card's fb_sq_sum_blocks() total (4 an SM)
+# shared by this many workers, whatever W is, for the same reason
+_SQ_SUM_WORKERS_PER_GRID = 4
 
 LAUNCHES = {"fused_sgd_bucket": 0, "sq_sum": 0, "row_abs_sum": 0,
             "scale_sign_rows": 0, "lars_row_norms": 0, "fused_lars_bucket": 0}
+PORT_LAUNCHES = {"segment_sum": 0}
 # sq_sum's scratch per (device, stream): block partials and one zeroed
 # ticket counter per worker, which picks the block that folds the worker's
 # partials
@@ -44,8 +59,9 @@ _SQ_SUM_SCRATCH: dict = {}
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, PORT_LAUNCHES):
+        for k in d:
+            d[k] = 0
 
 
 _P = ctypes.c_void_p
@@ -61,6 +77,7 @@ _LIB = build.Library("fused_bucket", {
     "fb_lars_row_norms": [_P, _P, _P, _F, _I, _I, _P, _P, _P],
     "fb_fused_lars": [_P, _P, _P, _P, _P, _F, _F, _F, ctypes.c_int, _I, _I,
                       ctypes.c_int, _P, _I, _P, _P],
+    "fb_segment_sum": [_P, _I, _I, _P, _P, _I, _P, ctypes.c_int, _P, _P],
 })
 
 
@@ -82,9 +99,9 @@ def _lead_rows(x: torch.Tensor) -> tuple[int, int]:
     return W, int(x.shape[-2])
 
 
-def _grid_x(W: int, rows: int) -> int:
+def _grid_x(rows: int) -> int:
     n4 = rows * (LANE // 4)
-    return max(1, min(-(-n4 // THREADS), _BLOCKS_TOTAL // max(W, 1)))
+    return max(1, min(-(-n4 // THREADS), _BLOCKS_PER_WORKER))
 
 
 def _check_same(**buckets) -> tuple[int, int]:
@@ -111,7 +128,7 @@ def _row_vector(v: torch.Tensor, n: int, name: str, device=None) -> torch.Tensor
 def _stats_scratch(p: torch.Tensor, W: int, rows: int, stats: bool):
     """(partials, out, grid_x) for an update launch; None scratch without
     stats."""
-    gx = _grid_x(W, rows)
+    gx = _grid_x(rows)
     if not stats:
         return None, None, gx
     return (torch.empty((W, 2, gx), dtype=torch.float32, device=p.device),
@@ -193,21 +210,25 @@ def sq_sum_plain(x):
 
 
 def _sq_sum_scratch(x, W: int, stream: int):
-    """(partials pointer, their count, tickets pointer) for sq_sum on x's
-    device and this stream, allocated once (again only for a larger W):
-    the kernel leaves the tickets zeroed for the next call."""
+    """(partials pointer, the most blocks of W workers, tickets pointer) for
+    sq_sum on x's device and this stream, allocated once (again only for a
+    larger W): the kernel leaves the tickets zeroed for the next call.
+    Each worker gets at most the same number of blocks whatever W is, so
+    its partials, and the bits of its sum, depend on its rows alone."""
     key = (x.get_device(), stream)
     got = _SQ_SUM_SCRATCH.get(key)
     if got is None or got[1].numel() < W:
         blocks = ctypes.c_int(0)
         _LIB("fb_sq_sum_blocks", ctypes.byref(blocks))
-        partials = torch.empty((max(blocks.value, W),), dtype=torch.float32,
+        per = max(blocks.value // _SQ_SUM_WORKERS_PER_GRID, 1)
+        partials = torch.empty((W * per,), dtype=torch.float32,
                                device=x.device)
         tickets = torch.zeros((W,), dtype=torch.int32, device=x.device)
         got = (partials, tickets)
         _SQ_SUM_SCRATCH[key] = got
     partials, tickets = got
-    return partials.data_ptr(), partials.numel(), tickets.data_ptr()
+    per = partials.numel() // tickets.numel()
+    return partials.data_ptr(), W * per, tickets.data_ptr()
 
 
 def sq_sum(x):
@@ -353,3 +374,78 @@ def fused_lars_bucket(p, g, u, lr, wd_row, ratio_row, *, momentum: float,
           out.data_ptr() if stats else None, build.stream(p))
     LAUNCHES["fused_lars_bucket"] += 1
     return _stats_out(p, out)
+
+
+# ---------------------------------------------------------------------------
+# segmented sums in a fixed order (the port's own kernel)
+# ---------------------------------------------------------------------------
+
+def segment_index(seg_ids: torch.Tensor, num_segments: int):
+    """(seg_ids, order, offsets) of a row -> segment map: ``order`` (rows,)
+    int64 lists the rows segment by segment, each segment's rows in row
+    order (a stable sort), and segment s holds ``order[offsets[s]:offsets[s
+    + 1]]`` (``offsets`` (num_segments + 1,) int64)."""
+    seg = seg_ids.reshape(-1).long()
+    order = torch.sort(seg, stable=True).indices
+    counts = torch.bincount(seg, minlength=num_segments)
+    offsets = torch.zeros((num_segments + 1,), dtype=torch.int64,
+                          device=seg.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return seg, order, offsets
+
+
+def segment_sum_plain(vals, seg_ids, num_segments: int, *,
+                      chain: bool = False, init=None):
+    """Plain PyTorch version of :func:`segment_sum`: ``index_add_`` on the
+    host, whose adds run one after another in index order (on the card
+    they are atomic), back on ``vals``' device."""
+    L = vals.shape[0]
+    v = vals.detach().cpu().reshape(-1)
+    seg = seg_ids.detach().cpu().reshape(-1).long()
+    if chain:
+        acc = (init.detach().cpu().clone() if init is not None else
+               torch.zeros((num_segments,), dtype=torch.float32))
+        out = acc.index_add_(0, seg.repeat(L), v)
+    else:
+        ids = (seg[None] + num_segments * torch.arange(L)[:, None]).reshape(-1)
+        out = torch.zeros((L * num_segments,), dtype=torch.float32)
+        out = out.index_add_(0, ids, v).reshape(L, num_segments)
+    return out.to(vals.device)
+
+
+def segment_sum(vals, index, *, chain: bool = False, init=None):
+    """Per-segment sums of the rows of ``vals`` (L, rows) f32, the segments
+    given by ``index`` = :func:`segment_index`'s (seg_ids, order,
+    offsets): (L, num_segments) f32, or with ``chain`` (num_segments,),
+    the L leading rows added one after another onto ``init``
+    (num_segments,) or 0 -- a total over all workers in worker order.
+
+    Every total is added one value after another in row order, as the
+    CPU's ``index_add_`` (the plain version) adds it.  On the card: one
+    launch, one warp per (segment, leading row) or per chained segment, no
+    atomics: the plain version's bits, in every run."""
+    seg_ids, order, offsets = index
+    n_seg = offsets.numel() - 1
+    if not build.on_cuda(vals, order, offsets, *(() if init is None else (init,))):
+        return segment_sum_plain(vals, seg_ids, n_seg, chain=chain, init=init)
+    if vals.dtype != torch.float32 or vals.dim() != 2 \
+            or not vals.is_contiguous():
+        raise ValueError(f"vals: contiguous (L, rows) f32 expected, got "
+                         f"{vals.dtype} {tuple(vals.shape)}")
+    L, rows = vals.shape
+    if order.dtype != torch.int64 or offsets.dtype != torch.int64 \
+            or order.numel() != rows or not order.is_contiguous() \
+            or not offsets.is_contiguous() or L > 65535:
+        raise ValueError(f"order ({rows},) and offsets int64, L <= 65535 "
+                         f"expected, got {tuple(order.shape)} "
+                         f"{tuple(offsets.shape)}, L={L}")
+    if init is not None:
+        init = _row_vector(init, n_seg, "init", vals.device)
+    out = torch.empty((n_seg,) if chain else (L, n_seg), dtype=torch.float32,
+                      device=vals.device)
+    _LIB("fb_segment_sum", vals.data_ptr(), L, rows, order.data_ptr(),
+         offsets.data_ptr(), n_seg,
+         init.data_ptr() if init is not None else None, int(bool(chain)),
+         out.data_ptr(), build.stream(vals))
+    PORT_LAUNCHES["segment_sum"] += 1
+    return out

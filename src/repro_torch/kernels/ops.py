@@ -10,8 +10,6 @@ run, on the card the kernels launch (or raise).  The reference's
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_bucket as _fb
 from repro_torch.kernels import fused_sgd as _fs
@@ -83,14 +81,47 @@ def bucket_fused_lars(p2, g2, u2, wd_row, ratio_row, *, lr, momentum: float,
                                  nesterov=nesterov, stats=stats)
 
 
-def segment_sum(vals, seg_ids, num_segments: int):
-    """Scatter-add of ``vals`` into ``num_segments`` slots by ``seg_ids``
-    (the counterpart of ``jax.ops.segment_sum``).  On the CPU the adds
-    run in index order, as XLA's scatter does, so the float32 totals
-    agree with the reference's to about one rounding; on the card they
-    are atomic adds, whose order varies from run to run."""
-    out = torch.zeros((num_segments,), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, seg_ids.long(), vals)
+# the (seg_ids, order, offsets) index of a row -> segment map
+segment_index = _fb.segment_index
+
+
+def segment_sum(vals, seg_ids, num_segments: int, *, chain: bool = False,
+                init=None):
+    """Sum of ``vals`` (*lead, rows) per segment of ``seg_ids`` (rows,),
+    each leading index on its own -> (*lead, num_segments) f32 (the
+    counterpart of ``jax.ops.segment_sum`` over one leading index); with
+    ``chain`` the leading indices' rows run one after another into one
+    (num_segments,) total, from ``init`` or 0 (``segment_sum`` over the row
+    map tiled over the leading indices).  :func:`segment_totals` on the
+    map's index, built here."""
+    return segment_totals(vals, _fb.segment_index(seg_ids, num_segments),
+                          chain=chain, init=init)
+
+
+def segment_totals(vals, index, *, chain: bool = False, init=None):
+    """:func:`segment_sum` over ``index``, ``fused_bucket.segment_index``'s
+    (seg_ids, order, offsets) triple (cached per bucket by
+    ``flatbuf.segment_index``).
+
+    Each total is added one value after another in index order, on the CPU
+    (``index_add_``, as XLA's scatter adds) and on the card
+    (``fused_bucket.segment_sum``, no atomics): the same bits on either
+    device and in every run."""
+    lead = tuple(vals.shape[:-1])
+    out = _fb.segment_sum(vals.reshape(-1, vals.shape[-1]).contiguous(),
+                          index, chain=chain, init=init)
+    return out if chain else out.reshape(lead + (index[2].numel() - 1,))
+
+
+def lead_total(per):
+    """``per`` (L, ...) added over its leading rows one after another, in
+    row (worker) order: a total over workers whose adds are the same in one
+    process and across ranks (each rank's per-worker values gathered
+    first)."""
+    acc = per[0]
+    for i in range(1, per.shape[0]):
+        acc = acc + per[i]
+    return acc
 
 
 def bucket_row_abs_sums(x2):
@@ -99,36 +130,29 @@ def bucket_row_abs_sums(x2):
     return _fb.row_abs_sum(x2)
 
 
-def bucket_abs_totals(x2, seg_ids, num_segments: int, *,
-                      per_lead: bool = False):
+def bucket_abs_totals(x2, index, *, per_lead: bool = False):
     """Sum |x| per leaf segment of a ``(*lead, rows, 128)`` bucket: the
-    kernel's row sums scatter-added by ``seg_ids`` (rows,).  Over every
-    leading index together -> (num_segments,), or with ``per_lead`` each
-    leading index (worker) on its own -> (*lead, num_segments)."""
-    row_sums = bucket_row_abs_sums(x2)                     # (*lead, rows)
-    lead = row_sums.numel() // seg_ids.numel()
-    if per_lead:
-        # leading index w's segments land in slots [w * n, (w + 1) * n)
-        off = num_segments * torch.arange(lead, device=x2.device)[:, None]
-        ids, n = (seg_ids.long()[None] + off).reshape(-1), lead * num_segments
-    else:
-        # worker-major over all (*lead, rows) rows, like the reference's
-        # segment_sum over the row map tiled W times
-        ids, n = seg_ids.repeat(lead), num_segments
-    totals = segment_sum(row_sums.reshape(-1), ids, n)
-    return totals.reshape(*x2.shape[:-2], num_segments) if per_lead else totals
+    kernel's row sums, then a segmented sum over ``index`` (the rows'
+    ``flatbuf.segment_index``).  Over every leading index together, worker
+    after worker (the reference's segment_sum over the row map tiled W
+    times) -> (num_segments,), or with ``per_lead`` each leading index
+    (worker) on its own -> (*lead, num_segments)."""
+    return segment_totals(bucket_row_abs_sums(x2), index, chain=not per_lead)
 
 
-def bucket_sign_compress(x2, seg_ids, seg_sizes):
+def bucket_sign_compress(x2, seg_ids, seg_sizes, *, index=None):
     """Segment-aware sign compressor over a ``(*lead, rows, 128)`` bucket.
 
     ``seg_ids`` (rows,) maps each row to its leaf segment and
     ``seg_sizes`` (num_segments,) holds the element counts each segment's
     L1 scale divides by — pass the true counts times ``prod(lead)`` to
     share one scale across the leading (worker) dim, as the reference
-    does.  Returns (y f32 like x2, scales (num_segments,) f32).
+    does.  ``index`` is the map's cached ``flatbuf.segment_index``, built
+    here when None.  Returns (y f32 like x2, scales (num_segments,) f32).
     """
-    scales = bucket_abs_totals(x2, seg_ids, int(seg_sizes.shape[0])) / seg_sizes
+    if index is None:
+        index = _fb.segment_index(seg_ids, int(seg_sizes.shape[0]))
+    scales = bucket_abs_totals(x2, index) / seg_sizes
     return bucket_scale_sign(x2, seg_ids, scales), scales
 
 

@@ -28,9 +28,13 @@ every rank runs this loop on its own workers' rows of the same batches:
 the syncs, metrics, round statistics and eval are reduced over the
 ranks, so every rank takes the same decisions, and the ledger's rows
 carry the bytes the ranks handed to each collective (``"measured"``).
-Only rank 0 logs and writes files.  Resizes, demotion and
-``checkpoint_fn`` raise there, before any state changes (a later slice
-of ROADMAP A.5).  A worker split over shard ranks
+Only rank 0 logs and writes files.  A resize folds each rank's own rows
+(W' a multiple of the worker groups, else ``ValueError`` before anything
+changes) and rebuilds the bundle on the same process group; demotion
+switches the plan as in one process, its blocks spanning ranks through
+sub-groups; ``checkpoint_fn`` gets the whole state in the one-process
+layout on rank 0 (``core.local_sgd.gather_state``; the other ranks take
+part in the gather and call nothing).  A worker split over shard ranks
 (``DistributedBackend(within_worker_size=S, layout=)``) runs the same
 loop; eval reads ``mean_params``, which gathers the shard regions.
 
@@ -76,7 +80,7 @@ from repro_torch.core import elastic
 from repro_torch.core import syncplan as splan
 from repro_torch.core.controller import (RoundReport, make_controller,
                                          traced_decision)
-from repro_torch.core.local_sgd import mean_params, needs_anchor
+from repro_torch.core.local_sgd import gather_state, mean_params, needs_anchor
 from repro_torch.core.schedule import DynamicSchedule
 from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -157,11 +161,6 @@ def _measured(bundle, plan, scope: str):
         scope, len(plan.collective_stages(scope)))
 
 
-def _refuse_across_processes(what: str):
-    from repro_torch.backend.distributed import ACROSS_PROCESSES_NOT_PORTED
-    raise NotImplementedError(f"{what} {ACROSS_PROCESSES_NOT_PORTED}")
-
-
 def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
         eval_every=0, eval_fn=None, log=print, params0=None, device=None,
         controller=None, telemetry_path=None, tracer=None,
@@ -203,19 +202,21 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
             None if bundle is not None else getattr(data_iter, "W", 1),
             device=bundle.device if bundle is not None else device,
             layout=layout)
-    if getattr(backend, "kind", "") == "distributed" or (
-            bundle is not None and bundle.dist is not None):
-        # refused before anything is built or changed
-        if run.controller.kind == "elastic":
-            _refuse_across_processes("the elastic controller (resizes, "
-                                     "demotion)")
-        if checkpoint_fn is not None:
-            _refuse_across_processes("checkpoint_fn")
     if bundle is None:
         bundle = backend.build(run)
     elif hasattr(backend, "adopt"):
         backend.adopt(bundle)
     dev = bundle.device
+    if bundle.dist is not None and checkpoint_every and checkpoint_fn \
+            and run.optim.noise_eta > 0 and bundle.dist.layout.num_groups > 1:
+        # the snapshot is the one-process format, with one noise stream:
+        # worker groups 1.. would replay their draws after a resume
+        raise ValueError(
+            "fit(checkpoint_fn=) across ranks saves worker group 0's noise "
+            f"stream only: with noise_eta={run.optim.noise_eta} and "
+            f"{bundle.dist.layout.num_groups} worker groups a resumed run "
+            "would replay the other groups' draws; checkpoint without "
+            "gradient noise, or run one worker group")
     if bundle.rank != 0:
         # one rank logs and writes files; every rank computes the same
         log = lambda *a, **k: None
@@ -375,10 +376,11 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                 # elastic actuation, after the round is recorded: the
                 # JSONL and the trace show each decision at the round that
                 # made it, and the next round runs under the new census
-                if bundle.dist is not None and any(
-                        getattr(delta, k) is not None
-                        for k in ("demote", "promote", "workers")):
-                    _refuse_across_processes("a resize or a demotion")
+                if delta.workers is not None \
+                        and int(delta.workers) != bundle.num_workers:
+                    # a width the ranks cannot take is refused before the
+                    # census, the state or the data change
+                    backend.check_resize(int(delta.workers))
                 if delta.demote is not None:
                     backend.demote(int(delta.demote))
                 if delta.promote is not None:
@@ -398,7 +400,10 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                                 f"{type(data_iter).__name__}")
                         # departing workers' momentum / EF memory fold into
                         # the survivors (group mean), joiners are clones
-                        state = elastic.resize_state(state, new_w)
+                        state = elastic.resize_state(
+                            state, new_w, num_groups=(
+                                1 if bundle.dist is None
+                                else bundle.dist.layout.num_groups))
                         bundle = backend.resize(run, new_w)
                         # the plan for the new W, with the controller's
                         # current modes; a block size that no longer
@@ -430,7 +435,14 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
             if checkpoint_every and checkpoint_fn \
                     and (t + 1) % checkpoint_every == 0:
                 with tracer.span("checkpoint", step=t) as csp:
-                    csp.fence(checkpoint_fn(state, t))
+                    if bundle.dist is None:
+                        csp.fence(checkpoint_fn(state, t))
+                    else:
+                        full = gather_state(state, bundle.dist)
+                        if full is not None:
+                            checkpoint_fn(full, t)
+                        del full
+                        csp.fence(state)
     finally:
         if round_span is not None:          # training ended mid-round
             tracer.finish(round_span, incomplete=True)

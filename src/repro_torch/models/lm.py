@@ -57,6 +57,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import blocks as B
@@ -217,8 +218,12 @@ def apply_layer(cfg: ModelConfig, bd: BlockDef, p, x, ctx: B.Ctx, shared=None):
 
 def _embed_tokens(cfg: ModelConfig, params, tokens):
     """The embedding rows of ``tokens``, times sqrt(d_model) with
-    ``scale_embeddings`` (gemma)."""
-    x = params["embed"][tokens]
+    ``scale_embeddings`` (gemma).  ``F.embedding``, not ``embed[tokens]``:
+    its backward adds each row's gradients in token order, where the
+    CPU's backward of advanced indexing adds them with atomics across
+    threads (at 512 tokens and more), whose order, and so whose last bits,
+    change from run to run."""
+    x = F.embedding(tokens, params["embed"])
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x

@@ -261,6 +261,31 @@ class WorkerLayout:
                                    for w in range(s, s + group)}))
                      for s in range(0, W, group))
 
+    def resized(self, new_w: int) -> "WorkerLayout":
+        """The grid for ``new_w`` workers on the same ranks: a resize keeps
+        the process group, so every rank keeps its worker group and shard.
+
+        Across ranks a shrink or a grow moves no row only when W' is a
+        multiple of the G worker groups: then each fold group of W / W'
+        consecutive workers (a shrink) and each run of W' / W clones (a
+        grow) lies inside one worker group's rows.  Any other W' raises
+        ``ValueError`` here, before a caller changes any state.  The
+        reference's mesh has no such rule: its worker axis is one array,
+        resharded by XLA as a whole."""
+        W, G, new_w = self.num_workers, self.num_groups, int(new_w)
+        if new_w < 1 or new_w % G:
+            raise ValueError(
+                f"cannot resize {W} -> {new_w} workers across {G} worker "
+                f"groups: W' % G must be 0 (W' a multiple of the worker "
+                f"groups), so that every fold group and every clone run "
+                f"lies inside one rank's rows")
+        if (W % new_w) if new_w < W else (new_w % W):
+            raise ValueError(
+                f"cannot resize {W} -> {new_w} workers: a shrink needs W % W'"
+                f" == 0, a grow W' % W == 0 (whole fold groups, whole clone "
+                f"runs)")
+        return replace(self, num_workers=new_w)
+
     def block_is_local(self, group: int) -> bool:
         """True when every block of ``group`` workers lies inside one
         worker group."""

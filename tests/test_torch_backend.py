@@ -21,14 +21,16 @@
   rounds, the same JSONL keys, ``controller`` and ``resize`` trace spans.
 * The W 4 -> 2 -> 4 acceptance run: the ledger's ``worker_sets`` equal
   the reference's.
-* Distributed gating (one process), two ``gloo`` processes building
-  and taking a step and a sync, the up-front refusals, the
-  ``make_backend`` kinds, and the CLI with a simulated straggler
-  (``tests/test_torch_distributed.py`` holds the distributed runs).
+* Distributed gating (one process), two ``gloo`` processes building,
+  taking a step and a sync and resizing W 4 -> 2 under ``fit``, the
+  up-front refusals, the ``make_backend`` kinds, and the CLI with a
+  simulated straggler (``tests/test_torch_distributed.py`` holds the
+  distributed runs, ``tests/test_torch_elastic_dist.py`` their resizes,
+  demotion and checkpoints).
 
-The reference's ``test_resize_fsdp_subbuckets`` waits for a later slice
-of ROADMAP A.5: the port has no sharded sub-buckets
-(``flatbuf.shard_classes``) yet.
+The reference's ``test_resize_fsdp_subbuckets`` has its port in
+``tests/test_torch_sharded.py`` (one process) and
+``tests/test_torch_elastic_dist.py`` (across shard ranks).
 """
 import dataclasses
 import json
@@ -754,7 +756,7 @@ _TWO_PROCESSES = textwrap.dedent("""
                "loss": float(metrics["loss"]),
                "param_sum": float(state.params.buckets[0].double().sum()),
                "totals": bundle.dist.describe()["totals"]}
-        # a resize decision stops fit before the state changes
+        # a resize decision under fit: W 4 -> 2 after the first round
         class Resize:
             kind = "custom"
             def h_at(self, t): return 1
@@ -762,12 +764,15 @@ _TWO_PROCESSES = textwrap.dedent("""
             def update(self, report): pass
             def batch_scale(self): return 1
             def compression(self): return None
-        try:
-            ttrain.fit(run, ShardedBatches(data, 4, 2), bundle=bundle,
-                       backend=be, num_steps=2, controller=Resize(),
-                       params0=p0, log=lambda *a: None)
-        except NotImplementedError as e:
-            got["resize"] = str(e)
+        state, hist, summ = ttrain.fit(
+            run, ShardedBatches(data, 4, 2), bundle=bundle, backend=be,
+            num_steps=2, controller=Resize(), params0=p0, log=lambda *a: None)
+        got["resize"] = {"resizes": summ["resizes"],
+                         "rows": list(state.params.buckets[0].shape),
+                         "workers": be.describe()["local_workers"],
+                         "loss": [h["loss"] for h in hist],
+                         "param_sum": float(state.params.buckets[0].double().sum()),
+                         "worker_sets": sorted(summ["ledger"]["worker_sets"])}
         dist.destroy_process_group()
         open(f"{out}.{r}", "w").write(json.dumps(got))
 
@@ -784,8 +789,8 @@ def test_distributed_backend_two_processes_build_step_and_sync(tmp_path):
     """Two real ``gloo`` processes build paper-lm smoke at W=4 (two workers
     each), take a local step and a wire-packed EF-sign sync: both ranks
     end with the same synced model and the same loss, their sync gathered
-    the payload and the scales; a resize decision raises
-    NotImplementedError naming ROADMAP A.5."""
+    the payload and the scales; a resize decision under ``fit`` takes W
+    4 -> 2 (one worker a rank), and both ranks agree after it."""
     script = tmp_path / "two.py"
     script.write_text(_TWO_PROCESSES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -800,15 +805,21 @@ def test_distributed_backend_two_processes_build_step_and_sync(tmp_path):
     for g in got:
         assert g["totals"]["all_gather/global"]["calls"] == 2   # payload, scales
         assert "all_reduce/global" not in g["totals"]
-        assert "A.5" in g["resize"] and "resize" in g["resize"]
+        assert g["resize"]["resizes"] == 1
+        assert g["resize"]["rows"][0] == 1          # W' / P workers a rank
+        assert g["resize"]["worker_sets"] == ["W=2", "W=4"]
+    assert [g["resize"]["workers"] for g in got] == [[0], [1]]
+    assert got[0]["resize"]["loss"] == got[1]["resize"]["loss"]
+    assert got[0]["resize"]["param_sum"] == got[1]["resize"]["param_sum"]
 
 
 def test_distributed_refuses_up_front(monkeypatch):
     """NCCL with more ranks than cards (before init_process_group), a
     worker count the ranks do not divide, blocks that straddle ranks
-    unevenly, and resizes / the elastic controller / checkpoint_fn under
-    the distributed backend, before anything is built.  Within-worker
-    layouts, refused until they were ported, build."""
+    unevenly, and a resize to a W' that is not a multiple of the worker
+    groups (before the census changes).  Within-worker layouts, resizes,
+    demotion, the elastic controller and checkpoint_fn, refused until
+    they were ported, go on to the build."""
     from repro_torch.backend.distributed import (DistributedBackend,
                                                  check_nccl_ranks)
     from repro_torch.sharding import layout as tlayout
@@ -842,12 +853,21 @@ def test_distributed_refuses_up_front(monkeypatch):
     assert tlayout.WorkerLayout(8, 2, 1).block_is_local(2)
     with pytest.raises(ValueError, match="unevenly"):
         tlayout.WorkerLayout(6, 2, 0).block_ranks(2)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        DistributedBackend(4).resize(run, 2)
+    # resizes: W' a multiple of the worker groups, or ValueError before the
+    # census changes (once built, a backend checks against its grid)
+    be = DistributedBackend(4)
+    be.collectives = type("C", (), {"layout": tlayout.WorkerLayout(4, 2, 0)})()
+    with pytest.raises(ValueError, match="W' % G must be 0"):
+        be.resize(run, 1)
+    assert be.worker_set == WorkerSet.of(4)
+    be.check_resize(2)
+    # the elastic controller, demotion and checkpoint_fn are no longer
+    # refused: fit goes on to the build (here: no coordinator)
     _, erun = make_runs(controller=dict(kind="elastic"))
     for kw in (dict(run=erun), dict(run=run, checkpoint_fn=lambda s, t: None)):
-        be = DistributedBackend(4)       # never initialized: refused first
-        with pytest.raises(NotImplementedError, match="A.5"):
+        be = DistributedBackend(4)
+        be.demote(3)
+        with pytest.raises(RuntimeError, match="coordinator"):
             ttrain.fit(kw.pop("run"), iter(()), backend=be, **kw)
 
 

@@ -217,6 +217,70 @@ def test_cuda_lars_kernels_match_plain(cuda, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3096 + 5, 264, 300_007])
+@pytest.mark.parametrize("L", [1, 4, 8])
+def test_cuda_segment_sum_equals_plain_bit_for_bit(cuda, rows, L):
+    """The port's segmented sum (no TPU kernel: the reference's
+    jax.ops.segment_sum) per leading row and chained over the rows from a
+    running total, against its plain version (the host's index_add_):
+    the same adds in the same order, so the same bits, twice, with one
+    launch counted a call; index_add_ on the card is what it replaces."""
+    dev = cuda
+    g = torch.Generator(device=dev).manual_seed(rows + L)
+    n_seg = 37
+    sizes = torch.randint(0, 2 * rows // n_seg, (n_seg,), generator=g,
+                          device=dev)
+    sizes[-1] = 0                               # an empty segment
+    seg = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    used = min(int(sizes.sum()), rows)
+    seg[:used] = torch.repeat_interleave(
+        torch.arange(n_seg, device=dev, dtype=torch.int32), sizes)[:used]
+    # padding rows at the end belong to segment 0, as a bucket's do
+    index = tkb.segment_index(seg, n_seg)
+    vals = torch.randn((L, rows), generator=g, device=dev)
+    init = torch.randn((n_seg,), generator=g, device=dev)
+    tkb.reset_launches()
+    per = tkb.segment_sum(vals, index)
+    chain = tkb.segment_sum(vals, index, chain=True, init=init)
+    assert tkb.PORT_LAUNCHES["segment_sum"] == 2
+    assert torch.equal(per, tkb.segment_sum_plain(vals, seg, n_seg))
+    assert torch.equal(chain, tkb.segment_sum_plain(vals, seg, n_seg,
+                                                    chain=True, init=init))
+    assert torch.equal(per, tkb.segment_sum(vals, index))
+    assert torch.equal(tops.segment_sum(vals, seg, n_seg),
+                       tkb.segment_sum_plain(vals.cpu(), seg.cpu(), n_seg).to(dev))
+    assert per.shape == (L, n_seg) and chain.shape == (n_seg,)
+    assert (per[:, -1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3096 + 5, 65_536 + 3])
+def test_cuda_per_worker_sums_do_not_depend_on_w(cuda, rows):
+    """A worker's sq_sum and its update's stats take the same bits whether
+    the launch holds 4, 2 or 1 workers: a rank that holds W / P workers
+    adds each worker's partials in the one-process run's order.  So do the
+    updated p and u."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    mk = lambda: torch.randn((4, rows, 128), generator=g, device=cuda)
+    x, p, u = mk(), mk(), 0.1 * mk()
+    wd_row = (torch.rand((rows,), generator=g, device=cuda) < 0.7).float()
+    gscale = torch.rand((4,), generator=g, device=cuda)
+    kw = dict(momentum=0.9, weight_decay=1e-2, nesterov=True, stats=True)
+    whole = tkb.sq_sum(x)
+    p4, u4 = p.clone(), u.clone()
+    st4 = tkb.fused_sgd_bucket(p4, x, u4, 0.05, wd_row, gscale=gscale, **kw)
+    for n in (2, 1):
+        for lo in range(0, 4, n):
+            sl = slice(lo, lo + n)
+            assert torch.equal(tkb.sq_sum(x[sl].contiguous()), whole[sl])
+            pn, un = p[sl].clone(), u[sl].clone()
+            st = tkb.fused_sgd_bucket(pn, x[sl].contiguous(), un, 0.05, wd_row,
+                                      gscale=gscale[sl].contiguous(), **kw)
+            assert all(torch.equal(a, b[sl]) for a, b in zip(st, st4))
+            assert torch.equal(pn, p4[sl]) and torch.equal(un, u4[sl])
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_input(cuda):
     x = torch.zeros((2, 8, 128), device=cuda)
     with pytest.raises(TypeError):

@@ -81,10 +81,28 @@ def test_rank_helpers_import_no_jax():
     JAX package: the ranks run the port alone."""
     helpers = sorted((ROOT / "tests").glob("_torch_*variants.py"))
     assert {h.name for h in helpers} >= {"_torch_dist_variants.py",
-                                        "_torch_sharded_variants.py"}
+                                        "_torch_sharded_variants.py",
+                                        "_torch_elastic_variants.py"}
     bad = [f"{h.name}: {m}" for h in helpers for m in _imports(h)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_segment_sum_builds_nothing_on_the_cpu():
+    """The segmented sum's kernel (``fb_segment_sum``) is built and loaded
+    at its first launch on the card, never at import nor for CPU tensors,
+    where the plain version runs; a tensor on another device raises."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import fused_bucket as fb
+    assert "fb_segment_sum" in fb._LIB.signatures
+    seg = torch.tensor([0, 0, 1, 1, 1, 0], dtype=torch.int32)
+    index = fb.segment_index(seg, 2)
+    vals = torch.arange(12, dtype=torch.float32).reshape(2, 6)
+    assert fb.segment_sum(vals, index).tolist() == [[6.0, 9.0], [24.0, 27.0]]
+    assert fb.segment_sum(vals, index, chain=True).tolist() == [30.0, 36.0]
+    assert "fused_bucket" not in kbuild._LOADED
+    with pytest.raises(ValueError):
+        fb.segment_sum(vals.to("meta"), index)
 
 
 def test_port_modules_import_without_jax():

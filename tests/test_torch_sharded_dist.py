@@ -20,8 +20,12 @@ have.
   ranks adds what one process adds in the same order); FSDP, whose
   shard ranks differentiate half a batch each and average, within
   ``FSDP_REL`` (measured up to 1.9e-6, on momentum).  Under FSDP an
-  EF-sign sync flips the sign of some deltas near 0: there params and
+  EF-sign sync flips the sign of some deltas near 0 that the split
+  batch's rounding moved between syncs: along the trajectory params and
   anchor may have ``FLIP_FRAC`` of their elements beyond ``FSDP_REL``.
+  So every FSDP EF-sign sync is also held on the one-process run's own
+  pre-sync state: all four fields within 1e-6 (EF memory 1e-5), no
+  element flipped.
 * Losses equal on every rank; against the one-process run 1e-6 (TP) or
   ``FSDP_REL`` relative (measured 0 and 3.1e-6); round summaries within
   1e-5, 1e-3 in a run with flips.
@@ -89,6 +93,7 @@ _SCRIPT = textwrap.dedent('''
     from repro_torch.telemetry.stats import round_summary
 
     FIELDS = ("params", "momentum", "anchor", "ef_memory")
+    PINNED = {("fsdp", "ef_sign_wire_coalesce"), ("fsdp", "lars_ef_sign")}
 
     def train(name, params0, bundle, backend):
         run = make_run(tcb, configs.get_smoke("paper-lm"), name)
@@ -115,6 +120,55 @@ _SCRIPT = textwrap.dedent('''
             meta["round_summary"] = round_summary(state.stats, dist=bundle.dist)
         return arrays, meta
 
+    def snap(state):
+        return {f"{f}.{b}": x.float().numpy().copy() for f in FIELDS
+                if getattr(state, f) is not None
+                for b, x in enumerate(getattr(state, f).buckets)}
+
+    def pin(bundle, out, kind, name):
+        """Keep the pre- and post-sync state of every sync of this
+        one-process run (``pin.<kind>.<name>.npz``)."""
+        sync, kept = bundle.sync, {}
+
+        def pinned(state, *, plan=None, scope="global"):
+            i = sum(k.endswith(".pre.params.0") for k in kept)
+            kept.update({f"{i}.pre.{k}": v for k, v in snap(state).items()})
+            state = sync(state, plan=plan, scope=scope)
+            kept.update({f"{i}.post.{k}": v for k, v in snap(state).items()})
+            np.savez(f"{out}/pin.{kind}.{name}.npz", **kept)
+            return state
+        bundle.sync = pinned
+        return bundle
+
+    def replay(out, kind, name, bundle, state, r):
+        """Every pinned sync on this rank: its rows of the one-process
+        pre-sync state through the rank's sync; the rows after it."""
+        import dataclasses
+        from repro_torch.core import flatbuf
+        from repro_torch.core.local_sgd import LocalSGDState, local_state
+        kept = dict(np.load(f"{out}/pin.{kind}.{name}.npz"))
+        lay = state.params.layout
+        got, i = {}, 0
+        while f"{i}.pre.params.0" in kept:
+            full = {}
+            for f in FIELDS:
+                if getattr(state, f) is None:
+                    full[f] = None
+                    continue
+                bufs = [torch.from_numpy(kept[f"{i}.pre.{f}.{b}"]).to(
+                            getattr(state, f).buckets[b].dtype)
+                        for b in range(lay.num_buckets)]
+                full[f] = flatbuf.BucketState(lay, tuple(bufs),
+                                              leading=0 if f == "anchor" else 1)
+            st = local_state(LocalSGDState(global_u=None, step=state.step,
+                                           rng=state.rng, stats=None, **full),
+                             bundle.dist, "cpu")
+            st = dataclasses.replace(st, stats=state.stats)
+            st = bundle.sync(st, plan=bundle.sync_plan, scope="global")
+            got.update({f"{i}.{k}": v for k, v in snap(st).items()})
+            i += 1
+        np.savez(f"{out}/r{r}.pinned.{kind}.{name}.npz", **got)
+
     def save(out, tag, kind, name, arrays, meta):
         np.savez(f"{out}/{tag}.{kind}.{name}.npz", **arrays)
         with open(f"{out}/{tag}.{kind}.{name}.json", "w") as f:
@@ -133,8 +187,12 @@ _SCRIPT = textwrap.dedent('''
                                         layout=mesh_layout(tlayout, kind))
                 for name in VARIANTS:
                     run = make_run(tcb, configs.get_smoke("paper-lm"), name)
-                    save(out, f"r{r}", kind, name,
-                         *train(name, params0, be.build(run), be))
+                    bundle = be.build(run)
+                    arrays, meta = train(name, params0, bundle, be)
+                    save(out, f"r{r}", kind, name, arrays, meta)
+                    if (kind, name) in PINNED:
+                        replay(out, kind, name, bundle,
+                               bundle.init(params0), r)
         finally:
             dist.destroy_process_group()
 
@@ -146,10 +204,12 @@ _SCRIPT = textwrap.dedent('''
             lay = mesh_layout(tlayout, kind).with_sizes(SIZES)
             for name in VARIANTS:
                 run = make_run(tcb, configs.get_smoke("paper-lm"), name)
-                save(out, "one", kind, name, *train(
-                    name, params0, build_train(run, num_workers=W,
-                                               device="cpu", layout=lay),
-                    None))
+                bundle = build_train(run, num_workers=W, device="cpu",
+                                     layout=lay)
+                if (kind, name) in PINNED:
+                    pin(bundle, out, kind, name)
+                save(out, "one", kind, name,
+                     *train(name, params0, bundle, None))
         s = socket.socket()
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -180,10 +240,12 @@ def spawned(tmp_path_factory, ref_params):
                           str(ROOT / "tests")],
                          capture_output=True, text=True, env=env, timeout=180)
     assert res.returncode == 0, res.stderr[-4000:]
-    return {tag: {(k, n): (dict(np.load(root / f"{tag}.{k}.{n}.npz")),
-                           json.loads((root / f"{tag}.{k}.{n}.json").read_text()))
-                  for k in KINDS for n in VARIANTS}
-            for tag in ["one"] + [f"r{r}" for r in range(P)]}
+    out = {tag: {(k, n): (dict(np.load(root / f"{tag}.{k}.{n}.npz")),
+                          json.loads((root / f"{tag}.{k}.{n}.json").read_text()))
+                 for k in KINDS for n in VARIANTS}
+           for tag in ["one"] + [f"r{r}" for r in range(P)]}
+    out["root"] = root
+    return out
 
 
 def _rows(one, field, b, r, meta):
@@ -257,6 +319,36 @@ def test_ranks_match_one_process(spawned, kind, name):
             if isinstance(v, float):
                 np.testing.assert_allclose(got[k], v, rtol=rtol, atol=1e-12,
                                            err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["ef_sign_wire_coalesce", "lars_ef_sign"])
+def test_fsdp_ef_sign_syncs_on_the_one_process_state(spawned, name):
+    """FSDP + EF-sign, every sync held on the one-process run's own
+    pre-sync state (each rank's rows of it through the rank's sync), so
+    that the split batch's drift between syncs does not enter: params,
+    momentum, anchor and EF memory against the one-process post-sync rows
+    at 1e-6 of the largest entry (EF memory 1e-5).  Sign flips are counted
+    as elements beyond that: the compressor's inputs and per-leaf totals
+    are the one process's, bit for bit, so none flips (measured 0)."""
+    root = spawned["root"]
+    one_m = spawned["one"][("fsdp", name)][1]
+    kept = dict(np.load(root / f"pin.fsdp.{name}.npz"))
+    syncs = one_m["comm_rounds"]["global"]
+    assert f"{syncs - 1}.post.params.0" in kept and f"{syncs}.pre.params.0" \
+        not in kept
+    flips = 0
+    for r in range(P):
+        got = dict(np.load(root / f"r{r}.pinned.fsdp.{name}.npz"))
+        assert len(got) == sum(1 for k in kept if ".post." in k)
+        for key, x in got.items():
+            i, field, b = key.split(".")
+            want = _rows({f"{field}.{b}": kept[f"{i}.post.{field}.{b}"]},
+                         field, int(b), r, one_m)
+            assert x.shape == want.shape, key
+            rel = 1e-5 if field == "ef_memory" else 1e-6
+            scale = max(float(np.abs(want).max()), 1e-30)
+            flips += int((np.abs(x - want) > rel * scale).sum())
+    assert flips == 0, flips
 
 
 @pytest.mark.parametrize("kind", KINDS)
