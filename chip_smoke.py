@@ -15,7 +15,11 @@ Phases:
   build    nvcc for every CUDA source, all started at once; build seconds;
            flash attention's ``-Xptxas -v`` readings (registers, stack,
            spills per instantiation) and the tensor-core instructions
-           (HMMA / HGMMA) in each instantiation's SASS.
+           (HMMA / HGMMA) in each instantiation's SASS; the segmented
+           sum's and the chain probe's ``-Xptxas -v`` readings.
+  (each)   every phase ends with a ``{"phase": ..., "phase_s": s}`` line;
+           a ``{"phase": "seconds", "by_phase": ...}`` line before the
+           kernels summary adds them up.
   kernels  each kernel against its plain PyTorch version on the same card
            inputs, at full size and at a ragged size: the six bucket
            kernels at the main path's shape (W=4 workers x 934,040 rows x
@@ -39,7 +43,11 @@ Phases:
            twice.  The port's segmented sum (no TPU kernel) on (W, rows)
            row sums of paper-lm's leaves, per worker and chained: equal
            to its plain version (the host's index_add_) bit for bit, and
-           twice; ``index_add_`` on the card is its library call.  The
+           twice; ``index_add_`` on the card is its library call; timed
+           per worker and chained, each beside its byte bound and its
+           chain bound (the longest leaf's index-order adds times one
+           add's latency, from the chain probe: one thread's dependent
+           __fadd_rn, with the SM clock nvidia-smi reads meanwhile).  The
            three kernels of the paper harness's path (fused
            SGD, row_abs_sum, scale_sign_rows) also at its bucket: K=8
            workers x 624 rows x 128 (the width-256 MLP), timed.
@@ -129,9 +137,11 @@ Phases:
   V        workers split over shard ranks: ``DistributedBackend(
            within_worker_size=2)``, four ``gloo`` ranks on card 0 = 2
            workers x 2 shards (rank = group * 2 + shard), paper-lm at full
-           width, W=2, local batch 8, seq 512, 12 steps.  The layout puts
-           8 leaves in a ("model",) sub-bucket of 933,888 rows, 466,944 a
-           rank, and 3 in a replicated one of 152.  V1: FSDP (each shard
+           width and ``V_LAYERS`` (4) of its 12 layers, W=2, local batch
+           8, seq 512, 12 steps.  The layout puts the layers' and the
+           embedding's leaves in a ("model",) sub-bucket (at 12 layers
+           933,888 rows, 466,944 a rank) and 3 in a replicated one of
+           152.  V1: FSDP (each shard
            rank differentiates half a worker's batch; gradients
            reduce-scattered) at phase A's settings; V2: tensor parallel
            (every shard rank the whole batch) at phase W's with
@@ -154,7 +164,8 @@ Phases:
            layout's reckoning.  Results in ``build/phase_v/`` (removed
            after the checks).
   Q        resizes and checkpoints across ranks (``Q_PARTS``): paper-lm
-           at full width, W = 4 -> 2 -> 4 by ``ElasticController(
+           at full width and ``Q_LAYERS`` (4) of its 12 layers, W = 4 ->
+           2 -> 4 by ``ElasticController(
            resize_at=Q_RESIZE)``, Q1 on 2 ``gloo`` ranks x 2 workers at
            phase W's settings, Q2 on 2 worker groups x 2 FSDP shard ranks
            at phase L's; a ``checkpoint_fn`` after step ``Q_CKPT_STEP``
@@ -206,9 +217,10 @@ Phases:
            logits within 1e-4 x (1 + |logit|).
   D        the dense variants at their published widths, phase A's
            settings (mean sync) at W=2, depth cut by the reckoning in
-           ``D_RUNS``: D1 gemma3-1b (all 26 layers: 5 sliding-window : 1
-           global, GeGLU, post-norm, scaled embeddings, tied head; seq
-           1024 past its window of 512, local batch 4), D2
+           ``D_RUNS``: D1 gemma3-1b (12 of 26 layers: twice 5
+           sliding-window : 1 global, GeGLU, post-norm, scaled
+           embeddings, tied head; seq 1024 past its window of 512, local
+           batch 4), D2
            qwen3-32b (1 layer), D3 phi4-mini-3.8b (4), D4 minitron-4b (1),
            8 steps each: losses finite and falling from about
            ln V, comm rounds equal to the schedule's, median step, tokens/s,
@@ -222,7 +234,7 @@ Phases:
            own batches: logits within 1e-4 x (1 + |logit|).
   Z        the recurrent families at their published widths (``Z_RUNS``),
            phase A's settings at W=2, seq 512 x local batch 8, 8 steps:
-           Z1 xlstm-1.3b, 16 of 48 layers (14 mLSTM + 2 sLSTM), EF-sign;
+           Z1 xlstm-1.3b, 8 of 48 layers (7 mLSTM + 1 sLSTM), EF-sign;
            Z2 zamba2-7b, 12 of 81 layers (10 mamba2 + 2 invocations of
            the shared attention block), mean sync.  The memory reckoning
            printed before each part; losses finite and falling, comm
@@ -413,6 +425,22 @@ REFS: dict = {}
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+class Laps:
+    """Seconds of each phase of :func:`main`: ``laps(tag)`` at the end of a
+    phase emits the seconds since the previous call (or since the clock
+    started) as ``{"phase": tag, "phase_s": s}``; ``by_phase`` sums them."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.by_phase: dict = {}
+
+    def __call__(self, tag: str):
+        now = time.perf_counter()
+        self.by_phase[tag] = self.by_phase.get(tag, 0.0) + now - self.last
+        self.last = now
+        emit({"phase": tag, "phase_s": self.by_phase[tag]})
 
 
 def card_rates(name: str):
@@ -654,12 +682,12 @@ def check_kernels(rows: int, bw: float, flops_peak: float, timed: bool):
 
     # the port's segmented sum of the per-row totals (kernels 3 and 5 feed
     # it): per worker, and chained over the workers, on paper-lm's leaves
-    res["segment_sum"] = check_segment_sum(rows, gen, timed)
+    res["segment_sum"] = check_segment_sum(rows, gen, timed, bw)
     return report(res, bw, flops_peak, W=W, rows=rows)
 
 
 def segment_layout_index(rows: int, gen):
-    """(seg_ids, order, offsets) on the card for ``rows`` rows: paper-lm's
+    """The ``SegmentIndex`` on the card for ``rows`` rows: paper-lm's
     leaves of its one f32 bucket at FULL_ROWS, else leaves of random sizes
     (multiples of 8 rows) with some padding rows left to leaf 0."""
     import torch
@@ -682,49 +710,99 @@ def segment_layout_index(rows: int, gen):
     return fb.segment_index(seg, len(sizes))
 
 
-def check_segment_sum(rows: int, gen, timed: bool) -> dict:
+def chain_probe() -> dict:
+    """The latency of one dependent ``__fadd_rn`` on this card
+    (``fused_bucket.fadd_chain_s_per_add``: one thread, 2^25 adds a
+    launch, the median of 7), and the SM clock ``nvidia-smi`` reads while
+    those chains run (queried from a thread once the probe has started)."""
+    import threading
+    from repro_torch.kernels import fused_bucket as fb
+    clock = {}
+
+    def read_clock():
+        time.sleep(0.1)
+        out = subprocess.run(["nvidia-smi",
+                              "--query-gpu=clocks.sm,clocks.max.sm",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        lines = out.stdout.strip().splitlines()
+        clock["line"] = lines[0] if lines else ""
+    reader = threading.Thread(target=read_clock)
+    reader.start()
+    s_per_add = fb.fadd_chain_s_per_add(1 << 25, reps=7)
+    reader.join()
+    mhz = re.findall(r"(\d+) MHz", clock["line"])
+    rec = {"s_per_add": s_per_add, "sm_clock_MHz": int(mhz[0]) if mhz else None,
+           "nvidia_smi_clocks_sm_max_sm": clock["line"]}
+    if mhz:
+        rec["cycles_per_add"] = s_per_add * int(mhz[0]) * 1e6
+    if not (math.isfinite(s_per_add) and s_per_add > 0):
+        raise AssertionError(f"the chain probe read no time: {rec}")
+    return rec
+
+
+def check_segment_sum(rows: int, gen, timed: bool, bw: float) -> dict:
     """``fused_bucket.segment_sum`` of (W, rows) row sums, per worker and
     chained over the workers, against its plain version (the host's
     index_add_): the same adds, so the same bits (tolerance 0), and the
-    same bits twice.  Timed per worker; ``library_ms`` is index_add_ on
-    the card (atomic adds) over the same rows."""
+    same bits twice.  Timed per worker (``ms``) and chained (``chain_ms``),
+    each beside two bounds: the bytes (``bound_ms``, ``chained_bound_ms``)
+    and the chain (``chain_bound_ms``, ``chained_chain_bound_ms``: the
+    longest chain's adds times the probe's seconds an add, the bound
+    under the index-order contract); ``library_ms`` is index_add_ on the
+    card (atomic adds) over the same rows."""
     import torch
     from repro_torch.kernels import fused_bucket as fb
     index = segment_layout_index(rows, gen)
-    n_seg = index[2].numel() - 1
+    n_seg = index.offsets.numel() - 1
     vals = torch.rand((W, rows), generator=gen, device="cuda")
     init = torch.rand((n_seg,), generator=gen, device="cuda")
     per, chain = fb.segment_sum(vals, index), fb.segment_sum(
         vals, index, chain=True, init=init)
-    per_p = fb.segment_sum_plain(vals, index[0], n_seg)
-    chain_p = fb.segment_sum_plain(vals, index[0], n_seg, chain=True, init=init)
+    per_p = fb.segment_sum_plain(vals, index.seg_ids, n_seg)
+    chain_p = fb.segment_sum_plain(vals, index.seg_ids, n_seg, chain=True,
+                                   init=init)
     e = rel_err(torch.cat([per.reshape(-1), chain]),
                 torch.cat([per_p.reshape(-1), chain_p]))
     twice = bool(torch.equal(per, fb.segment_sum(vals, index))
                  and torch.equal(chain, fb.segment_sum(vals, index, chain=True,
                                                        init=init)))
     same = bool(torch.equal(per, per_p) and torch.equal(chain, chain_p))
-    lens = (index[2][1:] - index[2][:-1])
+    longest = int((index.offsets[1:] - index.offsets[:-1]).max())
+    # what the sums must move: the row sums once, the index (runs, their
+    # offsets, the row offsets, the order of lengths), the totals
+    index_bytes = 8 * sum(t.numel() for t in index[1:])
     rec = dict(max_abs_err=e[0], max_rel_err=e[1], tol=0.0,
                equal_plain=same, same_bits_twice=twice, ok=same and twice,
-               segments=n_seg, largest_segment_rows=int(lens.max()),
-               # what the sums must move: the row sums once, the offsets,
-               # the totals.  A leaf is a contiguous row range and padding
-               # rows hold exact zeros, so the offsets alone give the same
-               # sums; the kernel's 8-byte ``order`` a row is its own cost
-               bytes=4 * W * rows + 8 * (n_seg + 1) + 4 * W * n_seg,
+               segments=n_seg, runs=int(index.runs.shape[0]),
+               largest_segment_rows=longest,
+               bytes=4 * W * rows + index_bytes + 4 * W * n_seg,
                flops=W * rows)
     if timed:
-        ids = (index[0].long()[None] + n_seg * torch.arange(
+        ids = (index.seg_ids[None] + n_seg * torch.arange(
             W, device="cuda")[:, None]).reshape(-1)
         flat = vals.reshape(-1)
+        lib = lambda: torch.zeros((W * n_seg,), device="cuda").index_add_(
+            0, ids, flat)
+        probe = chain_probe()
+        per_dev, lib_dev = device_ms(lambda: fb.segment_sum(vals, index), lib)
+        chain_dev, _ = device_ms(
+            lambda: fb.segment_sum(vals, index, chain=True), lib)
         rec.update(
             ms=time_ms(lambda: fb.segment_sum(vals, index)),
             chain_ms=time_ms(lambda: fb.segment_sum(vals, index, chain=True)),
-            plain_ms=time_ms(lambda: fb.segment_sum_plain(vals, index[0], n_seg),
-                             reps=5),
-            library_ms=time_ms(lambda: torch.zeros(
-                (W * n_seg,), device="cuda").index_add_(0, ids, flat)))
+            device_ms=per_dev, chain_device_ms=chain_dev,
+            plain_ms=time_ms(lambda: fb.segment_sum_plain(vals, index.seg_ids,
+                                                          n_seg), reps=5),
+            library_ms=time_ms(lib), library_device_ms=lib_dev,
+            chain_probe=probe, nvidia_smi=nvidia_smi_line(),
+            chain_bound_ms=1e3 * longest * probe["s_per_add"],
+            chained_chain_bound_ms=1e3 * W * longest * probe["s_per_add"],
+            chained_bound_ms=1e3 * (4 * W * rows + index_bytes + 4 * n_seg)
+            / bw)
+        rec.update(chain_bound_share=rec["chain_bound_ms"] / rec["ms"],
+                   chained_chain_bound_share=(rec["chained_chain_bound_ms"]
+                                              / rec["chain_ms"]))
     return rec
 
 
@@ -2475,7 +2553,6 @@ def phase_g() -> dict:
     from repro_torch.benchmarks import paper_tables as pt
     from repro_torch.kernels import fused_bucket as fb
 
-    t_phase = time.perf_counter()
     train, test = hc.dataset()
     rel = lambda a, b: abs(a - b) / abs(b) if b else abs(a)
     # card vs CPU from the same weights (drawn on the CPU, then moved)
@@ -2567,8 +2644,7 @@ def phase_g() -> dict:
               "top_host_ops_self_ms": [
                   [e.key[:60], e.self_cpu_time_total / 1e3, e.count]
                   for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]]})
-    emit({"phase": "G", "full_rows_s": rows_s,
-          "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "G", "full_rows_s": rows_s})
     return launches
 
 
@@ -3274,12 +3350,14 @@ D_STEPS = 8     # phase M's count: the 4 sync steps before the post-local
 # its untied embedding and head alone are 1.56 B params, so 1 layer is
 # the floor); phi4-mini-3.8b 4 layers 67.8 GB (45.7 reckoned);
 # minitron-4b 2 layers 74.3 GB (50.2), so it runs 1 (47.1 reckoned).
-# gemma3-1b runs all 26 layers (28.0 reckoned); its window is 512, so it
+# gemma3-1b ran all 26 layers (28.0 reckoned) until the script's time
+# limit cut it to 12, two of its 5 sliding : 1 global groups (all 26 took
+# 66-70 s of the script); its window is 512, so it
 # trains at seq 1024 with local batch 4 (phase A's tokens a step), and its
 # sliding layers' mask and its backward run in every step; its serving
 # prompts and its CPU forward run past the window too.  The last two
 # fields are each part's training seq and local batch.
-D_RUNS = (("D1", "gemma3-1b", 2, 26, 768, (16, 600), 768, 1024, 4),
+D_RUNS = (("D1", "gemma3-1b", 2, 12, 768, (16, 600), 768, 1024, 4),
           ("D2", "qwen3-32b", 2, 1, 256, (16, 128), 128, 512, 8),
           ("D3", "phi4-mini-3.8b", 2, 4, 256, (16, 128), 128, 512, 8),
           ("D4", "minitron-4b", 2, 1, 256, (16, 128), 128, 512, 8))
@@ -3451,12 +3529,14 @@ def phase_d(tag: str, arch: str, workers: int, layers: int, max_len: int,
 # (and, had a probe run out of memory, the local batch) are cut.  The depth
 # floors are part of what is run: xlstm needs 8 layers for one sLSTM block
 # (its pattern is 7 mLSTM : 1 sLSTM) and zamba2 12 for two invocations of
-# the shared attention block (every 6th layer).  Z1 xlstm-1.3b at 16 of 48
-# layers (14 mLSTM + 2 sLSTM, 785,487,984 params, a 3.14 GB bucket copy;
-# m_reckon: 15 copies at the EF-sign sync, 47.1 GB); Z2 zamba2-7b at 12 of
+# the shared attention block (every 6th layer).  Z1 xlstm-1.3b runs at
+# that floor, 8 of 48 layers (7 mLSTM + 1 sLSTM), to keep the script in its
+# time limit (at 16 layers, 14 mLSTM + 2 sLSTM, 785,487,984 params and
+# m_reckon's 47.1 GB, it took 134-146 s of the script, a third of it
+# profiling one step's sLSTM event tree); Z2 zamba2-7b at 12 of
 # 81 (10 mamba2 + 2 shared-block invocations, 1,522,983,968 params, 6.09
 # GB a copy; 7 copies at the mean sync, 42.6 GB).
-Z_RUNS = (("Z1", "xlstm-1.3b", "ef_sign", 2, 16, 512, 8, "cpu"),
+Z_RUNS = (("Z1", "xlstm-1.3b", "ef_sign", 2, 8, 512, 8, "cpu"),
           ("Z2", "zamba2-7b", "none", 2, 12, 512, 8, "tol"))
 Z_STEPS = 8                    # phase M's count
 Z_PROMPTS, Z_PROMPT_LEN, Z_NEW = 8, 128, 32
@@ -3465,9 +3545,9 @@ Z_DECODE_TOL = 2e-4            # decode vs the train-mode forward, x (1 + |logit
 # twice: in float32, and with the same weights widened to float64 (the
 # float64 checks bind every part).  A part's float32 rule says how its
 # float32 logits are held.  "tol": at the tolerances (zamba2).  "cpu":
-# xlstm at 16 layers is ill-conditioned in float32 (the per-head norm of
-# the mLSTM output divides by an RMS as small as 4e-4, the sLSTM layers
-# amplify rounding further), so its float32 logits sit 3e-4 to 0.5 from
+# xlstm is ill-conditioned in float32 (read at 16 layers: the per-head
+# norm of the mLSTM output divides by an RMS as small as 4e-4, the sLSTM
+# layers amplify rounding further), so its float32 logits sit 3e-4 to 0.5 from
 # their float64 values on the CPU as on the card, beyond both tolerances.
 # There the card's float32 logits, forward and decode, are held within
 # Z_F32_FACTOR times the CPU's own float32 error against the float64
@@ -4053,7 +4133,7 @@ def y_rank(r: int, port: int, P: int, tags: tuple, backend: str, out: str,
     from repro_torch.telemetry.stats import round_summary
     from repro_torch.telemetry.trace import Tracer
 
-    cfg = (configs.get_smoke if spec.get("smoke") else configs.get)("paper-lm")
+    cfg = paper_lm(spec)
     be = DistributedBackend(W, backend=backend, process_id=r, num_processes=P,
                             coordinator_address=f"localhost:{port}",
                             local_rank=r, device=spec.get("device"),
@@ -4237,6 +4317,22 @@ def torch_equal(a, b) -> bool:
     return bool(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b))
 
 
+def paper_lm(spec: dict):
+    """The rank's model: paper-lm (its smoke config with ``spec["smoke"]``)
+    cut to ``spec["layers"]`` layers where that is set (phases V and Q)."""
+    from repro_torch import configs
+    cfg = (configs.get_smoke if spec.get("smoke") else configs.get)("paper-lm")
+    return cut_depth(cfg, spec.get("layers"))
+
+
+def cut_depth(cfg, layers):
+    """``cfg`` at ``layers`` layers, or as it is when that is None or not
+    fewer than its own."""
+    if layers is None or layers >= cfg.num_layers:
+        return cfg
+    return cfg.replace(num_layers=layers)
+
+
 def phase_y(cfg, spec: dict | None = None) -> dict:
     """Phase Y: workers across processes at full width (see the module
     docstring); returns the summed launch counts of every rank."""
@@ -4256,7 +4352,6 @@ def phase_y(cfg, spec: dict | None = None) -> dict:
     launches: dict = {}
     parts = {}
     base = ROOT / "build" / "phase_y"
-    t_phase = time.perf_counter()
     for P, tags in ((4, ("Y1", "Y2")), (2, ("Y3",))):
         t0 = time.perf_counter()
         out = base / f"gloo{P}"
@@ -4323,8 +4418,7 @@ def phase_y(cfg, spec: dict | None = None) -> dict:
     emit(nccl)
     emit({"phase": "Y", "summary": True,
           "packed_sync_s_Y1": y1, "dense_sync_s_Y2": y2,
-          "dense_over_packed": y2 / y1,
-          "phase_s": time.perf_counter() - t_phase})
+          "dense_over_packed": y2 / y1})
     if bad:
         raise AssertionError(f"phase Y: {'; '.join(bad)}")
     return launches
@@ -4338,6 +4432,11 @@ V_PARTS = (("V1", "fsdp", "none", False, False),
            ("V2", "tp", "ef_sign", False, True),
            ("V3", "fsdp", "ef_sign", True, False))
 V_W, V_S = 2, 2
+# paper-lm's depth in phase V (and Q_LAYERS in phase Q): each part is held
+# against its own one-process run at the same depth, so 4 of the 12 layers
+# check the same sharding, syncs and sums in less of the script's time
+# limit (12 layers: phase V 75-105 s, phase Q 189-195 s on an H100)
+V_LAYERS = 4
 # losses against the one-process run (relative); V2 0.0 (see V_FRAC_TOL)
 V_LOSS_TOL = {"V1": 1e-4, "V2": 0.0, "V3": 1e-4}
 # params rows against the one-process run: the share of elements beyond
@@ -4484,7 +4583,7 @@ def v_rank(r: int, port: int, tags: tuple, out: str, spec: dict):
     from repro_torch.telemetry.stats import round_summary
     from repro_torch.telemetry.trace import Tracer
 
-    cfg = (configs.get_smoke if spec.get("smoke") else configs.get)("paper-lm")
+    cfg = paper_lm(spec)
     results = {}
     try:
         for tag in tags:
@@ -4714,8 +4813,9 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
     of every rank."""
     import torch
     spec = dict(spec or {})
+    spec.setdefault("layers", V_LAYERS)
+    published, cfg = cfg, cut_depth(cfg, spec["layers"])
     base = ROOT / "build" / "phase_v"
-    t_phase = time.perf_counter()
     refs = {}
     for tag, *_ in V_PARTS:
         t0 = time.perf_counter()
@@ -4745,7 +4845,10 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
         r0 = recs[0]
         _, kind, mode, lars, wire = v_part(tag)
         layout = ref["layout"]
-        rec = {"phase": "V", "part": tag, "model": cfg.name, "layout": kind,
+        rec = {"phase": "V", "part": tag, "model": cfg.name,
+               "reduced": {"num_layers": [published.num_layers,
+                                          cfg.num_layers]},
+               "layout": kind,
                "W": V_W, "within_worker_size": V_S, "ranks": V_W * V_S,
                "backend": "gloo", "sync_compression": mode,
                "optimizer": run.optim.optimizer, "wire_pack": wire,
@@ -4780,8 +4883,7 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
         for rc in recs:
             for k, v in rc["launches"].items():
                 launches[k] = launches.get(k, 0) + v
-    emit({"phase": "V", "summary": True, "spawn_s": spawn_s,
-          "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "V", "summary": True, "spawn_s": spawn_s})
     shutil.rmtree(base, ignore_errors=True)
     if bad:
         raise AssertionError(f"phase V: {'; '.join(bad)}")
@@ -4795,6 +4897,7 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
 # compression, LARS, wire pack)
 Q_PARTS = (("Q1", 2, 1, None, "ef_sign", False, True),
            ("Q2", 4, 2, "fsdp", "ef_sign", True, False))
+Q_LAYERS = 4                   # paper-lm's depth here (see V_LAYERS)
 Q_RESIZE = {2: 2, 4: 4}        # global round -> W: W=2 runs steps 2-3
 Q_CKPT_STEP = 7                # the checkpoint after round 5's sync (W=4)
 # losses against the one-process run (relative), and the params rows' share
@@ -4886,12 +4989,13 @@ def q_check_segment_sum(state, layout) -> list:
         index = flatbuf.segment_index(layout, b, x.device)
         rs = fb.row_abs_sum(flatbuf.shard_regions(layout, b, x.contiguous()))
         rs = rs.reshape(-1, rs.shape[-1]).contiguous()
-        n_seg = index[2].numel() - 1
+        n_seg = index.offsets.numel() - 1
         per, chain = fb.segment_sum(rs, index), fb.segment_sum(rs, index,
                                                                chain=True)
-        ok = bool(torch.equal(per, fb.segment_sum_plain(rs, index[0], n_seg))
+        ok = bool(torch.equal(per, fb.segment_sum_plain(rs, index.seg_ids,
+                                                        n_seg))
                   and torch.equal(chain, fb.segment_sum_plain(
-                      rs, index[0], n_seg, chain=True))
+                      rs, index.seg_ids, n_seg, chain=True))
                   and torch.equal(per, fb.segment_sum(rs, index)))
         out.append({"bucket": b, "shape": list(rs.shape), "segments": n_seg,
                     "ok": ok})
@@ -4918,7 +5022,7 @@ def q_rank(r: int, port: int, tag: str, out: str, spec: dict):
     from repro_torch.kernels import fused_bucket as fb
     from repro_torch.telemetry.trace import Tracer
 
-    cfg = (configs.get_smoke if spec.get("smoke") else configs.get)("paper-lm")
+    cfg = paper_lm(spec)
     _, P, S, kind, *_ = q_part(tag)
     rec = {}
     try:
@@ -5026,8 +5130,9 @@ def phase_q(cfg, spec: dict | None = None) -> dict:
     import torch
     import torch.multiprocessing as mp
     spec = dict(spec or {})
+    spec.setdefault("layers", Q_LAYERS)
+    published, cfg = cfg, cut_depth(cfg, spec["layers"])
     base = ROOT / "build" / "phase_q"
-    t_phase = time.perf_counter()
     launches: dict = {}
     bad = []
     for tag, P, S, kind, mode, lars, wire in Q_PARTS:
@@ -5079,6 +5184,8 @@ def phase_q(cfg, spec: dict | None = None) -> dict:
             ("launches", all(rc["launches"]["segment_sum"] > 0 for rc in recs))
         ) if not ok]
         emit({"phase": "Q", "part": tag, "model": cfg.name, "W": W,
+              "reduced": {"num_layers": [published.num_layers,
+                                         cfg.num_layers]},
               "resize_at": Q_RESIZE, "ranks": P, "within_worker_size": S,
               "layout": kind or "one worker group a rank", "backend": "gloo",
               "sync_compression": mode, "lars": lars, "wire_pack": wire,
@@ -5113,7 +5220,6 @@ def phase_q(cfg, spec: dict | None = None) -> dict:
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-    emit({"phase": "Q", "summary": True, "phase_s": time.perf_counter() - t_phase})
     if bad:
         raise AssertionError(f"phase Q: {'; '.join(bad)}")
     return launches
@@ -5140,6 +5246,7 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import fused_bucket as fb
 
+    laps = Laps()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -5170,6 +5277,12 @@ def main() -> int:
     if sass is not None and not all(c["HMMA"] + c["HGMMA"] for c in sass.values()):
         raise AssertionError(f"a flash instantiation has no tensor-core "
                              f"instruction: {sass}")
+    # the segmented sum's kernel and the chain probe: registers, spills
+    seg_ptxas = {k: v for k, v in
+                 ptxas_table(kbuild.build_log("fused_bucket")).items()
+                 if "segment_sum" in k or "fadd_chain" in k}
+    emit({"phase": "build", "source": "fused_bucket.cu", "ptxas": seg_ptxas})
+    laps("build")
 
     check_kernels(RAGGED_ROWS, bw, flops_peak, timed=False)
     full = check_kernels(FULL_ROWS, bw, flops_peak, timed=True)
@@ -5181,6 +5294,7 @@ def main() -> int:
     for spec in FLASH_FULL:
         full.update(check_flash(spec, bw, flops_peak, bf16_peak, tf32_peak,
                                 timed=True))
+    laps("kernels")
 
     # ---- the main path: phases A (mean), B (EF-sign), L (LARS) ----
     from repro_torch.telemetry.stats import round_summary
@@ -5260,79 +5374,98 @@ def main() -> int:
             b_state = state
         del state
         torch.cuda.empty_cache()
+        laps(phase)
 
     for k, v in phase_h(cfg, step_median["A"]).items():
         launches[k] += v
     torch.cuda.empty_cache()
+    laps("H")
 
     # ---- E: the elastic worker pool (resizes, straggler demotion) ----
     for k, v in phase_e(cfg).items():
         launches[k] += v
     torch.cuda.empty_cache()
+    laps("E")
 
     # ---- R (traced training), W (the wire pack), K (checkpoints),
     #      S (serving) ----
     r_counts, r_sync_s = phase_r(cfg, phase_losses["B"], step_median["B"])
-    for counts in (r_counts,
-                   phase_w(cfg, phase_losses["B"], phase_wire["B"], r_sync_s,
-                           step_median["B"]),
-                   phase_k(cfg), phase_s(cfg)):
-        for k, v in counts.items():
+    for k, v in r_counts.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    laps("R")
+    for tag, run_phase in (
+            ("W", lambda: phase_w(cfg, phase_losses["B"], phase_wire["B"],
+                                  r_sync_s, step_median["B"])),
+            ("K", lambda: phase_k(cfg)), ("S", lambda: phase_s(cfg))):
+        for k, v in run_phase().items():
             launches[k] += v
         torch.cuda.empty_cache()
+        laps(tag)
 
     # ---- Y: workers across processes (held against phases W, H, L) ----
     for k, v in phase_y(cfg).items():
         launches[k] += v
     torch.cuda.empty_cache()
+    laps("Y")
 
     # ---- V: workers split over shard ranks (FSDP and TP sub-buckets) ----
     for k, v in phase_v(cfg).items():
         launches[k] += v
     torch.cuda.empty_cache()
+    laps("V")
 
     # ---- Q: resizes and checkpoints across ranks (2 ranks; 2 x 2 FSDP) ----
     for k, v in phase_q(cfg).items():
         launches[k] += v
     torch.cuda.empty_cache()
+    laps("Q")
 
     # ---- M: the MoE and MLA decoders at full published width ----
     for m_run in M_RUNS:
         for k, v in phase_m(*m_run).items():
             launches[k] += v
         torch.cuda.empty_cache()
+        laps(m_run[0])
 
     # ---- D: the dense variants at full published width ----
     for d_run in D_RUNS:
         for k, v in phase_d(*d_run).items():
             launches[k] += v
         torch.cuda.empty_cache()
+        laps(d_run[0])
 
     # ---- Z: the recurrent families at full published width ----
     for z_run in Z_RUNS:
         for k, v in phase_z(*z_run).items():
             launches[k] += v
         torch.cuda.empty_cache()
+        laps(z_run[0])
 
     # ---- X: the encoder-decoder and prefix-token families ----
     for x_run in X_RUNS:
         for k, v in phase_x(*x_run).items():
             launches[k] += v
         torch.cuda.empty_cache()
+        laps(x_run[0])
 
     launches.update(phase_t(cfg))
     torch.cuda.empty_cache()
+    laps("T")
 
     for k, v in phase_n(cfg, step_median["B"]).items():
         launches[k] += v
     torch.cuda.empty_cache()
+    laps("N")
     for k, v in noise_check(cfg).items():
         launches[k] += v
     torch.cuda.empty_cache()
+    laps("noise")
 
     for lars in (False, True):
         profile_phase(phase_run("ef_sign", cfg, seq=512, local_batch=8, lars=lars))
         torch.cuda.empty_cache()
+    laps("P")
 
     # ---- C: the trainer on the card vs on the CPU (plain versions) ----
     # Loss 1e-4 relative per step; params: all but frac_tol of the elements
@@ -5395,16 +5528,20 @@ def main() -> int:
     phase_c_controllers(smoke, p0)
     phase_c_elastic(smoke, p0)
     phase_c_smoke(M_RUNS + Z_RUNS + X_RUNS)
+    laps("C")
 
     for k, v in phase_g().items():
         launches[k] += v
     torch.cuda.empty_cache()
+    laps("G")
 
     # launches: phases A, B, L, H, E, R, W, K, S, Y, V and Q (every rank),
     # M, D, Z, X, N, G and the noise check for the bucket kernels, T for
     # the others; the segmented sum's from phases A, B, L and Q
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
+    emit({"phase": "seconds", "by_phase": laps.by_phase,
+          "script_s": time.perf_counter() - laps.start})
     emit({"kernels": [
         {"name": k, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/" + KERNELS[k][1],

@@ -169,7 +169,7 @@ class Collectives:
         broadcasts of ``num_segments`` floats, one after another: the
         chain of adds runs through every rank in turn."""
         from repro_torch.kernels import ops as kops
-        n_seg = index[2].numel() - 1
+        n_seg = index.offsets.numel() - 1
         acc = torch.zeros((n_seg,), dtype=torch.float32, device=vals.device)
         for r in self.layout.worker_group_ranks():
             if r == self.rank:

@@ -50,6 +50,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import fused_bucket
 from repro_torch.utils import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 LANE = 128
@@ -463,30 +464,19 @@ def row_segments_local(layout: FlatLayout, b: int) -> np.ndarray:
     return seg
 
 
-def row_order_local(layout: FlatLayout, b: int) -> np.ndarray:
-    """(local_rows,) int64: the rows of one shard's region listed leaf by
-    leaf, each leaf's rows in row order (a stable sort of
-    :func:`row_segments_local`): the ``order`` of
-    ``kernels.fused_bucket.segment_sum``."""
-    return np.argsort(row_segments_local(layout, b), kind="stable").astype(
-        np.int64)
+@functools.lru_cache(maxsize=64)
+def _segment_index(layout: FlatLayout, b: int, device: str):
+    seg = torch.from_numpy(row_segments_local(layout, b))
+    return fused_bucket.segment_index(
+        seg, len(layout.bucket_slots(b))).to(device)
 
 
-def segment_offsets_local(layout: FlatLayout, b: int) -> np.ndarray:
-    """(num_segments + 1,) int64: where each leaf's rows start in
-    :func:`row_order_local` (the ``offsets`` of ``segment_sum``)."""
-    counts = np.bincount(row_segments_local(layout, b),
-                         minlength=len(layout.bucket_slots(b)))
-    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-
-
-def segment_index(layout: FlatLayout, b: int, device) -> tuple:
-    """(seg_ids, order, offsets) tensors of bucket ``b``'s per-region
-    segments on ``device`` (``kernels.fused_bucket.segment_index``'s
-    form), built once per device."""
-    return (const("row_segments_local", layout, b, device),
-            const("row_order_local", layout, b, device),
-            const("segment_offsets_local", layout, b, device))
+def segment_index(layout: FlatLayout, b: int,
+                  device) -> fused_bucket.SegmentIndex:
+    """The ``kernels.fused_bucket.SegmentIndex`` of bucket ``b``'s
+    per-region segments on ``device``, built once per device: each leaf's
+    rows are one run (a leaf's padding lies in its own rows)."""
+    return _segment_index(layout, b, str(torch.device(device)))
 
 
 def row_segments(layout: FlatLayout, b: int) -> np.ndarray:

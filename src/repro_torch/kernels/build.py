@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 # per source: -Xptxas -v puts each kernel's registers, shared memory and
 # spills into the build log (:func:`build_log`)
-EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "-v")}
+EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "-v"),
+               "fused_bucket": ("-Xptxas", "-v")}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -68,15 +68,20 @@
 //                      CPU's index_add_ add it, so the card takes the CPU's
 //                      bits and two runs take the same bits (index_add_ on
 //                      the card adds with atomics, in no fixed order).  One
-//                      warp per (segment, leading index), or per segment
+//                      block per (segment, leading index), or per segment
 //                      with the leading indices chained one after another
 //                      (a total over all workers, in worker order, from an
-//                      optional running total): the 32 lanes load 32 rows
-//                      at once, the next 32 while the adds run, and the
-//                      adds go one after another through warp shuffles.
+//                      optional running total), the longest chains first.
 //                      Reads the (L, rows) row sums once: at W = 4, 934,040
-//                      rows 14.9 MB -> 4.5 us; the chain of dependent adds
-//                      of the largest leaf sets the time, not the bytes.
+//                      rows 14.9 MB -> 4.5 us.  The bytes do not set the
+//                      time: the chain of dependent adds of the largest leaf
+//                      does (221,184 rows a worker, 884,736 chained; at ~4
+//                      cycles an add 0.45 / 1.8 ms).  Design: the segment's
+//                      rows as contiguous runs (a leaf is one row range of a
+//                      shard's region), streamed by a producer warp with
+//                      cp.async into a shared-memory ring, so one consumer
+//                      thread adds at the add's latency, never waiting on a
+//                      load (see segment_sum_kernel).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a
@@ -345,47 +350,197 @@ scale_sign_rows_kernel(const float* __restrict__ x,
   }
 }
 
-// One warp per (segment s, leading index l) -- or per segment s with the
-// leading indices chained (chain != 0) -- adds vals[l * rows + order[i]]
-// for i in [offsets[s], offsets[s + 1]) one after another, starting from
-// 0 (or from init[s] when chained).  Every lane runs the same chain of
-// adds on values shuffled from the lane that loaded them.
-__device__ __forceinline__ float load_seg(const float* v,
-                                          const int64_t* __restrict__ order,
-                                          int64_t i, int64_t hi) {
-  return i < hi ? __ldg(v + __ldg(order + i)) : 0.f;
+// ---- the segmented sum: one dependent chain of adds a total ----
+//
+// Each total is one chain of __fadd_rn in index order, so its time is the
+// chain's length times the add's latency (about 4 cycles), whatever the
+// bytes.  One block a (segment, leading index) -- or a segment with the
+// leading indices chained -- has two roles.  Warp 1 produces: it walks
+// the segment's runs (contiguous row ranges, in row order) and copies
+// their values with 4-byte cp.async into a ring of kSegStages stages of
+// kSegStage floats in shared memory, signalling each filled stage on its
+// "full" mbarrier (cp.async.mbarrier.arrive: the barrier completes when
+// the copies have landed).  4-byte copies let a run start at any row: the
+// chain takes 4 bytes an add, so a warp's 128 bytes a copy are ample, and
+// kSegStages - 1 stages ahead keep up to 28 KB in flight, more than the
+// latency of device memory needs.  Thread 0 consumes: it waits on a
+// stage's "full" barrier, adds its values one after another (16-byte
+// shared loads, the next 32 values loaded while the current 32 are
+// added, the whole stage unrolled so that no branch or register move
+// sits in the chain), then frees the stage on its "empty" barrier, which
+// the producer waits on before it refills the stage.
+constexpr int kSegStage = 1024;     // floats a stage (4 KB)
+constexpr int kSegStages = 8;       // 32 KB of ring
+constexpr int kSegThreads = 64;     // warp 0 lane 0: the chain; warp 1: copies
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(32)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\t"
+               "mbarrier.arrive.shared.b64 state, [%0];\n\t}"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.  A wait
+// here lasts at most a few stages' adds; one that outlasts ~2^26 polls
+// means the index's runs and offsets disagree, and traps (a launch error)
+// rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// Arrive on bar once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ float add4(float acc, float4 v) {
+  acc = __fadd_rn(acc, v.x);
+  acc = __fadd_rn(acc, v.y);
+  acc = __fadd_rn(acc, v.z);
+  return __fadd_rn(acc, v.w);
+}
+
+// acc + the n values at st, one after another.
+__device__ __forceinline__ float chain_stage(float acc, const float* st,
+                                             int n) {
+  const float4* s4 = reinterpret_cast<const float4*>(st);
+  if (n == kSegStage) {
+    float4 a[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = s4[k];
+#pragma unroll
+    for (int j = 8; j < kSegStage / 4; j += 8) {
+      float4 b[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) b[k] = s4[j + k];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc = add4(acc, a[k]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = b[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc = add4(acc, a[k]);
+    return acc;
+  }
+  int i = 0;
+  for (; i + 4 <= n; i += 4) acc = add4(acc, s4[i / 4]);
+  for (; i < n; ++i) acc = __fadd_rn(acc, st[i]);
+  return acc;
+}
+
+__global__ void __launch_bounds__(kSegThreads)
 segment_sum_kernel(const float* __restrict__ vals, int64_t L, int64_t rows,
-                   const int64_t* __restrict__ order,
-                   const int64_t* __restrict__ offsets, int64_t n_seg,
+                   const int64_t* __restrict__ runs,
+                   const int64_t* __restrict__ run_offsets,
+                   const int64_t* __restrict__ offsets,
+                   const int64_t* __restrict__ by_length, int64_t n_seg,
                    const float* __restrict__ init, int chain,
                    float* __restrict__ out) {
-  const int64_t s = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int64_t lo = offsets[s], hi = offsets[s + 1];
-  const int64_t l0 = chain ? 0 : blockIdx.y;
+  __shared__ __align__(16) float ring[kSegStages * kSegStage];
+  __shared__ __align__(8) uint64_t full[kSegStages];
+  __shared__ __align__(8) uint64_t empty[kSegStages];
+  // the longest chains first: block b takes the (b / per)-th longest segment
+  const int64_t per = chain ? 1 : L;
+  const int64_t s = by_length[blockIdx.x / per];
+  const int64_t l0 = chain ? 0 : blockIdx.x % per;
   const int64_t l1 = chain ? L : l0 + 1;
-  float acc = (chain && init != nullptr) ? init[s] : 0.f;
-  for (int64_t l = l0; l < l1; ++l) {
-    const float* v = vals + l * rows;
-    float x = load_seg(v, order, lo + lane, hi);
-    for (int64_t base = lo; base < hi; base += 32) {
-      const float xn = load_seg(v, order, base + 32 + lane, hi);
-      if (hi - base >= 32) {
-#pragma unroll
-        for (int j = 0; j < 32; ++j)
-          acc = __fadd_rn(acc, __shfl_sync(0xffffffffu, x, j));
-      } else {
-        const int n = static_cast<int>(hi - base);
-        for (int j = 0; j < n; ++j)
-          acc = __fadd_rn(acc, __shfl_sync(0xffffffffu, x, j));
-      }
-      x = xn;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kSegStages; ++k) {
+      mbar_init(&full[k], 32);        // every producer lane arrives
+      mbar_init(&empty[k], 1);        // the consumer arrives
     }
   }
-  if (lane == 0) out[(chain ? 0 : l0 * n_seg) + s] = acc;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    if (lane != 0) return;
+    // the chain: init[s] (or 0), then every value in stream order
+    const int64_t total = (offsets[s + 1] - offsets[s]) * (l1 - l0);
+    float acc = (chain && init != nullptr) ? init[s] : 0.f;
+    int64_t fill = 0;
+    for (int64_t done = 0; done < total; done += kSegStage, ++fill) {
+      const int k = static_cast<int>(fill % kSegStages);
+      mbar_wait(&full[k], static_cast<uint32_t>((fill / kSegStages) & 1));
+      const int64_t left = total - done;
+      acc = chain_stage(acc, ring + k * kSegStage,
+                        left < kSegStage ? static_cast<int>(left) : kSegStage);
+      mbar_arrive(&empty[k]);
+    }
+    out[(chain ? 0 : l0 * n_seg) + s] = acc;
+    return;
+  }
+  // the copies: leading index after leading index, each the segment's runs
+  // in row order; 32 run descriptors read at once, one a lane
+  const int64_t r0 = run_offsets[s], r1 = run_offsets[s + 1];
+  int64_t pos = 0, fill = 0;          // values issued; stages started
+  for (int64_t l = l0; l < l1; ++l) {
+    const float* v = vals + l * rows;
+    for (int64_t rb = r0; rb < r1; rb += 32) {
+      int64_t my_start = 0, my_len = 0;
+      if (rb + lane < r1) {
+        my_start = runs[2 * (rb + lane)];
+        my_len = runs[2 * (rb + lane) + 1];
+      }
+      const int nr = static_cast<int>(r1 - rb < 32 ? r1 - rb : 32);
+      for (int j = 0; j < nr; ++j) {
+        const float* src = v + __shfl_sync(0xffffffffu, my_start, j);
+        int64_t len = __shfl_sync(0xffffffffu, my_len, j);
+        while (len > 0) {
+          const int off = static_cast<int>(pos % kSegStage);
+          const int k = static_cast<int>(fill % kSegStages);
+          if (off == 0 && fill >= kSegStages)   // the stage's last use freed
+            mbar_wait(&empty[k],
+                      static_cast<uint32_t>((fill / kSegStages - 1) & 1));
+          const int n = static_cast<int>(
+              len < kSegStage - off ? len : kSegStage - off);
+          float* dst = ring + k * kSegStage + off;
+          for (int i = lane; i < n; i += 32) cp_async4(dst + i, src + i);
+          pos += n;
+          src += n;
+          len -= n;
+          if (pos % kSegStage == 0) {
+            cp_async_arrive(&full[k]);
+            ++fill;
+          }
+        }
+      }
+    }
+  }
+  if (pos % kSegStage != 0) cp_async_arrive(&full[fill % kSegStages]);
+}
+
+// The chain probe: one thread, n dependent __fadd_rn (n a multiple of 16)
+// over values the compiler cannot fold; the time per add is the latency
+// that bounds the segmented sum's chains.
+__global__ void fadd_chain_kernel(float x0, float d, int64_t n,
+                                  float* __restrict__ out) {
+  float acc = x0;
+  for (int64_t i = 0; i < n; i += 16) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc = __fadd_rn(acc, d);
+  }
+  *out = acc;
 }
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
@@ -518,20 +673,33 @@ int fb_scale_sign_rows(const void* x, const void* scale, int64_t n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// vals: (L, rows) f32; order: (rows,) int64, the rows segment by segment,
-// each segment's in row order; offsets: (n_seg + 1,) int64 into order.
+// vals: (L, rows) f32; runs: (n_runs, 2) int64 (start row, length), each
+// segment's runs in row order, segment s holding runs[run_offsets[s] :
+// run_offsets[s + 1]]; offsets: (n_seg + 1,) int64 row counts' prefix
+// sums; by_length: (n_seg,) int64, the segments longest first.
 // chain == 0: out (L, n_seg); chain != 0: out (n_seg,), the leading
 // indices added one after another onto init (n_seg,) or 0 (init null).
 int fb_segment_sum(const void* vals, int64_t L, int64_t rows,
-                   const void* order, const void* offsets, int64_t n_seg,
+                   const void* runs, const void* run_offsets,
+                   const void* offsets, const void* by_length, int64_t n_seg,
                    const void* init, int chain, void* out, void* stream) {
   if (L < 1 || n_seg < 1) return 0;
-  const dim3 grid(static_cast<unsigned>(n_seg),
-                  static_cast<unsigned>(chain ? 1 : L));
-  segment_sum_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t blocks = chain ? n_seg : n_seg * L;
+  segment_sum_kernel<<<static_cast<unsigned>(blocks), kSegThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), L, rows,
-      static_cast<const int64_t*>(order), static_cast<const int64_t*>(offsets),
-      n_seg, static_cast<const float*>(init), chain, static_cast<float*>(out));
+      static_cast<const int64_t*>(runs),
+      static_cast<const int64_t*>(run_offsets),
+      static_cast<const int64_t*>(offsets),
+      static_cast<const int64_t*>(by_length), n_seg,
+      static_cast<const float*>(init), chain, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: (1,) f32 <- x0 + d added n times one after another (n % 16 == 0).
+int fb_fadd_chain(float x0, float d, int64_t n, void* out, void* stream) {
+  fadd_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      x0, d, n, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,6 +33,7 @@ at the main path's width that saves a second copy of 2 x W x 478 MB.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -77,7 +78,9 @@ _LIB = build.Library("fused_bucket", {
     "fb_lars_row_norms": [_P, _P, _P, _F, _I, _I, _P, _P, _P],
     "fb_fused_lars": [_P, _P, _P, _P, _P, _F, _F, _F, ctypes.c_int, _I, _I,
                       ctypes.c_int, _P, _I, _P, _P],
-    "fb_segment_sum": [_P, _I, _I, _P, _P, _I, _P, ctypes.c_int, _P, _P],
+    "fb_segment_sum": [_P, _I, _I, _P, _P, _P, _P, _I, _P, ctypes.c_int,
+                       _P, _P],
+    "fb_fadd_chain": [_F, _F, _I, _P, _P],
 })
 
 
@@ -380,18 +383,45 @@ def fused_lars_bucket(p, g, u, lr, wd_row, ratio_row, *, momentum: float,
 # segmented sums in a fixed order (the port's own kernel)
 # ---------------------------------------------------------------------------
 
-def segment_index(seg_ids: torch.Tensor, num_segments: int):
-    """(seg_ids, order, offsets) of a row -> segment map: ``order`` (rows,)
-    int64 lists the rows segment by segment, each segment's rows in row
-    order (a stable sort), and segment s holds ``order[offsets[s]:offsets[s
-    + 1]]`` (``offsets`` (num_segments + 1,) int64)."""
+class SegmentIndex(NamedTuple):
+    """A row -> segment map, as :func:`segment_sum` reads it.
+
+    Segment s holds ``offsets[s + 1] - offsets[s]`` rows, listed in row
+    order as the (start row, length) ranges ``runs[run_offsets[s] :
+    run_offsets[s + 1]]``; ``by_length`` lists the segments longest
+    first.  All int64."""
+    seg_ids: torch.Tensor
+    offsets: torch.Tensor
+    runs: torch.Tensor
+    run_offsets: torch.Tensor
+    by_length: torch.Tensor
+
+    def to(self, device) -> "SegmentIndex":
+        return SegmentIndex(*(t.to(device) for t in self))
+
+
+def segment_index(seg_ids: torch.Tensor, num_segments: int) -> SegmentIndex:
+    """The :class:`SegmentIndex` of a row -> segment map, on its device.  A
+    leaf of a bucket is one row range, so its rows are one run; a random
+    map has about a run a row.  Build it once per map: it synchronizes
+    with the device."""
     seg = seg_ids.reshape(-1).long()
-    order = torch.sort(seg, stable=True).indices
+    order = torch.sort(seg, stable=True).indices       # segment by segment
     counts = torch.bincount(seg, minlength=num_segments)
     offsets = torch.zeros((num_segments + 1,), dtype=torch.int64,
                           device=seg.device)
     offsets[1:] = torch.cumsum(counts, 0)
-    return seg, order, offsets
+    # a run starts where the row is not the one after the previous row,
+    # and at each segment's first row
+    starts = torch.ones_like(order, dtype=torch.bool)
+    starts[1:] = order[1:] != order[:-1] + 1
+    starts[offsets[:-1][counts > 0]] = True
+    at = torch.nonzero(starts).reshape(-1)
+    lengths = torch.diff(at, append=offsets[-1:])
+    runs = torch.stack([order[at], lengths], dim=1).contiguous()
+    run_offsets = torch.searchsorted(at, offsets)
+    by_length = torch.sort(counts, descending=True, stable=True).indices
+    return SegmentIndex(seg, offsets, runs, run_offsets, by_length)
 
 
 def segment_sum_plain(vals, seg_ids, num_segments: int, *,
@@ -413,39 +443,76 @@ def segment_sum_plain(vals, seg_ids, num_segments: int, *,
     return out.to(vals.device)
 
 
-def segment_sum(vals, index, *, chain: bool = False, init=None):
+def segment_sum(vals, index: SegmentIndex, *, chain: bool = False,
+                init=None):
     """Per-segment sums of the rows of ``vals`` (L, rows) f32, the segments
-    given by ``index`` = :func:`segment_index`'s (seg_ids, order,
-    offsets): (L, num_segments) f32, or with ``chain`` (num_segments,),
-    the L leading rows added one after another onto ``init``
-    (num_segments,) or 0 -- a total over all workers in worker order.
+    given by ``index`` (:func:`segment_index`): (L, num_segments) f32, or
+    with ``chain`` (num_segments,), the L leading rows added one after
+    another onto ``init`` (num_segments,) or 0 -- a total over all workers
+    in worker order.
 
     Every total is added one value after another in row order, as the
     CPU's ``index_add_`` (the plain version) adds it.  On the card: one
-    launch, one warp per (segment, leading row) or per chained segment, no
-    atomics: the plain version's bits, in every run."""
-    seg_ids, order, offsets = index
-    n_seg = offsets.numel() - 1
-    if not build.on_cuda(vals, order, offsets, *(() if init is None else (init,))):
-        return segment_sum_plain(vals, seg_ids, n_seg, chain=chain, init=init)
+    launch, a block per (segment, leading row) or per chained segment
+    streaming the segment's runs through shared memory to one thread's
+    chain of adds, no atomics: the plain version's bits, in every run."""
+    n_seg = index.offsets.numel() - 1
+    if not build.on_cuda(vals, *index, *(() if init is None else (init,))):
+        return segment_sum_plain(vals, index.seg_ids, n_seg, chain=chain,
+                                 init=init)
     if vals.dtype != torch.float32 or vals.dim() != 2 \
             or not vals.is_contiguous():
         raise ValueError(f"vals: contiguous (L, rows) f32 expected, got "
                          f"{vals.dtype} {tuple(vals.shape)}")
     L, rows = vals.shape
-    if order.dtype != torch.int64 or offsets.dtype != torch.int64 \
-            or order.numel() != rows or not order.is_contiguous() \
-            or not offsets.is_contiguous() or L > 65535:
-        raise ValueError(f"order ({rows},) and offsets int64, L <= 65535 "
-                         f"expected, got {tuple(order.shape)} "
+    runs, run_offsets, offsets, by_length = (
+        index.runs, index.run_offsets, index.offsets, index.by_length)
+    if any(t.dtype != torch.int64 or not t.is_contiguous()
+           for t in (runs, run_offsets, offsets, by_length)) \
+            or index.seg_ids.numel() != rows or runs.dim() != 2 \
+            or runs.shape[1] != 2 or run_offsets.numel() != n_seg + 1 \
+            or by_length.numel() != n_seg or n_seg * L >= 2 ** 31:
+        raise ValueError(f"a SegmentIndex of {rows} rows (contiguous int64 "
+                         f"runs (n, 2), run_offsets, offsets, by_length) "
+                         f"expected, got runs {tuple(runs.shape)}, offsets "
                          f"{tuple(offsets.shape)}, L={L}")
     if init is not None:
         init = _row_vector(init, n_seg, "init", vals.device)
     out = torch.empty((n_seg,) if chain else (L, n_seg), dtype=torch.float32,
                       device=vals.device)
-    _LIB("fb_segment_sum", vals.data_ptr(), L, rows, order.data_ptr(),
-         offsets.data_ptr(), n_seg,
-         init.data_ptr() if init is not None else None, int(bool(chain)),
-         out.data_ptr(), build.stream(vals))
+    _LIB("fb_segment_sum", vals.data_ptr(), L, rows, runs.data_ptr(),
+         run_offsets.data_ptr(), offsets.data_ptr(), by_length.data_ptr(),
+         n_seg, init.data_ptr() if init is not None else None,
+         int(bool(chain)), out.data_ptr(), build.stream(vals))
     PORT_LAUNCHES["segment_sum"] += 1
     return out
+
+
+def fadd_chain_s_per_add(n_adds: int = 1 << 22, reps: int = 5,
+                         device="cuda") -> float:
+    """Seconds one dependent ``__fadd_rn`` takes on the card: one thread
+    adding ``n_adds`` (a multiple of 16) values one after another, timed
+    with CUDA events, the median of ``reps`` launches.  The segmented
+    sum's chain bound is its longest chain's adds times this.  A probe,
+    not a kernel of any path: it counts no launch."""
+    if n_adds % 16 or n_adds < 16:
+        raise ValueError(f"n_adds: a positive multiple of 16, got {n_adds}")
+    out = torch.empty((1,), dtype=torch.float32, device=device)
+    if not out.is_cuda:
+        raise ValueError("the chain probe times the card: a CUDA device "
+                         f"expected, got {out.device}")
+    launch = lambda: _LIB("fb_fadd_chain", 1.0, 1e-7, n_adds, out.data_ptr(),
+                          build.stream(out))
+    launch()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3 / n_adds)
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"the chain probe's total is not finite: {out}")
+    return sorted(times)[len(times) // 2]

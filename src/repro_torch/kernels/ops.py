@@ -81,7 +81,7 @@ def bucket_fused_lars(p2, g2, u2, wd_row, ratio_row, *, lr, momentum: float,
                                  nesterov=nesterov, stats=stats)
 
 
-# the (seg_ids, order, offsets) index of a row -> segment map
+# the SegmentIndex of a row -> segment map
 segment_index = _fb.segment_index
 
 
@@ -100,8 +100,7 @@ def segment_sum(vals, seg_ids, num_segments: int, *, chain: bool = False,
 
 def segment_totals(vals, index, *, chain: bool = False, init=None):
     """:func:`segment_sum` over ``index``, ``fused_bucket.segment_index``'s
-    (seg_ids, order, offsets) triple (cached per bucket by
-    ``flatbuf.segment_index``).
+    ``SegmentIndex`` (cached per bucket by ``flatbuf.segment_index``).
 
     Each total is added one value after another in index order, on the CPU
     (``index_add_``, as XLA's scatter adds) and on the card
@@ -110,7 +109,7 @@ def segment_totals(vals, index, *, chain: bool = False, init=None):
     lead = tuple(vals.shape[:-1])
     out = _fb.segment_sum(vals.reshape(-1, vals.shape[-1]).contiguous(),
                           index, chain=chain, init=init)
-    return out if chain else out.reshape(lead + (index[2].numel() - 1,))
+    return out if chain else out.reshape(lead + (index.offsets.numel() - 1,))
 
 
 def lead_total(per):

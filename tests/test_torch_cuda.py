@@ -18,6 +18,7 @@ against dense softmax); in bf16, both compute in f32 and round once, so
 each entry within one bf16 rounding (2^-7 of itself) plus that 2e-5.
 """
 import json
+import math
 
 import numpy as np
 import pytest
@@ -38,6 +39,8 @@ from repro_torch.launch.steps import build_train
 from repro_torch.models import base as mbase
 from repro_torch.telemetry.stats import round_summary
 from repro_torch.utils import tree_map
+
+import _torch_segment_maps as segmaps
 
 
 @pytest.fixture
@@ -217,40 +220,59 @@ def test_cuda_lars_kernels_match_plain(cuda, rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [3096 + 5, 264, 300_007])
-@pytest.mark.parametrize("L", [1, 4, 8])
-def test_cuda_segment_sum_equals_plain_bit_for_bit(cuda, rows, L):
+@pytest.mark.parametrize("case", segmaps.CARD_MAPS)
+@pytest.mark.parametrize("L", [1, 4, 8, 16])
+def test_cuda_segment_sum_equals_plain_bit_for_bit(cuda, case, L):
     """The port's segmented sum (no TPU kernel: the reference's
-    jax.ops.segment_sum) per leading row and chained over the rows from a
-    running total, against its plain version (the host's index_add_):
-    the same adds in the same order, so the same bits, twice, with one
-    launch counted a call; index_add_ on the card is what it replaces."""
+    jax.ops.segment_sum) per leading row and chained over the rows, from
+    a running total and from 0, against its plain version (the host's
+    index_add_): the same adds in the same order, so the same bits,
+    twice, with one launch counted a call; index_add_ on the card is what
+    it replaces.  The maps: leaves of random sizes with trailing rows in
+    segment 0, paper-lm's full-width index (934,040 rows), a shard
+    region of its 2 x 2 FSDP and TP sub-buckets, one segment of 2^20 + 5
+    rows (the ring wraps ~1,000 times a leading row), runs starting at
+    every residue mod 4, a random map (a run a row), empty segments."""
     dev = cuda
+    index, n_seg = segmaps.segment_index(case, dev, seed=L)
+    rows = index.seg_ids.numel()
     g = torch.Generator(device=dev).manual_seed(rows + L)
-    n_seg = 37
-    sizes = torch.randint(0, 2 * rows // n_seg, (n_seg,), generator=g,
-                          device=dev)
-    sizes[-1] = 0                               # an empty segment
-    seg = torch.zeros((rows,), dtype=torch.int32, device=dev)
-    used = min(int(sizes.sum()), rows)
-    seg[:used] = torch.repeat_interleave(
-        torch.arange(n_seg, device=dev, dtype=torch.int32), sizes)[:used]
-    # padding rows at the end belong to segment 0, as a bucket's do
-    index = tkb.segment_index(seg, n_seg)
     vals = torch.randn((L, rows), generator=g, device=dev)
     init = torch.randn((n_seg,), generator=g, device=dev)
+    seg = index.seg_ids
     tkb.reset_launches()
     per = tkb.segment_sum(vals, index)
     chain = tkb.segment_sum(vals, index, chain=True, init=init)
-    assert tkb.PORT_LAUNCHES["segment_sum"] == 2
+    chain0 = tkb.segment_sum(vals, index, chain=True)
+    assert tkb.PORT_LAUNCHES["segment_sum"] == 3
+    assert per.shape == (L, n_seg) and chain.shape == (n_seg,)
     assert torch.equal(per, tkb.segment_sum_plain(vals, seg, n_seg))
     assert torch.equal(chain, tkb.segment_sum_plain(vals, seg, n_seg,
                                                     chain=True, init=init))
+    assert torch.equal(chain0, tkb.segment_sum_plain(vals, seg, n_seg,
+                                                     chain=True))
     assert torch.equal(per, tkb.segment_sum(vals, index))
-    assert torch.equal(tops.segment_sum(vals, seg, n_seg),
-                       tkb.segment_sum_plain(vals.cpu(), seg.cpu(), n_seg).to(dev))
-    assert per.shape == (L, n_seg) and chain.shape == (n_seg,)
-    assert (per[:, -1] == 0).all()
+    assert torch.equal(chain, tkb.segment_sum(vals, index, chain=True,
+                                              init=init))
+    assert torch.equal(chain0, tkb.segment_sum(vals, index, chain=True))
+    assert tkb.PORT_LAUNCHES["segment_sum"] == 6
+    empty = (index.offsets[1:] == index.offsets[:-1])
+    assert (per[:, empty] == 0).all() and torch.equal(chain[empty], init[empty])
+    if case.startswith("sizes-"):
+        assert torch.equal(tops.segment_sum(vals, seg, n_seg),
+                           tkb.segment_sum_plain(vals.cpu(), seg.cpu(),
+                                                 n_seg).to(dev))
+
+
+@pytest.mark.cuda
+def test_cuda_chain_probe_times_an_add(cuda):
+    """The chain probe: one thread's dependent __fadd_rn, a positive,
+    finite time an add (a few cycles at 1-2 GHz), and no launch counted
+    on the segmented sum."""
+    tkb.reset_launches()
+    s = tkb.fadd_chain_s_per_add(1 << 20, reps=3)
+    assert math.isfinite(s) and 0 < s < 1e-7
+    assert tkb.PORT_LAUNCHES["segment_sum"] == 0
 
 
 @pytest.mark.cuda
@@ -291,6 +313,13 @@ def test_cuda_wrappers_refuse_bad_input(cuda):
         tkb.sq_sum(x.transpose(0, 1))
     with pytest.raises(ValueError):
         tkb.scale_sign_rows(x, torch.zeros(8))          # scale on the CPU
+    index = tkb.segment_index(torch.zeros(8, dtype=torch.int32,
+                                          device=cuda), 2)
+    with pytest.raises(ValueError):                     # 9 rows, 8 indexed
+        tkb.segment_sum(torch.zeros((2, 9), device=cuda), index)
+    with pytest.raises(ValueError):                     # int32 runs
+        tkb.segment_sum(torch.zeros((2, 8), device=cuda),
+                        index._replace(runs=index.runs.int()))
 
 
 @pytest.mark.cuda

@@ -39,6 +39,8 @@ from repro_torch.models import lm as tlm
 from repro_torch.optim import lars as tlars
 from repro_torch import configs as tconfigs
 
+import _torch_segment_maps as segmaps
+
 torch.set_num_threads(2)
 
 W = 3
@@ -199,6 +201,86 @@ def test_segment_sum_matches_reference():
     got = tops.segment_sum(torch.from_numpy(vals), torch.from_numpy(seg), 5)
     want = jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-7)
+
+
+# maps of the CPU tests: SegmentIndex runs and the kernel's order of adds;
+# the layouts also at smoke size
+INDEX_MAPS = ("sizes-3101", "sizes-264", "long", "residues", "permuted",
+              "empty", "paper-lm", "fsdp-region", "tp-region")
+LAYOUT_MAPS = ("paper-lm", "fsdp-region", "tp-region")
+
+
+@pytest.mark.parametrize("case,full", [(c, True) for c in INDEX_MAPS]
+                         + [(c, False) for c in LAYOUT_MAPS])
+def test_segment_index_runs_list_the_order(case, full):
+    """The runs of ``fused_bucket.segment_index`` and of the cached
+    ``flatbuf.segment_index`` list exactly the rows of the map's order (a
+    stable sort) and ``offsets``, segment by segment, in order, as few runs
+    as the rows allow; ``by_length`` lists the segments longest first.  A layout's
+    leaf is one run (the port's layouts pad each leaf in its own rows:
+    no trailing rows), and its index's map is the reference's."""
+    index, n_seg = segmaps.segment_index(case, "cpu", full=full)
+    seg, offsets, runs, roff, by_len = (t.numpy() for t in index)
+    assert seg.dtype == offsets.dtype == runs.dtype == roff.dtype == np.int64
+    order = np.argsort(seg, kind="stable")        # segment by segment
+    counts = np.bincount(seg, minlength=n_seg)
+    assert np.array_equal(offsets, np.concatenate([[0], np.cumsum(counts)]))
+    assert len(roff) == n_seg + 1 and roff[0] == 0 and roff[-1] == len(runs)
+    assert (runs[:, 1] > 0).all()
+    for s in range(n_seg):
+        mine = runs[roff[s]:roff[s + 1]]
+        rows = np.concatenate([np.arange(a, a + n) for a, n in mine] or [[]])
+        assert np.array_equal(rows, order[offsets[s]:offsets[s + 1]])
+        # maximal: no run starts where the one before it ends
+        assert (mine[1:, 0] != mine[:-1, 0] + mine[:-1, 1]).all()
+    assert np.array_equal(by_len, np.argsort(-counts, kind="stable"))
+    if case in LAYOUT_MAPS:
+        assert len(runs) == n_seg
+        built = tkb.segment_index(torch.from_numpy(seg.astype(np.int32)), n_seg)
+        assert all(torch.equal(a, b) for a, b in zip(built, index))
+    if case == "paper-lm":
+        jl = jfb.build_layout(jmbase.abstract(jlm.param_specs(
+            (jconfigs.get if full else jconfigs.get_smoke)("paper-lm")),
+            jnp.float32))
+        assert np.array_equal(seg, jfb.row_segments(jl, 0))
+    if case.startswith("sizes-"):
+        assert runs[roff[0]:roff[1]][-1, 0] + runs[roff[0]:roff[1]][-1, 1] \
+            == len(seg)                             # the trailing rows' run
+    if case == "permuted":
+        assert len(runs) > 0.9 * len(seg)           # nearly a run a row
+    if case == "residues":                          # every start mod 4
+        assert all(set(runs[roff[s]:roff[s + 1], 0] % 4) == {0, 1, 2, 3}
+                   for s in range(n_seg))
+    if case == "long":
+        assert counts.max() >= 1 << 20
+    if case == "empty":
+        assert (counts == 0).sum() == 4 and (roff[1:] == roff[:-1]).sum() == 4
+
+
+@pytest.mark.parametrize("L", [1, 4])
+@pytest.mark.parametrize("case", INDEX_MAPS)
+def test_segment_sum_emulation_equals_plain(case, L):
+    """A float32 numpy emulation of the card's order of adds -- each total
+    from init (or 0), the segment's runs walked in order, leading index
+    after leading index when chained, one add at a time -- equals the
+    plain version (the host's index_add_, the reference's scatter order)
+    bit for bit, per leading index and chained with and without init; so
+    does ``ops.segment_totals`` on the CPU."""
+    index, n_seg = segmaps.segment_index(case, "cpu", seed=L)
+    rows = index.seg_ids.numel()
+    rng = np.random.default_rng(rows + L)
+    vals = rng.normal(size=(L, rows)).astype(np.float32)
+    init = rng.normal(size=(n_seg,)).astype(np.float32)
+    tv, seg = torch.from_numpy(vals), index.seg_ids
+    for chain, start in ((False, None), (True, None), (True, init)):
+        want = tkb.segment_sum_plain(
+            tv, seg, n_seg, chain=chain,
+            init=None if start is None else torch.from_numpy(start)).numpy()
+        got = segmaps.emulate(vals, index, chain=chain, init=start)
+        assert got.tobytes() == want.tobytes(), (case, L, chain)
+        tot = tops.segment_totals(tv, index, chain=chain, init=None if start
+                                  is None else torch.from_numpy(start))
+        assert tot.numpy().tobytes() == want.tobytes()
 
 
 def _smoke_layouts():
