@@ -62,6 +62,21 @@ Phases:
            the two LARS kernels every step, their stats form feeding the
            round statistics, grad_clip set and ignored (no sq_sum launch);
            the last round's summary.
+  F        the reference's default per-leaf tree path at phase A's width
+           and schedule: F1 ``build_train(use_kernel=False)`` (plain
+           per-leaf PyTorch) with the mean sync against phase A, F2
+           ``build_train(resident=False)`` (the tree-in/tree-out kernel
+           form: pack, kernels 1-4 and the segmented sum, unpack, every
+           step and sync) with EF-sign against phase B, F3 the same with
+           LARS + EF-sign + telemetry against phase L: per-step losses
+           (rtol 1e-4), the final params (F1 their worker mean; all but
+           1e-4 of the elements within 1e-4 x the largest, F3 1e-3),
+           whether bit for bit, comm rounds, launches (F1 none), the step
+           time beside the resident phase's and the pack / unpack passes'
+           bytes over the card's rate as their bound (the reference's 10
+           passes a step, the port's 8); then the quickstart twin
+           (``repro_torch.examples.quickstart``, 40 steps at smoke size)
+           on the card.
   H        hierarchical local SGD (Alg. 5) at phase A's settings with
            block_steps=2 (blocks of 2 of the 4 workers): syncs at
            (0 block) (1 global) (2 block) (3 global) (7 block) (11 global);
@@ -116,7 +131,7 @@ Phases:
            paper-lm at full width, W=4, local batch 8, seq 512, 12 steps.
            Y1: 4 ranks x 1 worker at phase W's settings (EF-sign +
            ``wire_pack``): per-step losses against phase W's
-           (``Y_LOSS_TOL``: equal for Y1 and Y2), comm rounds, the first sync's gathered ``uint8``
+           (``Y_LOSS_TOL``: equal for Y1), comm rounds, the first sync's gathered ``uint8``
            payload byte for byte against phase W's first payload, the
            scales bit for bit (rank 0's own scales too against the CPU's
            pack of its bucket: the same adds in the same order), the
@@ -1355,6 +1370,206 @@ def phase_h(cfg, a_step_s: float) -> dict:
                  "syncs": syncs}
     del state
     return counts
+
+
+# phase F: the reference's default per-leaf tree path (use_kernel=False) and
+# its tree-in/tree-out kernel form, at phase A's width and schedule.  Each
+# part: (tag, sync compression, LARS, the resident phase it is held against,
+# build_train's keywords, the share of params elements allowed beyond 1e-4
+# of the largest: 1e-4 where EF-sign may flip a delta within rounding of 0,
+# 1e-3 for LARS + EF-sign, phase C's rules)
+F_PARTS = (("F1", "none", False, "A", dict(use_kernel=False), 1e-4),
+           ("F2", "ef_sign", False, "B", dict(resident=False), 1e-4),
+           ("F3", "ef_sign", True, "L", dict(resident=False), 1e-3))
+# the pack / unpack passes over the whole stacked state that a kernel-form
+# step makes and a resident step does not: the reference's count (pack p, g,
+# u and unpack p, u: a read and a write each, local_sgd.py:35-36) and the
+# port's (its unpack is a view: the packs of p, g and u, and the stack of
+# the W workers' gradients)
+F_REF_PASSES, F_PORT_PASSES = 10, 8
+F_QUICKSTART_STEPS = 40
+
+
+def f_pack_timing(state, wd_mask, bw: float) -> dict:
+    """Device ms of what a kernel-form SGD step adds to a resident one, on
+    phase F2's final tree state (its momentum stands in for the gradient:
+    only shapes and bytes matter here): the stack of the W workers'
+    gradients, the packs of p, g and u (``flatbuf.flatten``: a zero fill
+    and a copy each), the kernels on the packed buckets
+    (``apply_sgd_buckets``: ``sq_sum`` and the fused update) and the whole
+    tree-in/tree-out call (``apply_sgd(use_kernel=True)``: packs, kernels,
+    the unpack's views); medians of 10 calls timed one at a time with CUDA
+    events, beside the bytes the stack and the packs must move (each
+    input read once, each output written once) at the card's rate."""
+    import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.optim import sgd as osgd
+    from repro_torch.utils import tree_leaves, tree_map
+
+    p, u = state.params, state.momentum
+    g = tree_map(torch.clone, u)
+    per_worker = [[x[w] for x in tree_leaves(g)] for w in range(W)]
+    layout = flatbuf.build_layout(p, wd_mask=wd_mask, leading=1)
+    pb, gb, ub = (flatbuf.flatten(layout, t, leading=1) for t in (p, g, u))
+    kw = dict(lr=0.01, momentum_coef=0.9, weight_decay=1e-4, nesterov=True,
+              grad_clip=1.0)
+    calls = {
+        "stack": lambda: [torch.stack(xs) for xs in zip(*per_worker)],
+        "pack": lambda: [flatbuf.flatten(layout, t, leading=1)
+                         for t in (p, g, u)],
+        "kernels": lambda: osgd.apply_sgd_buckets(layout, pb, gb, ub, **kw),
+        "tree_call": lambda: osgd.apply_sgd(p, g, u, wd_mask=wd_mask,
+                                            use_kernel=True, leading=1, **kw)}
+    ms = {k: time_ms(f, reps=10, warmup=2) for k, f in calls.items()}
+    state_bytes = W * FULL_ROWS * 128 * 4
+    out = {f"{k}_ms": v for k, v in ms.items()}
+    out.update(stack_bound_ms=1e3 * 2 * state_bytes / bw,
+               pack_bound_ms=1e3 * 6 * state_bytes / bw,
+               tree_call_minus_kernels_ms=ms["tree_call"] - ms["kernels"])
+    return out
+
+
+def phase_f(cfg, step_median: dict, bw: float) -> dict:
+    """Phase F: the tree path at paper-lm's full width, W=4, local batch 8,
+    seq 512, phase A's schedule, through ``build_train(use_kernel=False)``
+    (F1, plain per-leaf PyTorch, mean sync) and ``build_train(
+    resident=False)`` (F2 EF-sign, F3 LARS + EF-sign with telemetry: the
+    tree-in/tree-out kernel form), each held against its resident phase
+    (``REFS[...]["rows"]``, its final params bucket): losses rtol 1e-4, the
+    final params rows (their worker mean for F1), whether bit for bit;
+    launch counts (F1 none); the step time beside the resident phase's and
+    the pack / unpack passes' bytes at the card's rate as their bound.
+    Then the quickstart twin on the card.  Returns the launch counts."""
+    import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.core.local_sgd import is_resident
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+    from repro_torch.telemetry.stats import round_summary
+
+    total = {k: 0 for k in KERNELS}
+    state_bytes = W * FULL_ROWS * 128 * 4
+    for tag, mode, lars, ref, kw, frac_tol in F_PARTS:
+        run = phase_run(mode, cfg, seq=512, local_batch=8, lars=lars)
+        torch.cuda.reset_peak_memory_stats()
+        fb.reset_launches()
+        bundle = build_train(run, num_workers=W, device="cuda", **kw)
+        state, hist, summ, step_s = train_run(run, device="cuda", steps=STEPS,
+                                              bundle=bundle)
+        counts = dict(fb.LAUNCHES)
+        seg = fb.PORT_LAUNCHES["segment_sum"]
+        losses = [h["loss"] for h in hist]
+        want_losses = REFS[ref]["loss"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        lay = flatbuf.build_layout(state.params, leading=1)
+        rows = flatbuf.flatten(lay, state.params, leading=1)[0]
+        want_rows = REFS[ref]["rows"]
+        got_p, want_p = ((rows.mean(dim=0), want_rows.mean(dim=0))
+                         if tag == "F1" else (rows, want_rows))
+        d = (got_p - want_p).abs()
+        scale = float(want_p.abs().max())
+        frac = float((d > 1e-4 * scale).float().mean())
+        median = statistics.median(step_s[1:])
+        ref_median = step_median[ref]
+        kernel_form = "resident" in kw
+        rec = {"phase": tag, "model": cfg.name, "W": W, "local_batch": 8,
+               "seq": 512, "form": ("tree-in/tree-out kernels" if kernel_form
+                                    else "per-leaf plain PyTorch"),
+               "build_train": kw, "sync_compression": mode,
+               "optimizer": run.optim.optimizer, "steps": STEPS,
+               "loss": losses, "held_against": ref,
+               "loss_max_rel_diff": loss_rel, "loss_tol": 1e-4,
+               "params": "worker mean" if tag == "F1" else "rows of every worker",
+               "params_max_abs_diff": float(d.max()),
+               "params_frac_beyond_1e-4_of_max": frac, "frac_tol": frac_tol,
+               "bit_for_bit": (losses == want_losses
+                               and bool(torch.equal(got_p, want_p))),
+               "comm_rounds": summ["comm_rounds"], "step_s": step_s,
+               "step_s_median": median, f"phase_{ref}_step_s_median": ref_median,
+               "step_s_over_resident": median / ref_median,
+               "step_s_minus_resident": median - ref_median,
+               "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts, "segment_sum_launches": seg}
+        if kernel_form:
+            rec.update(
+                reference_pack_passes=F_REF_PASSES,
+                reference_pack_bytes=F_REF_PASSES * state_bytes,
+                reference_pack_bound_ms=1e3 * F_REF_PASSES * state_bytes / bw,
+                port_pack_passes=F_PORT_PASSES,
+                port_pack_bytes=F_PORT_PASSES * state_bytes,
+                port_pack_bound_ms=1e3 * F_PORT_PASSES * state_bytes / bw)
+        if tag == "F2":
+            rec["pack_timing"] = f_pack_timing(
+                state, mbase.norm_param_mask(lm.param_specs(cfg)), bw)
+        summary = round_summary(state.stats) if lars else None
+        if lars:
+            want_s = REFS[ref]["round_summary"]
+            rec["round_summary"] = summary
+            rec["round_summary_rel_diff_vs_" + ref] = {
+                k: abs(v - want_s[k]) / abs(want_s[k]) if want_s[k] else abs(v)
+                for k, v in summary.items() if isinstance(v, float)}
+        emit(rec)
+        syncs = summ["comm_rounds"]["global"]
+        comp = syncs if mode != "none" else 0
+        want = {k: 0 for k in fb.LAUNCHES}
+        want_seg = 0
+        if kernel_form:
+            want.update(row_abs_sum=comp, scale_sign_rows=comp)
+            if lars:
+                want.update(lars_row_norms=STEPS, fused_lars_bucket=STEPS)
+            else:
+                want.update(fused_sgd_bucket=STEPS, sq_sum=STEPS)
+            want_seg = comp + (STEPS if lars else 0)
+        bad = [k for k, ok in (
+            ("tree state", not is_resident(state)),
+            ("loss not finite or not falling",
+             all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+            ("losses", loss_rel <= 1e-4),
+            ("params", frac <= frac_tol),
+            ("comm rounds", summ["comm_rounds"] == REFS[ref]["comm_rounds"]),
+            ("launches", counts == want and seg == want_seg),
+            ("pack timing", tag != "F2" or all(
+                math.isfinite(v) and (v > 0 or k == "tree_call_minus_kernels_ms")
+                for k, v in rec["pack_timing"].items())),
+            ("telemetry", not lars or (
+                summary["rounds"] == syncs and summary["comp_measured"]
+                and all(math.isfinite(v) for v in summary.values()
+                        if isinstance(v, float))))) if not ok]
+        if bad:
+            raise AssertionError(f"phase {tag}: {', '.join(bad)} (launches "
+                                 f"{counts}, segment_sum {seg})")
+        for k, v in counts.items():
+            total[k] += v
+        total["segment_sum"] += seg
+        del state, rows, got_p, want_p, d, bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the quickstart twin, on the card by default (no --device)
+    fb.reset_launches()
+    t0 = time.perf_counter()
+    out = quickstart.main(["--steps", str(F_QUICKSTART_STEPS)],
+                          log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    counts = dict(fb.LAUNCHES)
+    losses = out["losses"]
+    emit({"phase": "F-quickstart", "module": "repro_torch.examples.quickstart",
+          "device": out["device"], "steps": F_QUICKSTART_STEPS,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "eval_xent": out["eval_xent"], "comm_rounds": out["comm_rounds"],
+          "fit_wall_s": out["wall_s"], "wall_s": wall, "launches": counts})
+    if not (out["device"].startswith("cuda")
+            and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+            and counts["fused_sgd_bucket"] == F_QUICKSTART_STEPS
+            and out["comm_rounds"]["global"] < F_QUICKSTART_STEPS):
+        raise AssertionError(f"phase F: the quickstart twin on the card: {out}")
+    for k, v in counts.items():
+        total[k] += v
+    total["segment_sum"] += fb.PORT_LAUNCHES["segment_sum"]
+    return total
 
 
 # phase E: the elastic worker pool (resizes, straggler demotion)
@@ -4086,11 +4301,16 @@ def phase_x(tag: str, arch: str, mode: str, workers: int, layers, seq: int,
 # more).  Each part: (tag, ranks, the phase it is held against)
 Y_PARTS = (("Y1", 4, "W"), ("Y2", 4, "H"), ("Y3", 2, "L"))
 Y_TIMEOUT_S = 300              # a collective that waits longer fails the rank
-# losses against the one-process phase (relative): Y1 and Y2 add what one
-# process adds (0.0 on an H100 80GB HBM3 at 700 W, each worker's kernel
-# grid fixed by its rows; Y1 2.2e-7 while it was sized by W); Y3 (LARS,
-# whose all-reduce sums in another order) 6.1e-6
-Y_LOSS_TOL = {"Y1": 0.0, "Y2": 0.0, "Y3": 1e-4}
+# losses against the one-process phase (relative), readings on an H100
+# 80GB HBM3 at 700 W: Y1 adds what one process adds (0.0, each worker's
+# kernel grid fixed by its rows; 2.2e-7 while it was sized by W).  Y2's
+# and Y3's dense means are all-reduces, which add in gloo's order, not
+# one process's: Y2's rows differ from H's in 59 % of the elements, and
+# its losses read 0.0 until the update kernel's rounding changed, then
+# 1.1e-7, so Y2 takes the 1e-6 that tests/test_torch_distributed.py
+# holds the same all-reduced mean runs to; Y3 (LARS + EF-sign) 6.1e-6
+# and 1.8e-6
+Y_LOSS_TOL = {"Y1": 0.0, "Y2": 1e-6, "Y3": 1e-4}
 
 
 def y_run(tag: str, cfg, seq: int = 512, local_batch: int = 8):
@@ -4905,8 +5125,11 @@ Q_CKPT_STEP = 7                # the checkpoint after round 5's sync (W=4)
 # one process adds; FSDP's shard ranks differentiate half a batch each.
 # Readings on an H100 80GB HBM3 at 700 W: Q1 0.0 / 0.0 with each worker's
 # kernel grid fixed by its rows (3.3e-7 / 8.7e-5 while it was sized by W),
-# Q2 4.7e-6 / 6.0e-3
-Q_LOSS_TOL = {"Q1": 0.0, "Q2": 1e-5}
+# Q2 4.7e-6 / 6.0e-3, then 8.2e-6 / 5.1e-3, and 1.04e-5 / 5.5e-3 once
+# the update kernel's operations rounded one by one (the half-batch
+# rounding carried along another trajectory): its loss bound is about twice
+# the largest reading
+Q_LOSS_TOL = {"Q1": 0.0, "Q2": 2e-5}
 Q_FRAC_TOL = {"Q1": 0.0, "Q2": 1.2e-2}
 
 
@@ -5341,6 +5564,9 @@ def main() -> int:
             rec["round_summary"] = summary
         REFS[phase] = {"loss": losses, "comm_rounds": summ["comm_rounds"],
                        "round_summary": summary}
+        if phase in ("A", "B", "L"):
+            # the final params bucket, held by phase F and dropped after it
+            REFS[phase]["rows"] = state.params.buckets[0]
         emit(rec)
         if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
             raise AssertionError(f"phase {phase}: loss not finite or not "
@@ -5375,6 +5601,14 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
         laps(phase)
+
+    # ---- F: the tree path (plain per-leaf, tree-in/tree-out kernels) ----
+    for k, v in phase_f(cfg, step_median, bw).items():
+        launches[k] += v
+    for p in ("A", "B", "L"):
+        REFS[p].pop("rows")
+    torch.cuda.empty_cache()
+    laps("F")
 
     for k, v in phase_h(cfg, step_median["A"]).items():
         launches[k] += v
@@ -5535,9 +5769,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     laps("G")
 
-    # launches: phases A, B, L, H, E, R, W, K, S, Y, V and Q (every rank),
-    # M, D, Z, X, N, G and the noise check for the bucket kernels, T for
-    # the others; the segmented sum's from phases A, B, L and Q
+    # launches: phases A, B, L, F, H, E, R, W, K, S, Y, V and Q (every
+    # rank), M, D, Z, X, N, G and the noise check for the bucket kernels, T
+    # for the others; the segmented sum's from phases A, B, L, F and Q
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"phase": "seconds", "by_phase": laps.by_phase,

@@ -23,7 +23,8 @@ Launch one process per rank, e.g.::
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m repro_torch.launch.train --backend distributed ...
 
-It refuses up front: a single process (as the reference does), W not a
+It refuses up front: ``use_kernel=False`` (the tree path runs in one
+process), a single process (as the reference does), W not a
 multiple of the worker groups and NCCL with more ranks on a host than it
 has cards (before ``init_process_group``: :func:`check_nccl_ranks`).  It
 never builds a one-process bundle under this backend's name.
@@ -72,7 +73,7 @@ class DistributedBackend(Backend):
                  num_processes: int | None = None, backend: str = "nccl",
                  device=None, local_rank: int | None = None,
                  within_worker_size: int = 1, layout=None,
-                 timeout_s: float | None = None):
+                 timeout_s: float | None = None, use_kernel: bool = True):
         """Explicit arguments win over torchrun's environment (``RANK``,
         ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``).
         ``device=None`` means ``cuda:LOCAL_RANK % device_count`` (and
@@ -81,7 +82,14 @@ class DistributedBackend(Backend):
         None).  ``within_worker_size`` S > 1 splits every worker over S
         ranks by ``layout`` (a ``sharding.layout.MeshLayout``; sizes it
         lacks are filled in at build: its worker axis gets P / S, its
-        other axis S)."""
+        other axis S).  ``use_kernel=False`` (the reference's tree path)
+        raises ``ValueError`` here, before any collective: the tree path
+        runs in one process."""
+        if not use_kernel:
+            raise ValueError("DistributedBackend(use_kernel=False): the tree "
+                             "path runs in one process (LocalBackend or "
+                             "SimulatedBackend); across ranks only the "
+                             "resident path is ported")
         super().__init__(num_workers)
         if coordinator_address is None and os.environ.get("MASTER_ADDR"):
             coordinator_address = (f"{os.environ['MASTER_ADDR']}:"

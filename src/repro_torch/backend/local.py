@@ -8,11 +8,13 @@ backend's value is the census: it owns the
 local_step / sync / SyncPlan for a new W while ``fit`` carries the
 resident state across with :func:`repro_torch.core.elastic.resize_state`.
 
-The reference's ``mesh`` / ``use_kernel`` / ``jit`` arguments have no
-counterpart: the port has one device and one resident kernel path, and
-nothing to compile.  ``layout`` (a ``sharding.layout.MeshLayout`` with
-its sizes) buckets the leaves by sharding class, whole on the device, as
-the reference's meshless resident path does.
+The reference's ``mesh`` / ``jit`` arguments have no counterpart: the
+port has one device and nothing to compile.  ``use_kernel`` goes to
+``build_train``: True (the port's default; the reference's is False)
+builds the resident kernel path, False the per-leaf tree path.
+``layout`` (a ``sharding.layout.MeshLayout`` with its sizes) buckets the
+leaves by sharding class, whole on the device, as the reference's
+meshless resident path does.
 
 Workers on this backend run one after another on one clock, so their
 step times cannot be told apart: ``worker_step_times`` returns ``None``
@@ -30,7 +32,7 @@ class LocalBackend(Backend):
     kind = "local"
 
     def __init__(self, num_workers: int | None = None, *, device=None,
-                 build_fn=None, layout=None):
+                 build_fn=None, layout=None, use_kernel: bool = True):
         """``device=None`` means the card and raises when CUDA is absent.
         ``build_fn(run, worker_set) -> TrainBundle`` is the seam for models
         outside the launch zoo (tests, benches): a resize calls it back
@@ -40,6 +42,7 @@ class LocalBackend(Backend):
         self.device = resolve_device(device)
         self.build_fn = build_fn
         self.layout = layout
+        self.use_kernel = use_kernel
 
     def build(self, run, **kw):
         if self.build_fn is not None:
@@ -52,6 +55,7 @@ class LocalBackend(Backend):
         from repro_torch.launch import steps as steps_mod
         kw.setdefault("device", self.device)
         kw.setdefault("layout", self.layout)
+        kw.setdefault("use_kernel", self.use_kernel)
         bundle = steps_mod.build_train(run, worker_set=self._worker_set, **kw)
         # build_train defaults the census when the backend had none yet
         self._worker_set = bundle.worker_set

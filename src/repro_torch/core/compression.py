@@ -1,10 +1,16 @@
-"""Sync-payload compression on flat-bus buckets (paper Alg. 3 / Alg. 4):
-the port of the bucket compressors and the 1-bit wire format of
-``repro.core.compression``.
+"""Sync-payload compression (paper Alg. 3 / Alg. 4): the port of
+``repro.core.compression`` — the bucket compressors of the resident path,
+the tree compressors of the tree path and the 1-bit wire format.
 
 The compressed quantity is the model difference accumulated over H
 local steps; workers exchange sign(Delta) with one L1 scale per leaf
-(signSGD), optionally with an error-feedback memory (EF-signSGD).
+(signSGD), optionally with an error-feedback memory (EF-signSGD).  On a
+stacked ``(W, ...)`` leaf the scale is mean|x| over the whole leaf, all
+workers together, as the reference's per-leaf compressor computes it.
+:func:`sign_compress` / :func:`ef_compress` take trees, per leaf in
+plain PyTorch (``use_kernel=False``) or packed into ``(W, rows, 128)``
+buckets, compressed by the bucket kernels and unpacked
+(``use_kernel=True``: the tree-in/tree-out kernel form).
 
 The wire format packs the signs 8 to a ``uint8`` (bit i of byte k is
 element 8k + i) beside one f32 scale per leaf: 1/32 of the f32 payload.
@@ -20,7 +26,15 @@ import torch
 
 from repro_torch.core import flatbuf
 from repro_torch.kernels import ops as kops
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import (tree_flatten, tree_leaves, tree_map,
+                               tree_map_pairs, tree_unflatten)
+
+
+def sign_compress_leaf(x):
+    """sign(x) * mean|x| of one tensor, as f32: the 1-bit + scale
+    compressor."""
+    xf = x.float()
+    return torch.sign(xf) * xf.abs().mean()
 
 
 def worker_abs_totals(layout, b: int, x, *, across=None):
@@ -111,6 +125,69 @@ def compress_stage(layout, stage, d, e=None, *, leading: int = 0,
         return ef_compress_bucket(layout, b, d, e, leading=leading,
                                   across=across)
     raise ValueError(f"unknown stage compression {mode!r}")
+
+
+def sign_compress_buckets(layout, bufs, *, leading: int = 0, across=None):
+    """:func:`sign_compress_bucket` of every bucket in ``bufs``."""
+    return [sign_compress_bucket(layout, b, x, leading=leading, across=across)
+            for b, x in enumerate(bufs)]
+
+
+def ef_compress_buckets(layout, dbufs, ebufs, *, leading: int = 0,
+                        across=None):
+    """EF compression of every bucket: (compressed, new_memory) lists, both
+    f32; compressed + new_memory == delta + memory exactly in f32."""
+    outs = [ef_compress_bucket(layout, b, d, e, leading=leading, across=across)
+            for b, (d, e) in enumerate(zip(dbufs, ebufs, strict=True))]
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def _sign_compress_bucketed(tree, bucketable=None):
+    """The tree-in/tree-out kernel form on a stacked ``(W, ...)`` tree: the
+    leaves packed into ``(W, rows, 128)`` buckets, one ``row_abs_sum`` +
+    ``segment_sum`` + ``scale_sign_rows`` launch each (the per-leaf scales
+    over all W workers), unpacked.  Leaves flagged False in ``bucketable``
+    take the per-leaf compressor."""
+    leaves, treedef = tree_flatten(tree)
+    flags = (tree_leaves(bucketable) if bucketable is not None
+             else [True] * len(leaves))
+    out: list = [None] * len(leaves)
+    on = [i for i, m in enumerate(flags) if m]
+    for i, m in enumerate(flags):
+        if not m:
+            out[i] = sign_compress_leaf(leaves[i])
+    if on:
+        sub = [leaves[i] for i in on]
+        layout = flatbuf.build_layout(sub, leading=1)
+        ys = sign_compress_buckets(
+            layout, flatbuf.flatten(layout, sub, leading=1), leading=1)
+        for i, v in zip(on, flatbuf.unflatten(layout, ys, leading=1)):
+            out[i] = v
+    return tree_unflatten(treedef, out)
+
+
+def sign_compress(tree, *, use_kernel: bool = False, bucketable=None):
+    """sign(x) * mean|x| of every leaf, as f32 (the kernel form takes the
+    stacked ``(W, ...)`` delta of the tree sync)."""
+    if use_kernel:
+        return _sign_compress_bucketed(tree, bucketable)
+    return tree_map(sign_compress_leaf, tree)
+
+
+def ef_compress(delta, memory, *, use_kernel: bool = False, bucketable=None):
+    """Error-feedback compression: compress(delta + e); e' = input - output.
+    Returns (compressed, new_memory), both f32, with compressed +
+    new_memory == delta + memory exactly in f32."""
+    if use_kernel:
+        inp = tree_map(lambda d, e: d.float() + e.float(), delta, memory)
+        out = _sign_compress_bucketed(inp, bucketable)
+        return out, tree_map(lambda i, o: i - o, inp, out)
+
+    def leaf(d, e):
+        inp = d.float() + e.float()
+        out = sign_compress_leaf(inp)
+        return out, inp - out
+    return tree_map_pairs(leaf, delta, memory)
 
 
 def compressed_bytes(tree) -> int:

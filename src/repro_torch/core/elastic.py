@@ -16,6 +16,10 @@ resize maps that axis to a new width without building the tree view:
   ``W' // W`` times.  The clones start from the same state and diverge
   through their data shards, as a fresh run from the synced model would.
 
+A tree path's state (``local_sgd`` with ``use_kernel=False``) folds the
+same way leaf by leaf: params, momentum and EF memory are stacked
+``(W, ...)`` trees.
+
 The same fold serves sharded sub-bucket buffers (FSDP / TP classes in
 one process): a bucket's shard regions are rows of one worker's buffer,
 so folding the worker axis folds every leaf, region by region, as the
@@ -44,6 +48,7 @@ import torch
 
 from repro_torch.core import flatbuf
 from repro_torch.telemetry import stats as tstats
+from repro_torch.utils import tree_map
 
 
 def resize_axis(x: torch.Tensor, new_w: int, *,
@@ -76,15 +81,20 @@ def resize_axis(x: torch.Tensor, new_w: int, *,
     return torch.repeat_interleave(x, new_w // w, dim=0)
 
 
-def _resize_stacked(state, new_w: int, *, fold: str):
-    """:func:`resize_axis` over the buffers of a stacked ``BucketState``
-    (``leading=1``; its layout describes one worker's rows, so it carries
-    over unchanged); a ``leading=0`` state or None passes through."""
-    if state is None or not flatbuf.is_bucket_state(state) \
-            or state.leading != 1:
-        return state
-    return state.with_buckets(
-        [resize_axis(b, new_w, fold=fold) for b in state.buckets])
+def _resize_stacked(tree, new_w: int, *, fold: str):
+    """:func:`resize_axis` over a stacked field: the buffers of a
+    ``BucketState`` with ``leading=1`` (its layout describes one worker's
+    rows, so it carries over unchanged), or every leaf of a tree path's
+    stacked ``(W, ...)`` tree; a ``leading=0`` state or None passes
+    through."""
+    if tree is None:
+        return None
+    if flatbuf.is_bucket_state(tree):
+        if tree.leading != 1:
+            return tree
+        return tree.with_buckets(
+            [resize_axis(b, new_w, fold=fold) for b in tree.buckets])
+    return tree_map(lambda x: resize_axis(x, new_w, fold=fold), tree)
 
 
 def resize_stats(stats, new_w: int, *, fold: str = "mean"):

@@ -93,10 +93,34 @@ A checkpoint across ranks saves the whole state in the one-process layout
 (:func:`gather_state`, rank 0); a restore on P ranks reads it whole and
 keeps each rank's rows (:func:`state_template`, :func:`local_state`).
 
-The port always runs the resident path; the reference's per-leaf tree
-path is not ported (ROADMAP A.7).  A change of W
-(``core/elastic.resize_state``) builds new functions for the new width:
-``local_step`` and ``sync`` are built for one W.
+The tree path (``make_local_sgd(..., use_kernel=False)``, or
+``resident=False`` / ``bucket_sync=False`` with the kernels on) is the
+reference's non-resident path: the state holds per-leaf trees stacked
+``(W, ...)`` (the anchor and global momentum single-copy trees), and
+every step returns new tensors.  ``local_step`` takes each worker's
+gradient on its own leaf slices (``torch.autograd.grad``), stacks them
+and updates all W at once: per leaf in plain PyTorch (``use_kernel=
+False``, the reference's jnp oracle) or packed into ``(W, rows, 128)``
+buckets, updated by one fused launch a bucket (the per-worker clip norm
+by ``sq_sum``) and unpacked (``use_kernel=True``: the tree-in/tree-out
+kernel form, which pays the pack and unpack passes every step that the
+resident path pays once a sync).  Its sync averages per dtype bucket
+(``bucket_sync``, the default: :func:`bucket_group_mean`,
+:func:`bucket_worker_mean`, :func:`bucket_packed_mean`) or per leaf, and
+compresses with ``compression.sign_compress`` / ``ef_compress`` in the
+same form as the step.  As in the reference, momentum and EF memory
+start in the params' dtype and the EF memory and global momentum become
+float32 at the first sync; a sync takes one compressor mode for the whole
+state; gradient noise is drawn per leaf from the state's generator,
+worker after worker; telemetry has one compression-error slot.  The
+tree path runs in one process (``dist`` raises ``ValueError``).
+
+**A kept difference:** the reference defaults ``use_kernel`` to False
+(the tree path); the port defaults it to True (the resident path), so
+that no caller moves off the kernels unasked.
+
+A change of W (``core/elastic.resize_state``) builds new functions for
+the new width: ``local_step`` and ``sync`` are built for one W.
 """
 from __future__ import annotations
 
@@ -112,21 +136,25 @@ from repro_torch.configs.base import LocalSGDConfig, RunConfig
 from repro_torch.core import compression as comp
 from repro_torch.core import flatbuf
 from repro_torch.core import syncplan as splan
+from repro_torch.core.noise import isotropic_noise
 from repro_torch.core.schedule import lr_at
 from repro_torch.kernels import ops as kops
-from repro_torch.optim.lars import apply_lars_buckets
-from repro_torch.optim.sgd import apply_sgd_buckets
+from repro_torch.models import base as mbase
+from repro_torch.optim.lars import apply_lars, apply_lars_buckets
+from repro_torch.optim.sgd import apply_sgd, apply_sgd_buckets, init_momentum
 from repro_torch.telemetry import stats as tstats
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import (tree_flatten, tree_leaves, tree_map,
+                               tree_unflatten)
 
 
 @dataclass
 class LocalSGDState:
-    params: Any          # BucketState, stacked (W, rows, 128)
-    momentum: Any        # BucketState, stacked
-    anchor: Any          # BucketState, single copy (last synced model) or None
-    global_u: Any        # BucketState, single copy, or None
-    ef_memory: Any       # BucketState, stacked, or None
+    # resident: BucketStates; the tree path: trees of tensors
+    params: Any          # stacked (W, rows, 128) / (W, ...)
+    momentum: Any        # stacked
+    anchor: Any          # single copy (last synced model) or None
+    global_u: Any        # single copy, or None
+    ef_memory: Any       # stacked, or None
     step: int = 0
     rng: Any = None      # torch.Generator on the training device (noise)
     stats: Any = None    # telemetry.stats.StatsAccumulator or None
@@ -137,9 +165,28 @@ def needs_anchor(cfg: LocalSGDConfig) -> bool:
     return cfg.global_momentum > 0 or cfg.sync_compression != "none"
 
 
+def stack_tree(tree, W: int):
+    """Replicate a single-copy tree into W stacked copies
+    (``models.base.stack``: no two workers share storage)."""
+    return mbase.stack(tree, W)
+
+
+def is_resident(state: LocalSGDState) -> bool:
+    return flatbuf.is_bucket_state(state.params)
+
+
+def resident_eligible(use_kernel: bool, bucket_sync: bool,
+                      bucketable=None) -> bool:
+    """The resident path's predicate (the reference's): the kernels on and
+    the sync bucketized; ``bucketable`` is accepted and ignored, as
+    there."""
+    del bucketable
+    return bool(use_kernel and bucket_sync)
+
+
 def unpack_state(state: LocalSGDState) -> LocalSGDState:
     """The tree view of a resident state (tensors are views of replicated
-    buckets, copies of sharded leaves)."""
+    buckets, copies of sharded leaves); a tree state as it is."""
     up = lambda x: x.unpack() if flatbuf.is_bucket_state(x) else x
     return LocalSGDState(params=up(state.params), momentum=up(state.momentum),
                          anchor=up(state.anchor), global_u=up(state.global_u),
@@ -153,16 +200,18 @@ def pack_state(state: LocalSGDState, *, wd_mask=None,
     :func:`unpack_state`).  ``wd_mask`` goes into the params layout;
     ``shard_classes`` re-enters the (dtype, sharding-class) sub-buckets of
     a sharded layout.  Every field takes the params layout's geometry,
-    each bucket in its own leaves' dtype (EF memory stays float32)."""
+    each bucket in its own leaves' dtype, but EF memory in float32: a
+    tree state's memory is in the params' dtype until its first EF-sign
+    sync writes the f32 residual there, so the cast is exact."""
     if flatbuf.is_bucket_state(state.params):
         return state
     layout = flatbuf.build_layout(state.params, wd_mask=wd_mask, leading=1,
                                   shard_classes=shard_classes)
 
-    def pack(tree, leading):
+    def pack(tree, leading, dtype=None):
         if tree is None:
             return None
-        dts = [flatbuf.dtype_name(x.dtype) for x in tree_leaves(tree)]
+        dts = [flatbuf.dtype_name(dtype or x.dtype) for x in tree_leaves(tree)]
         per_bucket = []
         for b in range(layout.num_buckets):
             bd = {dts[s.index] for s in layout.bucket_slots(b)}
@@ -178,7 +227,7 @@ def pack_state(state: LocalSGDState, *, wd_mask=None,
                          momentum=pack(state.momentum, 1),
                          anchor=pack(state.anchor, 0),
                          global_u=pack(state.global_u, 0),
-                         ef_memory=pack(state.ef_memory, 1),
+                         ef_memory=pack(state.ef_memory, 1, torch.float32),
                          step=state.step, rng=state.rng, stats=state.stats)
 
 
@@ -192,7 +241,12 @@ def mean_params(state: LocalSGDState, dist=None):
     """Single-copy tree of the worker-averaged model (eval boundary);
     across processes (``dist``, a ``backend.collectives.Collectives``)
     the mean over all W workers of every rank, a sharded bucket's shard
-    regions gathered into its whole rows."""
+    regions gathered into its whole rows.  A tree state's (one process
+    only) is each leaf's mean over its worker dim."""
+    if not is_resident(state):
+        if dist is not None:
+            raise ValueError("the tree path runs in one process: no dist")
+        return mbase.unstack_mean(state.params)
     layout = state.params.layout
     if dist is None:
         means = [b.mean(dim=0) for b in state.params.buckets]
@@ -410,6 +464,105 @@ def group_mean(x, group: int):
     return m.expand(xg.shape).reshape(x.shape)
 
 
+def _bucketed_map(tree, bucketable, bucket_fn, leaf_fn, leaf_args=None):
+    """The scaffold of the tree path's bucketized sync: the stacked ``(W,
+    ...)`` leaves flagged in ``bucketable`` (all, when None) packed into
+    ``(W, rows, 128)`` dtype buckets, ``bucket_fn(buf, layout, j)`` applied
+    to each (whether its result keeps the worker dim is read from its
+    rank), unpacked; the others take ``leaf_fn(leaf, arg)`` one by one."""
+    leaves, treedef = tree_flatten(tree)
+    flags = (tree_leaves(bucketable) if bucketable is not None
+             else [True] * len(leaves))
+    args = (tree_leaves(leaf_args) if leaf_args is not None
+            else [None] * len(leaves))
+    assert len(flags) == len(leaves) and len(args) == len(leaves)
+    out: list = [None] * len(leaves)
+    on = [i for i, m in enumerate(flags) if m]
+    for i, m in enumerate(flags):
+        if not m:
+            out[i] = leaf_fn(leaves[i], args[i])
+    if on:
+        sub = [leaves[i] for i in on]
+        layout = flatbuf.build_layout(sub, leading=1)
+        bufs = flatbuf.flatten(layout, sub, leading=1)
+        res = [bucket_fn(b, layout, j) for j, b in enumerate(bufs)]
+        vals = flatbuf.unflatten(layout, res,
+                                 leading=res[0].dim() - bufs[0].dim() + 1)
+        for i, v in zip(on, vals):
+            out[i] = v
+    return tree_unflatten(treedef, out)
+
+
+def _group_mean_copy(x, group: int):
+    """:func:`group_mean` as a tensor of its own: its broadcast is a view
+    whose W rows share one storage."""
+    return group_mean(x, group).contiguous()
+
+
+def bucket_group_mean(params, group: int, bucketable=None):
+    """:func:`group_mean` per dtype bucket of a stacked tree: one mean per
+    bucket instead of one per leaf."""
+    return _bucketed_map(params, bucketable,
+                         lambda b, lay, j: _group_mean_copy(b, group),
+                         lambda x, _: _group_mean_copy(x, group))
+
+
+def bucket_worker_mean(delta, bucketable=None):
+    """The mean over workers per dtype bucket of a stacked tree (the dense
+    sync payload) -> a single-copy tree."""
+    return _bucketed_map(delta, bucketable,
+                         lambda b, lay, j: b.mean(dim=0),
+                         lambda x, _: x.mean(dim=0))
+
+
+def _packed_mean_leaf(d, axis: int = -1):
+    """One leaf's worker mean through the 1-bit wire format, packed along
+    ``axis`` (a per-worker scale)."""
+    packed, scale = comp.pack_signs(d, axis=axis)
+    return comp.unpack_signs(packed, scale, d.shape[1:], axis=axis).mean(dim=0)
+
+
+def bucket_packed_mean(delta, bucketable=None, *, flat_fn=None, leaf_fn=None,
+                       axes_tree=None):
+    """The wire-packed worker mean of a stacked tree: the bucketable leaves
+    through one pack a dtype bucket (``flat_fn``, by default the one
+    process's :func:`_packed_mean_flat_local`), the others per leaf
+    (``leaf_fn``, packed along their ``axes_tree`` axis, default the last).
+    Returns the single-copy averaged tree (the padding the unpack fills is
+    dropped with the rest of each bucket's padding)."""
+    flat_fn = flat_fn or _packed_mean_flat_local
+    leaf_fn = leaf_fn or _packed_mean_leaf
+    if axes_tree is None:
+        axes_tree = tree_map(lambda _: -1, delta)
+    return _bucketed_map(
+        delta, bucketable, lambda b, lay, j: flat_fn(b, lay, j),
+        lambda d, axis: leaf_fn(d, -1 if axis is None else axis),
+        leaf_args=axes_tree)
+
+
+def pack_axes_tree(specs, layout):
+    """Per-leaf pack axis of the per-leaf wire pack: the largest dim (at
+    least 8) of a stacked leaf that the layout's EFFECTIVE rules
+    (``MeshLayout.dim_shards``) leave unsharded, +1 for the worker dim;
+    -1 (the last dim) when there is none."""
+    def pick(ps):
+        best, best_size = -1, -1
+        eff = layout.dim_shards(ps.axes, ps.shape)
+        for i, (r, n) in enumerate(zip(eff, ps.shape)):
+            sharded = r is not None and layout.axis_size(r) > 1
+            if not sharded and n >= 8 and n > best_size:
+                best, best_size = i + 1, n
+        return best if best >= 1 else -1
+
+    return tree_map(pick, specs, is_leaf=mbase.is_spec)
+
+
+def _tree_sumsq_w(tree):
+    """(W,) per-worker f32 sum of squares over every leaf of a stacked
+    tree, leaf after leaf."""
+    return sum(_sumsq(x, from_axis=1) for x in tree_leaves(tree))
+
+
 def _bucket_noise(layout, gbs, gen, *, step: int, eta: float, gamma: float):
     """Isotropic gradient noise straight on one worker's grad buckets, in
     place: g += sigma_t * N(0, 1), sigma_t = sqrt(eta / (1+t)^gamma), the
@@ -507,12 +660,231 @@ def _check_supported(run: RunConfig):
         raise NotImplementedError(f"optimizer {opt.optimizer!r} is not ported yet")
 
 
+def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
+                         num_workers: int, wd_mask=None, use_kernel: bool,
+                         bucket_sync: bool, bucketable=None,
+                         packed_mean_fn=None, telemetry: bool = False,
+                         speculate_compression: bool = False):
+    """(init, local_step, sync) of the tree path (see the module
+    docstring), the port of the reference's non-resident branch of
+    ``make_local_sgd``."""
+    ls = run.local_sgd
+    opt = run.optim
+    W = num_workers
+    global_batch = run.shape.global_batch
+
+    def init(params_single, seed: int = 0) -> LocalSGDState:
+        """Stack a single-copy param tree (tensors on the training device)
+        into W copies; ``seed`` seeds the state's generator (the gradient
+        noise's stream)."""
+        params = stack_tree(params_single, W)
+        dev = tree_leaves(params)[0].device
+        return LocalSGDState(
+            params=params,
+            momentum=init_momentum(params),
+            anchor=(tree_map(torch.clone, params_single) if needs_anchor(ls)
+                    else None),
+            global_u=(tree_map(torch.zeros_like, params_single)
+                      if ls.global_momentum > 0 else None),
+            ef_memory=(init_momentum(params) if ls.sync_compression == "ef_sign"
+                       else None),
+            step=0,
+            rng=torch.Generator(device=dev).manual_seed(seed),
+            stats=tstats.init_stats(W, 1, dev) if telemetry else None)
+
+    def local_step(state: LocalSGDState, batch, lr_scale=None):
+        """One local step of every worker (``batch``: dict of (W, B_loc,
+        ...) arrays or tensors; ``lr_scale`` as on the resident path)."""
+        leaves, treedef = tree_flatten(state.params)
+        dev = leaves[0].device
+        lr = lr_at(opt, state.step, global_batch=global_batch)
+        if lr_scale is not None:
+            lr = lr * np.float32(lr_scale)
+        batch = {k: _to_device(v, dev) for k, v in batch.items()}
+        grads_w, losses, metrics_w = [], [], []
+        for w in range(W):
+            src = [x[w].detach().requires_grad_(True) for x in leaves]
+            loss, metrics = loss_fn(tree_unflatten(treedef, src),
+                                    {k: v[w] for k, v in batch.items()})
+            g = torch.autograd.grad(loss, src, allow_unused=True,
+                                    materialize_grads=True)
+            g = tree_unflatten(treedef, list(g))
+            if opt.noise_eta > 0:
+                g = isotropic_noise(g, state.rng, step=state.step,
+                                    eta=opt.noise_eta, gamma=opt.noise_gamma)
+            grads_w.append(tree_leaves(g))
+            losses.append(loss.detach())
+            metrics_w.append({k: v.detach() for k, v in metrics.items()})
+        grads = tree_unflatten(treedef, [torch.stack(gs)
+                                         for gs in zip(*grads_w)])
+        del grads_w
+        stats = state.stats
+        if telemetry:
+            # the APPLIED (post-clip) grad norm^2, from the raw norm: a
+            # clip scales the whole vector, ||clip(g)||^2 = min(||g||, c)^2
+            gsq = _tree_sumsq_w(grads)
+            if opt.grad_clip and opt.optimizer != "lars":
+                gsq = torch.clamp(gsq, max=float(np.float32(opt.grad_clip) ** 2))
+        p0 = state.params
+        if opt.optimizer == "lars":
+            p, u = apply_lars(p0, grads, state.momentum, lr=lr,
+                              trust=opt.lars_trust,
+                              momentum_coef=ls.local_momentum,
+                              weight_decay=opt.weight_decay,
+                              nesterov=ls.nesterov, wd_mask=wd_mask,
+                              use_kernel=use_kernel, leading=1)
+        else:
+            p, u = apply_sgd(p0, grads, state.momentum, lr=lr,
+                             momentum_coef=ls.local_momentum,
+                             weight_decay=opt.weight_decay,
+                             nesterov=ls.nesterov, wd_mask=wd_mask,
+                             grad_clip=opt.grad_clip, use_kernel=use_kernel,
+                             leading=1)
+        if telemetry:
+            usq = sum(_sumsq(a.float() - b.float(), from_axis=1)
+                      for a, b in zip(tree_leaves(p), tree_leaves(p0)))
+            stats = tstats.accumulate_step(stats, gsq, usq)
+        metrics = {k: torch.stack([m[k].float() for m in metrics_w]).mean()
+                   for k in metrics_w[0]}
+        metrics["loss"] = torch.stack(losses).mean()
+        metrics["lr"] = float(lr)
+        new = LocalSGDState(params=p, momentum=u, anchor=state.anchor,
+                            global_u=state.global_u, ef_memory=state.ef_memory,
+                            step=state.step + 1, stats=stats, rng=state.rng)
+        return new, metrics
+
+    def sync(state: LocalSGDState, *, plan=None,
+             scope: str = "global") -> LocalSGDState:
+        """Execute one scope of a ``SyncPlan`` (built from the config over
+        the state's per-worker layout when none is given) on the trees: its
+        group and, at global scope, its one compressor mode (a per-bucket
+        mode tuple raises ``ValueError``, as in the reference)."""
+        if plan is None:
+            plan = splan.make_sync_plan(
+                flatbuf.build_layout(state.params, leading=1), num_workers=W,
+                topology=splan.resolve_topology(ls, W),
+                compression=ls.sync_compression, anchored=needs_anchor(ls),
+                wire_pack=ls.wire_pack, coalesce=ls.sync_coalesce)
+        stages = plan.schedule(scope)
+        g = next(st.group for st in stages if st.kind == "collective")
+        if scope == "global":
+            if len(set(plan.modes)) != 1:
+                raise ValueError(
+                    "the tree sync path supports a single compression mode "
+                    "for the whole state (per-bucket tuples are a "
+                    "resident-path feature)")
+            mode = plan.modes[0]
+        else:
+            mode = "none"
+        record = telemetry and scope == "global"
+        if not needs_anchor(ls):
+            if mode != "none":
+                raise ValueError(
+                    "compression needs an anchor: configure sync_compression/"
+                    "global_momentum so the state allocates one (needs_anchor)")
+            if bucket_sync:
+                p = bucket_group_mean(state.params, g, bucketable)
+            else:
+                p = tree_map(lambda x: _group_mean_copy(x, g), state.params)
+            stats = state.stats
+            if record:
+                # the centred pair: x_k = p_k - pbar, so pre IS the
+                # worker dispersion and post = 0 exactly
+                cent = tree_map(lambda a, b: a.float() - b.float(),
+                                state.params, p)
+                stats = tstats.record_sync(
+                    stats, pre_sync_sq=_tree_sumsq_w(cent).mean(),
+                    post_sync_sq=0.0)
+            return LocalSGDState(params=p, momentum=state.momentum,
+                                 anchor=None, global_u=None, ef_memory=None,
+                                 step=state.step, stats=stats, rng=state.rng)
+
+        if g != W:
+            raise ValueError("compression / global momentum require flat "
+                             "local SGD: a block sync needs the mean sync")
+        if mode == "ef_sign" and state.ef_memory is None:
+            raise ValueError("ef_sign requires the config to allocate EF "
+                             "memory (sync_compression='ef_sign')")
+        delta = tree_map(lambda a, x: a[None] - x, state.anchor, state.params)
+        ef = state.ef_memory
+        err = ref = None
+        sq_diff = lambda xs, ys: sum(_sumsq(x.float() - y)
+                                     for x, y in zip(tree_leaves(xs),
+                                                     tree_leaves(ys)))
+        if mode == "sign":
+            raw = delta
+            delta = comp.sign_compress(delta, use_kernel=use_kernel,
+                                       bucketable=bucketable)
+            if record:
+                err = sq_diff(raw, delta)
+                ref = _tree_sumsq_w(raw).sum()
+        elif mode == "ef_sign":
+            delta, ef = comp.ef_compress(delta, ef, use_kernel=use_kernel,
+                                         bucketable=bucketable)
+            if record:
+                # the EF residual e' = input - output IS the error
+                err = _tree_sumsq_w(ef).sum()
+                ref = sum(_sumsq(c + e) for c, e in
+                          zip(tree_leaves(delta), tree_leaves(ef)))
+        elif record and speculate_compression:
+            cs = comp.sign_compress(delta, use_kernel=use_kernel,
+                                    bucketable=bucketable)
+            err = sq_diff(delta, cs)
+            ref = _tree_sumsq_w(delta).sum()
+        if mode != "none" and ls.wire_pack:
+            pm, axes_tree = packed_mean_fn or (None, None)
+            if bucket_sync:
+                dbar = bucket_packed_mean(delta, bucketable, leaf_fn=pm,
+                                          axes_tree=axes_tree)
+            else:
+                pm = pm or _packed_mean_leaf
+                dbar = (tree_map(lambda d: pm(d, -1), delta)
+                        if axes_tree is None else tree_map(pm, delta, axes_tree))
+        elif bucket_sync:
+            dbar = bucket_worker_mean(delta, bucketable)
+        else:
+            dbar = tree_map(lambda x: x.mean(dim=0), delta)
+
+        stats = state.stats
+        if record:
+            kw = {}
+            if err is not None:
+                kw = dict(comp_err_sq=err[None], comp_ref_sq=ref[None])
+            stats = tstats.record_sync(
+                stats, pre_sync_sq=_tree_sumsq_w(delta).mean(),
+                post_sync_sq=sum(_sumsq(d) for d in tree_leaves(dbar)), **kw)
+        gu = state.global_u
+        if ls.global_momentum > 0:
+            gu = tree_map(lambda ug, d: ls.global_momentum * ug + d, gu, dbar)
+            step_tree = gu
+        else:
+            step_tree = dbar
+        anchor = tree_map(lambda a, d: (a.float() - d.float()).to(a.dtype),
+                          state.anchor, step_tree)
+        return LocalSGDState(params=stack_tree(anchor, W),
+                             momentum=state.momentum, anchor=anchor,
+                             global_u=gu, ef_memory=ef, step=state.step,
+                             stats=stats, rng=state.rng)
+
+    return init, local_step, sync
+
+
 def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                    wd_mask=None, telemetry: bool = False,
                    speculate_compression: bool = False, dist=None,
-                   shard_classes=None, batch_split: int = 1):
+                   shard_classes=None, batch_split: int = 1,
+                   use_kernel: bool = True, bucket_sync: bool = True,
+                   resident: bool | None = None, bucketable=None,
+                   packed_mean_fn=None):
     """Build (init, local_step, sync) for a single-worker
-    ``loss_fn(params, batch) -> (loss, metrics)`` on resident buckets.
+    ``loss_fn(params, batch) -> (loss, metrics)``: on resident buckets
+    when ``resident`` (default: :func:`resident_eligible` of ``use_kernel``
+    and ``bucket_sync``), else the tree path of the module docstring, with
+    ``bucketable`` (a bool tree: leaves kept off the flat bus) and
+    ``packed_mean_fn`` (``(leaf_fn, axes_tree)`` of the per-leaf wire
+    pack, as in the reference) for its sync.  ``use_kernel`` defaults to
+    True where the reference's defaults to False: the port's callers stay
+    on the kernels unless they ask for the tree path.
     ``telemetry`` carries a ``StatsAccumulator`` in ``state.stats``; it
     observes only, the trajectory is the same with it on or off.
     ``speculate_compression`` (with telemetry) records the would-be sign
@@ -525,6 +897,23 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
     it whole on every shard rank; one process always computes it
     whole)."""
     _check_supported(run)
+    if resident is None:
+        resident = resident_eligible(use_kernel, bucket_sync)
+    if not resident:
+        if dist is not None:
+            raise ValueError("the tree path runs in one process: "
+                             "use_kernel=False across ranks is not ported")
+        if shard_classes is not None:
+            raise ValueError("the tree path buckets on the fly and keeps no "
+                             "sharding classes: mark leaves with bucketable=")
+        return _make_tree_local_sgd(
+            run, loss_fn, num_workers=num_workers, wd_mask=wd_mask,
+            use_kernel=use_kernel, bucket_sync=bucket_sync,
+            bucketable=bucketable, packed_mean_fn=packed_mean_fn,
+            telemetry=telemetry, speculate_compression=speculate_compression)
+    if not (use_kernel and bucket_sync):
+        raise ValueError("the resident path runs the kernels on buckets: "
+                         "resident=True needs use_kernel and bucket_sync")
     ls = run.local_sgd
     opt = run.optim
     W = num_workers

@@ -131,20 +131,26 @@ struct UpdateParams {
 // One element of the fused update.  SGD scales g by the per-worker
 // grad-clip factor gs before everything else; LARS scales the decayed g
 // by the row's trust ratio r.  The stats see g after the clip and before
-// the decay, as the TPU kernels do.
+// the decay, as the TPU kernels do.  Every operation of p and u rounds on
+// its own (the _rn intrinsics, which nvcc never contracts into an FMA):
+// left to itself nvcc contracted the stats and the plain instantiations
+// differently, so telemetry moved p by an ulp and the trajectory with it.
+// Now p and u take the same bits with stats on or off, and the plain
+// version's bits.
 template <bool kNesterov, bool kStats, bool kLars>
 __device__ __forceinline__ void update_one(float& p, float g, float& u,
                                            float dec, float gs, float r,
                                            const UpdateParams& hp, float& gsq,
                                            float& usq) {
-  if (!kLars) g = g * gs;                       // grad-clip scale (1 if off)
+  if (!kLars) g = __fmul_rn(g, gs);             // grad-clip scale (1 if off)
   if (kStats) gsq += g * g;                     // raw grad, before decay
-  if (hp.weight_decay != 0.f) g = g + dec * p;  // dec = wd * wd_row[row]
-  if (kLars) g = g * r;                         // trust ratio (1 on skip rows)
-  const float un = hp.momentum * u + g;
-  const float step = kNesterov ? hp.momentum * un + g : un;
-  const float d = hp.lr * step;
-  p = p - d;
+  if (hp.weight_decay != 0.f)                   // dec = wd * wd_row[row]
+    g = __fadd_rn(g, __fmul_rn(dec, p));
+  if (kLars) g = __fmul_rn(g, r);               // trust ratio (1 on skip rows)
+  const float un = __fadd_rn(__fmul_rn(hp.momentum, u), g);
+  const float step = kNesterov ? __fadd_rn(__fmul_rn(hp.momentum, un), g) : un;
+  const float d = __fmul_rn(hp.lr, step);
+  p = __fsub_rn(p, d);
   u = un;
   if (kStats) usq += d * d;
 }

@@ -154,17 +154,21 @@ def _stats_out(p: torch.Tensor, out):
 def fused_sgd_bucket_plain(p, g, u, lr, wd_row, *, momentum: float,
                            weight_decay: float, nesterov: bool, gscale=None,
                            stats: bool = False):
-    """Plain PyTorch version of :func:`fused_sgd_bucket` (same op order)."""
+    """Plain PyTorch version of :func:`fused_sgd_bucket` (same op order; in
+    float32, p and u rounded once to their dtype, as the reference's kernel
+    does for a bfloat16 bucket)."""
     W, rows = _lead_rows(p)
     lr = float(lr)
-    gf = g if gscale is None else g * gscale.reshape(p.shape[:-2] + (1, 1))
+    pf, gf, uf = p.float(), g.float(), u.float()
+    if gscale is not None:
+        gf = gf * gscale.reshape(p.shape[:-2] + (1, 1))
     gsq = (gf * gf).sum(dim=(-2, -1)) if stats else None
     if weight_decay:
-        gf = gf + (weight_decay * wd_row).reshape(rows, 1) * p
-    u_new = momentum * u + gf
+        gf = gf + (weight_decay * wd_row).reshape(rows, 1) * pf
+    u_new = momentum * uf + gf
     step = momentum * u_new + gf if nesterov else u_new
     d = lr * step
-    p.sub_(d)
+    p.copy_(pf - d)
     u.copy_(u_new)
     if stats:
         return gsq, (d * d).sum(dim=(-2, -1))
@@ -209,7 +213,8 @@ def fused_sgd_bucket(p, g, u, lr, wd_row, *, momentum: float,
 # ---------------------------------------------------------------------------
 
 def sq_sum_plain(x):
-    return (x * x).sum(dim=(-2, -1))
+    xf = x.float()
+    return (xf * xf).sum(dim=(-2, -1))
 
 
 def _sq_sum_scratch(x, W: int, stream: int):
@@ -259,7 +264,7 @@ def sq_sum(x):
 # ---------------------------------------------------------------------------
 
 def row_abs_sum_plain(x):
-    return x.abs().sum(dim=-1)
+    return x.float().abs().sum(dim=-1)
 
 
 def row_abs_sum(x):
@@ -305,12 +310,13 @@ def scale_sign_rows(x, scale_row):
 # ---------------------------------------------------------------------------
 
 def lars_row_norms_plain(p, g, wd_row, *, weight_decay: float):
-    """Plain PyTorch version of :func:`lars_row_norms` (same op order)."""
+    """Plain PyTorch version of :func:`lars_row_norms` (same op order, in
+    float32)."""
     W, rows = _lead_rows(p)
-    gf = g
+    pf, gf = p.float(), g.float()
     if weight_decay:
-        gf = gf + (weight_decay * wd_row).reshape(rows, 1) * p
-    return (p * p).sum(dim=-1), (gf * gf).sum(dim=-1)
+        gf = gf + (weight_decay * wd_row).reshape(rows, 1) * pf
+    return (pf * pf).sum(dim=-1), (gf * gf).sum(dim=-1)
 
 
 def lars_row_norms(p, g, wd_row, *, weight_decay: float):
@@ -331,18 +337,19 @@ def lars_row_norms(p, g, wd_row, *, weight_decay: float):
 def fused_lars_bucket_plain(p, g, u, lr, wd_row, ratio_row, *, momentum: float,
                             weight_decay: float, nesterov: bool,
                             stats: bool = False):
-    """Plain PyTorch version of :func:`fused_lars_bucket` (same op order)."""
+    """Plain PyTorch version of :func:`fused_lars_bucket` (same op order; in
+    float32, p and u rounded once to their dtype)."""
     W, rows = _lead_rows(p)
     lr = float(lr)
-    gsq = (g * g).sum(dim=(-2, -1)) if stats else None
-    gf = g
+    pf, gf, uf = p.float(), g.float(), u.float()
+    gsq = (gf * gf).sum(dim=(-2, -1)) if stats else None
     if weight_decay:
-        gf = gf + (weight_decay * wd_row).reshape(rows, 1) * p
+        gf = gf + (weight_decay * wd_row).reshape(rows, 1) * pf
     gf = gf * ratio_row.reshape(p.shape[:-1] + (1,))
-    u_new = momentum * u + gf
+    u_new = momentum * uf + gf
     step = momentum * u_new + gf if nesterov else u_new
     d = lr * step
-    p.sub_(d)
+    p.copy_(pf - d)
     u.copy_(u_new)
     if stats:
         return gsq, (d * d).sum(dim=(-2, -1))

@@ -4,10 +4,14 @@ the serving forms ``build_serve`` / ``build_engine`` (the port of
 split over processes, ``build_train(dist=)``, and its leaves sharded
 within a worker by a ``sharding.layout.MeshLayout``, ``build_train(layout=)``).
 
-The port always builds the resident flat-bus path — the one the
-reference selects with ``use_kernel=True`` — so every local step runs the
-fused SGD or LARS kernels and every sign / EF-sign sync the compressor
-kernels.  The sync plan takes the config's topology
+``build_train`` builds the resident flat-bus path by default — the one
+the reference selects with ``use_kernel=True`` — so every local step runs
+the fused SGD or LARS kernels and every sign / EF-sign sync the
+compressor kernels.  ``use_kernel=False`` builds the reference's default,
+the per-leaf tree path (``core.local_sgd``'s tree branch, plain PyTorch),
+in one process only.  **A kept difference:** the reference's default is
+``use_kernel=False``; the port's stays True, so that no caller moves off
+the kernels without asking.  The sync plan takes the config's topology
 (``syncplan.resolve_topology``: hierarchical when ``block_steps > 1``).
 Telemetry is on when ``run.controller.wants_telemetry``, and the
 speculative compression error when ``run.controller.wants_speculation``
@@ -24,7 +28,8 @@ from repro_torch.backend.base import WorkerSet
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import flatbuf
 from repro_torch.core import syncplan as splan
-from repro_torch.core.local_sgd import make_local_sgd, needs_anchor
+from repro_torch.core.local_sgd import (make_local_sgd, needs_anchor,
+                                        pack_axes_tree)
 from repro_torch.models import base as mbase
 from repro_torch.models import lm
 from repro_torch.utils import resolve_device
@@ -71,7 +76,8 @@ class TrainBundle:
 
 def build_train(run: RunConfig, *, num_workers: int | None = None,
                 worker_set=None, device=None, dist=None,
-                layout=None) -> TrainBundle:
+                layout=None, use_kernel: bool = True,
+                resident: bool | None = None) -> TrainBundle:
     """Resident-bucket local SGD for ``run.model`` with its workers stacked
     on one device: ``worker_set`` (a ``backend.WorkerSet``) names them,
     else ``num_workers`` (default 1) and the bundle gets
@@ -90,7 +96,20 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
     ``dist`` of within-worker size S each rank holds its shard's rows,
     and the layout's ``"batch"`` rule says whether a worker's batch is
     split over its shard ranks (FSDP) or not (tensor parallel).  Without
-    a layout every leaf is of the replicated class, bit for bit."""
+    a layout every leaf is of the replicated class, bit for bit.
+
+    ``use_kernel=False`` builds the tree path, and ``resident=False`` with
+    the kernels on its tree-in/tree-out kernel form (the reference's
+    ``make_local_sgd(use_kernel=True, resident=False)``); either raises
+    ``ValueError`` with a ``dist``: the tree path runs in one process.
+    With a ``layout`` the tree path's sharded leaves
+    stay off the flat bus (``bucketable``) and the wire pack packs each of
+    them along its largest unsharded dim (``local_sgd.pack_axes_tree``),
+    as the reference's tree path does on a mesh."""
+    tree = not use_kernel or resident is False
+    if dist is not None and tree:
+        raise ValueError("use_kernel=False builds the tree path, which runs "
+                         "in one process: it is not ported across ranks")
     if worker_set is not None:
         if num_workers is not None and num_workers != worker_set.num_workers:
             raise ValueError(
@@ -128,11 +147,18 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
         return lm.loss_fn(cfg, params, batch)
 
     telemetry = run.controller.wants_telemetry
+    tree_kw = {}
+    if tree:
+        tree_kw = dict(use_kernel=use_kernel, resident=False)
+        if shard_cls is not None:
+            tree_kw.update(bucketable=flatbuf.replicated_tree(shard_cls),
+                           packed_mean_fn=(None, pack_axes_tree(specs, layout)))
     init, local_step, sync = make_local_sgd(
         run, loss, num_workers=num_workers, wd_mask=wd_mask,
         telemetry=telemetry,
         speculate_compression=run.controller.wants_speculation, dist=dist,
-        shard_classes=shard_cls, batch_split=batch_split)
+        shard_classes=None if tree else shard_cls,
+        batch_split=batch_split, **tree_kw)
     blayout = flatbuf.build_layout(
         mbase.abstract(specs, flatbuf.torch_dtype(cfg.param_dtype)),
         wd_mask=wd_mask, shard_classes=shard_cls)
@@ -146,7 +172,8 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
     return TrainBundle(cfg=cfg, run=run, num_workers=num_workers, specs=specs,
                        init=init, local_step=local_step, sync=sync,
                        device=device, layout=blayout, sync_plan=plan,
-                       telemetry=telemetry, n_comp=blayout.num_buckets,
+                       telemetry=telemetry,
+                       n_comp=1 if tree else blayout.num_buckets,
                        worker_set=worker_set, dist=dist, mesh_layout=layout)
 
 

@@ -76,11 +76,12 @@ from repro_torch import configs
 from repro_torch.backend.local import LocalBackend
 from repro_torch.configs.base import (ControllerConfig, InputShape,
                                       LocalSGDConfig, OptimConfig, RunConfig)
-from repro_torch.core import elastic
+from repro_torch.core import elastic, flatbuf
 from repro_torch.core import syncplan as splan
 from repro_torch.core.controller import (RoundReport, make_controller,
                                          traced_decision)
-from repro_torch.core.local_sgd import gather_state, mean_params, needs_anchor
+from repro_torch.core.local_sgd import (gather_state, is_resident, mean_params,
+                                        needs_anchor)
 from repro_torch.core.schedule import DynamicSchedule
 from repro_torch.data.partition import ShardedBatches
 from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -117,12 +118,20 @@ def _mode_str(modes) -> str:
     return "|".join(modes)
 
 
+def _sync_layout(state):
+    """The per-worker flatbuf layout of the synced state: a resident
+    state's own, a tree state's built from its stacked leaves."""
+    if is_resident(state):
+        return state.params.layout
+    return flatbuf.build_layout(state.params, leading=1)
+
+
 def _config_plan(run: RunConfig, bundle, state):
     """The config's plan for a bundle that carries none (a hand-made one),
     compiled from the state's own bucket layout."""
     ls = run.local_sgd
     return splan.make_sync_plan(
-        state.params.layout, num_workers=bundle.num_workers,
+        _sync_layout(state), num_workers=bundle.num_workers,
         topology=splan.resolve_topology(ls, bundle.num_workers),
         compression=ls.sync_compression, anchored=needs_anchor(ls),
         wire_pack=ls.wire_pack, coalesce=ls.sync_coalesce)

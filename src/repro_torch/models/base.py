@@ -66,6 +66,19 @@ def abstract(specs, dtype=torch.float32):
                     is_leaf=is_spec)
 
 
+def stack(params, num_workers: int):
+    """Replicate a single param tree into a stacked (W, ...) tree of COPIES
+    (``repeat``, never ``expand``: the workers' rows must not share storage,
+    or an in-place update of one would write them all)."""
+    return tree_map(lambda p: p[None].repeat((num_workers,) + (1,) * p.dim()),
+                    params)
+
+
+def unstack_mean(params):
+    """The worker mean of a stacked (W, ...) tree."""
+    return tree_map(lambda p: p.mean(dim=0), params)
+
+
 def count_params(specs) -> int:
     return int(sum(np.prod(s.shape) for s in tree_leaves(specs, is_leaf=is_spec)))
 

@@ -1,12 +1,15 @@
-"""LARS — layer-wise adaptive rate scaling (You et al. 2017a) on flat-bus
-buckets (the port of ``repro.optim.lars.apply_lars_buckets``).
+"""LARS — layer-wise adaptive rate scaling (You et al. 2017a) (the port
+of ``repro.optim.lars``).
 
 The paper's Table 5 combines SGD + momentum + LARS with post-local SGD;
 LARS only rescales each layer's step, so it composes with local SGD
-without extra synchronization.  As in ``optim/sgd.py`` the buckets carry
-a leading worker dim ``(W, rows, 128)`` and every quantity is per worker,
-the trust ratios included: each worker's layer norms are its own.  LARS
-takes no grad clip, as in the reference.
+without extra synchronization.  Every quantity is per worker, the trust
+ratios included: each worker's layer norms are its own.  LARS takes no
+grad clip, as in the reference.  The three entry points mirror
+``optim/sgd.py``: :func:`apply_lars_buckets` on resident ``(W, rows,
+128)`` buckets, and :func:`apply_lars` on trees, per leaf in plain
+PyTorch (``use_kernel=False``) or packed through the bucket kernels and
+unpacked again (``use_kernel=True``), ``leading`` = 1 for stacked trees.
 """
 from __future__ import annotations
 
@@ -14,6 +17,26 @@ import torch
 
 from repro_torch.core import flatbuf
 from repro_torch.kernels import ops as kops
+from repro_torch.optim.sgd import _bucketed, _per_worker, _unbucketed, sum_from
+from repro_torch.utils import tree_map, tree_map_pairs
+
+
+def _lars_leaf(p, g, u, skip, *, lr, trust, momentum, wd, nesterov,
+               leading: int = 0):
+    gf = g.float()
+    pf = p.float()
+    if wd and not skip:
+        gf = gf + wd * pf
+    if not skip:  # norm/bias params use the plain LR
+        norm = lambda x: _per_worker(torch.sqrt(sum_from(x * x, leading)),
+                                     x, leading)
+        wn, gn = norm(pf), norm(gf)
+        ratio = torch.where((wn > 0) & (gn > 0), trust * wn / (gn + 1e-9), 1.0)
+        gf = gf * ratio
+    u_new = momentum * u.float() + gf
+    step = (momentum * u_new + gf) if nesterov else u_new
+    p_new = pf - float(lr) * step
+    return p_new.to(p.dtype), u_new.to(u.dtype)
 
 
 def apply_lars_buckets(layout, pb, gb, ub, *, lr, trust: float,
@@ -72,3 +95,33 @@ def apply_lars_buckets(layout, pb, gb, ub, *, lr, trust: float,
     if want_stats:
         return pb, ub, (gsq, usq)
     return pb, ub
+
+
+def _apply_lars_bucketed(params, grads, momentum, wd_mask, *, lr, trust,
+                         momentum_coef, weight_decay, nesterov, leading: int):
+    """Tree-in/tree-out wrapper around :func:`apply_lars_buckets` (packs
+    and unpacks around every call)."""
+    layout, (pb, gb, ub) = _bucketed(params, grads, momentum, wd_mask, leading)
+    apply_lars_buckets(layout, pb, gb, ub, lr=lr, trust=trust,
+                       momentum_coef=momentum_coef,
+                       weight_decay=weight_decay, nesterov=nesterov)
+    return _unbucketed(layout, pb, leading), _unbucketed(layout, ub, leading)
+
+
+def apply_lars(params, grads, momentum, *, lr, trust: float,
+               momentum_coef: float, weight_decay: float, nesterov: bool,
+               wd_mask=None, use_kernel: bool = False, leading: int = 0):
+    """One LARS step on trees; returns NEW (params, momentum) trees.
+    Leaves flagged in ``wd_mask`` take neither decay nor a trust ratio."""
+    if wd_mask is None:
+        wd_mask = tree_map(lambda _: False, params)
+    if use_kernel:
+        return _apply_lars_bucketed(params, grads, momentum, wd_mask, lr=lr,
+                                    trust=trust, momentum_coef=momentum_coef,
+                                    weight_decay=weight_decay,
+                                    nesterov=nesterov, leading=leading)
+    return tree_map_pairs(
+        lambda p, g, u, s: _lars_leaf(p, g, u, s, lr=lr, trust=trust,
+                                      momentum=momentum_coef, wd=weight_decay,
+                                      nesterov=nesterov, leading=leading),
+        params, grads, momentum, wd_mask)

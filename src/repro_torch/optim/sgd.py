@@ -1,9 +1,22 @@
-"""SGD with Nesterov momentum and a per-row weight-decay mask on flat-bus
-buckets (the port of ``repro.optim.sgd.apply_sgd_buckets``).
+"""SGD with Nesterov momentum and a weight-decay mask (the port of
+``repro.optim.sgd``).
 
-This is the paper's *local* optimizer: the buckets carry a leading
-worker dim ``(W, rows, 128)`` and every quantity is per worker, as the
-reference computes it inside its ``vmap`` — the grad-clip norm included.
+This is the paper's *local* optimizer: every quantity is per worker, as
+the reference computes it inside its ``vmap`` — the grad-clip norm
+included.  Three entry points:
+
+* :func:`apply_sgd_buckets` — the resident path: stacked ``(W, rows,
+  128)`` buckets updated in place by one fused kernel launch per bucket.
+* :func:`apply_sgd` with ``use_kernel=False`` — the reference's per-leaf
+  update in plain PyTorch (its jnp oracle).
+* :func:`apply_sgd` with ``use_kernel=True`` — the tree-in/tree-out
+  kernel form: the trees are packed into buckets, run through
+  :func:`apply_sgd_buckets` (the same kernels) and unpacked, every call.
+
+The tree forms take ``leading`` = 1 for stacked ``(W, ...)`` trees (the
+tree path's state, every worker at once, a clip norm per worker) or 0
+for one worker's tree, as the reference's ``apply_sgd`` sees it inside
+its ``vmap``.
 """
 from __future__ import annotations
 
@@ -11,6 +24,52 @@ import torch
 
 from repro_torch.core import flatbuf
 from repro_torch.kernels import ops as kops
+from repro_torch.utils import tree_leaves, tree_map, tree_map_pairs
+
+
+def init_momentum(params):
+    """Zero momentum in each leaf's own dtype (the reference's
+    ``zeros_like``)."""
+    return tree_map(torch.zeros_like, params)
+
+
+def sum_from(x, leading: int):
+    """Sum of ``x`` over its dims from ``leading`` on (``x`` itself when
+    there are none: torch would read an empty ``dim`` as every dim)."""
+    dims = tuple(range(leading, x.dim()))
+    return x.sum(dim=dims) if dims else x
+
+
+def _per_worker(scale, x, leading: int):
+    """A per-worker ``(*lead,)`` factor shaped to broadcast over ``x``."""
+    return scale.reshape(tuple(scale.shape) + (1,) * (x.dim() - leading))
+
+
+def clip_by_global_norm(grads, max_norm: float, *, leading: int = 0):
+    """Scale ``grads`` so that its global L2 norm (f32, over every leaf) is
+    at most ``max_norm``; with ``leading`` = 1 each worker's own norm.
+    ``max_norm`` 0 returns ``grads`` itself."""
+    if not max_norm:
+        return grads
+    gn2 = 0.0
+    for g in tree_leaves(grads):
+        gf = g.float()
+        gn2 = gn2 + sum_from(gf * gf, leading)
+    gn = torch.sqrt(gn2)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g.float() * _per_worker(scale, g, leading))
+                    .to(g.dtype), grads)
+
+
+def _leaf_update(p, g, u, skip_wd, *, lr, momentum, wd, nesterov):
+    gf = g.float()
+    pf = p.float()
+    if wd and not skip_wd:
+        gf = gf + wd * pf
+    u_new = momentum * u.float() + gf
+    step = (momentum * u_new + gf) if nesterov else u_new
+    p_new = pf - float(lr) * step
+    return p_new.to(p.dtype), u_new.to(u.dtype)
 
 
 def apply_sgd_buckets(layout, pb, gb, ub, *, lr, momentum_coef: float,
@@ -62,3 +121,55 @@ def apply_sgd_buckets(layout, pb, gb, ub, *, lr, momentum_coef: float,
     if want_stats:
         return pb, ub, (gsq, usq)
     return pb, ub
+
+
+def _bucketed(params, grads, momentum, wd_mask, leading: int):
+    """(layout, param, grad and momentum buckets) of the trees, each bucket
+    with a worker dim (one worker's tree gets a dim of 1)."""
+    layout = flatbuf.build_layout(params, wd_mask=wd_mask, leading=leading)
+    lift = (lambda bs: bs) if leading else (lambda bs: [b[None] for b in bs])
+    return layout, [lift(flatbuf.flatten(layout, t, leading=leading))
+                    for t in (params, grads, momentum)]
+
+
+def _unbucketed(layout, bufs, leading: int):
+    return flatbuf.unflatten(layout, bufs if leading else [b[0] for b in bufs],
+                             leading=leading)
+
+
+def _apply_sgd_bucketed(params, grads, momentum, wd_mask, *, lr,
+                        momentum_coef, weight_decay, nesterov, grad_clip,
+                        leading: int):
+    """Tree-in/tree-out wrapper around :func:`apply_sgd_buckets`: it packs
+    the three trees into buckets and unpacks the results around every
+    call, which the resident path avoids.  One launch per bucket updates
+    every worker; the results are views into new buckets."""
+    layout, (pb, gb, ub) = _bucketed(params, grads, momentum, wd_mask, leading)
+    apply_sgd_buckets(layout, pb, gb, ub, lr=lr, momentum_coef=momentum_coef,
+                      weight_decay=weight_decay, nesterov=nesterov,
+                      grad_clip=grad_clip)
+    return _unbucketed(layout, pb, leading), _unbucketed(layout, ub, leading)
+
+
+def apply_sgd(params, grads, momentum, *, lr, momentum_coef: float,
+              weight_decay: float, nesterov: bool, wd_mask=None,
+              grad_clip: float = 0.0, use_kernel: bool = False,
+              leading: int = 0):
+    """One SGD step on trees; returns NEW (params, momentum) trees, each
+    leaf in its own dtype.  ``use_kernel`` picks the tree-in/tree-out
+    kernel form, else the per-leaf plain form; ``leading`` as in the
+    module docstring."""
+    if wd_mask is None:
+        wd_mask = tree_map(lambda _: False, params)
+    if use_kernel:
+        return _apply_sgd_bucketed(params, grads, momentum, wd_mask, lr=lr,
+                                   momentum_coef=momentum_coef,
+                                   weight_decay=weight_decay,
+                                   nesterov=nesterov, grad_clip=grad_clip,
+                                   leading=leading)
+    grads = clip_by_global_norm(grads, grad_clip, leading=leading)
+
+    def upd(p, g, u, skip):
+        return _leaf_update(p, g, u, skip, lr=lr, momentum=momentum_coef,
+                            wd=weight_decay, nesterov=nesterov)
+    return tree_map_pairs(upd, params, grads, momentum, wd_mask)

@@ -1,5 +1,6 @@
 """Small shared helpers: a pytree flatten that matches ``jax.tree.flatten``
-order, and the device rule of the port's entry points."""
+order, a pair map over such trees, and the device rule of the port's entry
+points."""
 from __future__ import annotations
 
 import torch
@@ -61,6 +62,17 @@ def tree_map(fn, tree, *rest, is_leaf=None):
     others = [tree_flatten(r, is_leaf=is_leaf)[0] for r in rest]
     return tree_unflatten(treedef,
                           [fn(*xs) for xs in zip(leaves, *others, strict=True)])
+
+
+def tree_map_pairs(fn, tree, *rest):
+    """Map ``fn`` (returning a 2-tuple) over trees; return two trees (the
+    port's copy of ``repro.utils.tree_map_pairs``): safe for trees whose
+    inner nodes are tuples, which a map plus tuple indexing is not."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    outs = [fn(*xs) for xs in zip(leaves, *others, strict=True)]
+    return (tree_unflatten(treedef, [o[0] for o in outs]),
+            tree_unflatten(treedef, [o[1] for o in outs]))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -8,7 +8,9 @@ machine without JAX:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: the elementwise SGD / LARS update 2e-6 x the largest entry
-(nvcc contracts a*b+c into one FMA, the plain version rounds twice);
+(a stated bound: since its operations round one by one, the update takes
+its plain version's bits, which ``test_cuda_update_stats_form_same_bits``
+holds exactly);
 reductions rtol 1e-5 (float32 sums in another order); sign exact.  The
 per-tensor SGD kernel rounds every operation on its own, as its plain
 version does: 2e-6 of the largest entry in f32 and one bf16 ulp in bf16
@@ -360,6 +362,95 @@ def test_trainer_on_card_matches_cpu(cuda, mode):
                   "scale_sign_rows": comp, "lars_row_norms": 0,
                   "fused_lars_bucket": 0}
     assert all(v == 0 for v in cc.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3096 + 5, 264])
+@pytest.mark.parametrize("nesterov", [True, False])
+def test_cuda_update_stats_form_same_bits(cuda, rows, nesterov):
+    """The fused SGD / LARS update gives the same p and u bits with its
+    stats on or off (telemetry observes only), and its plain version's
+    bits: every operation rounds on its own, no FMA contraction."""
+    dev = cuda
+    g = torch.Generator(device=dev).manual_seed(rows + nesterov)
+    mk = lambda: torch.randn((4, rows, 128), generator=g, device=dev)
+    p, gr, u = mk(), mk(), 0.1 * mk()
+    wd_row = (torch.rand((rows,), generator=g, device=dev) < 0.7).float()
+    ratio = torch.rand((4, rows), generator=g, device=dev)
+    gscale = torch.tensor([1.0, 0.5, 0.25, 0.125], device=dev)
+    kw = dict(momentum=0.9, weight_decay=1e-2, nesterov=nesterov)
+    calls = {"sgd": lambda fn, p_, u_, st: fn(p_, gr, u_, 0.05, wd_row,
+                                             gscale=gscale, stats=st, **kw),
+             "lars": lambda fn, p_, u_, st: fn(p_, gr, u_, 0.05, wd_row, ratio,
+                                               stats=st, **kw)}
+    fns = {"sgd": (tkb.fused_sgd_bucket, tkb.fused_sgd_bucket_plain),
+           "lars": (tkb.fused_lars_bucket, tkb.fused_lars_bucket_plain)}
+    for name, call in calls.items():
+        outs = []
+        for fn, st in ((fns[name][0], False), (fns[name][0], True),
+                       (fns[name][1], False)):
+            p1, u1 = p.clone(), u.clone()
+            call(fn, p1, u1, st)
+            outs.append((p1, u1))
+        torch.cuda.synchronize()
+        for p1, u1 in outs[1:]:
+            assert torch.equal(p1, outs[0][0]), name
+            assert torch.equal(u1, outs[0][1]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "lars"])
+def test_tree_kernel_form_on_card_matches_plain_form(cuda, optimizer):
+    """The tree path's two forms on the card, paper-lm smoke, EF-sign,
+    from the same weights: the tree-in/tree-out kernel form
+    (``build_train(resident=False)``) launches the bucket kernels every
+    step and every compressed sync (never the plain version on a CUDA
+    tensor), the per-leaf plain form (``use_kernel=False``) none; losses
+    rtol 1e-4, the params all but 1e-4 of their elements within 1e-4 x
+    the largest entry (an EF-sign delta within rounding of 0 may flip), as
+    the resident trainer's card-vs-CPU test holds them."""
+    from repro_torch.core.local_sgd import is_resident
+    from repro_torch.utils import tree_leaves
+    W, B, S, steps = 4, 2, 64, 6
+    cfg = configs.get_smoke("paper-lm")
+    opt = (dict(optimizer="lars", lars_trust=0.02) if optimizer == "lars"
+           else {})
+    run = RunConfig(model=cfg, shape=InputShape("t", S, W * B, "train"),
+                    local_sgd=LocalSGDConfig(local_steps=2, post_local_switch=2,
+                                             sync_compression="ef_sign"),
+                    optim=OptimConfig(base_lr=0.3, base_batch=W * B,
+                                      lr_warmup_steps=2, grad_clip=1.0, **opt))
+    data = lm_examples(markov_lm(vocab=cfg.vocab_size, num_seqs=64, seq_len=S))
+    p0 = mbase.materialize(build_train(run, num_workers=W, device="cpu").specs,
+                           torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for form, kw in (("kernel", dict(resident=False)),
+                     ("plain", dict(use_kernel=False))):
+        tkb.reset_launches()
+        tb = build_train(run, num_workers=W, device=cuda, **kw)
+        state, hist, summ = ttrain.fit(run, ShardedBatches(data, W, B), bundle=tb,
+                                       num_steps=steps,
+                                       params0=tree_map(lambda t: t.to(cuda), p0),
+                                       log=lambda *a: None)
+        assert not is_resident(state)
+        out[form] = (tree_map(lambda t: t.cpu(), state.params),
+                     [h["loss"] for h in hist], dict(tkb.LAUNCHES),
+                     tkb.PORT_LAUNCHES["segment_sum"],
+                     summ["comm_rounds"]["global"])
+    (pk, lk, ck, sk, nk), (pp, lp, cp, sp, np_) = out["kernel"], out["plain"]
+    np.testing.assert_allclose(lk, lp, rtol=1e-4)
+    flat = lambda t: torch.cat([x.reshape(-1) for x in tree_leaves(t)])
+    a, b = flat(pk), flat(pp)
+    assert float(((a - b).abs() > 1e-4 * b.abs().max()).float().mean()) <= 1e-4
+    assert nk == np_ == 4
+    lars = optimizer == "lars"
+    assert ck == {"fused_sgd_bucket": 0 if lars else steps,
+                  "sq_sum": 0 if lars else steps,
+                  "row_abs_sum": nk, "scale_sign_rows": nk,
+                  "lars_row_norms": steps if lars else 0,
+                  "fused_lars_bucket": steps if lars else 0}
+    assert sk == nk + (steps if lars else 0)
+    assert all(v == 0 for v in cp.values()) and sp == 0
 
 
 @pytest.mark.cuda

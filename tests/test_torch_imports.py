@@ -57,6 +57,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         assert f"src/repro_torch/models/{mod}.py" in names, mod
     for mod in ("common", "paper_tables", "bench_convex", "run"):
         assert f"src/repro_torch/benchmarks/{mod}.py" in names, mod
+    for mod in ("quickstart", "train_lm", "hierarchical_local_sgd",
+                "adaptive_local_sgd"):
+        assert f"src/repro_torch/examples/{mod}.py" in names, mod
     assert "src/repro_torch/telemetry/metrics.py" in names
     assert "src/repro_torch/launch/inputs.py" in names
     for mod in ("telemetry/trace", "telemetry/export", "checkpoint/checkpoint",
