@@ -139,13 +139,24 @@ Phases:
            bytes (W x (rows x 16 + 4 a leaf) a sync) equal to the tensors
            handed to the collectives.  Y2: 4 x 1 at phase H's settings
            (Alg. 5, blocks of two workers on two ranks: a two-member
-           sub-group): losses, block / global rounds.  Y3: 2 ranks x 2
-           workers at phase L's settings (LARS + EF-sign + telemetry):
-           losses and the gathered ``round_summary`` at phase C's
-           tolerances.  Each part: fenced sync seconds by scope, measured
-           against ring-model bytes, median step per rank, peak memory per
-           rank, launches per rank, the ops staged through the host; then
-           the dense all-reduce (Y2) against the packed all-gather (Y1).
+           sub-group): losses and every worker's final params rows bit for
+           bit (the dense means are ``Collectives.ordered_mean``'s, which
+           add the workers in worker order), block / global rounds; then,
+           on the same ranks, the ordered mean of the trained bucket
+           against a plain ``dist.all_reduce`` of it, fenced (a probe
+           here only).  Y3: 2 ranks x 2 workers at phase L's settings
+           (LARS + EF-sign + telemetry): losses and the gathered
+           ``round_summary`` at phase C's tolerances.  Y4: 4 x 1, the
+           tree path's tree-in/tree-out kernel form
+           (``build(run, resident=False)``) at phase W's settings:
+           losses and rows bit for bit against phase W's, launches as
+           Y1's.  Y5: 4 x 1, the plain per-leaf tree form
+           (``use_kernel=False``) at phase H's settings (its blocks of two
+           across ranks): losses within 1e-4 of phase H's, no launch.
+           Each part: fenced sync seconds by scope, measured against
+           ring-model bytes, median step per rank, peak memory per rank,
+           launches per rank, the ops staged through the host; then the
+           dense mean (Y2) against the packed all-gather (Y1).
            With two or more cards Y1 also runs over NCCL, one rank a card;
            with one, a line says why it did not.  Results in
            ``build/phase_y/``.
@@ -192,7 +203,10 @@ Phases:
            0 restores the snapshot on the card at W=4 and by the elastic
            restore at W=2, each equal to the gathered state bit for bit,
            and holds kernels 1-6 and the segmented sum against their plain
-           versions on its rows after the resizes.  Prints the fenced
+           versions on its rows after the resizes.  Q3: Q1 once more in
+           the tree path's kernel form (``DistributedBackend(
+           resident=False)``: tree states, a gathered tree snapshot),
+           held against Q1's one-process run bit for bit.  Prints the fenced
            resize spans per rank, the checkpoint's gather and write
            seconds and GB/s, the bytes handed to collectives and the peaks
            a rank against the layout's reckoning.
@@ -214,6 +228,14 @@ Phases:
            swapped resident continues as a fresh engine on version 1;
            decode steps, tokens/s, decode and prefill ms, swap seconds,
            peak memory, and torch.profiler's split of a decode step.
+  S2       the serving twins on the card at their reference sizes
+           (gemma3-1b smoke, their own seeded weights): ``serve_lm``
+           (prefill + 15 greedy decode steps of 4 prompts of 32; the
+           first tokens against the CPU's prefill of the same weights)
+           and ``serve_continuous`` (12 mixed requests on 4 slots, a
+           published version hot-swapped in once half have finished:
+           every request completes at its length, the residents at the
+           swap end on the new version).
   M        the MoE and MLA decoders at their published widths, depth cut to
            2 layers (1 when the peak reckoned from the bucket layout's rows
            passes 72 GB): M1 olmoe-1b-7b (64 experts top-8, mean sync, W=4),
@@ -1367,7 +1389,7 @@ def phase_h(cfg, a_step_s: float) -> dict:
         raise AssertionError(f"phase H: {', '.join(bad)} (syncs {syncs}, ledger "
                              f"{topo}, launches {counts})")
     REFS["H"] = {"loss": losses, "comm_rounds": summ["comm_rounds"],
-                 "syncs": syncs}
+                 "syncs": syncs, "row_sha": row_digests(state.params.buckets[0])}
     del state
     return counts
 
@@ -2290,6 +2312,77 @@ def phase_s(cfg) -> dict:
     if bad:
         raise AssertionError(f"phase S: {', '.join(bad)} ({rec})")
     return counts
+
+
+def phase_s2() -> dict:
+    """Phase S2: the serving twins on the card at their reference sizes
+    (see the module docstring); returns their launch counts (none: the
+    serving path runs no bucket kernel)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.examples import serve_continuous, serve_lm
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map
+
+    quiet = lambda *a, **k: None
+    gc.collect()
+    t0 = time.perf_counter()
+    out = serve_lm.main([], log=quiet)
+    lm_s = time.perf_counter() - t0
+    # the same weights (the twin's seeded draw on the card) on the CPU: the
+    # prefill's greedy tokens, from one forward each
+    cfg = configs.get_smoke("gemma3-1b")
+    params = mbase.materialize(lm.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(0), "cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    del params
+    with torch.no_grad():
+        logits, _ = lm.prefill(cfg, cpu_params,
+                               torch.as_tensor(out["prompts"]),
+                               max_len=out["prompts"].shape[1] + 16)
+    first_cpu = logits.argmax(-1)[:, 0].numpy()
+    t0 = time.perf_counter()
+    cont = serve_continuous.main([], log=quiet)
+    cont_s = time.perf_counter() - t0
+    done = {r["uid"]: r for r in cont["completed"]}
+    swap = cont["swap"] or {}
+    lengths_ok = len(done) == 12 and all(
+        len(r["tokens"]) == (24 if uid % 4 == 0 else 3)
+        for uid, r in done.items())
+    residents_ok = bool(swap.get("residents")) and all(
+        done[u]["weight_versions"][-1] == swap["version"]
+        and len(done[u]["weight_versions"]) >= 2 for u in swap["residents"])
+    tokens = out["tokens"]
+    rec = {"phase": "S2", "arch": out["arch"],
+           "serve_lm": {"device": out["device"], "batch": 4, "prompt_len": 32,
+                        "gen": 16, "tokens_shape": list(tokens.shape),
+                        "prefill_s": out["prefill_s"],
+                        "decode_s": out["decode_s"],
+                        "first_tokens_equal_cpu": bool(
+                            (tokens[:, 0] == first_cpu).all()),
+                        "wall_s": lm_s},
+           "serve_continuous": {"device": cont["device"],
+                                "requests": len(done),
+                                "tokens_out": cont["tokens_out"],
+                                "steps": cont["steps"],
+                                "tokens_per_s": cont["tokens_out"]
+                                / cont["seconds"],
+                                "swap": swap, "lengths_ok": lengths_ok,
+                                "residents_on_new_version": residents_ok,
+                                "wall_s": cont_s}}
+    emit(rec)
+    bad = [k for k, ok in (
+        ("serve_lm on the card", out["device"].startswith("cuda")
+         and tokens.shape == (4, 16)
+         and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())),
+        ("serve_lm first tokens", rec["serve_lm"]["first_tokens_equal_cpu"]),
+        ("serve_continuous on the card", cont["device"].startswith("cuda")),
+        ("request lengths", lengths_ok),
+        ("hot-swap residents", residents_ok)) if not ok]
+    if bad:
+        raise AssertionError(f"phase S2: {', '.join(bad)}")
+    return {}
 
 
 def read_jsonl(path: Path) -> list:
@@ -3462,6 +3555,8 @@ def phase_w(cfg, b_losses: list, b_wire_bytes: float, b_sync_s: float,
         comp.pack_bucket_signs = pack
     counts = dict(fb.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    # every worker's final params rows, for phase Y's bitwise checks
+    row_sha = row_digests(state.params.buckets[0])
     del state
     first = {k: v.cpu() for k, v in first.items()}
     torch.cuda.empty_cache()
@@ -3548,7 +3643,8 @@ def phase_w(cfg, b_losses: list, b_wire_bytes: float, b_sync_s: float,
                              f"scales {scale_rel}, launches {counts})")
     REFS["W"] = {"loss": losses, "comm_rounds": summ["comm_rounds"],
                  "packed": first["packed"], "scales": first["scales"],
-                 "sync_s_median": statistics.median(syncs)}
+                 "sync_s_median": statistics.median(syncs),
+                 "row_sha": row_sha}
     return counts
 
 
@@ -4299,29 +4395,74 @@ def phase_x(tag: str, arch: str, mode: str, workers: int, layers, seq: int,
 # phase Y: workers across processes (DistributedBackend over gloo, all
 # ranks on card 0; over NCCL one rank a card when the machine has two or
 # more).  Each part: (tag, ranks, the phase it is held against)
-Y_PARTS = (("Y1", 4, "W"), ("Y2", 4, "H"), ("Y3", 2, "L"))
+Y_PARTS = (("Y1", 4, "W"), ("Y2", 4, "H"), ("Y3", 2, "L"), ("Y4", 4, "W"),
+           ("Y5", 4, "H"))
 Y_TIMEOUT_S = 300              # a collective that waits longer fails the rank
 # losses against the one-process phase (relative), readings on an H100
 # 80GB HBM3 at 700 W: Y1 adds what one process adds (0.0, each worker's
 # kernel grid fixed by its rows; 2.2e-7 while it was sized by W).  Y2's
-# and Y3's dense means are all-reduces, which add in gloo's order, not
-# one process's: Y2's rows differ from H's in 59 % of the elements, and
-# its losses read 0.0 until the update kernel's rounding changed, then
-# 1.1e-7, so Y2 takes the 1e-6 that tests/test_torch_distributed.py
-# holds the same all-reduced mean runs to; Y3 (LARS + EF-sign) 6.1e-6
-# and 1.8e-6
-Y_LOSS_TOL = {"Y1": 0.0, "Y2": 1e-6, "Y3": 1e-4}
+# dense means add the workers in worker order (Collectives.ordered_mean)
+# as one process's mean(dim=0) does on the card: 0.0 (1.1e-7 while they
+# were all-reduces, in gloo's ring order, its rows 59 % unequal).  Y3
+# (LARS + EF-sign; its dense mean of +-scale values was an all-reduce)
+# 6.1e-6 and 1.8e-6.  Y4, the tree kernel form, adds what phase W adds:
+# 0.0.  Y5, the plain per-leaf form, against the resident phase H: phase
+# F1's 1e-4
+Y_LOSS_TOL = {"Y1": 0.0, "Y2": 0.0, "Y3": 1e-4, "Y4": 0.0, "Y5": 1e-4}
+# the parts whose final params rows are held bit for bit against their
+# phase's (SHA-256 of each worker's rows)
+Y_ROWS_EQUAL = ("Y1", "Y2", "Y4")
+# build keywords of the tree path's parts (DistributedBackend.build)
+Y_BUILD = {"Y4": dict(resident=False), "Y5": dict(use_kernel=False)}
+Y_PROBE_REPS = 3               # the ordered mean and the all-reduce, each
+# the parts after which the ordered mean is probed against an all-reduce:
+# one worker a rank (Y2) and two (Y3)
+Y_PROBED = ("Y2", "Y3")
 
 
 def y_run(tag: str, cfg, seq: int = 512, local_batch: int = 8):
-    """Phase W's (Y1), H's (Y2) and L's (Y3) RunConfig."""
-    if tag == "Y1":
+    """Phase W's (Y1, Y4), H's (Y2, Y5) and L's (Y3) RunConfig."""
+    ref = dict((t, ph) for t, _, ph in Y_PARTS)[tag]
+    if ref == "W":
         return phase_run("ef_sign", cfg, seq=seq, local_batch=local_batch,
                          wire_pack=True)
-    if tag == "Y2":
+    if ref == "H":
         return phase_run("none", cfg, seq=seq, local_batch=local_batch,
                          block_steps=2)
     return phase_run("ef_sign", cfg, seq=seq, local_batch=local_batch, lars=True)
+
+
+def y_probe(bundle, x, reps: int = Y_PROBE_REPS) -> dict:
+    """Fenced seconds, on every rank together, of the ordered mean of the
+    rank's rows ``x`` and of a plain ``dist.all_reduce`` of their f32 sum
+    (the ring's order; a probe here, not a path of the port)."""
+    import torch
+    import torch.distributed as dist
+
+    def fenced(fn):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize(x.device) if x.is_cuda else None
+            dist.barrier()
+            t0 = time.perf_counter()
+            y = fn()
+            torch.cuda.synchronize(x.device) if x.is_cuda else None
+            dist.barrier()
+            ts.append(time.perf_counter() - t0)
+            del y
+        return ts
+
+    def all_reduce():
+        y = x.float().sum(dim=0)
+        dist.all_reduce(y)
+        return y
+    om = fenced(lambda: bundle.dist.ordered_mean(x, scope="probe"))
+    ar = fenced(all_reduce)
+    return {"ordered_mean_s": om, "all_reduce_s": ar,
+            "ordered_mean_s_median": statistics.median(om),
+            "all_reduce_s_median": statistics.median(ar),
+            "ratio": statistics.median(om) / statistics.median(ar),
+            "bucket_bytes_a_rank": x.numel() * x.element_size()}
 
 
 def free_port() -> int:
@@ -4353,6 +4494,8 @@ def y_rank(r: int, port: int, P: int, tags: tuple, backend: str, out: str,
     from repro_torch.telemetry.stats import round_summary
     from repro_torch.telemetry.trace import Tracer
 
+    from repro_torch.core.local_sgd import is_resident
+
     cfg = paper_lm(spec)
     be = DistributedBackend(W, backend=backend, process_id=r, num_processes=P,
                             coordinator_address=f"localhost:{port}",
@@ -4362,7 +4505,7 @@ def y_rank(r: int, port: int, P: int, tags: tuple, backend: str, out: str,
     try:
         for tag in tags:
             run = y_run(tag, cfg, spec.get("seq", 512), spec.get("local_batch", 8))
-            bundle = be.build(run)
+            bundle = be.build(run, **Y_BUILD.get(tag, {}))
             dev = bundle.device
             cuda = dev.type == "cuda"
             if cuda:
@@ -4399,10 +4542,17 @@ def y_rank(r: int, port: int, P: int, tags: tuple, backend: str, out: str,
             finally:
                 comp.pack_bucket_signs = pack
             counts = dict(fb.LAUNCHES)
+            seg = fb.PORT_LAUNCHES["segment_sum"]
             syncs = {}
             for sp in tracer.spans:
                 if sp.name == "sync":
                     syncs.setdefault(sp.attrs["scope"], []).append(sp.dur_s)
+            # this rank's final params rows as a (W_local, rows, 128) bucket
+            # (a tree state's leaves packed in the resident layout)
+            rows = (state.params.buckets[0] if is_resident(state) else
+                    flatbuf.flatten(flatbuf.build_layout(state.params,
+                                                         leading=1),
+                                    state.params, leading=1)[0])
             led = summ["ledger"]
             rec = {"rank": r, "device": str(dev), "backend": backend,
                    "workers": list(bundle.worker_ids),
@@ -4417,7 +4567,12 @@ def y_rank(r: int, port: int, P: int, tags: tuple, backend: str, out: str,
                    "collectives": bundle.dist.describe(),
                    "peak_mem_GB": (torch.cuda.max_memory_allocated(dev) / 1e9
                                    if cuda else None),
-                   "launches": counts}
+                   "launches": counts, "segment_sum_launches": seg,
+                   "tree_state": not is_resident(state),
+                   "row_sha": row_digests(rows)}
+            if tag in Y_PROBED:
+                rec["probe"] = y_probe(bundle, rows)
+            del rows
             if bundle.telemetry:
                 rec["round_summary"] = round_summary(state.stats,
                                                      dist=bundle.dist)
@@ -4473,12 +4628,17 @@ def y_check(tag: str, P: int, ranks: list, ref: dict, layout, *,
     if tag == "Y3":
         want_launch.update(lars_row_norms=STEPS, fused_lars_bucket=STEPS,
                            row_abs_sum=6, scale_sign_rows=6)
-    else:
+    elif tag != "Y5":           # the plain per-leaf form launches nothing
         want_launch.update(fused_sgd_bucket=STEPS, sq_sum=STEPS)
-    if tag == "Y1":
+    if tag in ("Y1", "Y4"):
         # kernel 3 twice a sync: the compressor's row sums, then the pack's
         want_launch.update(row_abs_sum=12, scale_sign_rows=6)
-    per_round = W * packed if tag == "Y1" else P * bucket
+    wire = tag in ("Y1", "Y4")
+    # the dense means: an ordered mean over the P ranks (global) or over a
+    # block's two (Alg. 5, one worker a rank), to which every rank hands
+    # one f32 bucket, its running total
+    measured = (r0["comm_rounds"]["global"] * (W * packed if wire else P * bucket)
+                + r0["comm_rounds"]["block"] * P * bucket)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["loss"], ref["loss"]))
     tot = r0["collectives"]["totals"]
     handed = sum(v["bytes"] for k, v in tot.items()
@@ -4492,11 +4652,23 @@ def y_check(tag: str, P: int, ranks: list, ref: dict, layout, *,
         ("loss", loss_rel <= Y_LOSS_TOL[tag]),
         ("comm rounds", r0["comm_rounds"] == ref["comm_rounds"]),
         ("measured bytes", r0["ledger"]["cost_sources"] == ["measured"]
-         and r0["ledger"]["measured_bytes"] == rounds * per_round
+         and r0["ledger"]["measured_bytes"] == measured
          and handed * P == r0["ledger"]["measured_bytes"]),
+        ("tree state", all(rc["tree_state"] == (tag in Y_BUILD)
+                           for rc in recs)),
+        ("rows", tag not in Y_ROWS_EQUAL
+         or sum((rc["row_sha"] for rc in recs), []) == ref["row_sha"]),
         ("launches", all(rc["launches"] == want_launch for rc in recs))) if not ok]
-    out = {"loss_max_rel_diff": loss_rel, "measured_bytes_per_round":
-           r0["ledger"]["measured_bytes"] / rounds,
+    out = {"loss_max_rel_diff": loss_rel, "loss_tol": Y_LOSS_TOL[tag],
+           "rows_bit_for_bit": (sum((rc["row_sha"] for rc in recs), [])
+                                == ref["row_sha"] if tag in Y_ROWS_EQUAL
+                                else None),
+           "measured_bytes_per_round": r0["ledger"]["measured_bytes"] / rounds,
+           # what the ranks' point-to-point sends carried (the ordered
+           # mean's chain): all ranks together, a round
+           "sent_bytes_per_round_all_ranks": sum(
+               sum(rc["collectives"]["sent"].get(f"ordered_mean/{s}", 0)
+                   for s in ("global", "block")) for rc in recs) / rounds,
            "ring_bytes_per_round_per_rank": r0["ledger"]["wire_bytes"] / rounds}
     if tag == "Y1" and payload is not None:
         # the signs do not depend on the scale: byte for byte.  The scales,
@@ -4530,6 +4702,15 @@ def y_check(tag: str, P: int, ranks: list, ref: dict, layout, *,
             bad.append("round_summary")
     out["bad"] = bad
     return out
+
+
+def row_digests(x) -> list:
+    """The SHA-256 of each worker's rows of a stacked ``(W, rows, 128)``
+    bucket (its bytes, copied to the host one worker at a time): a bit
+    for bit comparison of rows held in other processes."""
+    import hashlib
+    return [hashlib.sha256(x[w].contiguous().cpu().numpy().tobytes())
+            .hexdigest() for w in range(x.shape[0])]
 
 
 def torch_equal(a, b) -> bool:
@@ -4572,7 +4753,7 @@ def phase_y(cfg, spec: dict | None = None) -> dict:
     launches: dict = {}
     parts = {}
     base = ROOT / "build" / "phase_y"
-    for P, tags in ((4, ("Y1", "Y2")), (2, ("Y3",))):
+    for P, tags in ((4, ("Y1", "Y2", "Y4", "Y5")), (2, ("Y3",))):
         t0 = time.perf_counter()
         out = base / f"gloo{P}"
         ranks = y_spawn(P, tags, "gloo", out, spec)
@@ -4584,6 +4765,7 @@ def phase_y(cfg, spec: dict | None = None) -> dict:
             r0 = ranks[0][tag]
             rec = {"phase": "Y", "part": tag, "model": cfg.name, "W": W,
                    "ranks": P, "workers_per_rank": W // P, "backend": "gloo",
+                   "build": Y_BUILD.get(tag, {}),
                    "devices": [rk[tag]["device"] for rk in ranks],
                    "loss": r0["loss"], "reference_loss": ref["loss"],
                    "comm_rounds": r0["comm_rounds"],
@@ -4597,20 +4779,28 @@ def phase_y(cfg, spec: dict | None = None) -> dict:
                    "ledger_measured_bytes": r0["ledger"]["measured_bytes"],
                    "ledger_ring_bytes_per_rank": r0["ledger"]["wire_bytes"],
                    "collectives": r0["collectives"]["totals"],
-                   # the port hands gloo CUDA tensors; gloo copies each
+                   # the ordered mean's chain crosses the port's own host
+                   # buffers (gloo's send / recv take host tensors); the
+                   # other ops hand gloo CUDA tensors, which it copies
                    # through host memory itself
-                   "staged_through_host": {"by_the_port": [],
-                                           "by_gloo": sorted({
-                                               k.split("/")[0] for k in
-                                               r0["collectives"]["totals"]})},
+                   "staged_through_host": {
+                       "by_the_port": sorted(
+                           {k.split("/")[0] for k in r0["collectives"]["sent"]}),
+                       "by_gloo": sorted(
+                           {k.split("/")[0] for k in r0["collectives"]["totals"]}
+                           - {k.split("/")[0] for k in r0["collectives"]["sent"]})},
                    "spawn_s": spawn_s, **chk}
             if tag == "Y1":
                 rec["phase_W_sync_s_median"] = REFS["W"].get("sync_s_median")
+            if tag in Y_PROBED:
+                rec["probe_every_rank"] = [rk[tag]["probe"] for rk in ranks]
             parts[tag] = rec
             emit(rec)
             for rk in ranks:
                 for k, v in rk[tag]["launches"].items():
                     launches[k] = launches.get(k, 0) + v
+                launches["segment_sum"] = (launches.get("segment_sum", 0)
+                                           + rk[tag]["segment_sum_launches"])
     bad = [f"{t}: {', '.join(r['bad'])}" for t, r in parts.items() if r["bad"]]
     # the dense all-reduce (Y2's global syncs) against the packed all-gather
     # (Y1's), both over four ranks
@@ -4638,7 +4828,12 @@ def phase_y(cfg, spec: dict | None = None) -> dict:
     emit(nccl)
     emit({"phase": "Y", "summary": True,
           "packed_sync_s_Y1": y1, "dense_sync_s_Y2": y2,
-          "dense_over_packed": y2 / y1})
+          "dense_over_packed": y2 / y1,
+          "ordered_mean_vs_all_reduce": {
+              f"{t} ({W // dict((a, b) for a, b, _ in Y_PARTS)[t]} workers a "
+              f"rank)": {k: parts[t]["probe_every_rank"][0][k] for k in
+                         ("ordered_mean_s_median", "all_reduce_s_median",
+                          "ratio")} for t in Y_PROBED}})
     if bad:
         raise AssertionError(f"phase Y: {'; '.join(bad)}")
     return launches
@@ -5116,7 +5311,11 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
 # Each part: (tag, ranks, within-worker size, layout kind, sync
 # compression, LARS, wire pack)
 Q_PARTS = (("Q1", 2, 1, None, "ef_sign", False, True),
-           ("Q2", 4, 2, "fsdp", "ef_sign", True, False))
+           ("Q2", 4, 2, "fsdp", "ef_sign", True, False),
+           ("Q3", 2, 1, None, "ef_sign", False, True))
+# the tree path's kernel form (DistributedBackend keywords): Q3 is Q1 on
+# tree states, held against Q1's one-process run (the same settings)
+Q_BUILD = {"Q3": dict(resident=False)}
 Q_LAYERS = 4                   # paper-lm's depth here (see V_LAYERS)
 Q_RESIZE = {2: 2, 4: 4}        # global round -> W: W=2 runs steps 2-3
 Q_CKPT_STEP = 7                # the checkpoint after round 5's sync (W=4)
@@ -5129,8 +5328,8 @@ Q_CKPT_STEP = 7                # the checkpoint after round 5's sync (W=4)
 # the update kernel's operations rounded one by one (the half-batch
 # rounding carried along another trajectory): its loss bound is about twice
 # the largest reading
-Q_LOSS_TOL = {"Q1": 0.0, "Q2": 2e-5}
-Q_FRAC_TOL = {"Q1": 0.0, "Q2": 1.2e-2}
+Q_LOSS_TOL = {"Q1": 0.0, "Q2": 2e-5, "Q3": 0.0}
+Q_FRAC_TOL = {"Q1": 0.0, "Q2": 1.2e-2, "Q3": 0.0}
 
 
 def q_part(tag: str):
@@ -5241,19 +5440,30 @@ def q_rank(r: int, port: int, tag: str, out: str, spec: dict):
     from repro_torch import configs
     from repro_torch.backend.distributed import DistributedBackend
     from repro_torch.checkpoint.checkpoint import restore_flat, save_flat
-    from repro_torch.core.local_sgd import state_template
+    from repro_torch.core.elastic import resize_state
+    from repro_torch.core.local_sgd import (is_resident, pack_state,
+                                            state_template)
     from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
     from repro_torch.telemetry.trace import Tracer
+    from repro_torch.utils import tree_leaves
 
     cfg = paper_lm(spec)
     _, P, S, kind, *_ = q_part(tag)
     rec = {}
+
+    def leaves(field):
+        """A field's tensors: a resident state's buckets, a tree's leaves."""
+        return (field.buckets if hasattr(field, "buckets")
+                else tree_leaves(field))
     try:
         be = DistributedBackend(W, backend="gloo", process_id=r, num_processes=P,
                                 coordinator_address=f"localhost:{port}",
                                 local_rank=r, device=spec.get("device"),
                                 timeout_s=Y_TIMEOUT_S, within_worker_size=S,
-                                layout=None if kind is None else v_layout(kind))
+                                layout=None if kind is None else v_layout(kind),
+                                **Q_BUILD.get(tag, {}))
         run = q_run(tag, cfg, spec.get("seq", 512), spec.get("local_batch", 8))
         dev = be.rank_device()
         cuda = dev.type == "cuda"
@@ -5274,7 +5484,12 @@ def q_rank(r: int, port: int, tag: str, out: str, spec: dict):
                                   checkpoint_fn=checkpoint_fn)
         counts = {**fb.LAUNCHES, **fb.PORT_LAUNCHES}
         d = be.collectives
-        layout = state.params.layout
+        tree = not is_resident(state)
+        # a tree state's rows in the resident layout (its kernels' checks
+        # and its rows against the one-process buckets)
+        rstate = (pack_state(state, wd_mask=mbase.norm_param_mask(
+            lm.param_specs(cfg))) if tree else state)
+        layout = rstate.params.layout
         ck = [sp.dur_s for sp in tracer.spans if sp.name == "checkpoint"]
         rec.update({
             "rank": r, "device": str(dev), "group": d.layout.group,
@@ -5296,8 +5511,8 @@ def q_rank(r: int, port: int, tag: str, out: str, spec: dict):
                             if cuda else None),
             "reckoned": v_reckon(layout, run, d.layout.w_local,
                                  S > 1 and be.mesh_layout(P).batch_split() > 1),
-            "launches": counts})
-        torch.save([b.float().cpu() for b in state.params.buckets],
+            "tree_state": tree, "launches": counts})
+        torch.save([b.float().cpu() for b in rstate.params.buckets],
                    f"{out}/r{r}.pt")
         if r == 0:
             full = held.pop("state")
@@ -5312,19 +5527,26 @@ def q_rank(r: int, port: int, tag: str, out: str, spec: dict):
             same = {}
             for w in (W, 2):
                 t0 = time.perf_counter()
-                back = restore_flat(path, state_template(state, d, w),
-                                    device=dev)
+                if tree:
+                    # a tree snapshot at W, then W=2 by the slicing fold
+                    back = restore_flat(path, state_template(state, d, W),
+                                        device=dev)
+                    if w != W:
+                        back = resize_state(back, w, fold="slice")
+                else:
+                    back = restore_flat(path, state_template(state, d, w),
+                                        device=dev)
                 restore_s = time.perf_counter() - t0
                 eq = all(
                     torch.equal(x.cpu(), (y if f in ("anchor", "global_u")
                                           else y[:w]))
                     for f in ("params", "momentum", "anchor", "global_u",
                               "ef_memory") if getattr(full, f) is not None
-                    for x, y in zip(getattr(back, f).buckets,
-                                    getattr(full, f).buckets))
+                    for x, y in zip(leaves(getattr(back, f)),
+                                    leaves(getattr(full, f))))
                 eq &= back.step == full.step
                 same[f"W={w}"] = {"equal_gathered": eq, "restore_s": restore_s,
-                                  "device": str(back.params.buckets[0].device)}
+                                  "device": str(leaves(back.params)[0].device)}
                 del back
             rec["restore"] = same
             del full
@@ -5332,10 +5554,11 @@ def q_rank(r: int, port: int, tag: str, out: str, spec: dict):
             if cuda:
                 torch.cuda.empty_cache()
                 # launches of these checks are not counted: read above
-                rec["kernels_vs_plain"] = m_check_kernels(state, run, layout,
+                rec["kernels_vs_plain"] = m_check_kernels(rstate, run, layout,
                                                           lars=True)
-                rec["segment_sum_vs_plain"] = q_check_segment_sum(state, layout)
-        del state
+                rec["segment_sum_vs_plain"] = q_check_segment_sum(rstate,
+                                                                  layout)
+        del state, rstate
     finally:
         with open(f"{out}/rank{r}.json", "w") as f:
             json.dump(rec, f)
@@ -5358,9 +5581,13 @@ def phase_q(cfg, spec: dict | None = None) -> dict:
     base = ROOT / "build" / "phase_q"
     launches: dict = {}
     bad = []
+    refs = {}          # settings -> the one-process run (Q3 takes Q1's)
     for tag, P, S, kind, mode, lars, wire in Q_PARTS:
         t0 = time.perf_counter()
-        ref = q_one_process(tag, cfg, spec)
+        key = (P, S, kind, mode, lars, wire)
+        if key not in refs:
+            refs[key] = (tag, q_one_process(tag, cfg, spec))
+        held_against, ref = refs[key]
         one_s = time.perf_counter() - t0
         out = base / tag
         if out.exists():
@@ -5404,13 +5631,17 @@ def phase_q(cfg, spec: dict | None = None) -> dict:
             ("restore", all(v["equal_gathered"] for v in r0["restore"].values())),
             ("kernels vs plain", all(k["ok"] for k in r0.get("kernels_vs_plain", []))
              and all(k["ok"] for k in r0.get("segment_sum_vs_plain", []))),
-            ("launches", all(rc["launches"]["segment_sum"] > 0 for rc in recs))
+            ("launches", all(rc["launches"]["segment_sum"] > 0 for rc in recs)),
+            ("tree state", all(rc["tree_state"] == (tag in Q_BUILD)
+                               for rc in recs))
         ) if not ok]
         emit({"phase": "Q", "part": tag, "model": cfg.name, "W": W,
               "reduced": {"num_layers": [published.num_layers,
                                          cfg.num_layers]},
               "resize_at": Q_RESIZE, "ranks": P, "within_worker_size": S,
               "layout": kind or "one worker group a rank", "backend": "gloo",
+              "build": Q_BUILD.get(tag, {}),
+              "held_against_one_process_run_of": held_against,
               "sync_compression": mode, "lars": lars, "wire_pack": wire,
               "local_batch": spec.get("local_batch", 8),
               "seq": spec.get("seq", 512),
@@ -5631,7 +5862,8 @@ def main() -> int:
     for tag, run_phase in (
             ("W", lambda: phase_w(cfg, phase_losses["B"], phase_wire["B"],
                                   r_sync_s, step_median["B"])),
-            ("K", lambda: phase_k(cfg)), ("S", lambda: phase_s(cfg))):
+            ("K", lambda: phase_k(cfg)), ("S", lambda: phase_s(cfg)),
+            ("S2", phase_s2)):
         for k, v in run_phase().items():
             launches[k] += v
         torch.cuda.empty_cache()
@@ -5770,8 +6002,9 @@ def main() -> int:
     laps("G")
 
     # launches: phases A, B, L, F, H, E, R, W, K, S, Y, V and Q (every
-    # rank), M, D, Z, X, N, G and the noise check for the bucket kernels, T
-    # for the others; the segmented sum's from phases A, B, L, F and Q
+    # rank; Y4 and Q3 the tree kernel form), M, D, Z, X, N, G and the noise
+    # check for the bucket kernels, T for the others; the segmented sum's
+    # from phases A, B, L, F, Y and Q
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"phase": "seconds", "by_phase": laps.by_phase,

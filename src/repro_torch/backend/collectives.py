@@ -7,8 +7,11 @@ and offers what the distributed local SGD needs.  Over the rank's
 *worker group* (the G ranks that hold its shard index of every worker;
 the whole world when no worker is split):
 
-* :meth:`Collectives.all_reduce_sum` (in place), over the worker group or
-  over an Alg. 5 block's sub-group;
+* :meth:`Collectives.ordered_mean`: the mean over every worker of the
+  worker group (or of an Alg. 5 block's sub-group) that adds the workers
+  in worker order, as one process does: a chained reduce, pipelined over
+  chunks, whose results come back along the chain (the ring all-reduce's
+  traffic in all, at any number of workers a rank);
 * :meth:`Collectives.all_gather` of equal-shaped tensors into one
   ``(G, *shape)`` tensor, in rank order (:meth:`Collectives.gather_workers`
   reshapes it to the W workers);
@@ -31,24 +34,37 @@ or not), and kept by their rank tuple in a cache that outlives a resize:
 the Collectives of the new W finds its shard and worker groups there,
 and makes only the Alg. 5 block groups that the new blocks need.
 
-Every call counts the bytes this rank hands to the collective, by op and
-scope (``totals``), and by sync stage (:meth:`Collectives.take_stage_bytes`,
-which the comms ledger reads as its measured bytes).  All ranks hand
-equal-shaped tensors to each sync collective, so the bytes handed by all
-ranks together are P times this rank's.  Shard-group traffic is never
-counted under a sync stage: the local step's bucket gathers and gradient
-reductions under the scope ``"within"``, the small cross-shard sums of
-partials under ``"shard_sums"``.
+Every call counts the bytes this rank hands to the collective -- its
+input, the one definition for every op (the ordered mean's input is the
+f32 running total the rank hands on: one bucket, as for the all-reduce
+it replaced) -- by op and scope (``totals``), and by sync stage
+(:meth:`Collectives.take_stage_bytes`, which the comms ledger reads as
+its measured bytes).  All ranks hand equal-shaped tensors to each sync
+collective, so the bytes handed by all ranks together are P times this
+rank's.  What the ordered mean's point-to-point sends carry is counted
+apart (``sent``).  Shard-group traffic is never counted under a sync
+stage: the local step's bucket gathers and gradient reductions under the
+scope ``"within"``, the small cross-shard sums of partials under
+``"shard_sums"``.
 
 The ``gloo`` backend of the torch the card runs (2.11) takes all-reduce,
-all-gather, reduce-scatter and broadcast on CUDA tensors, on sub-groups
-too (a probe on the card ran each of them; gloo copies the tensors
-through host memory itself), so nothing is staged here: a backend that
-refused a CUDA tensor would raise, never fall back to the CPU.
+all-gather, all-to-all, reduce-scatter and broadcast on CUDA tensors, on
+sub-groups too (probes on the card ran each of them; gloo copies the
+tensors through host memory itself).  The ordered mean's chain hands its
+``send`` / ``recv`` pinned host buffers of its own (the adds stay on the
+card, one chunk at a time); nothing else is staged here.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+# the ordered mean's chunk (elements): its pipeline's unit over the chain
+OM_CHUNK = 1 << 20
+# how many chunks a rank sends out before it passes a result back on
+OM_LAG = 8
 
 
 class Collectives:
@@ -71,6 +87,7 @@ class Collectives:
                 f"disagrees with the worker layout (rank {layout.rank} of "
                 f"{layout.num_ranks})")
         self.totals: dict = {}          # "op/scope" -> {"calls", "bytes"}
+        self.sent: dict = {}            # "op/scope" -> bytes sent point to point
         self._stage_bytes: dict = {}    # (scope, stage) -> bytes, until taken
         self._groups = groups if groups is not None else {}
         self._blocks: dict = {}         # block size -> sub-group per block
@@ -105,8 +122,10 @@ class Collectives:
         return self.layout.num_ranks
 
     # -- accounting -------------------------------------------------------
-    def _count(self, op: str, x: torch.Tensor, scope: str, stage):
-        nbytes = x.numel() * x.element_size()
+    def _count(self, op: str, x: torch.Tensor, scope: str, stage,
+               nbytes: int | None = None):
+        if nbytes is None:
+            nbytes = x.numel() * x.element_size()
         t = self.totals.setdefault(f"{op}/{scope}", {"calls": 0, "bytes": 0})
         t["calls"] += 1
         t["bytes"] += nbytes
@@ -122,14 +141,120 @@ class Collectives:
                 for i in range(num_stages)]
 
     # -- over the worker group --------------------------------------------
-    def all_reduce_sum(self, x: torch.Tensor, *, scope: str, stage=None,
-                       group=None) -> torch.Tensor:
-        """Sum ``x`` (contiguous) over the worker group's ranks, in place;
-        returns ``x``.  ``group`` is a sub-group from :meth:`block_groups`."""
+    def ordered_mean(self, x: torch.Tensor, *, scope: str, stage=None,
+                     group=None, n: int | None = None) -> torch.Tensor:
+        """The mean over ``n`` workers (default: every worker of the worker
+        group) of this rank's ``(W_local, *shape)`` rows ``x`` and the
+        other members' -> ``shape``, in x's dtype, on every member.
+        ``group`` is a sub-group from :meth:`block_groups` (an Alg. 5
+        block that spans ranks).
+
+        A chained reduce, pipelined over chunks of ``OM_CHUNK`` elements:
+        the Q members in rank order hold workers in worker order, so
+        member 0 adds its rows' chunk in f32 from zero and sends the
+        running total on; member j adds its rows onto what it receives
+        and sends it on; the last member scales and casts the chunk and
+        sends it back along the chain (last -> 0 -> 1 -> ... -> Q - 2).
+        Each element is the sum one process's ``x.mean(dim=0)`` makes
+        (workers in index order from zero, in f32) scaled as it scales:
+        divided by the count on the CPU, times ``f32(out) / f32(in)``
+        elements on the card (``at::mean``'s two forms).  On the card
+        that mean adds in index order only up to four workers (more are
+        split over its accumulators: ``tests/test_torch_cuda.py``), so
+        the equality holds for W <= 4 there and for every W on the CPU.
+
+        Bytes handed: one f32 bucket a rank, the running total it hands
+        on (``totals``, the ledger's measured bytes), as the all-reduce
+        of a rank's presummed rows handed.  Traffic (``sent``): Q - 1
+        f32 partials and Q - 1 results over the chain, the ring
+        all-reduce's 2 (Q - 1) buckets in all at any W_local (member 0
+        and the middle ones send two buckets, the last two one).  Extra
+        memory: the result (one bucket) on the device; the chunks cross
+        ``send`` / ``recv`` in pinned host buffers (a bucket each way)."""
         import torch.distributed as dist
-        self._count("all_reduce", x, scope, stage)
-        dist.all_reduce(x, group=self.worker_group if group is None else group)
-        return x
+        pg = self.worker_group if group is None else group
+        members = dist.get_process_group_ranks(
+            dist.group.WORLD if pg is None else pg)
+        Q, wl = len(members), x.shape[0]
+        j = members.index(dist.get_rank())
+        n = n or wl * Q
+        shape = tuple(x.shape[1:])
+        N = math.prod(shape)
+        rows = x.reshape(wl, N)
+        dev = x.device
+        cuda = dev.type == "cuda"
+        if cuda:
+            # at::mean on the card: the sum times f32(out) / f32(in), the
+            # one process's mean over this bucket's (W, ...) stack
+            W = self.layout.num_workers
+            fac = float(torch.tensor(float(N * (W // n)), dtype=torch.float32)
+                        / torch.tensor(float(N * W), dtype=torch.float32))
+        self._count("ordered_mean", x, scope, stage, nbytes=N * 4)
+        out = torch.empty((N,), dtype=x.dtype, device=dev)
+        last = j == Q - 1
+        nxt = None if last else members[j + 1]
+        # the results' way back: last -> 0 -> 1 -> ... -> Q - 2
+        fprev = None if last else members[j - 1] if j else members[-1]
+        fnext = ((members[0] if Q > 1 else None) if last
+                 else members[j + 1] if j < Q - 2 else None)
+        chunks = [slice(a, min(a + OM_CHUNK, N)) for a in range(0, N, OM_CHUNK)]
+        host = dict(pin_memory=True) if cuda else {}
+        part = (torch.empty((N,), dtype=torch.float32, **host)
+                if Q > 1 else None)
+        fin = torch.empty((N,), dtype=x.dtype, **host) if Q > 1 else None
+        # every receive is posted up front, so no send waits on a receiver
+        precv = ([dist.irecv(part[sl], members[j - 1], group=pg, tag=1)
+                  for sl in chunks] if j else [])
+        frecv = ([dist.irecv(fin[sl], fprev, group=pg, tag=2)
+                  for sl in chunks] if fprev is not None else [])
+        sends, sent = [], 0
+
+        def send(buf, dst, tag):
+            nonlocal sent
+            if cuda:                        # the copy into buf has landed
+                torch.cuda.current_stream(dev).synchronize()
+            sends.append(dist.isend(buf, dst, group=pg, tag=tag))
+            sent += buf.numel() * buf.element_size()
+
+        def take(k):
+            """Result chunk k is back: pass it on, keep it."""
+            frecv[k].wait()
+            if fnext is not None:
+                send(fin[chunks[k]], fnext, 2)
+            out[chunks[k]].copy_(fin[chunks[k]], non_blocking=True)
+
+        for k, sl in enumerate(chunks):
+            if j:
+                precv[k].wait()
+                acc = part[sl].to(dev, non_blocking=True)
+            else:
+                acc = torch.zeros((sl.stop - sl.start,), dtype=torch.float32,
+                                  device=dev)
+            for w in range(wl):             # this rank's workers, in order
+                acc = acc + rows[w, sl].float()
+            if last:
+                res = (acc.mul_(fac) if cuda else acc.div_(n)).to(x.dtype)
+                out[sl].copy_(res)
+                if fnext is not None:
+                    fin[sl].copy_(res, non_blocking=True)
+                    send(fin[sl], fnext, 2)
+                continue
+            part[sl].copy_(acc, non_blocking=True)
+            send(part[sl], nxt, 1)
+            if k >= OM_LAG:
+                # the result of a chunk OM_LAG back is on its way: passing
+                # it on here keeps the way back pipelined with the way out
+                take(k - OM_LAG)
+        for k in range(max(len(frecv) - OM_LAG, 0), len(frecv)):
+            take(k)
+        for s in sends:
+            s.wait()
+        if cuda:
+            # the host buffers outlive the copies out of them
+            torch.cuda.current_stream(dev).synchronize()
+        key = f"ordered_mean/{scope}"
+        self.sent[key] = self.sent.get(key, 0) + sent
+        return out.view(shape)
 
     def all_gather(self, x: torch.Tensor, *, scope: str, stage=None,
                    group=None, n: int | None = None):
@@ -256,4 +381,5 @@ class Collectives:
                 "ranks": self.size,
                 "within_worker_size": self.layout.within_worker_size,
                 "workers": list(self.layout.worker_ids),
-                "totals": {k: dict(v) for k, v in sorted(self.totals.items())}}
+                "totals": {k: dict(v) for k, v in sorted(self.totals.items())},
+                "sent": dict(sorted(self.sent.items()))}

@@ -23,8 +23,11 @@ Launch one process per rank, e.g.::
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m repro_torch.launch.train --backend distributed ...
 
-It refuses up front: ``use_kernel=False`` (the tree path runs in one
-process), a single process (as the reference does), W not a
+``use_kernel=False`` (the reference's default) builds the per-leaf tree
+path on every rank, and ``resident=False`` its tree-in/tree-out kernel
+form: each rank holds its workers' rows of the stacked trees.  It refuses
+up front: the tree path with ``within_worker_size`` > 1 (whole workers
+only), a single process (as the reference does), W not a
 multiple of the worker groups and NCCL with more ranks on a host than it
 has cards (before ``init_process_group``: :func:`check_nccl_ranks`).  It
 never builds a one-process bundle under this backend's name.
@@ -73,7 +76,8 @@ class DistributedBackend(Backend):
                  num_processes: int | None = None, backend: str = "nccl",
                  device=None, local_rank: int | None = None,
                  within_worker_size: int = 1, layout=None,
-                 timeout_s: float | None = None, use_kernel: bool = True):
+                 timeout_s: float | None = None, use_kernel: bool = True,
+                 resident: bool | None = None):
         """Explicit arguments win over torchrun's environment (``RANK``,
         ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``).
         ``device=None`` means ``cuda:LOCAL_RANK % device_count`` (and
@@ -82,15 +86,21 @@ class DistributedBackend(Backend):
         None).  ``within_worker_size`` S > 1 splits every worker over S
         ranks by ``layout`` (a ``sharding.layout.MeshLayout``; sizes it
         lacks are filled in at build: its worker axis gets P / S, its
-        other axis S).  ``use_kernel=False`` (the reference's tree path)
-        raises ``ValueError`` here, before any collective: the tree path
-        runs in one process."""
-        if not use_kernel:
-            raise ValueError("DistributedBackend(use_kernel=False): the tree "
-                             "path runs in one process (LocalBackend or "
-                             "SimulatedBackend); across ranks only the "
-                             "resident path is ported")
+        other axis S).  ``use_kernel`` and ``resident`` go to
+        ``build_train`` on every build (a resize's too): ``use_kernel=False``
+        is the reference's tree path, ``resident=False`` its kernel form;
+        with ``within_worker_size`` > 1 either raises ``ValueError`` here,
+        before any collective."""
+        tree = not use_kernel or resident is False
+        if tree and int(within_worker_size) > 1:
+            raise ValueError(
+                f"DistributedBackend(use_kernel={use_kernel}, resident="
+                f"{resident}, within_worker_size={within_worker_size}): the "
+                "tree path across ranks holds whole workers; a worker split "
+                "over shard ranks runs the resident path only")
         super().__init__(num_workers)
+        self.use_kernel = use_kernel
+        self.resident = resident
         if coordinator_address is None and os.environ.get("MASTER_ADDR"):
             coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
                                    f"{os.environ.get('MASTER_PORT', '29500')}")
@@ -200,6 +210,8 @@ class DistributedBackend(Backend):
         self.collectives = Collectives(grid, groups=self._groups)
         kw.setdefault("device", self.rank_device())
         kw.setdefault("layout", self.mesh_layout(P))
+        kw.setdefault("use_kernel", self.use_kernel)
+        kw.setdefault("resident", self.resident)
         bundle = steps_mod.build_train(run, worker_set=ws,
                                        dist=self.collectives, **kw)
         self._worker_set = bundle.worker_set

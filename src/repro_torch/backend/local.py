@@ -11,7 +11,9 @@ resident state across with :func:`repro_torch.core.elastic.resize_state`.
 The reference's ``mesh`` / ``jit`` arguments have no counterpart: the
 port has one device and nothing to compile.  ``use_kernel`` goes to
 ``build_train``: True (the port's default; the reference's is False)
-builds the resident kernel path, False the per-leaf tree path.
+builds the resident kernel path, False the per-leaf tree path;
+``resident=False`` with the kernels on builds the tree path's
+tree-in/tree-out kernel form.
 ``layout`` (a ``sharding.layout.MeshLayout`` with its sizes) buckets the
 leaves by sharding class, whole on the device, as the reference's
 meshless resident path does.
@@ -32,7 +34,8 @@ class LocalBackend(Backend):
     kind = "local"
 
     def __init__(self, num_workers: int | None = None, *, device=None,
-                 build_fn=None, layout=None, use_kernel: bool = True):
+                 build_fn=None, layout=None, use_kernel: bool = True,
+                 resident: bool | None = None):
         """``device=None`` means the card and raises when CUDA is absent.
         ``build_fn(run, worker_set) -> TrainBundle`` is the seam for models
         outside the launch zoo (tests, benches): a resize calls it back
@@ -43,6 +46,7 @@ class LocalBackend(Backend):
         self.build_fn = build_fn
         self.layout = layout
         self.use_kernel = use_kernel
+        self.resident = resident
 
     def build(self, run, **kw):
         if self.build_fn is not None:
@@ -56,6 +60,7 @@ class LocalBackend(Backend):
         kw.setdefault("device", self.device)
         kw.setdefault("layout", self.layout)
         kw.setdefault("use_kernel", self.use_kernel)
+        kw.setdefault("resident", self.resident)
         bundle = steps_mod.build_train(run, worker_set=self._worker_set, **kw)
         # build_train defaults the census when the backend had none yet
         self._worker_set = bundle.worker_set

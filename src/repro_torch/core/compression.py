@@ -6,7 +6,10 @@ The compressed quantity is the model difference accumulated over H
 local steps; workers exchange sign(Delta) with one L1 scale per leaf
 (signSGD), optionally with an error-feedback memory (EF-signSGD).  On a
 stacked ``(W, ...)`` leaf the scale is mean|x| over the whole leaf, all
-workers together, as the reference's per-leaf compressor computes it.
+workers together, as the reference's per-leaf compressor computes it:
+the port sums each worker's |x| on its own and adds the sums in worker
+order, so that a leaf split over ranks (``across=``) gets the same
+scale.
 :func:`sign_compress` / :func:`ef_compress` take trees, per leaf in
 plain PyTorch (``use_kernel=False``) or packed into ``(W, rows, 128)``
 buckets, compressed by the bucket kernels and unpacked
@@ -27,14 +30,60 @@ import torch
 from repro_torch.core import flatbuf
 from repro_torch.kernels import ops as kops
 from repro_torch.utils import (tree_flatten, tree_leaves, tree_map,
-                               tree_map_pairs, tree_unflatten)
+                               tree_unflatten)
 
 
-def sign_compress_leaf(x):
-    """sign(x) * mean|x| of one tensor, as f32: the 1-bit + scale
-    compressor."""
+def _row_abs_sums(x):
+    """(n,) f32: sum |x| of each of x's n leading rows (a stacked leaf's
+    workers), one reduction a row, so a row's sum does not depend on how
+    many rows lie beside it."""
     xf = x.float()
-    return torch.sign(xf) * xf.abs().mean()
+    if xf.dim() == 0:
+        return xf.abs().reshape(1)
+    return torch.stack([r.abs().sum() for r in xf.unbind(0)])
+
+
+def leaf_abs_totals(leaves, *, across=None):
+    """(L,) f32: sum |x| of each of ``leaves`` over all its leading rows,
+    the rows' sums added one after another in row (worker) order
+    (``kernels.ops.lead_total``).  ``across`` (a
+    ``backend.collectives.Collectives``) holds the other workers' rows on
+    other ranks: every rank's per-worker sums of every leaf are gathered
+    (one all-gather) and added in worker order, the adds one process
+    makes."""
+    per = torch.stack([_row_abs_sums(x) for x in leaves], dim=1)   # (n, L)
+    if across is not None:
+        per = across.gather_workers(per, scope="compress")
+    return kops.lead_total(per)
+
+
+def _leaf_count(x, across=None) -> int:
+    """The element count a stacked leaf's scale averages over: all its
+    workers', every rank's too with ``across``."""
+    if across is None or x.dim() == 0:
+        return x.numel()
+    return x[0].numel() * across.layout.num_workers
+
+
+def sign_compress_leaf(x, *, total=None, across=None):
+    """sign(x) * mean|x| of one tensor, as f32: the 1-bit + scale
+    compressor.  The |x| total is :func:`leaf_abs_totals`'s (its leading
+    rows' sums in row order), or ``total`` when the caller has it; with
+    ``across`` x is this rank's rows of a leaf stacked over every rank's
+    workers, and the mean runs over all of them."""
+    if total is None:
+        total = leaf_abs_totals([x], across=across)[0]
+    return torch.sign(x.float()) * (total / _leaf_count(x, across))
+
+
+def _sign_compress_leaves(leaves, across=None):
+    """:func:`sign_compress_leaf` of every leaf, their totals in one
+    gather across ranks."""
+    if not leaves:
+        return []
+    totals = leaf_abs_totals(leaves, across=across)
+    return [sign_compress_leaf(x, total=t, across=across)
+            for x, t in zip(leaves, totals.unbind(0))]
 
 
 def worker_abs_totals(layout, b: int, x, *, across=None):
@@ -142,52 +191,55 @@ def ef_compress_buckets(layout, dbufs, ebufs, *, leading: int = 0,
     return [o[0] for o in outs], [o[1] for o in outs]
 
 
-def _sign_compress_bucketed(tree, bucketable=None):
+def _sign_compress_bucketed(tree, bucketable=None, across=None):
     """The tree-in/tree-out kernel form on a stacked ``(W, ...)`` tree: the
     leaves packed into ``(W, rows, 128)`` buckets, one ``row_abs_sum`` +
     ``segment_sum`` + ``scale_sign_rows`` launch each (the per-leaf scales
-    over all W workers), unpacked.  Leaves flagged False in ``bucketable``
-    take the per-leaf compressor."""
+    over all W workers; with ``across`` this rank's rows, the totals
+    chained over the ranks in worker order), unpacked.  Leaves flagged
+    False in ``bucketable`` take the per-leaf compressor."""
     leaves, treedef = tree_flatten(tree)
     flags = (tree_leaves(bucketable) if bucketable is not None
              else [True] * len(leaves))
     out: list = [None] * len(leaves)
     on = [i for i, m in enumerate(flags) if m]
-    for i, m in enumerate(flags):
-        if not m:
-            out[i] = sign_compress_leaf(leaves[i])
+    off = [i for i, m in enumerate(flags) if not m]
+    for i, v in zip(off, _sign_compress_leaves([leaves[i] for i in off],
+                                               across)):
+        out[i] = v
     if on:
         sub = [leaves[i] for i in on]
         layout = flatbuf.build_layout(sub, leading=1)
         ys = sign_compress_buckets(
-            layout, flatbuf.flatten(layout, sub, leading=1), leading=1)
+            layout, flatbuf.flatten(layout, sub, leading=1), leading=1,
+            across=across)
         for i, v in zip(on, flatbuf.unflatten(layout, ys, leading=1)):
             out[i] = v
     return tree_unflatten(treedef, out)
 
 
-def sign_compress(tree, *, use_kernel: bool = False, bucketable=None):
+def sign_compress(tree, *, use_kernel: bool = False, bucketable=None,
+                  across=None):
     """sign(x) * mean|x| of every leaf, as f32 (the kernel form takes the
-    stacked ``(W, ...)`` delta of the tree sync)."""
+    stacked ``(W, ...)`` delta of the tree sync).  ``across`` (a
+    ``backend.collectives.Collectives``): the tree holds this rank's
+    workers, and each leaf's scale is the mean over every rank's."""
     if use_kernel:
-        return _sign_compress_bucketed(tree, bucketable)
-    return tree_map(sign_compress_leaf, tree)
+        return _sign_compress_bucketed(tree, bucketable, across)
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, _sign_compress_leaves(leaves, across))
 
 
-def ef_compress(delta, memory, *, use_kernel: bool = False, bucketable=None):
+def ef_compress(delta, memory, *, use_kernel: bool = False, bucketable=None,
+                across=None):
     """Error-feedback compression: compress(delta + e); e' = input - output.
     Returns (compressed, new_memory), both f32, with compressed +
-    new_memory == delta + memory exactly in f32."""
-    if use_kernel:
-        inp = tree_map(lambda d, e: d.float() + e.float(), delta, memory)
-        out = _sign_compress_bucketed(inp, bucketable)
-        return out, tree_map(lambda i, o: i - o, inp, out)
-
-    def leaf(d, e):
-        inp = d.float() + e.float()
-        out = sign_compress_leaf(inp)
-        return out, inp - out
-    return tree_map_pairs(leaf, delta, memory)
+    new_memory == delta + memory exactly in f32 (``across`` as in
+    :func:`sign_compress`)."""
+    inp = tree_map(lambda d, e: d.float() + e.float(), delta, memory)
+    out = sign_compress(inp, use_kernel=use_kernel, bucketable=bucketable,
+                        across=across)
+    return out, tree_map(lambda i, o: i - o, inp, out)
 
 
 def compressed_bytes(tree) -> int:

@@ -39,6 +39,10 @@ one-process ``resize_state``'s rows of its new workers, and no row moves
 between ranks.  The padding of a shard region stays zero: a mean of
 zeros and a clone of zeros.
 
+A tree state across ranks (the tree path with whole workers a rank)
+folds the same way: each rank's ``(W_local, ...)`` leaves from W / G to
+W' / G workers.
+
 The LR co-scaling on a resize (Lau et al. 2024) lives in ``fit``, not
 here: this module is state surgery only.
 """

@@ -55,15 +55,19 @@ Across processes (``make_local_sgd(..., dist=Collectives)``, built by
 ``backend.DistributedBackend``) each rank holds its ``W_local = W / P``
 consecutive workers as the leading rows of its own buckets and takes
 its rows of the global ``(W, B_loc, ...)`` batch.  A global mean sync
-sums the rank's rows, all-reduces them and divides by W; an Alg. 5
-block mean stays on the rank when the block lies inside it and uses the
-block's sub-group when it spans ranks; sign / EF-sign compress each
+is ``Collectives.ordered_mean`` of the rank's rows (a chained reduce
+through the ranks in order, the results passed back along the chain:
+each element the workers' sum in worker order, scaled by 1 / W, as one
+process's ``mean(dim=0)`` makes it);
+an Alg. 5 block mean stays on the rank when the block lies inside it and
+takes the block's sub-group when it spans ranks; sign / EF-sign compress each
 worker's delta on its rank (the shared per-leaf scale from all W
 workers' |x| totals, added rank after rank in worker order); the wire
 pack gathers every worker's ``uint8`` payload and scales and unpacks and
 averages them in worker order, as the one-process path does.
-Per-worker values (losses, metrics, telemetry norms) are gathered,
-summed ones all-reduced, so every rank holds the same numbers.
+Per-worker values (losses, metrics, telemetry norms) are gathered and
+any sum of them added in worker order, so every rank holds the same
+numbers, the one process's.
 
 Within-worker sharding (``make_local_sgd(..., shard_classes=)``, the
 classes of ``flatbuf.shard_classes`` under an FSDP or tensor-parallel
@@ -112,8 +116,21 @@ same form as the step.  As in the reference, momentum and EF memory
 start in the params' dtype and the EF memory and global momentum become
 float32 at the first sync; a sync takes one compressor mode for the whole
 state; gradient noise is drawn per leaf from the state's generator,
-worker after worker; telemetry has one compression-error slot.  The
-tree path runs in one process (``dist`` raises ``ValueError``).
+worker after worker; telemetry has one compression-error slot.  A
+leaf's sign scale adds its workers' |x| sums in worker order, and
+telemetry's compression error and reference add per-worker sums in
+worker order too.
+
+Across ranks (``dist`` of whole workers: within-worker size 1; a worker
+split over shard ranks raises ``ValueError``) each rank holds its
+``W_local`` workers' rows of every stacked leaf and the single-copy
+anchor and global momentum whole.  A global or spanning block mean is
+the ordered mean of the rank's rows (per dtype bucket, or per leaf
+without ``bucket_sync``); the sign scales gather every worker's |x| sums
+(one gather a sync) or, in the kernel form, chain the segmented totals
+rank after rank; the wire pack gathers every worker's packed rows and
+scales (per bucket, or per leaf).  Metrics and per-worker telemetry are
+gathered: given equal inputs, every number is the one process's.
 
 **A kept difference:** the reference defaults ``use_kernel`` to False
 (the tree path); the port defaults it to True (the resident path), so
@@ -241,33 +258,29 @@ def mean_params(state: LocalSGDState, dist=None):
     """Single-copy tree of the worker-averaged model (eval boundary);
     across processes (``dist``, a ``backend.collectives.Collectives``)
     the mean over all W workers of every rank, a sharded bucket's shard
-    regions gathered into its whole rows.  A tree state's (one process
-    only) is each leaf's mean over its worker dim."""
+    regions gathered into its whole rows.  A tree state's is each leaf's
+    mean over its worker dim; across processes its leaves ride dtype
+    buckets through the same ordered mean (one collective a bucket; each
+    element the one process's)."""
     if not is_resident(state):
-        if dist is not None:
-            raise ValueError("the tree path runs in one process: no dist")
-        return mbase.unstack_mean(state.params)
+        if dist is None:
+            return mbase.unstack_mean(state.params)
+        layout = flatbuf.build_layout(state.params, leading=1)
+        return flatbuf.unflatten(layout, [
+            dist.ordered_mean(x, scope="eval")
+            for x in flatbuf.flatten(layout, state.params, leading=1)])
     layout = state.params.layout
     if dist is None:
         means = [b.mean(dim=0) for b in state.params.buckets]
     else:
         means = []
         for b, x in enumerate(state.params.buckets):
-            m = _global_mean(dist, x, scope="eval")
+            m = dist.ordered_mean(x, scope="eval")
             if _is_region(layout, b, m):
                 m = dist.gather_shards(m, scope="eval").reshape(
                     layout.bucket_rows[b], flatbuf.LANE)
             means.append(m)
     return flatbuf.unflatten(layout, means)
-
-
-def _global_mean(dist, x, *, scope: str, stage=None, group=None, n=None):
-    """The mean over all ``n`` workers (default: this rank's rows times the
-    worker groups, W) of this rank's rows of ``x``: the local rows' f32
-    sum, all-reduced, divided by n, in x's dtype."""
-    s = x.float().sum(dim=0)
-    dist.all_reduce_sum(s, scope=scope, stage=stage, group=group)
-    return s.div_(n or x.shape[0] * dist.layout.num_groups).to(x.dtype)
 
 
 # the (W,) fields of a telemetry.stats.StatsAccumulator: one entry a worker
@@ -301,6 +314,8 @@ def gather_state(state: LocalSGDState, dist, *, device="cpu"):
     from the run's seed as one process's does (the other groups' draws
     are not saved: ``fit`` refuses to checkpoint a noisy run over several
     worker groups)."""
+    if not is_resident(state):
+        return _gather_tree_state(state, dist, device=device)
     lay, grid = state.params.layout, dist.layout
     S, G = grid.within_worker_size, grid.num_groups
     lead = dist.rank == 0
@@ -345,12 +360,60 @@ def gather_state(state: LocalSGDState, dist, *, device="cpu"):
     return LocalSGDState(step=state.step, rng=state.rng, stats=stats, **fields)
 
 
+def _gather_stats(stats, dist, *, device):
+    """A telemetry accumulator with its (W,) fields gathered from every
+    worker group in worker order, on rank 0 (None elsewhere, or without
+    stats)."""
+    if stats is None:
+        return None
+    per = {f: dist.gather_workers(getattr(stats, f), scope="checkpoint")
+           for f in _STATS_PER_WORKER}
+    if dist.rank != 0:
+        return None
+    return dataclasses.replace(stats, **{
+        f.name: (per[f.name] if f.name in per
+                 else getattr(stats, f.name)).to(device)
+        for f in dataclasses.fields(stats)})
+
+
+def _gather_tree_state(state: LocalSGDState, dist, *, device):
+    """:func:`gather_state` of a tree state (one worker group a rank): each
+    stacked field's leaves packed into dtype buckets, every bucket
+    gathered onto rank 0 on its own and unpacked there into ``(W, ...)``
+    leaves; the single-copy anchor and global momentum are rank 0's own
+    (every rank holds the same bits)."""
+    lead = dist.rank == 0
+    fields = {}
+    for name in _STACKED + _SINGLE:
+        tree = getattr(state, name)
+        if tree is None or name in _SINGLE:
+            fields[name] = (None if tree is None or not lead
+                            else tree_map(lambda x: x.to(device, copy=True),
+                                          tree))
+            continue
+        layout = flatbuf.build_layout(tree, leading=1)
+        out = []
+        for x in flatbuf.flatten(layout, tree, leading=1):
+            parts = dist.gather_ranks(x, scope="checkpoint")
+            if lead:
+                out.append(parts.reshape((-1,) + tuple(x.shape[1:]))
+                           .to(device))
+            del parts
+        fields[name] = (flatbuf.unflatten(layout, out, leading=1) if lead
+                        else None)
+    stats = _gather_stats(state.stats, dist, device=device)
+    if not lead:
+        return None
+    return LocalSGDState(step=state.step, rng=state.rng, stats=stats, **fields)
+
+
 def state_template(state: LocalSGDState, dist, num_workers: int | None = None):
     """A template of the whole state in the one-process layout (meta
     tensors: a restore puts them on the host) at ``num_workers`` workers
     (default the run's W), for ``checkpoint.restore_flat`` on a rank; the
-    generator is this rank's."""
-    lay, grid = state.params.layout, dist.layout
+    generator is this rank's.  A tree state's template is a tree of
+    ``(W, ...)`` (stacked) and single-copy leaves."""
+    grid = dist.layout
     W = grid.num_workers if num_workers is None else int(num_workers)
     meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
 
@@ -358,6 +421,11 @@ def state_template(state: LocalSGDState, dist, num_workers: int | None = None):
         bs = getattr(state, name)
         if bs is None:
             return None
+        if not flatbuf.is_bucket_state(bs):
+            return tree_map(lambda x: meta(
+                ((W,) + tuple(x.shape[1:])) if name in _STACKED
+                else tuple(x.shape), x.dtype), bs)
+        lay = bs.layout
         bufs = [meta(((W,) if name in _STACKED else ())
                      + (lay.bucket_rows[b], x.shape[-1]), x.dtype)
                 for b, x in enumerate(bs.buckets)]
@@ -383,8 +451,9 @@ def local_state(full: LocalSGDState, dist, device) -> LocalSGDState:
     seeded as the group's), the other groups a generator seeded as
     ``init`` seeds theirs.  A generator that has drawn (a run with gradient
     noise) is refused with ``ValueError`` where it cannot be kept as it
-    is: a new stream would replay the draws."""
-    lay, grid = full.params.layout, dist.layout
+    is: a new stream would replay the draws.  A tree snapshot gives a
+    tree state: its workers' rows of every stacked leaf."""
+    grid = dist.layout
     S, si = grid.within_worker_size, grid.shard
     lo, wl = grid.worker_lo, grid.w_local
 
@@ -392,6 +461,11 @@ def local_state(full: LocalSGDState, dist, device) -> LocalSGDState:
         bs = getattr(full, name)
         if bs is None:
             return None
+        if not flatbuf.is_bucket_state(bs):
+            return tree_map(lambda x: (x[lo:lo + wl] if name in _STACKED
+                                       else x).to(device=device, copy=True)
+                            .contiguous(), bs)
+        lay = bs.layout
         bufs = []
         for b, x in enumerate(bs.buckets):
             if name in _STACKED:
@@ -493,32 +567,81 @@ def _bucketed_map(tree, bucketable, bucket_fn, leaf_fn, leaf_args=None):
     return tree_unflatten(treedef, out)
 
 
-def _group_mean_copy(x, group: int):
-    """:func:`group_mean` as a tensor of its own: its broadcast is a view
-    whose W rows share one storage."""
-    return group_mean(x, group).contiguous()
+def _block_mean(dist, x, group: int, *, scope: str = "global", stage=None):
+    """Mean over blocks of ``group`` consecutive workers of this rank's rows
+    ``x`` (all W at global scope), broadcast back to x's rows (a view): on
+    the rank when its blocks lie inside it (always without ``dist``), else
+    over the block's ranks by ``Collectives.ordered_mean``."""
+    W = x.shape[0] if dist is None else dist.layout.num_workers
+    if dist is None or (group < W and dist.layout.block_is_local(group)):
+        return group_mean(x, group)
+    sub = None
+    if group < W:
+        ranks = dist.layout.block_ranks(group)[dist.layout.worker_lo // group]
+        sub = dist.block_groups(group)[ranks]
+    m = dist.ordered_mean(x, scope=scope, stage=stage, group=sub, n=group)
+    return m[None].expand_as(x)
 
 
-def bucket_group_mean(params, group: int, bucketable=None):
+def _group_mean_copy(x, group: int, dist=None, **kw):
+    """:func:`_block_mean` as a tensor of its own: its broadcast is a view
+    whose rows share one storage."""
+    return _block_mean(dist, x, group, **kw).contiguous()
+
+
+def _worker_mean(x, dist=None, **kw):
+    """The mean over all W workers of a stacked ``x`` -> one copy: the one
+    process's ``mean(dim=0)``, or across ranks the ordered mean of this
+    rank's rows (``kw``: its scope and stage)."""
+    return x.mean(dim=0) if dist is None else dist.ordered_mean(x, **kw)
+
+
+def _stage_of(plan, scope: str):
+    """bucket -> the id of the collective stage of ``plan``'s ``scope`` that
+    carries it (stage 0 for a leaf off the flat bus): the stage a tree
+    sync's measured bytes are booked under."""
+    ids = {b: i for i, st in enumerate(plan.collective_stages(scope))
+           for b in st.buckets}
+    return lambda b: ids.get(b, 0)
+
+
+def bucket_group_mean(params, group: int, bucketable=None, *, dist=None,
+                      scope: str = "global", stage_of=None):
     """:func:`group_mean` per dtype bucket of a stacked tree: one mean per
-    bucket instead of one per leaf."""
-    return _bucketed_map(params, bucketable,
-                         lambda b, lay, j: _group_mean_copy(b, group),
-                         lambda x, _: _group_mean_copy(x, group))
+    bucket instead of one per leaf.  ``dist``: the tree holds this rank's
+    workers, and a block that spans ranks (all W at global scope) is
+    averaged over them; ``stage_of(bucket)`` books its bytes."""
+    stage_of = stage_of or (lambda b: 0)
+    return _bucketed_map(
+        params, bucketable,
+        lambda b, lay, j: _group_mean_copy(b, group, dist, scope=scope,
+                                           stage=stage_of(j)),
+        lambda x, _: _group_mean_copy(x, group, dist, scope=scope,
+                                      stage=stage_of(None)))
 
 
-def bucket_worker_mean(delta, bucketable=None):
+def bucket_worker_mean(delta, bucketable=None, *, dist=None, stage_of=None):
     """The mean over workers per dtype bucket of a stacked tree (the dense
-    sync payload) -> a single-copy tree."""
-    return _bucketed_map(delta, bucketable,
-                         lambda b, lay, j: b.mean(dim=0),
-                         lambda x, _: x.mean(dim=0))
+    sync payload) -> a single-copy tree (``dist``, ``stage_of`` as in
+    :func:`bucket_group_mean`)."""
+    stage_of = stage_of or (lambda b: 0)
+    return _bucketed_map(
+        delta, bucketable,
+        lambda b, lay, j: _worker_mean(b, dist, scope="global",
+                                       stage=stage_of(j)),
+        lambda x, _: _worker_mean(x, dist, scope="global",
+                                  stage=stage_of(None)))
 
 
-def _packed_mean_leaf(d, axis: int = -1):
+def _packed_mean_leaf(d, axis: int = -1, dist=None, stage=None):
     """One leaf's worker mean through the 1-bit wire format, packed along
-    ``axis`` (a per-worker scale)."""
+    ``axis`` (a per-worker scale).  ``dist``: this rank's workers packed,
+    the payload and the scales all-gathered into ``(W, ...)`` (one gather
+    each), unpacked and averaged in worker order, as one process does."""
     packed, scale = comp.pack_signs(d, axis=axis)
+    if dist is not None:
+        packed = dist.gather_workers(packed, scope="global", stage=stage)
+        scale = dist.gather_workers(scale, scope="global", stage=stage)
     return comp.unpack_signs(packed, scale, d.shape[1:], axis=axis).mean(dim=0)
 
 
@@ -587,6 +710,16 @@ def _to_device(v, dev):
     floating values as float32 (features, +-1 targets), values intact."""
     t = torch.as_tensor(v)
     return t.to(dev, torch.float32 if t.is_floating_point() else torch.int64)
+
+
+def _rank_rows(batch, W: int, lo: int, wl: int) -> dict:
+    """This rank's rows ``lo .. lo + wl - 1`` of the global ``(W, B_loc,
+    ...)`` batch every rank is handed."""
+    bad = [k for k, v in batch.items() if len(v) != W]
+    if bad:
+        raise ValueError(f"batch fields {bad} do not have the W={W} rows of "
+                         f"the global batch")
+    return {k: v[lo:lo + wl] for k, v in batch.items()}
 
 
 def _worker_grad(layout, loss_fn, pbs_w, batch_w, gw):
@@ -664,20 +797,39 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                          num_workers: int, wd_mask=None, use_kernel: bool,
                          bucket_sync: bool, bucketable=None,
                          packed_mean_fn=None, telemetry: bool = False,
-                         speculate_compression: bool = False):
+                         speculate_compression: bool = False, dist=None):
     """(init, local_step, sync) of the tree path (see the module
     docstring), the port of the reference's non-resident branch of
-    ``make_local_sgd``."""
+    ``make_local_sgd``.  ``dist`` (one worker group a rank) keeps this
+    rank's ``W / P`` workers' rows of every stacked leaf."""
     ls = run.local_sgd
     opt = run.optim
     W = num_workers
     global_batch = run.shape.global_batch
+    wl = W if dist is None else dist.layout.w_local
+    lo = 0 if dist is None else dist.layout.worker_lo
+    if dist is not None and packed_mean_fn is not None \
+            and packed_mean_fn[0] is not None:
+        raise ValueError("a custom per-leaf wire pack sees one rank's rows: "
+                         "across ranks the port gathers them itself "
+                         "(packed_mean_fn=(None, axes_tree))")
+
+    def gathered(x, scope: str):
+        """Every worker's rows of a per-worker ``x`` (this rank's, in one
+        process all of them), in worker order."""
+        return x if dist is None else dist.gather_workers(x, scope=scope)
+
+    def worker_total(per, scope: str):
+        """Per-worker values ``(W_local, ...)`` -> their total over all W
+        workers, added in worker order (the same adds on any ranks)."""
+        return kops.lead_total(gathered(per, scope))
 
     def init(params_single, seed: int = 0) -> LocalSGDState:
         """Stack a single-copy param tree (tensors on the training device)
-        into W copies; ``seed`` seeds the state's generator (the gradient
-        noise's stream)."""
-        params = stack_tree(params_single, W)
+        into this rank's copies (all W in one process); ``seed`` seeds the
+        state's generator (the gradient noise's stream; across ranks one
+        stream a worker group, from ``(seed, group)``)."""
+        params = stack_tree(params_single, wl)
         dev = tree_leaves(params)[0].device
         return LocalSGDState(
             params=params,
@@ -689,20 +841,24 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
             ef_memory=(init_momentum(params) if ls.sync_compression == "ef_sign"
                        else None),
             step=0,
-            rng=torch.Generator(device=dev).manual_seed(seed),
-            stats=tstats.init_stats(W, 1, dev) if telemetry else None)
+            rng=torch.Generator(device=dev).manual_seed(
+                seed if dist is None else _group_seed(seed, dist.layout.group)),
+            stats=tstats.init_stats(wl, 1, dev) if telemetry else None)
 
     def local_step(state: LocalSGDState, batch, lr_scale=None):
         """One local step of every worker (``batch``: dict of (W, B_loc,
-        ...) arrays or tensors; ``lr_scale`` as on the resident path)."""
+        ...) arrays or tensors, the global batch on every rank; ``lr_scale``
+        as on the resident path)."""
         leaves, treedef = tree_flatten(state.params)
         dev = leaves[0].device
         lr = lr_at(opt, state.step, global_batch=global_batch)
         if lr_scale is not None:
             lr = lr * np.float32(lr_scale)
+        if dist is not None:
+            batch = _rank_rows(batch, W, lo, wl)
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
         grads_w, losses, metrics_w = [], [], []
-        for w in range(W):
+        for w in range(wl):
             src = [x[w].detach().requires_grad_(True) for x in leaves]
             loss, metrics = loss_fn(tree_unflatten(treedef, src),
                                     {k: v[w] for k, v in batch.items()})
@@ -744,9 +900,15 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
             usq = sum(_sumsq(a.float() - b.float(), from_axis=1)
                       for a, b in zip(tree_leaves(p), tree_leaves(p0)))
             stats = tstats.accumulate_step(stats, gsq, usq)
-        metrics = {k: torch.stack([m[k].float() for m in metrics_w]).mean()
-                   for k in metrics_w[0]}
-        metrics["loss"] = torch.stack(losses).mean()
+        # every worker's values (gathered across ranks: one collective a
+        # step), averaged over the same W numbers as one process averages
+        keys = list(metrics_w[0])
+        allv = gathered(torch.stack([
+            torch.stack([m[k].float() for k in keys] + [losses[i].float()])
+            for i, m in enumerate(metrics_w)]), "metrics")
+        metrics = {k: allv[:, j].contiguous().mean()
+                   for j, k in enumerate(keys)}
+        metrics["loss"] = allv[:, -1].contiguous().mean()
         metrics["lr"] = float(lr)
         new = LocalSGDState(params=p, momentum=u, anchor=state.anchor,
                             global_u=state.global_u, ef_memory=state.ef_memory,
@@ -758,7 +920,9 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
         """Execute one scope of a ``SyncPlan`` (built from the config over
         the state's per-worker layout when none is given) on the trees: its
         group and, at global scope, its one compressor mode (a per-bucket
-        mode tuple raises ``ValueError``, as in the reference)."""
+        mode tuple raises ``ValueError``, as in the reference).  Across
+        ranks a block inside the rank averages there, a block that spans
+        ranks and the global mean over their ordered mean."""
         if plan is None:
             plan = splan.make_sync_plan(
                 flatbuf.build_layout(state.params, leading=1), num_workers=W,
@@ -767,6 +931,7 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                 wire_pack=ls.wire_pack, coalesce=ls.sync_coalesce)
         stages = plan.schedule(scope)
         g = next(st.group for st in stages if st.kind == "collective")
+        stage_of = _stage_of(plan, scope)
         if scope == "global":
             if len(set(plan.modes)) != 1:
                 raise ValueError(
@@ -783,9 +948,11 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                     "compression needs an anchor: configure sync_compression/"
                     "global_momentum so the state allocates one (needs_anchor)")
             if bucket_sync:
-                p = bucket_group_mean(state.params, g, bucketable)
+                p = bucket_group_mean(state.params, g, bucketable, dist=dist,
+                                      scope=scope, stage_of=stage_of)
             else:
-                p = tree_map(lambda x: _group_mean_copy(x, g), state.params)
+                p = tree_map(lambda x: _group_mean_copy(
+                    x, g, dist, scope=scope, stage=0), state.params)
             stats = state.stats
             if record:
                 # the centred pair: x_k = p_k - pbar, so pre IS the
@@ -793,7 +960,8 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                 cent = tree_map(lambda a, b: a.float() - b.float(),
                                 state.params, p)
                 stats = tstats.record_sync(
-                    stats, pre_sync_sq=_tree_sumsq_w(cent).mean(),
+                    stats, pre_sync_sq=gathered(_tree_sumsq_w(cent),
+                                                "telemetry").mean(),
                     post_sync_sq=0.0)
             return LocalSGDState(params=p, momentum=state.momentum,
                                  anchor=None, global_u=None, ef_memory=None,
@@ -807,51 +975,56 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                              "memory (sync_compression='ef_sign')")
         delta = tree_map(lambda a, x: a[None] - x, state.anchor, state.params)
         ef = state.ef_memory
-        err = ref = None
-        sq_diff = lambda xs, ys: sum(_sumsq(x.float() - y)
-                                     for x, y in zip(tree_leaves(xs),
-                                                     tree_leaves(ys)))
+        err_w = ref_w = None      # per-worker compression error / reference
+        diff = lambda xs, ys: tree_map(lambda x, y: x.float() - y, xs, ys)
+        ckw = dict(use_kernel=use_kernel, bucketable=bucketable, across=dist)
         if mode == "sign":
             raw = delta
-            delta = comp.sign_compress(delta, use_kernel=use_kernel,
-                                       bucketable=bucketable)
+            delta = comp.sign_compress(delta, **ckw)
             if record:
-                err = sq_diff(raw, delta)
-                ref = _tree_sumsq_w(raw).sum()
+                err_w = _tree_sumsq_w(diff(raw, delta))
+                ref_w = _tree_sumsq_w(raw)
         elif mode == "ef_sign":
-            delta, ef = comp.ef_compress(delta, ef, use_kernel=use_kernel,
-                                         bucketable=bucketable)
+            delta, ef = comp.ef_compress(delta, ef, **ckw)
             if record:
                 # the EF residual e' = input - output IS the error
-                err = _tree_sumsq_w(ef).sum()
-                ref = sum(_sumsq(c + e) for c, e in
-                          zip(tree_leaves(delta), tree_leaves(ef)))
+                err_w = _tree_sumsq_w(ef)
+                ref_w = _tree_sumsq_w(tree_map(lambda c, e: c + e, delta, ef))
         elif record and speculate_compression:
-            cs = comp.sign_compress(delta, use_kernel=use_kernel,
-                                    bucketable=bucketable)
-            err = sq_diff(delta, cs)
-            ref = _tree_sumsq_w(delta).sum()
+            cs = comp.sign_compress(delta, **ckw)
+            err_w = _tree_sumsq_w(diff(delta, cs))
+            ref_w = _tree_sumsq_w(delta)
         if mode != "none" and ls.wire_pack:
             pm, axes_tree = packed_mean_fn or (None, None)
+            if dist is not None:
+                pm = lambda d, axis: _packed_mean_leaf(d, axis, dist, stage=0)
             if bucket_sync:
-                dbar = bucket_packed_mean(delta, bucketable, leaf_fn=pm,
-                                          axes_tree=axes_tree)
+                flat_fn = None if dist is None else (
+                    lambda b, lay, j: _packed_mean_flat(dist, b, lay, j,
+                                                        stage=stage_of(j)))
+                dbar = bucket_packed_mean(delta, bucketable, flat_fn=flat_fn,
+                                          leaf_fn=pm, axes_tree=axes_tree)
             else:
                 pm = pm or _packed_mean_leaf
                 dbar = (tree_map(lambda d: pm(d, -1), delta)
                         if axes_tree is None else tree_map(pm, delta, axes_tree))
         elif bucket_sync:
-            dbar = bucket_worker_mean(delta, bucketable)
+            dbar = bucket_worker_mean(delta, bucketable, dist=dist,
+                                      stage_of=stage_of)
         else:
-            dbar = tree_map(lambda x: x.mean(dim=0), delta)
+            dbar = tree_map(lambda x: _worker_mean(x, dist, scope="global",
+                                                   stage=0), delta)
 
         stats = state.stats
         if record:
             kw = {}
-            if err is not None:
-                kw = dict(comp_err_sq=err[None], comp_ref_sq=ref[None])
+            if err_w is not None:
+                er = worker_total(torch.stack([err_w, ref_w], dim=1),
+                                  "telemetry")
+                kw = dict(comp_err_sq=er[0:1], comp_ref_sq=er[1:2])
             stats = tstats.record_sync(
-                stats, pre_sync_sq=_tree_sumsq_w(delta).mean(),
+                stats, pre_sync_sq=gathered(_tree_sumsq_w(delta),
+                                            "telemetry").mean(),
                 post_sync_sq=sum(_sumsq(d) for d in tree_leaves(dbar)), **kw)
         gu = state.global_u
         if ls.global_momentum > 0:
@@ -861,7 +1034,7 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
             step_tree = dbar
         anchor = tree_map(lambda a, d: (a.float() - d.float()).to(a.dtype),
                           state.anchor, step_tree)
-        return LocalSGDState(params=stack_tree(anchor, W),
+        return LocalSGDState(params=stack_tree(anchor, wl),
                              momentum=state.momentum, anchor=anchor,
                              global_u=gu, ef_memory=ef, step=state.step,
                              stats=stats, rng=state.rng)
@@ -901,8 +1074,16 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         resident = resident_eligible(use_kernel, bucket_sync)
     if not resident:
         if dist is not None:
-            raise ValueError("the tree path runs in one process: "
-                             "use_kernel=False across ranks is not ported")
+            if dist.layout.within_worker_size > 1:
+                raise ValueError(
+                    "the tree path across ranks holds whole workers: a "
+                    f"within-worker grid of {dist.layout.within_worker_size}"
+                    " shard ranks (S > 1) would need per-leaf shard gathers,"
+                    " which are not ported; use the resident path")
+            if dist.layout.num_workers != num_workers:
+                raise ValueError(f"num_workers={num_workers} disagrees with "
+                                 f"the worker layout "
+                                 f"({dist.layout.num_workers} workers)")
         if shard_classes is not None:
             raise ValueError("the tree path buckets on the fly and keeps no "
                              "sharding classes: mark leaves with bucketable=")
@@ -910,7 +1091,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
             run, loss_fn, num_workers=num_workers, wd_mask=wd_mask,
             use_kernel=use_kernel, bucket_sync=bucket_sync,
             bucketable=bucketable, packed_mean_fn=packed_mean_fn,
-            telemetry=telemetry, speculate_compression=speculate_compression)
+            telemetry=telemetry, speculate_compression=speculate_compression,
+            dist=dist)
     if not (use_kernel and bucket_sync):
         raise ValueError("the resident path runs the kernels on buckets: "
                          "resident=True needs use_kernel and bucket_sync")
@@ -932,19 +1114,6 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                          f"over its S={S} shard ranks or not at all")
     gather = (None if dist is None else
               (lambda x, scope: dist.gather_workers(x, scope=scope)))
-
-    def _mean(x, group: int, *, scope: str, stage: int):
-        """Mean over blocks of ``group`` consecutive workers (all W at
-        global scope), broadcast back to this rank's rows: on the rank
-        when its blocks lie inside it, else over the block's ranks."""
-        if dist is None or (group < W and dist.layout.block_is_local(group)):
-            return group_mean(x, group)
-        sub = None
-        if group < W:
-            ranks = dist.layout.block_ranks(group)[lo // group]
-            sub = dist.block_groups(group)[ranks]
-        m = _global_mean(dist, x, scope=scope, stage=stage, group=sub, n=group)
-        return m[None].expand_as(x)
 
     def _own(layout, b, x):
         """This rank's rows of bucket ``b`` from its whole rows ``x``: its
@@ -1034,12 +1203,7 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
         if lr_scale is not None:
             lr = lr * np.float32(lr_scale)
         if dist is not None:
-            # every rank is handed the global batch and takes its rows
-            bad = [k for k, v in batch.items() if len(v) != W]
-            if bad:
-                raise ValueError(f"batch fields {bad} do not have the W={W} "
-                                 f"rows of the global batch")
-            batch = {k: v[lo:lo + wl] for k, v in batch.items()}
+            batch = _rank_rows(batch, W, lo, wl)
             if batch_split > 1:
                 # FSDP: this shard rank's 1/S of every worker's batch
                 n = len(next(iter(batch.values()))[0])
@@ -1139,7 +1303,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                 if st.kind == "collective":
                     ci += 1
                     for b in st.buckets:
-                        m = _mean(pb[b], st.group, scope=scope, stage=ci)
+                        m = _block_mean(dist, pb[b], st.group, scope=scope,
+                                        stage=ci)
                         if record:
                             # centred pair: x_k = p_k - pbar, taken before the
                             # in-place copy; pre IS the dispersion, post = 0
@@ -1222,10 +1387,8 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
                                 if dist is None else
                                 _packed_mean_flat(dist, x[b], layout, b,
                                                   stage=ci))
-                        elif dist is None:
-                            outs.append(x[b].mean(dim=0))
                         else:
-                            outs.append(_global_mean(dist, x[b],
+                            outs.append(_worker_mean(x[b], dist,
                                                      scope="global", stage=ci))
                 for b, db in zip(st.buckets, outs, strict=True):
                     # the unpack emits sign(+1) * scale in padding slots:

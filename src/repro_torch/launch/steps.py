@@ -9,7 +9,7 @@ the reference selects with ``use_kernel=True`` — so every local step runs
 the fused SGD or LARS kernels and every sign / EF-sign sync the
 compressor kernels.  ``use_kernel=False`` builds the reference's default,
 the per-leaf tree path (``core.local_sgd``'s tree branch, plain PyTorch),
-in one process only.  **A kept difference:** the reference's default is
+in one process or across ranks of whole workers.  **A kept difference:** the reference's default is
 ``use_kernel=False``; the port's stays True, so that no caller moves off
 the kernels without asking.  The sync plan takes the config's topology
 (``syncplan.resolve_topology``: hierarchical when ``block_steps > 1``).
@@ -100,16 +100,20 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
 
     ``use_kernel=False`` builds the tree path, and ``resident=False`` with
     the kernels on its tree-in/tree-out kernel form (the reference's
-    ``make_local_sgd(use_kernel=True, resident=False)``); either raises
-    ``ValueError`` with a ``dist``: the tree path runs in one process.
-    With a ``layout`` the tree path's sharded leaves
+    ``make_local_sgd(use_kernel=True, resident=False)``); with a ``dist``
+    each rank holds its workers' rows of the stacked trees (whole workers
+    only: a within-worker grid, S > 1, raises ``ValueError`` before any
+    collective).  With a ``layout`` the tree path's sharded leaves
     stay off the flat bus (``bucketable``) and the wire pack packs each of
     them along its largest unsharded dim (``local_sgd.pack_axes_tree``),
     as the reference's tree path does on a mesh."""
     tree = not use_kernel or resident is False
-    if dist is not None and tree:
-        raise ValueError("use_kernel=False builds the tree path, which runs "
-                         "in one process: it is not ported across ranks")
+    if dist is not None and tree and dist.layout.within_worker_size > 1:
+        raise ValueError(
+            "the tree path (use_kernel=False or resident=False) across ranks "
+            "holds whole workers: a within-worker grid of "
+            f"{dist.layout.within_worker_size} shard ranks (S > 1) is not "
+            "ported for it; use the resident path")
     if worker_set is not None:
         if num_workers is not None and num_workers != worker_set.num_workers:
             raise ValueError(

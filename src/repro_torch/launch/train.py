@@ -36,7 +36,11 @@ sub-groups; ``checkpoint_fn`` gets the whole state in the one-process
 layout on rank 0 (``core.local_sgd.gather_state``; the other ranks take
 part in the gather and call nothing).  A worker split over shard ranks
 (``DistributedBackend(within_worker_size=S, layout=)``) runs the same
-loop; eval reads ``mean_params``, which gathers the shard regions.
+loop; eval reads ``mean_params``, which gathers the shard regions.  The
+tree path across ranks (``DistributedBackend(use_kernel=False)`` or
+``resident=False``, whole workers a rank) runs it on tree states: the
+sync layout comes from the stacked leaves, a resize folds each rank's
+leaves, and the checkpoint gets the gathered one-process tree state.
 
 With a ``telemetry.trace.Tracer`` the loop is span-instrumented —
 ``round`` / ``local_steps`` / ``sync`` (+ per-stage ``collective``

@@ -1340,3 +1340,227 @@ def test_sharded_layout_trainer_on_card_matches_cpu(cuda, kind):
                   "scale_sign_rows": 8, "lars_row_norms": 0,
                   "fused_lars_bucket": 0}
     assert all(v == 0 for v in cc.values())
+
+
+def _card_mean_scale(x) -> float:
+    """``at::mean``'s factor on the card for a mean over dim 0 of ``x``:
+    f32(output elements) / f32(input elements)."""
+    n_out = x[0].numel()
+    return float(torch.tensor(float(n_out), dtype=torch.float32)
+                 / torch.tensor(float(x.numel()), dtype=torch.float32))
+
+
+def _ordered(x):
+    """The workers of ``x`` added in index order from zero in f32, scaled
+    as the card's mean scales, rounded once to x's dtype."""
+    acc = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
+    for w in range(x.shape[0]):
+        acc = acc + x[w].float()
+    return (acc * _card_mean_scale(x)).to(x.dtype)
+
+
+def _workers(g, W, shape, dtype, device):
+    return (torch.randn((W,) + shape, generator=g, device=device)
+            * torch.rand((W,) + (1,) * len(shape), generator=g,
+                         device=device) * 10).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mean_adds_workers_in_index_order(cuda, dtype):
+    """The card's ``x.mean(dim=0)`` over up to four workers (W = 4 and 2:
+    the resident and tree paths' dense sync, and ``group_mean``'s blocks
+    of two; W = 3) adds them in index order from zero, in f32, then
+    scales by f32(out) / f32(in) and rounds once: the sum
+    ``Collectives.ordered_mean`` makes across ranks, so a dense mean
+    across ranks is one process's bit for bit.  Shapes: a bucket of
+    paper-lm smoke's rows and stacked leaves of the tree path."""
+    from repro_torch.core.local_sgd import group_mean
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for W in (4, 3, 2):
+        for shape in ((3096 + 5, 128), (768,), (512, 64), (5,), (1, 768)):
+            x = _workers(g, W, shape, dtype, cuda)
+            assert torch.equal(x.mean(dim=0), _ordered(x)), (W, shape)
+    x = torch.randn((4, 3101, 128), generator=g, device=cuda).to(dtype)
+    gm = group_mean(x, 2)
+    assert torch.equal(gm[0], _ordered(x[:2])) and torch.equal(gm[3],
+                                                               _ordered(x[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [5, 6, 8])
+def test_cuda_mean_of_more_than_four_workers_splits_them(cuda, W):
+    """The limit of the equality above: beyond four workers the card's
+    mean over dim 0 adds worker w into accumulator w % 4 and then adds
+    the four in order, so a sum in index order (``ordered_mean``'s) is
+    not its bits; the port's dense means are one process's bit for bit
+    on the card for W <= 4 only."""
+    g = torch.Generator(device=cuda).manual_seed(W)
+    for shape in ((3101, 128), (768,), (5,)):
+        x = _workers(g, W, shape, torch.float32, cuda)
+        acc = [torch.zeros(shape, device=cuda) for _ in range(4)]
+        for w in range(W):
+            acc[w % 4] = acc[w % 4] + x[w]
+        four = ((acc[0] + acc[1]) + acc[2]) + acc[3]
+        assert torch.equal(x.mean(dim=0), four * _card_mean_scale(x)), shape
+    assert not torch.equal(x.mean(dim=0), _ordered(x))
+
+
+_MEAN_RANKS = '''
+import socket, sys
+import torch
+import torch.multiprocessing as mp
+
+def rank(r, port, P, W, out):
+    import torch.distributed as dist
+    from repro_torch.backend.collectives import Collectives
+    from repro_torch.sharding.layout import WorkerLayout
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=P, rank=r)
+    c = Collectives(WorkerLayout(W, P, r))
+    wl = W // P
+    res = {}
+    for i, (shape, dt) in enumerate((((3101, 128), torch.float32),
+                                     ((3101, 128), torch.bfloat16),
+                                     (((1 << 21) + 3,), torch.float32),
+                                     ((5,), torch.float32))):
+        g = torch.Generator(device="cuda").manual_seed(i)
+        full = (torch.randn((W,) + shape, generator=g, device="cuda")
+                * torch.rand((W,) + (1,) * len(shape), generator=g,
+                             device="cuda") * 10).to(dt)
+        x = full[r * wl:(r + 1) * wl].contiguous()
+        res[i] = bool(torch.equal(c.ordered_mean(x, scope="global"),
+                                  full.mean(dim=0)))
+    torch.save(res, f"{out}/m{P}_{W}_{r}.pt")
+    dist.destroy_process_group()
+
+if __name__ == "__main__":
+    out = sys.argv[1]
+    for P, W in ((3, 3), (2, 4), (4, 4)):
+        s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
+        s.close()
+        mp.spawn(rank, args=(port, P, W, out), nprocs=P)
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_ordered_mean_across_ranks_is_one_process_mean(cuda, tmp_path):
+    """``Collectives.ordered_mean`` of CUDA rows on ``gloo`` ranks of the
+    card (3 x 1, 2 x 2, 4 x 1 workers; f32, bf16, a size of three chunks
+    with a short last one, a part of one) equals one process's
+    ``mean(dim=0)`` of all W workers on the card bit for bit."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    script = tmp_path / "mean.py"
+    script.write_text(_MEAN_RANKS)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, str(script), str(tmp_path)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    for P, W in ((3, 3), (2, 4), (4, 4)):
+        for r in range(P):
+            got = torch.load(tmp_path / f"m{P}_{W}_{r}.pt")
+            assert all(got.values()), (P, W, r, got)
+
+
+_TREE_RANKS = '''
+import json, socket, sys
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+sys.path.insert(0, sys.argv[3])
+from _torch_tree_variants import B, FORMS, W, make_data, make_run
+from repro_torch import configs
+from repro_torch.backend.distributed import DistributedBackend
+from repro_torch.backend.local import LocalBackend
+from repro_torch.configs import base as tcb
+from repro_torch.data.partition import ShardedBatches
+from repro_torch.kernels import fused_bucket as fb
+from repro_torch.launch import train as ttrain
+from repro_torch.models import base as mbase
+from repro_torch.utils import tree_leaves, tree_map
+
+def train(be, form, out, tag):
+    run = make_run(tcb, configs.get_smoke("paper-lm"), "ef_wire_gm")
+    bundle = be.build(run)
+    p0 = mbase.materialize(bundle.specs, torch.Generator().manual_seed(0), "cpu")
+    fb.reset_launches()
+    state, hist, _ = ttrain.fit(run, ShardedBatches(make_data(), W, B),
+                                backend=be, bundle=bundle, log=lambda *a: None,
+                                params0=tree_map(lambda t: t.to("cuda"), p0))
+    np.savez(f"{out}/{tag}.npz", *[x.float().cpu().numpy()
+                                   for x in tree_leaves(state.params)])
+    with open(f"{out}/{tag}.json", "w") as f:
+        json.dump({"loss": [h["loss"] for h in hist],
+                   "launches": dict(fb.LAUNCHES)}, f)
+
+def rank(r, port, out):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    for form, kw in FORMS.items():
+        be = DistributedBackend(W, backend="gloo", device="cuda:0",
+                                coordinator_address=f"localhost:{port}",
+                                process_id=r, num_processes=2, **kw)
+        train(be, form, out, f"r{r}.{form}")
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+if __name__ == "__main__":
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = sys.argv[1]
+    for form, kw in FORMS.items():
+        train(LocalBackend(W, device="cuda", **kw), form, out, f"one.{form}")
+    s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
+    s.close()
+    mp.spawn(rank, args=(port, out), nprocs=2)
+'''
+
+
+@pytest.mark.cuda
+def test_tree_path_across_ranks_on_card(cuda, tmp_path):
+    """The tree path's two forms on 2 ``gloo`` ranks of the card (EF-sign,
+    the wire pack, global momentum; paper-lm smoke) against the same form
+    in one process on the card: losses and every worker's params bit for
+    bit, and the launches.  The kernel form launches the update and
+    compressor kernels on every rank, the plain form only its wire pack's
+    row sums (the pack's scales); the two forms agree within the plain-vs-kernel
+    test's bounds (losses rtol 1e-4)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    script = tmp_path / "ranks.py"
+    script.write_text(_TREE_RANKS)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, str(script), str(tmp_path),
+                          str(root / "tests"), str(root / "tests")],
+                         capture_output=True,
+                         text=True, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    load = lambda tag: (json.loads((tmp_path / f"{tag}.json").read_text()),
+                        np.load(tmp_path / f"{tag}.npz"))
+    for form in ("plain", "kernel"):
+        one_m, one_a = load(f"one.{form}")
+        ranks = [load(f"r{r}.{form}") for r in range(2)]
+        for m, _ in ranks:
+            assert m["loss"] == one_m["loss"], form
+            # a rank launches what one process does (one launch a bucket
+            # for its rows); the plain form's update and compressor launch
+            # nothing, its wire pack's scale sums the bucket row sums
+            assert m["launches"] == one_m["launches"], form
+            kl = m["launches"]
+            if form == "kernel":
+                assert kl["fused_sgd_bucket"] > 0 and kl["scale_sign_rows"] > 0
+            else:
+                assert kl["fused_sgd_bucket"] == kl["sq_sum"] == \
+                    kl["scale_sign_rows"] == 0 and kl["row_abs_sum"] > 0
+        for i in range(len(one_a.files)):
+            got = np.concatenate([a[f"arr_{i}"] for _, a in ranks])
+            assert np.array_equal(got, one_a[f"arr_{i}"]), (form, i)
+    np.testing.assert_allclose(load("one.kernel")[0]["loss"],
+                               load("one.plain")[0]["loss"], rtol=1e-4)

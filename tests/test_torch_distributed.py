@@ -13,16 +13,21 @@ also runs every variant in one process at W=4, with one thread as the
 ranks have, and keeps what each run ends with.
 
 * The ranks' buckets, assembled into ``(W, ...)``, equal the one-process
-  run's bit for bit where no all-reduce enters (the wire pack's gathers:
-  the whole EF-sign + ``wire_pack`` run; the first Alg. 5 block sync, a
-  mean of two), within 1e-6 of the largest entry elsewhere (an
-  all-reduce sums in another order).
+  run's bit for bit in every variant: the wire pack's gathers, the dense
+  means (``Collectives.ordered_mean`` adds the workers in worker order,
+  as one process's ``mean(dim=0)`` does) and the compressors' chained
+  scales add what one process adds.
 * Losses, comm rounds and controller decisions are identical on every
-  rank; losses within 1e-6 of the one-process run's (equal for the wire
-  pack), decisions equal.
+  rank and equal the one-process run's.
 * The ledger's rows are ``measured``: their bytes equal the bytes the
   ranks handed to each collective (W x (rows x 16 + 4 x leaves) a
-  wire-packed sync, P x the bucket a dense one).
+  wire-packed sync; a dense one the ordered mean's, one f32 bucket a
+  rank, as the all-reduce it replaced handed).
+* The ordered mean alone (a third spawn, 4 ranks x 1 worker and 2 x 2):
+  one process's ``x.mean(dim=0)`` bit for bit, f32 and bf16 buckets,
+  sizes of many chunks, of part of one and with a short last one; the
+  bytes handed, and the traffic its chain sends (the ring all-reduce's
+  2 (P - 1) buckets in all).
 * The distributed run against the reference's ``fit`` from the same
   weights, at ``tests/test_torch_fit.py``'s tolerances: losses rtol 1e-5,
   comm rounds, the sync pattern and the ledger's ring-model rows exact.
@@ -56,11 +61,6 @@ from _torch_dist_variants import B, STEPS, VARIANTS, W, make_data, make_run
 
 ROOT = Path(__file__).resolve().parents[1]
 SPAWNS = (4, 2)        # ranks: 4 x 1 worker, 2 x 2 workers
-BITWISE = ("ef_sign_wire",)
-DENSE = ("mean", "alg5", "global_momentum")
-# sign flips a run may take against the one-process run (measured up to
-# 1.1e-3 of the elements in 8 steps at lr 0.3, H=2)
-FLIP_FRAC = 2e-3
 
 
 # every rank (and the one-process oracle) trains each variant through fit
@@ -205,11 +205,6 @@ def _assembled(res, P, name, field):
     return np.concatenate(parts)
 
 
-def _close(got, want, rel):
-    scale = max(float(np.abs(want).max()), 1e-30)
-    return float(np.abs(got - want).max()) <= rel * scale
-
-
 @pytest.mark.parametrize("P", SPAWNS)
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_ranks_match_one_process(spawned, P, name):
@@ -230,51 +225,33 @@ def test_ranks_match_one_process(spawned, P, name):
         m["comm_rounds"]["global"]
     for got, want in zip(m["decisions"], one_m["decisions"]):
         _same_decision(got, want)
-    if name in BITWISE:
-        assert m["loss"] == one_m["loss"]
-        for f in one_a:
-            assert np.array_equal(_assembled(res, P, name, f), one_a[f]), f
-        return
-    # the first sync agrees to a rounding: an all-reduce sums in another
-    # order than one process does
-    assert _close(_assembled(res, P, name, "first"), one_a["first"], 1e-6)
-    if name in DENSE:
-        np.testing.assert_allclose(m["loss"], one_m["loss"], rtol=1e-6)
-        # the synced model within 1e-6 of its largest entry; momentum and
-        # global momentum, which sum gradients of the models those
-        # roundings moved, within 1e-5 (measured up to 2.2e-6)
-        for f, rel in (("params", 1e-6), ("anchor", 1e-6),
-                       ("momentum", 1e-5), ("global_u", 1e-5)):
-            if f in one_a:
-                got = _assembled(res, P, name, f)
-                assert _close(got, one_a[f], rel), (f, np.abs(got - one_a[f]).max())
-        return
-    # sign modes without the wire pack: the mean of +-scale values rounds
-    # in the all-reduce's order, and a delta within that rounding of 0
-    # takes the other sign and moves its element by a whole scale (as on
-    # the card against the CPU): losses within test_torch_fit's 1e-5, all
-    # but FLIP_FRAC of the model's elements within 1e-6 of the largest
-    np.testing.assert_allclose(m["loss"], one_m["loss"], rtol=1e-5)
-    for f in ("params", "anchor"):
-        got, want = _assembled(res, P, name, f), one_a[f]
-        frac = float((np.abs(got - want) > 1e-6 * np.abs(want).max()).mean())
-        assert frac <= FLIP_FRAC, (f, frac)
+    assert m["loss"] == one_m["loss"]
+    for f in one_a:
+        assert np.array_equal(_assembled(res, P, name, f), one_a[f]), f
 
 
 @pytest.mark.parametrize("P", SPAWNS)
 def test_first_block_sync_bit_for_bit(spawned, P):
     """Alg. 5's first sync (step 0) is a block mean of two workers: across
-    ranks (P=4) a two-member all-reduce, inside a rank (P=2) the
+    ranks (P=4) a two-member ordered mean, inside a rank (P=2) the
     one-process reshape-mean: the same bits either way."""
     res = spawned[P]
     assert res["one"]["alg5"][1]["synced"][0] == "block"
     got = np.concatenate([res[f"r{r}"]["alg5"][0]["first"] for r in range(P)])
     assert np.array_equal(got, res["one"]["alg5"][0]["first"])
-    # the mean flat run's first sync is a global all-reduce: close, and
+    # the mean flat run's first sync is a global ordered mean: equal, and
     # workers agree after it
     got = np.concatenate([res[f"r{r}"]["mean"][0]["first"] for r in range(P)])
-    assert _close(got, res["one"]["mean"][0]["first"], 1e-6)
+    assert np.array_equal(got, res["one"]["mean"][0]["first"])
     assert all(np.array_equal(got[0], g) for g in got[1:])
+
+
+def _ordered_sent(Q: int, N: int, esize: int) -> int:
+    """The bytes all Q members of an ordered mean of N elements send
+    together: Q - 1 f32 running totals on the way out, Q - 1 results in
+    the bucket's dtype on the way back (``Collectives.ordered_mean``) --
+    at f32 the ring all-reduce's 2 (Q - 1) buckets."""
+    return (Q - 1) * N * (4 + esize)
 
 
 @pytest.mark.parametrize("P", SPAWNS)
@@ -295,26 +272,120 @@ def test_ledger_measured_bytes(spawned, P):
         # the ring model's rows are the one-process run's
         for k in ("sync_rounds", "wire_bytes", "collectives", "topologies"):
             assert led[k] == one[k], (name, k)
-        # a block inside a rank (P=2) hands nothing to a collective
-        rounds = m["comm_rounds"]["global"] + (
-            m["comm_rounds"]["block"] if P == 4 else 0)
-        per_round = W * packed if name == "ef_sign_wire" else P * bucket
-        assert led["measured_bytes"] == rounds * per_round, name
+        # a block inside a rank (P=2) hands nothing to a collective; one
+        # that spans two ranks (P=4) is an ordered mean over two members
+        g_rounds = m["comm_rounds"]["global"]
+        b_rounds = m["comm_rounds"]["block"] if P == 4 else 0
         tot = m["totals"]
         if name == "ef_sign_wire":
-            # payload and scales gathered, nothing all-reduced in a sync
-            assert tot["all_gather/global"]["bytes"] * P == rounds * W * packed
-            assert "all_reduce/global" not in tot
+            assert led["measured_bytes"] == g_rounds * W * packed
+            # payload and scales gathered, nothing averaged densely
+            assert tot["all_gather/global"]["bytes"] * P == g_rounds * W * packed
+            assert "ordered_mean/global" not in tot
         else:
-            ar = tot["all_reduce/global"]["bytes"] + \
-                tot.get("all_reduce/block", {"bytes": 0})["bytes"]
-            assert ar * P == rounds * P * bucket, name
+            # each rank hands one f32 bucket, its running total, to every
+            # ordered mean: the all-reduce's count before it
+            want = (g_rounds + b_rounds) * P * bucket
+            assert led["measured_bytes"] == want, name
+            om = tot["ordered_mean/global"]["bytes"] + \
+                tot.get("ordered_mean/block", {"bytes": 0})["bytes"]
+            assert om * P == want, name
+            assert "all_reduce/global" not in tot
         if name == "alg5":
             blocks = m["comm_rounds"]["block"]
             assert blocks == 3
-            assert ("all_reduce/block" in tot) == (P == 4)   # P=2: in-rank
+            assert ("ordered_mean/block" in tot) == (P == 4)   # P=2: in-rank
         # the per-step loss and metrics gather: one a step
         assert tot["all_gather/metrics"]["calls"] == STEPS
+
+
+# the ordered mean alone: every rank writes its results for a few shapes
+_MEAN_SCRIPT = textwrap.dedent('''
+    import socket, sys
+    import torch
+    import torch.multiprocessing as mp
+
+    SHAPES = (((37, 128), torch.float32), ((37, 128), torch.bfloat16),
+              ((3, 5), torch.float32), ((3, 1000), torch.float32))
+
+    def rank(r, port, P, W, out):
+        import torch.distributed as dist
+        from repro_torch.backend import collectives
+        from repro_torch.backend.collectives import Collectives
+        from repro_torch.sharding.layout import WorkerLayout
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=P, rank=r)
+        c = Collectives(WorkerLayout(W, P, r))
+        collectives.OM_CHUNK, collectives.OM_LAG = 256, 2   # 12 chunks
+        wl = W // P
+        res = {}
+        for i, (shape, dt) in enumerate(SHAPES):
+            g = torch.Generator().manual_seed(i)
+            full = (torch.randn((W,) + shape, generator=g)
+                    * torch.rand((W, 1, 1), generator=g) * 10).to(dt)
+            x = full[r * wl:(r + 1) * wl].contiguous()
+            res[i] = (c.ordered_mean(x, scope="global", stage=0),
+                      full.mean(dim=0))
+        if wl == 1:
+            # an Alg. 5 block of two workers over its sub-group
+            sub = c.block_groups(2)[c.layout.block_ranks(2)[r // 2]]
+            res["block"] = (c.ordered_mean(x, scope="block", group=sub, n=2),
+                            full[2 * (r // 2):2 * (r // 2) + 2].mean(dim=0))
+        res["totals"] = c.totals
+        res["sent"] = c.sent
+        res["stage"] = c.take_stage_bytes("global", 1)
+        torch.save(res, f"{out}/m{P}_{r}.pt")
+        dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        out = sys.argv[1]
+        for P in (4, 2):
+            s = socket.socket()
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+            s.close()
+            mp.spawn(rank, args=(port, P, 4, out), nprocs=P)
+''')
+
+
+def test_ordered_mean_is_one_process_mean(tmp_path):
+    """C.6: the dense mean across ranks equals one process's
+    ``x.mean(dim=0)`` of the stacked workers bit for bit (f32; bf16, whose
+    f32 sum rounds once, as the CPU's bf16 mean rounds a sum that a power
+    of two then divides exactly; chunks of 256 elements: 19 of them, a
+    part of one, 12 with the last short), on 4 ranks x 1 worker and 2 ranks x 2, and
+    over an Alg. 5 block's sub-group.  Every rank hands one f32 bucket;
+    the ranks together send the ring all-reduce's 2 (P - 1) buckets, at
+    one worker a rank and at two."""
+    script = tmp_path / "mean.py"
+    script.write_text(_MEAN_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, str(script), str(tmp_path)],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr[-4000:]
+    for P in (4, 2):
+        for r in range(P):
+            got = torch.load(tmp_path / f"m{P}_{r}.pt")
+            keys = [0, 1, 2, 3] + (["block"] if P == 4 else [])
+            for k in keys:
+                mean, want = got[k]
+                assert mean.dtype == want.dtype and mean.shape == want.shape
+                assert torch.equal(mean, want), (P, r, k)
+            shapes = (((37, 128), 4), ((37, 128), 2), ((3, 5), 4),
+                      ((3, 1000), 4))
+            # one f32 bucket handed a rank, as the all-reduce's count was
+            handed = sum(int(np.prod(sh)) * 4 for sh, _ in shapes)
+            assert got["totals"]["ordered_mean/global"] == {
+                "calls": len(shapes), "bytes": handed}
+            assert got["stage"] == [float(P * handed)]
+        # the traffic of all ranks: the ring all-reduce's 2 (P - 1) f32
+        # buckets (bf16: f32 out, bf16 back), at 1 and 2 workers a rank
+        sent = sum(torch.load(tmp_path / f"m{P}_{r}.pt")["sent"]
+                   ["ordered_mean/global"] for r in range(P))
+        assert sent == sum(_ordered_sent(P, int(np.prod(sh)), e)
+                           for sh, e in shapes)
+        assert _ordered_sent(P, 37 * 128, 4) == 2 * (P - 1) * 37 * 128 * 4
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))

@@ -520,8 +520,8 @@ def test_demotion_across_ranks(spawned):
     assert [r["promote"] for r in recs if "promote" in r] == [W - 1]
     assert m["comm_rounds"]["block"] > 0 and m["topology"] == "flat"
     assert m["backend"]["demoted"] == []
-    # the blocks of two workers span two ranks: all-reduced on sub-groups
-    assert m["totals"]["all_reduce/block"]["calls"] == m["comm_rounds"]["block"]
+    # the blocks of two workers span two ranks: averaged on sub-groups
+    assert m["totals"]["ordered_mean/block"]["calls"] == m["comm_rounds"]["block"]
     for key in one_a:
         for r, (arrays, _) in enumerate(ranks):
             rel = 1e-5 if key.startswith("momentum") else 1e-6

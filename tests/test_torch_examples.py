@@ -1,4 +1,4 @@
-"""Port parity: the twins of the reference's training examples
+"""Port parity: the twins of the reference's examples
 (``repro_torch.examples``) against the reference's own runs.
 
 Each twin's ``main(["--device", "cpu", "--steps", N], params0=...)`` is
@@ -13,10 +13,22 @@ Per-step losses and held-out xent: rtol 1e-4 (float32, another path and
 another order of sums over a run); comm rounds, the ledger's rounds,
 bytes and collectives, and the controllers' decisions: exact.
 
+The other six twins against the functions the reference's scripts call
+at the same settings: ``convex_logreg`` (``_best_over_lrs``: the rows
+equal), ``post_local_generalization`` (``train_local_sgd``: comm rounds
+equal, test accuracy within 2 / n_test), ``noise_adaptive_frontier`` and
+``traced_run`` (the reference's resident bundle and ``fit``: losses rtol
+1e-4, rounds, wire bytes and the frontier's decisions exact; the traced
+artifacts pass ``check_trace_dir``), ``serve_lm`` and
+``serve_continuous`` (the reference's greedy tokens from the same
+weights, token for token; the hot-swap's residents continue on the new
+version, as the reference's do).
+
 Also pinned: ``build_train()`` builds the resident path unless asked
 (the port keeps ``use_kernel=True`` as its default, the reference
 ``False``), ``resident=False`` builds the tree-in/tree-out kernel form,
-and the tree path refuses to run across ranks.
+and the tree path across ranks builds with whole workers a rank and
+refuses a worker split over shard ranks.
 """
 import dataclasses
 
@@ -36,8 +48,12 @@ from repro_torch import configs as tconfigs
 from repro_torch.checkpoint.checkpoint import load_meta
 from repro_torch.configs import base as tcb
 from repro_torch.core import local_sgd as tsgd
-from repro_torch.examples import (adaptive_local_sgd, hierarchical_local_sgd,
-                                  quickstart, train_lm)
+from repro_torch.examples import (adaptive_local_sgd, convex_logreg,
+                                  hierarchical_local_sgd,
+                                  noise_adaptive_frontier,
+                                  post_local_generalization, quickstart,
+                                  serve_continuous, serve_lm, traced_run,
+                                  train_lm)
 from repro_torch.launch.steps import build_train as tbuild
 from repro_torch.models import base as tmbase
 
@@ -203,6 +219,187 @@ def test_adaptive_twin_matches_reference(tmp_path):
                                                 for r in recs]
 
 
+def test_convex_logreg_twin_matches_reference():
+    from benchmarks import bench_convex as jcv
+    out = convex_logreg.main(["--device", "cpu", "--hs", "1", "2", "--k", "4"],
+                             **QUIET)
+    assert out["device"] == "cpu"
+    for row in out["rows"]:
+        want = jcv._best_over_lrs(K=4, H=row["H"], B_loc=16)
+        got = (row["sim_time"], row["steps"], row["comm"], row["reached"])
+        assert got == tuple(want), row
+
+
+def test_post_local_generalization_twin_matches_reference():
+    import benchmarks.common as bc
+    steps = 12
+    p0 = jax.tree.map(np.asarray, bc.mlp_init(jax.random.PRNGKey(0), 256))
+    out = post_local_generalization.main(["--device", "cpu", "--steps",
+                                          str(steps)], params0=p0, **QUIET)
+    train, test = bc.dataset()
+    rows = post_local_generalization.rows_for(steps)
+    assert [r["name"] for r in out["rows"]] == [n for n, _ in rows]
+    for got, (name, kw) in zip(out["rows"], rows):
+        js, comm, _ = bc.train_local_sgd(steps=steps, train=train, **kw)
+        assert got["comm"] == comm, name
+        assert abs(got["acc"] - bc.test_acc(js, test)) <= 2 / len(test["y"]), \
+            name
+
+
+def _mlp_bundle(rj, K):
+    """The reference's resident MLP bundle of the adaptive examples, its
+    local step and sync jitted."""
+    import benchmarks.common as bc
+    from repro.backend.base import WorkerSet as JWorkerSet
+    from repro.core.local_sgd import make_local_sgd as jmake
+    from repro.launch.steps import TrainBundle as JBundle
+    c = rj.controller
+    init, local_step, sync = jmake(
+        rj, bc.mlp_loss, num_workers=K, use_kernel=True,
+        telemetry=c.wants_telemetry,
+        speculate_compression=c.wants_speculation)
+    return JBundle(cfg=rj.model, run=rj, layout=None, num_workers=K,
+                   specs=_jspecs(), init=init, local_step=jax.jit(local_step),
+                   sync=jax.jit(sync, static_argnames=("group", "compression",
+                                                       "plan", "scope")),
+                   telemetry=c.wants_telemetry, worker_set=JWorkerSet.of(K))
+
+
+def _jspecs():
+    from repro.models.base import ParamSpec as JSpec
+    return {k: JSpec(s.shape, s.axes, init=s.init)
+            for k, s in adaptive_local_sgd.mlp_specs().items()}
+
+
+def test_noise_adaptive_frontier_twin_matches_reference(tmp_path):
+    import json
+
+    import benchmarks.common as bc
+    from repro.core.local_sgd import mean_params as jmean
+    steps = 16
+    N = noise_adaptive_frontier
+    out = N.main(["--device", "cpu", "--steps", str(steps), "--telemetry-dir",
+                  str(tmp_path / "port")], params0=_p0(_jspecs()), **QUIET)
+    train, test = bc.dataset()
+    tdir = tmp_path / "ref"
+    tdir.mkdir()
+    for row, (name, ls, cc, jsonl) in zip(out["rows"], N.RUNS):
+        rj = _jrun(N.make_run(ls, cc, steps),
+                   jcb.ModelConfig(name="mlp", family="dense", citation=""))
+        jstate, jh, js = jtrain.fit(rj, JBatches(train, N.K, N.B_LOC),
+                                    bundle=_mlp_bundle(rj, N.K),
+                                    num_steps=steps,
+                                    telemetry_path=tdir / f"{jsonl}.jsonl",
+                                    log=lambda *a: None)
+        np.testing.assert_allclose(row["losses"], [h["loss"] for h in jh],
+                                   rtol=1e-4, err_msg=name)
+        assert row["rounds"] == js["ledger"]["sync_rounds"], name
+        assert row["wire_mb"] == js["ledger"]["wire_bytes"] / 1e6, name
+        assert row["controller"] == js["controller"], name
+        assert abs(row["acc"] - bc.test_acc(jmean(jstate), test)) \
+            <= 1 / 2048, name
+    recs = [json.loads(ln) for ln in
+            open(tdir / "frontier_noise_adaptive.jsonl")]
+    for k in ("h", "next_compression", "next_batch_scale", "next_lr_scale"):
+        assert [r[k] for r in out["frontier"]] == [r[k] for r in recs], k
+    assert len(out["checks"]) == 6
+
+
+def test_traced_run_twin_matches_reference(tmp_path):
+    import benchmarks.common as bc
+    from repro_torch.telemetry.export import check_trace_dir as tcheck
+    steps = 12
+    T = traced_run
+    out = T.main(["--device", "cpu", "--steps", str(steps), "--fence",
+                  "--out", str(tmp_path / "port")], params0=_p0(_jspecs()),
+                 **QUIET)
+    assert out["errors"] == [] and tcheck(out["out"]) == []
+    assert {"round", "sync", "local_steps", "collective"} <= set(out["census"])
+    rj = _jrun(T.make_run(steps),
+               jcb.ModelConfig(name="mlp", family="dense", citation=""))
+    train, _ = bc.dataset()
+    _, jh, js = jtrain.fit(rj, JBatches(train, T.K, T.B_LOC),
+                           bundle=_mlp_bundle(rj, T.K), num_steps=steps,
+                           log=lambda *a: None)
+    np.testing.assert_allclose(out["losses"], [h["loss"] for h in jh],
+                               rtol=1e-4)
+    assert out["rounds"] == js["ledger"]["sync_rounds"]
+    assert out["wire_bytes"] == js["ledger"]["wire_bytes"]
+    # every collective stage of the join has its bytes and its seconds
+    assert out["join"] and all(b > 0 and s >= 0 for b, s in
+                               out["join"].values())
+
+
+def test_serve_lm_twin_matches_reference():
+    """The twin's greedy tokens are the reference's, from the same weights
+    and prompts (the reference script's own prefill + decode loop)."""
+    import jax.numpy as jnp
+    from repro.models import lm as jlm
+    cfg = jconfigs.get_smoke("gemma3-1b")
+    p0 = jmbase.materialize(jlm.param_specs(cfg), jax.random.PRNGKey(0))
+    out = serve_lm.main(["--device", "cpu"], params0=jax.tree.map(np.asarray, p0),
+                        **QUIET)
+    B, P, G = 4, 32, 16
+    prompts = jnp.asarray(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)), jnp.int32)
+    assert np.array_equal(out["prompts"], np.asarray(prompts))
+    logits, cache = jlm.prefill(cfg, p0, prompts, scan=True, max_len=P + G)
+    tok = logits.argmax(-1).astype(jnp.int32)
+    toks = [tok]
+    step = jax.jit(lambda p, t, c, n: jlm.decode_step(cfg, p, t, c, n))
+    for i in range(G - 1):
+        logits, cache = step(p0, tok, cache, jnp.int32(P + i + 1))
+        tok = logits.argmax(-1).astype(jnp.int32)
+        toks.append(tok)
+    want = np.asarray(jnp.concatenate(toks, axis=1))
+    assert out["tokens"].shape == (B, G)
+    assert np.array_equal(out["tokens"], want)
+
+
+def test_serve_continuous_twin_matches_reference(tmp_path):
+    """The twin's engine serves the reference script's workload with the
+    hot-swap at the same point: every request's tokens, finish reason and
+    weight versions equal the reference engine's from the same two weight
+    versions, and the residents at the swap continue on the new one."""
+    from repro.configs.base import InputShape as JShape
+    from repro.launch.steps import build_engine as jengine
+    from repro.models import lm as jlm
+    from repro.serving import WeightPublisher as JPub
+    from repro.serving import WeightSubscriber as JSub
+    cfg = jconfigs.get_smoke("gemma3-1b")
+    specs = jlm.param_specs(cfg)
+    p0 = jmbase.materialize(specs, jax.random.PRNGKey(0))
+    p1 = jmbase.materialize(specs, jax.random.PRNGKey(1))
+    out = serve_continuous.main(
+        ["--device", "cpu"], params0=jax.tree.map(np.asarray, p0),
+        params1=jax.tree.map(np.asarray, p1), **QUIET)
+    # the reference script's run, from the same weights
+    eng = jengine(cfg, JShape("serve", 48, 4, "decode"), params=p0,
+                  page_size=8, prefill_len=8)
+    rng = np.random.default_rng(0)
+    for i in range(12):
+        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(3, 7)))
+        eng.submit(prompt, max_new=24 if i % 4 == 0 else 3)
+    pub, sub = JPub(str(tmp_path)), JSub(str(tmp_path), specs)
+    pub.publish(p1, step=100)
+    version = None
+    while not eng.idle:
+        eng.step()
+        if len(eng.completed) >= 6 and eng.weight_version < 0:
+            version = eng.poll_weights(sub)
+    want = [{"uid": r.uid, "tokens": list(map(int, r.tokens)),
+             "finish_reason": r.finish_reason,
+             "weight_versions": tuple(r.weight_versions)}
+            for r in eng.completed]
+    assert out["completed"] == want
+    swap = out["swap"]
+    assert swap["version"] == version and swap["residents"]
+    by_uid = {r["uid"]: r for r in out["completed"]}
+    for uid in swap["residents"]:
+        assert by_uid[uid]["weight_versions"][-1] == version, uid
+        assert len(by_uid[uid]["weight_versions"]) >= 2, uid
+
+
 # ---------------------------------------------------------------------------
 # Defaults and refusals
 # ---------------------------------------------------------------------------
@@ -239,18 +436,35 @@ def test_build_train_defaults_to_the_resident_path():
 
 
 def test_tree_path_across_ranks_raises():
-    """``use_kernel=False`` (or ``resident=False``) across ranks raises
-    ``ValueError`` before any collective: ``DistributedBackend`` at
-    construction, ``build_train`` at once with a ``dist``."""
+    """The tree path across ranks (``use_kernel=False``, or
+    ``resident=False``) builds with whole workers a rank (S = 1): the
+    backend keeps the choice for every build, and ``build_train`` gives a
+    tree state of the rank's workers.  With workers split over shard ranks
+    (S > 1) it raises ``ValueError`` before any collective:
+    ``DistributedBackend`` at construction, ``build_train`` at once with a
+    ``dist``.  (``tests/test_torch_tree_dist.py`` trains it on ranks.)"""
+    from types import SimpleNamespace
+
     from repro_torch.backend.distributed import DistributedBackend
-    with pytest.raises(ValueError, match="one process"):
-        DistributedBackend(2, use_kernel=False, device="cpu",
-                           coordinator_address="localhost:1",
-                           process_id=0, num_processes=2)
+    from repro_torch.sharding.layout import WorkerLayout
+    common = dict(device="cpu", coordinator_address="localhost:1",
+                  process_id=0, num_processes=2)
+    be = DistributedBackend(2, use_kernel=False, **common)
+    assert be.use_kernel is False and be.collectives is None
+    assert DistributedBackend(2, resident=False, **common).resident is False
     for kw in (dict(use_kernel=False), dict(resident=False)):
-        with pytest.raises(ValueError, match="one process"):
-            tbuild(_smoke_run(), num_workers=2, device="cpu", dist=object(),
+        with pytest.raises(ValueError, match="whole workers"):
+            DistributedBackend(4, within_worker_size=2, **kw, **common)
+        split = SimpleNamespace(layout=WorkerLayout(4, 4, 0,
+                                                    within_worker_size=2))
+        with pytest.raises(ValueError, match="S > 1"):
+            tbuild(_smoke_run(), num_workers=4, device="cpu", dist=split,
                    **kw)
+        whole = SimpleNamespace(layout=WorkerLayout(2, 2, 1))
+        tb = tbuild(_smoke_run(), num_workers=2, device="cpu", dist=whole,
+                    **kw)
+        s = tb.init(tmbase.materialize(tb.specs, torch.Generator(), "cpu"))
+        assert not tsgd.is_resident(s) and s.params["embed"].shape[0] == 1
 
 
 def test_twins_default_to_the_card():
@@ -259,6 +473,11 @@ def test_twins_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default is valid here")
     for mod in (quickstart, train_lm, hierarchical_local_sgd,
-                adaptive_local_sgd):
+                adaptive_local_sgd, post_local_generalization,
+                noise_adaptive_frontier, traced_run):
         with pytest.raises(RuntimeError, match="no CUDA"):
             mod.main(["--steps", "1"], **QUIET)
+    for mod, argv in ((convex_logreg, ["--hs", "1"]), (serve_lm, []),
+                      (serve_continuous, [])):
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            mod.main(argv, **QUIET)

@@ -58,7 +58,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for mod in ("common", "paper_tables", "bench_convex", "run"):
         assert f"src/repro_torch/benchmarks/{mod}.py" in names, mod
     for mod in ("quickstart", "train_lm", "hierarchical_local_sgd",
-                "adaptive_local_sgd"):
+                "adaptive_local_sgd", "convex_logreg",
+                "post_local_generalization", "noise_adaptive_frontier",
+                "traced_run", "serve_lm", "serve_continuous"):
         assert f"src/repro_torch/examples/{mod}.py" in names, mod
     assert "src/repro_torch/telemetry/metrics.py" in names
     assert "src/repro_torch/launch/inputs.py" in names
@@ -178,6 +180,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_engine(configs.get_smoke("internvl2-76b"),
                      type("S", (), {"global_batch": 2, "seq_len": 16})())
     assert build_train(run, num_workers=2, device="cpu").device.type == "cpu"
+    # the tree path across ranks: its backend refuses a worker split over
+    # shard ranks before it needs a card, and builds for the card else
+    from repro_torch.backend.distributed import DistributedBackend
+    with pytest.raises(ValueError, match="whole workers"):
+        DistributedBackend(4, use_kernel=False, within_worker_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedBackend(4, use_kernel=False, process_id=0,
+                           num_processes=2).rank_device()
 
 
 def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):

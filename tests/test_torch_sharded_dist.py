@@ -382,8 +382,10 @@ def test_measured_bytes_shard_local(spawned, kind):
                     + _ring_bytes("all-gather", W * nseg * 4, W))
             assert led["wire_bytes"] == pytest.approx(rounds * ring)
         else:
+            # the ordered mean over the G = 2 worker-group ranks, one
+            # worker a rank: the chunk sent and gathered, the whole rows
             per_rank = rows_held * flatbuf.LANE * 4
-            assert tot["all_reduce/global"]["bytes"] == rounds * per_rank
+            assert tot["ordered_mean/global"]["bytes"] == rounds * per_rank
         assert led["measured_bytes"] == rounds * P * per_rank, name
         # the local step's gather of the sharded bucket, once a step
         g = tot["all_gather/within"]

@@ -370,7 +370,9 @@ def test_bf16_dtype_promotion_matches_reference(form, clip):
 
 def test_tree_metrics_and_mean_params():
     """Metrics are worker means; ``mean_params`` of a tree state is each
-    leaf's worker mean, as the reference's."""
+    leaf's worker mean, as the reference's; across ranks its leaves ride
+    dtype buckets through the collectives' ordered mean, one call a bucket
+    (``tests/test_torch_tree_dist.py`` runs it on ``gloo`` ranks)."""
     run = _cfg(tcb)
     init, local_step, _ = tsgd.make_local_sgd(run, _tloss, num_workers=W,
                                               wd_mask=WD_MASK, use_kernel=False)
@@ -389,8 +391,18 @@ def test_tree_metrics_and_mean_params():
     for k in jmp:
         np.testing.assert_allclose(mp[k].numpy(), np.asarray(jmp[k]),
                                    rtol=1e-6, atol=1e-7)
-    with pytest.raises(ValueError, match="one process"):
-        tsgd.mean_params(ts, dist=object())
+    calls = []
+
+    class OneRank:
+        """Collectives of one rank holding every worker."""
+        def ordered_mean(self, x, *, scope, stage=None, group=None, n=None):
+            calls.append((scope, tuple(x.shape)))
+            return x.mean(dim=0)
+
+    dm = tsgd.mean_params(ts, dist=OneRank())
+    assert [c[0] for c in calls] == ["eval"] and calls[0][1][0] == W
+    for k in mp:
+        assert torch.equal(dm[k], mp[k]), k
 
 
 # ---------------------------------------------------------------------------
@@ -757,7 +769,8 @@ def test_tree_checkpoint_reference_restores_and_packs_resident(tmp_path):
 
 def test_tree_path_refusals():
     """A per-bucket mode tuple (the reference's ValueError), compression
-    without an anchor, a compressed block sync, across ranks, sharding
+    without an anchor, a compressed block sync, across ranks with workers
+    split over shard ranks (S > 1; whole workers a rank build), sharding
     classes, and resident=True without the kernels."""
     run = _cfg(tcb, compression="ef_sign")
     init, local_step, sync = tsgd.make_local_sgd(run, _tloss, num_workers=W,
@@ -783,9 +796,16 @@ def test_tree_path_refusals():
                                         topology=tsp.hierarchical(2),
                                         compression="ef_sign"),
              scope="block")
-    with pytest.raises(ValueError, match="one process"):
+    from types import SimpleNamespace
+    from repro_torch.sharding.layout import WorkerLayout
+    split = SimpleNamespace(layout=WorkerLayout(W, 4, 0, within_worker_size=2))
+    with pytest.raises(ValueError, match="shard ranks"):
         tsgd.make_local_sgd(run, _tloss, num_workers=W, use_kernel=False,
-                            dist=object())
+                            dist=split)
+    whole = SimpleNamespace(layout=WorkerLayout(W, 2, 1))
+    init2, _, _ = tsgd.make_local_sgd(run, _tloss, num_workers=W,
+                                      use_kernel=False, dist=whole)
+    assert init2(s.anchor).params["w1"].shape[0] == W // 2
     with pytest.raises(ValueError, match="sharding classes"):
         tsgd.make_local_sgd(run, _tloss, num_workers=W, resident=False,
                             shard_classes={})
