@@ -158,8 +158,8 @@ Phases:
            launches per rank, the ops staged through the host; then the
            dense mean (Y2) against the packed all-gather (Y1).
            With two or more cards Y1 also runs over NCCL, one rank a card;
-           with one, a line says why it did not.  Results in
-           ``build/phase_y/``.
+           with one, a line says why it did not.  The four ranks then run
+           phase U's U4.  Results in ``build/phase_y/``.
   V        workers split over shard ranks: ``DistributedBackend(
            within_worker_size=2)``, four ``gloo`` ranks on card 0 = 2
            workers x 2 shards (rank = group * 2 + shard), paper-lm at full
@@ -190,7 +190,7 @@ Phases:
            layout's reckoning.  Results in ``build/phase_v/`` (removed
            after the checks).
   Q        resizes and checkpoints across ranks (``Q_PARTS``): paper-lm
-           at full width and ``Q_LAYERS`` (4) of its 12 layers, W = 4 ->
+           at full width and ``Q_LAYERS`` (2) of its 12 layers, W = 4 ->
            2 -> 4 by ``ElasticController(
            resize_at=Q_RESIZE)``, Q1 on 2 ``gloo`` ranks x 2 workers at
            phase W's settings, Q2 on 2 worker groups x 2 FSDP shard ranks
@@ -369,6 +369,28 @@ Phases:
            loss, launch counts (one fused SGD a step, one compressor pair a
            compressed sync); and torch.profiler over 24 steps of A2 and of H1_Hb8
            (device busy, idle share, the host's busiest ops).
+  U        the dry-run and roofline analogues (``launch.dryrun``,
+           ``roofline``) at paper-lm's full width.  U1: the dry run's
+           one-card reckoning (``dryrun.reckon_card``: the state copies,
+           one worker's bytes saved for the backward, traced on the meta
+           device, and its logits' gradient) of phase A and of every
+           M / D / Z / X part at its cut depth, beside the peak that part
+           measured: the state at most the peak, the total within
+           ``U_PEAK_BAND`` of it.  U2: FlopCounterMode over one paper-lm
+           worker's loss and gradient (batch 8, seq 512) on the card, equal
+           to the meta count, within ``U_FLOP_BAND`` of 3 x the analytic
+           forward (``roofline.analysis.forward_flops``); phase A's median
+           step against W x that count at the card's f32 rate.  U3:
+           ``roofline.probe.probe_card`` at 1 and 2 layers, phase A's
+           settings for 12 steps each: the step extrapolated to 12 layers
+           beside phase A's, the extrapolated FLOPs equal to the 12-layer
+           count.  U4: ``roofline.sync_probe``'s five rows (compression x
+           wire_pack x bucket_sync), one sync each on phase Y's four ranks
+           (4 x 1, 12 layers, gloo, no new spawn) under torch.profiler: the
+           bytes each c10d call was handed (``roofline.hlo.parse_collectives``)
+           equal what ``Collectives`` counted (a single-call collective's
+           measured bytes; the ordered mean's sends), beside the count of
+           collectives and the ring model's bytes.
 """
 from __future__ import annotations
 
@@ -478,19 +500,6 @@ class Laps:
         self.by_phase[tag] = self.by_phase.get(tag, 0.0) + now - self.last
         self.last = now
         emit({"phase": tag, "phase_s": self.by_phase[tag]})
-
-
-def card_rates(name: str):
-    """(memory bytes/s, float32 non-tensor flop/s, bf16 dense tensor-core
-    flop/s, TF32 dense tensor-core flop/s) from NVIDIA's data sheets for
-    the card present (the sheets' sparse tensor rates halved)."""
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12, 756e12, 378e12
-    if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12, 835e12, 418e12
-    if "H200" in name:
-        return 4.8e12, 67e12, 989e12, 495e12
-    return 3.35e12, 67e12, 989e12, 495e12  # H100 SXM
 
 
 def nvidia_smi_line() -> str:
@@ -2973,29 +2982,6 @@ M_TOL = 1e-4                   # loss (relative); logits |a-b| <= M_TOL (1+|b|)
 M_CHUNK_ROWS = 1 << 18         # rows of a bucket one plain-version call covers
 
 
-def m_reckon(cfg, workers: int, mode: str) -> dict:
-    """Memory reckoned from the layout's rows before the run: one param
-    copy's bucket bytes, and the copies resident at once.  Resident:
-    params and momentum (W each), plus EF memory (W) and the anchor under
-    EF-sign.  A local step adds the grad buckets (W); a sync adds its
-    temporaries: the mean's (the W-wide broadcast mean and the mean
-    itself, W + 1), EF-sign's (delta, compressor input, output and new
-    memory, 4W).  Activations are not in the sum (read from the run)."""
-    from repro_torch.core import flatbuf
-    from repro_torch.models import base as mbase
-    from repro_torch.models import lm
-
-    specs = lm.param_specs(cfg)
-    copy = flatbuf.build_layout(mbase.abstract(specs)).total_bytes()
-    ef = mode == "ef_sign"
-    resident = 2 * workers + (workers + 1 if ef else 0)
-    step = resident + workers
-    sync = resident + (4 * workers if ef else workers + 1)
-    return {"params": mbase.count_params(specs), "copy_bytes": copy,
-            "resident_copies": resident, "step_copies": step,
-            "sync_copies": sync, "reckoned_peak_bytes": max(step, sync) * copy}
-
-
 def _event_ms(fn):
     """(fn(), its device ms) between two CUDA events."""
     import torch
@@ -3369,6 +3355,7 @@ def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
     import torch
     from repro_torch import configs
     from repro_torch.core.local_sgd import mean_params
+    from repro_torch.launch.dryrun import m_reckon
     from repro_torch.core.schedule import sync_boundaries
     from repro_torch.data.partition import ShardedBatches
     from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -3430,6 +3417,7 @@ def phase_m(tag: str, arch: str, mode: str, workers: int, layers: int) -> dict:
                launches=counts, capacity_drops_step0=int(step0[0]),
                routed_choices_per_step=workers * cfg.num_layers * T * cfg.moe.top_k,
                capacity_per_expert=blocks.moe_capacity(cfg, T))
+    REFS.setdefault("peak_GB", {})[tag] = rec["peak_mem_GB"]
 
     # -- kernels 1-4 on the trained buckets (the step and sync temporaries
     #    freed first), then the worker-mean model and one profiled M1 step
@@ -3694,6 +3682,7 @@ def phase_d(tag: str, arch: str, workers: int, layers: int, max_len: int,
     from repro_torch import configs
     from repro_torch.configs.base import InputShape
     from repro_torch.core.local_sgd import mean_params
+    from repro_torch.launch.dryrun import m_reckon
     from repro_torch.core.schedule import sync_boundaries
     from repro_torch.data.partition import ShardedBatches
     from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -3746,6 +3735,7 @@ def phase_d(tag: str, arch: str, workers: int, layers: int, max_len: int,
                peak_mem_GB=peak,
                peak_over_reckoned=peak * 1e9 / reckon["reckoned_peak_bytes"],
                launches=counts)
+    REFS.setdefault("peak_GB", {})[tag] = peak
     params = mean_params(state)
     if tag == "D1":
         it = ShardedBatches(lm_examples(markov_lm(
@@ -3896,6 +3886,7 @@ def phase_z(tag: str, arch: str, mode: str, workers: int, layers: int, seq: int,
     from repro_torch import configs
     from repro_torch.configs.base import InputShape
     from repro_torch.core.local_sgd import mean_params
+    from repro_torch.launch.dryrun import m_reckon
     from repro_torch.core.schedule import sync_boundaries
     from repro_torch.data.partition import ShardedBatches
     from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -3948,6 +3939,7 @@ def phase_z(tag: str, arch: str, mode: str, workers: int, layers: int, seq: int,
                peak_mem_GB=peak,
                peak_over_reckoned=peak * 1e9 / reckon["reckoned_peak_bytes"],
                launches=counts)
+    REFS.setdefault("peak_GB", {})[tag] = peak
     split = {"train": time.perf_counter() - t_start}
     it = ShardedBatches(lm_examples(markov_lm(
         vocab=cfg.vocab_size, num_seqs=workers * local_batch, seq_len=seq,
@@ -4132,27 +4124,15 @@ def phase_z(tag: str, arch: str, mode: str, workers: int, layers: int, seq: int,
 # EF-sign at W=4 (m_reckon: 1.11 GB a copy, 29 copies at the sync, 32.3
 # GB); X2 internvl2-76b, 256 prefix embeddings + 256 text tokens, mean
 # sync at W=1 (W=2 reckons 7 copies at the sync, 84.7 GB at 1 layer), its
-# depth the deepest whose reckoning stays under X_CAP_BYTES (None: found
-# by ``x_depth``; 2 layers, 15.5 GB a copy, 62.1 GB).
+# depth the deepest whose reckoning stays under 72 GB (None: found by
+# ``launch.dryrun.x_depth``; 2 layers, 15.5 GB a copy, 62.1 GB).
 X_RUNS = (("X1", "whisper-small", "ef_sign", 4, 12, 1500, 8),
           ("X2", "internvl2-76b", "none", 1, None, 512, 8))
 X_STEPS = 8                    # phase M's count
-X_CAP_BYTES = 72e9             # the reckoned peak a cut depth must stay under
 X_PROMPTS, X_NEW = 8, 32
 X_PROMPT_LEN = {"X1": 16, "X2": 64}   # text tokens (after 1,500 frames / 256 prefix)
 X_CPU_TEXT = {"X1": 448, "X2": 128}   # the card-vs-CPU batch's text tokens
 X_DECODE_TOL = 2e-4            # decode vs the train-mode forward, x (1 + |logit|)
-
-
-def x_depth(published, workers: int, mode: str, cap: float = X_CAP_BYTES) -> int:
-    """The deepest cut of ``published`` (at least 1 layer) whose m_reckon
-    peak stays under ``cap`` bytes."""
-    depth = 1
-    while (depth < published.num_layers and m_reckon(
-            published.replace(num_layers=depth + 1), workers, mode)
-            ["reckoned_peak_bytes"] <= cap):
-        depth += 1
-    return depth
 
 
 def phase_x(tag: str, arch: str, mode: str, workers: int, layers, seq: int,
@@ -4185,6 +4165,7 @@ def phase_x(tag: str, arch: str, mode: str, workers: int, layers, seq: int,
     from repro_torch import configs
     from repro_torch.configs.base import InputShape
     from repro_torch.core.local_sgd import mean_params
+    from repro_torch.launch.dryrun import m_reckon, x_depth
     from repro_torch.core.schedule import sync_boundaries
     from repro_torch.data.partition import ShardedBatches
     from repro_torch.data.synthetic import lm_examples, markov_lm
@@ -4253,6 +4234,7 @@ def phase_x(tag: str, arch: str, mode: str, workers: int, layers, seq: int,
                peak_mem_GB=peak,
                peak_over_reckoned=peak * 1e9 / reckon["reckoned_peak_bytes"],
                launches=counts)
+    REFS.setdefault("peak_GB", {})[tag] = peak
     split = {"train": time.perf_counter() - t_start}
     del data
 
@@ -4593,6 +4575,14 @@ def y_rank(r: int, port: int, P: int, tags: tuple, backend: str, out: str,
             gc.collect()
             if cuda:
                 torch.cuda.empty_cache()
+        if "Y1" in tags:
+            # phase U's U4 on these ranks: one sync of each of the
+            # reference's five sync-probe rows, under the profiler
+            from repro_torch.roofline.sync_probe import probe_rows
+            t0 = time.perf_counter()
+            results["U4"] = {"rows": probe_rows(
+                be, cfg, local_batch=spec.get("local_batch", 8),
+                seq=spec.get("seq", 512)), "s": time.perf_counter() - t0}
     finally:
         with open(f"{out}/rank{r}.json", "w") as f:
             json.dump(results, f)
@@ -4759,6 +4749,8 @@ def phase_y(cfg, spec: dict | None = None) -> dict:
         ranks = y_spawn(P, tags, "gloo", out, spec)
         spawn_s = time.perf_counter() - t0
         payload = (torch.load(out / "y1_payload.pt") if "Y1" in tags else None)
+        if "Y1" in tags:
+            REFS["U4"] = [rk["U4"] for rk in ranks]
         for tag in tags:
             ref = REFS[dict((t, ph) for t, _, ph in Y_PARTS)[tag]]
             chk = y_check(tag, P, ranks, ref, layout, payload=payload)
@@ -4847,10 +4839,11 @@ V_PARTS = (("V1", "fsdp", "none", False, False),
            ("V2", "tp", "ef_sign", False, True),
            ("V3", "fsdp", "ef_sign", True, False))
 V_W, V_S = 2, 2
-# paper-lm's depth in phase V (and Q_LAYERS in phase Q): each part is held
-# against its own one-process run at the same depth, so 4 of the 12 layers
-# check the same sharding, syncs and sums in less of the script's time
-# limit (12 layers: phase V 75-105 s, phase Q 189-195 s on an H100)
+# paper-lm's depth in phase V (and, cut further, Q_LAYERS in phase Q): each
+# part is held against its own one-process run at the same depth, so 4 of
+# the 12 layers check the same sharding, syncs and sums in less of the
+# script's time limit (12 layers: phase V 75-105 s, phase Q 189-195 s on
+# an H100)
 V_LAYERS = 4
 # losses against the one-process run (relative); V2 0.0 (see V_FRAC_TOL)
 V_LOSS_TOL = {"V1": 1e-4, "V2": 0.0, "V3": 1e-4}
@@ -5316,7 +5309,10 @@ Q_PARTS = (("Q1", 2, 1, None, "ef_sign", False, True),
 # the tree path's kernel form (DistributedBackend keywords): Q3 is Q1 on
 # tree states, held against Q1's one-process run (the same settings)
 Q_BUILD = {"Q3": dict(resident=False)}
-Q_LAYERS = 4                   # paper-lm's depth here (see V_LAYERS)
+# paper-lm's depth here (see V_LAYERS): 2 since the script's run from
+# `git archive` with phase U added took 937.7 s against its 930 s target
+# (phase Q 145.5 s of it at 4 layers; H100 80GB HBM3, 700.00 W)
+Q_LAYERS = 2
 Q_RESIZE = {2: 2, 4: 4}        # global round -> W: W=2 runs steps 2-3
 Q_CKPT_STEP = 7                # the checkpoint after round 5's sync (W=4)
 # losses against the one-process run (relative), and the params rows' share
@@ -5679,6 +5675,158 @@ def phase_q(cfg, spec: dict | None = None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase U: the dry-run and roofline analogues on the card (launch.dryrun,
+# roofline.{analysis,probe,sync_probe,hlo})
+# ---------------------------------------------------------------------------
+
+# U1: a reckoning (state copies + one worker's saved activations + its
+# logits' gradient) must fall within this band of the peak its phase
+# measured
+U_PEAK_BAND = (0.5, 1.5)
+# U2: FlopCounterMode's count of a worker's loss and gradient against 3 x
+# the analytic forward, the band of the reference's
+# test_analytic_flops_vs_cost_analysis (the port's attention computes the
+# whole S x S square, the analytic count the causal band)
+U_FLOP_BAND = (0.5, 2.0)
+
+
+def u_runs() -> list:
+    """(tag, arch, sync, W, layers, seq, local batch) of phase A and of
+    every family part at its cut depth, as those phases ran them."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import x_depth
+    runs = [("A", "paper-lm", "none", W, 12, 512, 8)]
+    runs += [(t, a, m, w, n, 512, 8) for t, a, m, w, n in M_RUNS]
+    runs += [(t, a, "none", w, n, seq, lb)
+             for t, a, w, n, _, _, _, seq, lb in D_RUNS]
+    runs += [(t, a, m, w, n, seq, lb) for t, a, m, w, n, seq, lb, _ in Z_RUNS]
+    runs += [(t, a, m, w, n or x_depth(configs.get(a), w, m), seq, lb)
+             for t, a, m, w, n, seq, lb in X_RUNS]
+    return runs
+
+
+def phase_u1() -> list:
+    """U1: the dry run's one-card reckoning of phase A and of every family
+    part beside the peak that part measured; returns the failures."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import reckon_card, trace_train
+    bad = []
+    for tag, arch, mode, workers, layers, seq, lb in u_runs():
+        cfg = cut_depth(configs.get(arch), layers)
+        t0 = time.perf_counter()
+        rc = reckon_card(cfg, trace_train(cfg, lb, seq, device="meta",
+                                          flops=False),
+                         workers=workers, mode=mode)
+        peak = REFS["peak_GB"][tag] * 1e9
+        ratio = rc["peak_bytes"] / peak
+        ok = (rc["state_bytes"] <= peak
+              and U_PEAK_BAND[0] <= ratio <= U_PEAK_BAND[1])
+        emit({"phase": "U", "part": "U1", "run": tag, "model": arch,
+              "layers": cfg.num_layers, "W": workers, "local_batch": lb,
+              "seq": seq, "sync_compression": mode,
+              "reckoned_GB": {k: rc[k] / 1e9 for k in (
+                  "state_bytes", "activation_bytes", "logits_grad_bytes",
+                  "step_peak_bytes", "sync_peak_bytes", "peak_bytes")},
+              "measured_peak_GB": peak / 1e9,
+              "reckoned_over_measured": ratio,
+              "state_over_measured": rc["state_bytes"] / peak,
+              "band": U_PEAK_BAND, "ok": ok,
+              "trace_s": time.perf_counter() - t0})
+        if not ok:
+            bad.append(f"U1 {tag}: reckoned {rc['peak_bytes'] / 1e9:.2f} GB "
+                       f"(state {rc['state_bytes'] / 1e9:.2f}) against "
+                       f"{peak / 1e9:.2f} GB measured")
+    return bad
+
+
+def phase_u(cfg, a_step_s: float, flops_peak: float) -> dict:
+    """Phase U: the dry-run and roofline analogues on the card at paper-lm's
+    full width; returns U3's launch counts.  U1 the one-card reckonings
+    against the measured peaks; U2 FlopCounterMode on the card against the
+    meta trace and the analytic count, and phase A's step against the f32
+    compute bound; U3 the layer-period probe on the card (1 and 2 layers,
+    phase A's settings) extrapolated to 12 layers beside phase A's step;
+    U4 the sync probe's five rows on phase Y's four ranks."""
+    import torch
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.dryrun import trace_train
+    from repro_torch.roofline import probe
+    from repro_torch.roofline.analysis import forward_flops
+
+    bad = phase_u1()
+
+    # -- U2: one worker's loss and gradient counted on the card and on meta
+    meta = trace_train(cfg, 8, 512, device="meta")
+    card = trace_train(cfg, 8, 512, device="cuda")
+    torch.cuda.empty_cache()
+    analytic = 3 * forward_flops(cfg, 8, 512)
+    ratio = meta["flops"] / analytic
+    bound_s = W * meta["flops"] / flops_peak
+    rec = {"phase": "U", "part": "U2", "model": cfg.name, "local_batch": 8,
+           "seq": 512, "flops_worker_card": card["flops"],
+           "flops_worker_meta": meta["flops"],
+           "flops_by_op_equal": card["flops_by_op"] == meta["flops_by_op"],
+           "saved_bytes_card": card["saved_bytes"],
+           "saved_bytes_meta": meta["saved_bytes"],
+           "analytic_3x_forward": analytic, "counted_over_analytic": ratio,
+           "band": U_FLOP_BAND, "f32_peak_flops": flops_peak,
+           "W": W, "step_f32_bound_s": bound_s,
+           "phase_A_step_s_median": a_step_s,
+           "phase_A_share_of_bound": bound_s / a_step_s}
+    emit(rec)
+    if card["flops"] != meta["flops"] or not rec["flops_by_op_equal"]:
+        bad.append(f"U2: the card counts {card['flops']} FLOPs, meta "
+                   f"{meta['flops']}")
+    if not U_FLOP_BAND[0] <= ratio <= U_FLOP_BAND[1]:
+        bad.append(f"U2: counted / 3 x analytic = {ratio:.3f}")
+
+    # -- U3: 1 and 2 layers on the card, extrapolated to 12
+    fb.reset_launches()
+    seg0 = fb.PORT_LAUNCHES["segment_sum"]
+    out = probe.probe_card(phase_run("none", cfg, seq=512, local_batch=8),
+                           workers=W, device="cuda", steps=STEPS)
+    counts = dict(fb.LAUNCHES)
+    counts["segment_sum"] = fb.PORT_LAUNCHES["segment_sum"] - seg0
+    torch.cuda.empty_cache()
+    rec = {"phase": "U", "part": "U3", "model": cfg.name, "W": W,
+           "layers": cfg.num_layers, "probe_layers": [1, 2], "steps": STEPS,
+           **{k: out[k] for k in out if not k.startswith("probe")},
+           "step_s_probe": [out["probe1"]["step_s_median"],
+                            out["probe2"]["step_s_median"]],
+           "phase_A_step_s_median": a_step_s,
+           "extrapolated_over_A": out["step_s_median_full"] / a_step_s,
+           "flops_full_equals_12_layer_count":
+               out["flops_full"] == W * meta["flops"],
+           "launches": counts}
+    emit(rec)
+    if not rec["flops_full_equals_12_layer_count"]:
+        bad.append(f"U3: extrapolated {out['flops_full']} FLOPs, the 12-layer "
+                   f"count {W * meta['flops']}")
+    if counts["fused_sgd_bucket"] != 2 * STEPS or counts["sq_sum"] != 2 * STEPS:
+        bad.append(f"U3: launches {counts}")
+
+    # -- U4: the sync probe's rows, run on phase Y's ranks
+    ranks = REFS["U4"]
+    for i, row in enumerate(ranks[0]["rows"]):
+        held = [rk["rows"][i]["held_equal"] for rk in ranks]
+        emit({"phase": "U", "part": "U4", "ranks": len(ranks),
+              "held_every_rank": held,
+              "probe_s": [rk["s"] for rk in ranks],
+              **{k: row[k] for k in (
+                  "compression", "wire_pack", "bucket_sync", "workers",
+                  "count", "coll_bytes", "by_op", "handed_by_op",
+                  "c10d_calls", "collectives_handed", "collectives_sent",
+                  "ledger_measured_bytes", "ring_model_bytes",
+                  "ring_model_collectives", "held")}})
+        if not all(held):
+            bad.append(f"U4 row {i}: the trace's bytes differ from the "
+                       f"counted ones: {row['held']}")
+    if bad:
+        raise AssertionError(f"phase U: {'; '.join(bad)}")
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run this from a "
@@ -5699,6 +5847,7 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.mesh import card_rates
 
     laps = Laps()
     name = torch.cuda.get_device_name(0)
@@ -5788,6 +5937,7 @@ def main() -> int:
                 raise AssertionError("phase B2: phase B's run once more is "
                                      "not phase B's bit for bit")
         step_median[phase] = rec["step_s_median"]
+        REFS.setdefault("peak_GB", {})[phase] = rec["peak_mem_GB"]
         phase_losses[phase] = losses
         phase_wire[phase] = summ["ledger"]["wire_bytes"]
         summary = round_summary(state.stats) if lars else None
@@ -6001,10 +6151,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     laps("G")
 
+    # ---- U: the dry-run and roofline analogues on the card ----
+    for k, v in phase_u(cfg, step_median["A"], flops_peak).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    laps("U")
+
     # launches: phases A, B, L, F, H, E, R, W, K, S, Y, V and Q (every
-    # rank; Y4 and Q3 the tree kernel form), M, D, Z, X, N, G and the noise
-    # check for the bucket kernels, T for the others; the segmented sum's
-    # from phases A, B, L, F, Y and Q
+    # rank; Y4 and Q3 the tree kernel form), M, D, Z, X, N, G, U and the
+    # noise check for the bucket kernels, T for the others; the segmented
+    # sum's from phases A, B, L, F, Y and Q
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"phase": "seconds", "by_phase": laps.by_phase,

@@ -37,7 +37,7 @@ from typing import Any
 import numpy as np
 
 from repro_torch.core.flatbuf import LANE
-from repro_torch.telemetry.ledger import _ring_bytes
+from repro_torch.roofline.hlo import _ring_bytes
 
 _COMP_MODES = ("none", "sign", "ef_sign")
 

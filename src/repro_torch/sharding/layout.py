@@ -20,9 +20,11 @@ group*; the G ranks that hold shard s of every worker are shard s's
 ``train_layout(("data",), worker_axes=("data",))`` placement, worker
 order across ranks being the one-process order.
 
-``serve_layout``, ``long_context_serve_layout``, ``choose_worker_axes``
-and ``param_bytes_per_chip`` are not on the training path and are not
-ported (ROADMAP A.8).
+:func:`choose_worker_axes` and :func:`param_bytes_per_chip` pick the
+worker granularity on a grid (``launch.mesh.Grid``) for the dry run, as
+the reference's do on a mesh, with the card's memory in place of the
+TPU's.  ``serve_layout`` and ``long_context_serve_layout`` are mesh-only
+and are not ported.
 """
 from __future__ import annotations
 
@@ -159,6 +161,53 @@ def fsdp_within_worker_layout(mesh_axes: tuple[str, ...], *,
             "kv_seq": None,
         },
     )
+
+
+# ---------------------------------------------------------------------------
+# Memory model: pick worker granularity per arch on a grid
+# ---------------------------------------------------------------------------
+
+# f32 weight + f32 momentum + f32 gradient: the port trains in float32
+BYTES_PER_PARAM = 12
+# what a card's parameter state may take: its 80 GB less 20 GB kept for
+# activations and the step's transients (phase D's qwen3-32b step at one
+# layer took 16.7 GB beyond its 57.2 GB of state copies on an H100 80GB,
+# chip_smoke.D_RUNS).  The reference's budget is 13e9 of a 16 GB chip.
+HBM_BUDGET = 60e9
+
+
+def param_bytes_per_chip(num_params: int, *, bytes_per_param: int,
+                         chips_per_worker: int) -> float:
+    return num_params * bytes_per_param / chips_per_worker
+
+
+def choose_worker_axes(grid, num_params: int, *,
+                       bytes_per_param: int = BYTES_PER_PARAM,
+                       hbm_budget: float = HBM_BUDGET
+                       ) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """Return (worker_axes, fsdp_axes) -- maximize K subject to memory.
+
+    ``grid`` is a ``launch.mesh.Grid`` (anything with ``axis_names`` and
+    a ``shape`` dict).  Candidates, most-parallel first (axis names
+    present in the grid):
+      (pod, data) / (data,)  -> workers over all data axes, no FSDP
+      (pod,)                 -> one worker per pod, FSDP over data
+      ()                     -> degenerate K=1 (== mini-batch SGD), FSDP over all data axes
+    """
+    names = tuple(grid.axis_names)
+    sizes = dict(grid.shape)
+    data_axes = tuple(a for a in names if a in ("pod", "data"))
+    candidates: list[tuple[tuple[str, ...], tuple[str, ...]]] = [(data_axes, ())]
+    if "pod" in names:
+        candidates.append((("pod",), ("data",)))
+    candidates.append(((), data_axes))
+    model_size = sizes.get("model", 1)
+    for worker_axes, fsdp_axes in candidates:
+        chips_per_worker = model_size * math.prod(sizes[a] for a in fsdp_axes)
+        if param_bytes_per_chip(num_params, bytes_per_param=bytes_per_param,
+                                chips_per_worker=chips_per_worker) <= hbm_budget:
+            return worker_axes, fsdp_axes
+    return candidates[-1]
 
 
 @dataclass(frozen=True)

@@ -27,22 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core.flatbuf import LANE
-
-
-def _ring_bytes(op: str, result_bytes: float, n: int) -> float:
-    """Per-device bytes a ring collective of ``n`` members moves for a
-    result of ``result_bytes`` (``repro.roofline.hlo._ring_bytes``)."""
-    if n <= 1:
-        return 0.0
-    if op == "all-reduce":
-        return 2.0 * (n - 1) / n * result_bytes
-    if op == "all-gather":
-        return (n - 1) / n * result_bytes
-    if op == "reduce-scatter":
-        return float(n - 1) * result_bytes
-    if op == "all-to-all":
-        return (n - 1) / n * result_bytes
-    return float(result_bytes)  # collective-permute
+from repro_torch.roofline.hlo import _ring_bytes
 
 
 @dataclass(frozen=True)

@@ -1564,3 +1564,43 @@ def test_tree_path_across_ranks_on_card(cuda, tmp_path):
             assert np.array_equal(got, one_a[f"arr_{i}"]), (form, i)
     np.testing.assert_allclose(load("one.kernel")[0]["loss"],
                                load("one.plain")[0]["loss"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flop_count_equals_meta(cuda):
+    """The dry run's FLOP count (FlopCounterMode) of one paper-lm smoke
+    worker's loss and gradient on the card equals the meta trace's, op for
+    op; so do the bytes saved for the backward."""
+    from repro_torch.launch import dryrun
+    cfg = configs.get_smoke("paper-lm")
+    card = dryrun.trace_train(cfg, 2, 64, device=cuda)
+    meta = dryrun.trace_train(cfg, 2, 64, device="meta")
+    assert card["flops"] == meta["flops"] > 0
+    assert card["flops_by_op"] == meta["flops_by_op"]
+    assert card["saved_bytes"] == meta["saved_bytes"]
+
+
+@pytest.mark.cuda
+def test_cuda_parse_collectives_of_gloo_sync(cuda, tmp_path):
+    """The sync probe's five rows on 2 gloo ranks holding CUDA tensors (on
+    card 0): the bytes the trace says each c10d call was handed equal what
+    ``Collectives`` counted, as on the CPU."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.sync_probe", "--arch",
+         "paper-lm", "--ranks", "2", "--smoke", "--device", "cuda:0",
+         "--seq", "32", "--local-batch", "2", "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert res.returncode == 0, res.stderr[-3000:]
+    for r in range(2):
+        rows = json.loads((tmp_path / "sync__paper-lm_ranks" / f"rank{r}.json")
+                          .read_text())
+        assert len(rows) == 5
+        for row in rows:
+            assert row["held_equal"], row["held"]
+            assert row["count"] >= 1 and row["coll_bytes"] > 0

@@ -69,7 +69,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "serving/engine", "serving/publish", "serving/__init__",
                 "backend/__init__", "backend/base", "backend/local",
                 "backend/simulated", "backend/distributed",
-                "backend/collectives", "sharding/__init__", "sharding/layout"):
+                "backend/collectives", "sharding/__init__", "sharding/layout",
+                "launch/mesh", "launch/dryrun", "roofline/__init__",
+                "roofline/analysis", "roofline/hlo", "roofline/probe",
+                "roofline/sync_probe", "roofline/report",
+                "roofline/experiments_md"):
         assert f"src/repro_torch/{mod}.py" in names, mod
     bad = []
     for f in PORT_FILES:
