@@ -121,8 +121,9 @@ Phases:
            sync seconds against phase R's, launches as B's but kernel 3
            twice a sync (the pack's row sums are the compressor's); the first
            sync's uint8 payload on the card byte for byte against the same
-           pack of the same bucket on the CPU (scales bit for bit: the
-           same adds in the same order); then 4 steps with ``sync_coalesce`` as
+           pack of the same bucket on the CPU, its row sums taken in the
+           kernel's order (``cpu_pack``: scales bit for bit, the same adds
+           in the same order); then 4 steps with ``sync_coalesce`` as
            well: the same plan stages (one bucket: nothing to coalesce on
            one card) and the same losses.
   Y        workers across processes: ``DistributedBackend`` ranks spawned
@@ -163,7 +164,7 @@ Phases:
   V        workers split over shard ranks: ``DistributedBackend(
            within_worker_size=2)``, four ``gloo`` ranks on card 0 = 2
            workers x 2 shards (rank = group * 2 + shard), paper-lm at full
-           width and ``V_LAYERS`` (4) of its 12 layers, W=2, local batch
+           width and ``V_LAYERS`` (2) of its 12 layers, W=2, local batch
            8, seq 512, 12 steps.  The layout puts the layers' and the
            embedding's leaves in a ("model",) sub-bucket (at 12 layers
            933,888 rows, 466,944 a rank) and 3 in a replicated one of
@@ -254,7 +255,7 @@ Phases:
            logits within 1e-4 x (1 + |logit|).
   D        the dense variants at their published widths, phase A's
            settings (mean sync) at W=2, depth cut by the reckoning in
-           ``D_RUNS``: D1 gemma3-1b (12 of 26 layers: twice 5
+           ``D_RUNS``: D1 gemma3-1b (6 of 26 layers: 5
            sliding-window : 1 global, GeGLU, post-norm, scaled
            embeddings, tied head; seq 1024 past its window of 512, local
            batch 4), D2
@@ -311,13 +312,34 @@ Phases:
            refused by ``build_engine`` (it feeds no frames), internvl2
            served text-only on the paged engine (16 requests), held
            against the contiguous path on the engine's own batches.
+  J        the long shapes through block remat and the blockwise
+           attention (``models.layers.chunked_attention``: 512 x 512
+           blocks, the causal / window band only).  J1: paper-lm at full
+           width and depth, train_4k's 4,096 tokens, W=4 x local batch 4,
+           ``remat="block"``, EF-sign and grad clip 1.0, H=2: 2 local
+           steps and 1 sync; the reckonings first (``dryrun.reckon_card``
+           with remat "block"; not run: "none", and the retired
+           whole-square attention); losses finite near ln V, one sync,
+           kernels 1-4 launched (the update and sq_sum a step, the
+           compressor pair and the segmented sum once), step seconds
+           beside the meta FLOPs' f32 bound, the peak within
+           ``J_PEAK_BAND`` of the reckoning; J1b one layer and one
+           sequence of 4,096, the gradients with remat against those
+           without (rtol 1e-4 of each leaf's largest entry).  J2:
+           gemma3-1b at full width and all 26 layers, one 32,768-token
+           prompt through ``lm.prefill`` twice: logits finite, the last
+           512 query rows of a sliding and a global layer against
+           ``reference_attention`` (end-aligned) on those rows and the keys
+           they reach (1e-4 of the largest entry); seconds, tokens/s and
+           the peak beside a reckoning.
   T        the per-tensor kernel API at full width: paper-lm's parameter
            tree (W=1) on the card; one SGD step with ops.fused_sgd on every
            leaf against the same step by the bucket kernel on the flat bus;
            ops.sign_compress on every leaf of a delta tree against the
            bucket compressor; ops.flash_attention against the training
-           path's attention (models.layers.causal_attention) at paper-lm's
-           attention shape; launch counts (one per leaf, one flash).
+           path's attention (models.layers.chunked_attention, one 512 x 512
+           block) at paper-lm's attention shape; launch counts (one per
+           leaf, one flash).
   N        noise-adaptive post-local SGD at full width: phase B's settings
            with the noise_adaptive controller (NOISE_CC), 12 steps; per
            round the H, compressor, batch and LR scale it ran under, the
@@ -373,9 +395,10 @@ Phases:
            ``roofline``) at paper-lm's full width.  U1: the dry run's
            one-card reckoning (``dryrun.reckon_card``: the state copies,
            one worker's bytes saved for the backward, traced on the meta
-           device, and its logits' gradient) of phase A and of every
-           M / D / Z / X part at its cut depth, beside the peak that part
-           measured: the state at most the peak, the total within
+           device, and its logits' gradient; J1's under block remat, the
+           replayed layer's transient added) of phase A, of every
+           M / D / Z / X part at its cut depth and of J1, beside the peak
+           that part measured: the state at most the peak, the total within
            ``U_PEAK_BAND`` of it.  U2: FlopCounterMode over one paper-lm
            worker's loss and gradient (batch 8, seq 512) on the card, equal
            to the meta count, within ``U_FLOP_BAND`` of 3 x the analytic
@@ -918,6 +941,34 @@ def report(res: dict, bw: float, flops_peak: float, **where):
     return res
 
 
+def kernel_order_row_abs_sum(x):
+    """Per-row sum |x| of a (*lead, rows, 128) f32 tensor in
+    ``fb_row_abs_sum``'s order (one warp a row: each lane adds its 4
+    neighbouring |x| as (a + b) + (c + d), then the lanes add in a
+    butterfly, 16 apart, 8, 4, 2, 1), so the card's row sums and these take
+    the same bits.  The port's plain version sums in torch's order, within
+    rounding of the kernel's."""
+    a = x.float().abs().unflatten(-1, (32, 4))
+    s = (a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3])
+    for half in (16, 8, 4, 2, 1):
+        s = s[..., :half] + s[..., half:2 * half]
+    return s[..., 0]
+
+
+def cpu_pack(x, seg, sizes):
+    """``compression.pack_bucket_signs`` of ``x`` on the CPU with its row
+    sums in the kernel's order: the card's pack (the kernel's row sums, the
+    index-order segmented sum, the division by the sizes), bit for bit."""
+    from repro_torch.core import compression as comp
+    from repro_torch.kernels import fused_bucket as fb
+    plain = fb.row_abs_sum_plain
+    fb.row_abs_sum_plain = kernel_order_row_abs_sum
+    try:
+        return comp.pack_bucket_signs(x.cpu(), seg, sizes)
+    finally:
+        fb.row_abs_sum_plain = plain
+
+
 def bf16_ulp(x):
     """One bfloat16 ulp at each entry of x (as f32)."""
     import torch
@@ -1209,7 +1260,7 @@ def phase_t(cfg) -> dict:
     from repro_torch.kernels import sign_compress as sc
     from repro_torch.models import base as mbase
     from repro_torch.models import lm
-    from repro_torch.models.layers import causal_attention
+    from repro_torch.models.layers import chunked_attention
     from repro_torch.utils import tree_leaves, tree_map
 
     dev = "cuda"
@@ -1265,7 +1316,7 @@ def phase_t(cfg) -> dict:
     signs_equal = all(torch.equal(torch.sign(a), torch.sign(b)) for a, b in
                       zip(ys, tree_leaves(flatbuf.unflatten(layout, [yb]))))
 
-    o_train = causal_attention(q, k, v)
+    o_train = chunked_attention(q, k, v)
     f_err = rel_err(o_flash, o_train)
     rec = {"phase": "T", "model": cfg.name, "leaves": n_leaves,
            "params": sum(t.numel() for t in tree_leaves(params)),
@@ -1285,7 +1336,7 @@ def phase_t(cfg) -> dict:
            "per_leaf_sign_ms": time_ms(per_leaf_sign),
            "bucket_sign_ms": time_ms(bucket_sign),
            "flash_ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
-           "training_attention_ms": time_ms(lambda: causal_attention(q, k, v)),
+           "training_attention_ms": time_ms(lambda: chunked_attention(q, k, v)),
            "library_ms": time_ms(sdpa_call(q, k, v, 0))}
     emit(rec)
     want = {"fused_sgd_2d": n_leaves, "abs_sum": n_leaves,
@@ -3166,8 +3217,10 @@ def shadowed_engine(cfg, shape, params, **kw):
     return eng, check
 
 
-# the profiler spans of the port's models, each with the part it books to:
-# the training attention (layers.causal_attention), blocks.moe_apply's
+# the profiler spans of the port's models, each with the part it books to
+# (the innermost span an op runs under: the attention inside the encoder
+# and the cross-attention books to "attention"):
+# the blockwise attention (layers.chunked_attention), blocks.moe_apply's
 # routing + dispatch and its combine, the mLSTM chunk loop, the sLSTM cell
 # loop, mamba2's Q x Q decay product, whisper's encoder (lm._encode: the
 # frontend, positions and every encoder layer) and cross-attention
@@ -3508,7 +3561,8 @@ def phase_w(cfg, b_losses: list, b_wire_bytes: float, b_sync_s: float,
     (B traced the same way), launches (kernel 3 twice a sync: the
     compressor's and the pack's row sums); the first sync's uint8 payload on
     the card held byte for byte against the same pack of the same bucket
-    on the CPU (scales bit for bit: the same adds); then W_COALESCE_STEPS steps
+    on the CPU, its row sums in the kernel's order (``cpu_pack``; scales
+    bit for bit: the same adds); then W_COALESCE_STEPS steps
     with ``sync_coalesce=True`` too: the same plan stages and losses.
     Returns the launch counts of the first run."""
     import torch
@@ -3560,7 +3614,7 @@ def phase_w(cfg, b_losses: list, b_wire_bytes: float, b_sync_s: float,
     t0 = time.perf_counter()
     seg = flatbuf.const("row_segments", layout, 0, "cpu")
     sizes = flatbuf.const("segment_sizes", layout, 0, "cpu")
-    packed_cpu, scales_cpu = comp.pack_bucket_signs(first["x"], seg, sizes)
+    packed_cpu, scales_cpu = cpu_pack(first["x"], seg, sizes)
     cpu_pack_s = time.perf_counter() - t0
     payload_equal = torch.equal(first["packed"], packed_cpu)
     scale_rel = float(((first["scales"] - scales_cpu).abs()
@@ -3651,12 +3705,13 @@ D_STEPS = 8     # phase M's count: the 4 sync steps before the post-local
 # minitron-4b 2 layers 74.3 GB (50.2), so it runs 1 (47.1 reckoned).
 # gemma3-1b ran all 26 layers (28.0 reckoned) until the script's time
 # limit cut it to 12, two of its 5 sliding : 1 global groups (all 26 took
-# 66-70 s of the script); its window is 512, so it
+# 66-70 s of the script), then to 6, one group (12 took 41-64 s; phase J
+# took the script to 1,049.8 s of its 930 s target); its window is 512, so it
 # trains at seq 1024 with local batch 4 (phase A's tokens a step), and its
 # sliding layers' mask and its backward run in every step; its serving
 # prompts and its CPU forward run past the window too.  The last two
 # fields are each part's training seq and local batch.
-D_RUNS = (("D1", "gemma3-1b", 2, 12, 768, (16, 600), 768, 1024, 4),
+D_RUNS = (("D1", "gemma3-1b", 2, 6, 768, (16, 600), 768, 1024, 4),
           ("D2", "qwen3-32b", 2, 1, 256, (16, 128), 128, 512, 8),
           ("D3", "phi4-mini-3.8b", 2, 4, 256, (16, 128), 128, 512, 8),
           ("D4", "minitron-4b", 2, 1, 256, (16, 128), 128, 512, 8))
@@ -4560,10 +4615,11 @@ def y_rank(r: int, port: int, P: int, tags: tuple, backend: str, out: str,
                                                      dist=bundle.dist)
             if own:
                 # this rank's own scales on the card against the same pack
-                # of the same bucket on the CPU (phase W's check)
+                # of the same bucket on the CPU, its row sums in the
+                # kernel's order (phase W's check)
                 seg = flatbuf.const("row_segments", bundle.layout, 0, "cpu")
                 sizes = flatbuf.const("segment_sizes", bundle.layout, 0, "cpu")
-                cpu = pack(own["x"].cpu(), seg, sizes)[1]
+                cpu = cpu_pack(own["x"], seg, sizes)[1]
                 rec["own_scales_max_rel_diff_cpu"] = float(
                     ((own["scales"].cpu() - cpu).abs()
                      / cpu.abs().clamp_min(1e-30)).max())
@@ -4839,12 +4895,13 @@ V_PARTS = (("V1", "fsdp", "none", False, False),
            ("V2", "tp", "ef_sign", False, True),
            ("V3", "fsdp", "ef_sign", True, False))
 V_W, V_S = 2, 2
-# paper-lm's depth in phase V (and, cut further, Q_LAYERS in phase Q): each
-# part is held against its own one-process run at the same depth, so 4 of
-# the 12 layers check the same sharding, syncs and sums in less of the
-# script's time limit (12 layers: phase V 75-105 s, phase Q 189-195 s on
-# an H100)
-V_LAYERS = 4
+# paper-lm's depth in phase V (and Q_LAYERS in phase Q): each part is held
+# against its own one-process run at the same depth, so 2 of the 12 layers
+# check the same sharding, syncs and sums in less of the script's time
+# limit (12 layers: phase V 75-105 s, phase Q 189-195 s on an H100; 4
+# layers: V 42-58 s; cut to 2 when the long shapes' phase J took the
+# script to 1,049.8 s of its 930 s target)
+V_LAYERS = 2
 # losses against the one-process run (relative); V2 0.0 (see V_FRAC_TOL)
 V_LOSS_TOL = {"V1": 1e-4, "V2": 0.0, "V3": 1e-4}
 # params rows against the one-process run: the share of elements beyond
@@ -5676,6 +5733,280 @@ def phase_q(cfg, spec: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase J: the long shapes, train_4k's and prefill_32k's lengths, through
+# block remat (lm.loss_fn(remat="block")) and the blockwise attention
+# (models.layers.chunked_attention)
+# ---------------------------------------------------------------------------
+
+# J1: paper-lm at full width and depth, train_4k's 4,096 tokens, W = 4 x
+# local batch 4, phase B's EF-sign sync and grad clip, H = 2 from the
+# first step: 2 local steps and 1 sync, remat "block"
+J1_SEQ, J1_LOCAL_BATCH, J1_STEPS = 4096, 4, 2
+# the measured peak against dryrun.reckon_card's (remat "block"): U1's band
+J_PEAK_BAND = (0.5, 1.5)
+# J1b: one layer, one sequence of 4,096: the gradients with remat against
+# those without, phase C's rtol (of each leaf's largest entry)
+J1B_RTOL = 1e-4
+# J2: gemma3-1b at full width and all 26 layers, prefill_32k's 32,768
+# tokens, batch 1; the last q block's rows of a sliding layer (call 0) and
+# of a global one (call 5) against reference_attention, end-aligned
+J2_ARCH, J2_SEQ, J2_ROWS = "gemma3-1b", 32768, 512
+J2_CHECKED = {0: "sliding", 5: "global"}
+J2_TOL = 1e-4                  # of the oracle's largest entry
+
+
+def j1_run(cfg):
+    """J1's RunConfig: phase B's settings at 4,096 tokens and local batch
+    4, H = 2 with no post-local switch (one sync after 2 steps), block
+    remat."""
+    import dataclasses
+    run = phase_run("ef_sign", cfg, seq=J1_SEQ, local_batch=J1_LOCAL_BATCH,
+                    steps=J1_STEPS)
+    return dataclasses.replace(
+        run, remat="block", local_sgd=dataclasses.replace(
+            run.local_sgd, local_steps=J1_STEPS, post_local_switch=-1))
+
+
+def j_square_saved(cfg, local_batch: int, seq: int) -> dict:
+    """What one worker's attention keeps for the backward a layer: the
+    blockwise form's (traced on ``meta``), and the retired whole-square
+    form's: its softmax output (B, H, S, S) float32 and the (S, S) mask."""
+    import torch
+    from repro_torch.launch.dryrun import _saved_by
+    from repro_torch.models.layers import chunked_attention
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads or cfg.num_heads, \
+        cfg.resolved_head_dim
+    q = torch.empty((local_batch, seq, H, D), device="meta", requires_grad=True)
+    k, v = (torch.empty((local_batch, seq, KH, D), device="meta",
+                        requires_grad=True) for _ in range(2))
+    skip = {t.untyped_storage()._cdata for t in (q, k, v)}
+    _, saved = _saved_by(lambda: chunked_attention(q, k, v), skip)
+    return {"blockwise": sum(saved.values()),
+            "square": local_batch * H * seq * seq * 4 + seq * seq}
+
+
+def phase_j1(cfg, flops_peak: float) -> dict:
+    """J1: train_4k's length on the main path with block remat.  The
+    reckonings first (``dryrun.reckon_card`` with remat "block", and,
+    not run, with "none" and with the whole-square attention); then 2
+    steps and 1 EF-sign sync at W = 4: losses finite near ln V, the sync,
+    kernels 1-4 launched, the peak beside the reckoning; J1b the
+    gradients of one layer with and without remat.  Returns the launch
+    counts."""
+    import torch
+    from repro_torch.kernels import fused_bucket as fb
+    from repro_torch.launch.dryrun import reckon_card, trace_train
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import base as mbase
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, tree_unflatten
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = j1_run(cfg)
+    lb, seq = J1_LOCAL_BATCH, J1_SEQ
+    t0 = time.perf_counter()
+    traces = {r: trace_train(cfg, lb, seq, device="meta", flops=False,
+                             remat=r) for r in ("block", "none")}
+    REFS.setdefault("trace", {})["J1"] = traces["block"]
+    rc = {k: reckon_card(cfg, t, workers=W, mode="ef_sign")
+          for k, t in traces.items()}
+    # a worker's FLOPs (the replay in): traced at 1 and 2 layers on meta,
+    # exactly affine in the depth
+    f1, f2 = (trace_train(cfg.replace(num_layers=n), lb, seq, device="meta",
+                          remat="block")["flops"] for n in (1, 2))
+    flops_worker = f1 + (f2 - f1) * (cfg.num_layers - 1)
+    att = j_square_saved(cfg, lb, seq)
+    square = dict(traces["none"])
+    square["saved_bytes"] += cfg.num_layers * (att["square"] - att["blockwise"])
+    rc["square"] = reckon_card(cfg, square, workers=W, mode="ef_sign")
+    reckon_s = time.perf_counter() - t0
+
+    bundle = build_train(run, num_workers=W, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() / 1e9
+    fb.reset_launches()
+    seg0 = fb.PORT_LAUNCHES["segment_sum"]
+    state, hist, summ, step_s = train_run(run, device="cuda", steps=J1_STEPS,
+                                          bundle=bundle)
+    counts = dict(fb.LAUNCHES)
+    seg = fb.PORT_LAUNCHES["segment_sum"] - seg0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    del state, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    REFS.setdefault("peak_GB", {})["J1"] = peak / 1e9
+    flops_step = W * flops_worker
+    GB = lambda r: {k: r[k] / 1e9 for k in (
+        "state_bytes", "activation_bytes", "recompute_bytes",
+        "logits_grad_bytes", "step_peak_bytes", "sync_peak_bytes", "peak_bytes")}
+    rec = {"phase": "J", "part": "J1", "model": cfg.name, "W": W,
+           "local_batch": lb, "seq": seq, "layers": cfg.num_layers,
+           "remat": run.remat, "sync_compression": "ef_sign",
+           "grad_clip": run.optim.grad_clip,
+           "local_steps": run.local_sgd.local_steps, "steps": J1_STEPS,
+           "loss": losses, "ln_vocab": math.log(cfg.vocab_size),
+           "comm_rounds": summ["comm_rounds"], "step_s": step_s,
+           "tokens_per_s": W * lb * seq * len(step_s) / sum(step_s),
+           "flops_step_meta": flops_step,
+           "step_f32_bound_s": flops_step / flops_peak,
+           "share_of_f32_bound": [flops_step / flops_peak / s for s in step_s],
+           "mem_before_GB": mem0, "measured_peak_GB": peak / 1e9,
+           "reckoned_GB": {k: GB(r) for k, r in rc.items()},
+           "reckoned_over_measured": rc["block"]["peak_bytes"] / peak,
+           "attention_saved_GB_a_layer": {k: v / 1e9 for k, v in att.items()},
+           "fits_card": {k: bool(r["fits"]) for k, r in rc.items()},
+           "reckon_s": reckon_s, "launches": counts,
+           "segment_sum_launches": seg}
+    bad = []
+    if not (all(math.isfinite(v) for v in losses)
+            and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0):
+        bad.append(f"losses {losses}")
+    if summ["comm_rounds"]["global"] != 1:
+        bad.append(f"comm rounds {summ['comm_rounds']}")
+    want = {k: 0 for k in fb.LAUNCHES}
+    want.update(fused_sgd_bucket=J1_STEPS, sq_sum=J1_STEPS, row_abs_sum=1,
+                scale_sign_rows=1)
+    if counts != want or seg != 1:
+        bad.append(f"launches {counts} (segment_sum {seg}), want {want}")
+    ratio = rec["reckoned_over_measured"]
+    if not (J_PEAK_BAND[0] <= ratio <= J_PEAK_BAND[1]
+            and rc["block"]["state_bytes"] <= peak):
+        bad.append(f"peak {peak / 1e9:.2f} GB against "
+                   f"{rc['block']['peak_bytes'] / 1e9:.2f} reckoned")
+
+    # -- J1b: one layer, one sequence: remat against none
+    one = cfg.replace(num_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    params = mbase.materialize(lm.param_specs(one), gen, "cuda")
+    tok = torch.randint(0, one.vocab_size, (1, seq + 1), generator=gen,
+                        device="cuda")
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    grads = {}
+    for remat in ("none", "block"):
+        leaves, treedef = tree_flatten(params)
+        leaves = [a.clone().requires_grad_(True) for a in leaves]
+        loss, _ = lm.loss_fn(one, tree_unflatten(treedef, leaves), batch,
+                             remat=remat)
+        loss.backward()
+        grads[remat] = (float(loss), [a.grad for a in leaves])
+    (l0, g0), (l1, g1) = grads["none"], grads["block"]
+    errs = [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(g1, g0)]
+    rec["J1b"] = {"layers": 1, "tokens": seq, "loss": [l0, l1],
+                  "grad_max_rel_err": max(errs), "rtol": J1B_RTOL,
+                  "bit_for_bit": l0 == l1 and all(torch.equal(a, b)
+                                                  for a, b in zip(g1, g0))}
+    del params, grads, g0, g1
+    torch.cuda.empty_cache()
+    if abs(l1 - l0) > J1B_RTOL * abs(l0) or max(errs) > J1B_RTOL:
+        bad.append(f"J1b: remat against none {rec['J1b']}")
+    emit(rec)
+    if bad:
+        raise AssertionError(f"phase J1: {'; '.join(bad)}")
+    return counts
+
+
+def phase_j2() -> dict:
+    """J2: prefill_32k's length on the serving path: gemma3-1b at full
+    width and depth, one prompt of 32,768 tokens through ``lm.prefill``
+    (the attention's ``differentiable=False`` form), twice: the logits
+    finite, 26 attention calls, the last 512 query rows of a sliding and
+    a global layer against ``reference_attention`` on those rows and the
+    keys they reach (the last 1,024, or all); seconds and the peak beside
+    a reckoning."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import base as mbase
+    from repro_torch.models import blocks
+    from repro_torch.models import lm
+    from repro_torch.models.layers import reference_attention
+    from repro_torch.utils import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get(J2_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    params = mbase.materialize(lm.param_specs(cfg), gen, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, J2_SEQ), generator=gen,
+                           device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    KH, D = cfg.num_kv_heads, cfg.resolved_head_dim
+    cache_bytes = cfg.num_layers * J2_SEQ * KH * D * 2 * 4
+    reckon = {"weights": n_params * 4, "cache": cache_bytes,
+              "cache_stacked_copy": cache_bytes,
+              "ffn_transient": 3 * J2_SEQ * cfg.d_ff * 4,
+              "scores_a_block": 512 * cfg.num_heads * 512 * 4,
+              "square_scores_a_global_layer": cfg.num_heads * J2_SEQ ** 2 * 4}
+    reckoned_peak = sum(v for k, v in reckon.items()
+                        if k not in ("square_scores_a_global_layer",))
+    captured, calls = {}, [0]
+    orig = blocks.chunked_attention
+
+    def spy(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        i = calls[0]
+        calls[0] += 1
+        if i in J2_CHECKED:
+            captured[i] = (q[:, -J2_ROWS:].clone(), k, v,
+                           out[:, -J2_ROWS:].clone(), kw)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    seconds = []
+    blocks.chunked_attention = spy
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(cfg, params, tokens)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            blocks.chunked_attention = orig
+            del cache
+    finally:
+        blocks.chunked_attention = orig
+    peak = torch.cuda.max_memory_allocated()
+    checks = {}
+    for i, (q, k, v, got, kw) in captured.items():
+        keys = 2 * J2_ROWS if kw["window"] else J2_SEQ
+        want = reference_attention(q, k[:, -keys:], v[:, -keys:],
+                                   window=kw["window"], softcap=kw["softcap"],
+                                   scale=kw["scale"])
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        checks[J2_CHECKED[i]] = {"call": i, "window": kw["window"],
+                                 "keys": keys, "max_abs_err": err,
+                                 "oracle_max": scale,
+                                 "ok": err <= J2_TOL * scale}
+    del captured, params
+    torch.cuda.empty_cache()
+    rec = {"phase": "J", "part": "J2", "model": cfg.name,
+           "layers": cfg.num_layers, "batch": 1, "tokens": J2_SEQ,
+           "block": 512, "prefill_s": seconds,
+           "tokens_per_s": J2_SEQ / min(seconds),
+           "attention_calls": calls[0],
+           "logits_shape": list(logits.shape),
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "mem_before_GB": mem0 / 1e9, "measured_peak_GB": peak / 1e9,
+           "reckoned_GB": {k: v / 1e9 for k, v in reckon.items()},
+           "reckoned_peak_GB": reckoned_peak / 1e9,
+           "reckoned_over_measured": reckoned_peak / peak,
+           "oracle": checks, "tol": J2_TOL}
+    emit(rec)
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    if (len(checks) != len(J2_CHECKED) or bad or not rec["logits_finite"]
+            or rec["logits_shape"] != [1, 1, cfg.vocab_size]
+            or calls[0] != cfg.num_layers):
+        raise AssertionError(f"phase J2: oracle {checks}, logits "
+                             f"{rec['logits_shape']} finite "
+                             f"{rec['logits_finite']}, {calls[0]} calls")
+    return {}
+
+
+# ---------------------------------------------------------------------------
 # phase U: the dry-run and roofline analogues on the card (launch.dryrun,
 # roofline.{analysis,probe,sync_probe,hlo})
 # ---------------------------------------------------------------------------
@@ -5691,9 +6022,14 @@ U_PEAK_BAND = (0.5, 1.5)
 U_FLOP_BAND = (0.5, 2.0)
 
 
+# the parts U1 reckons under block remat
+U_REMAT = {"J1": "block"}
+
+
 def u_runs() -> list:
-    """(tag, arch, sync, W, layers, seq, local batch) of phase A and of
-    every family part at its cut depth, as those phases ran them."""
+    """(tag, arch, sync, W, layers, seq, local batch) of phase A, of
+    every family part at its cut depth, and of J1, as those phases ran
+    them."""
     from repro_torch import configs
     from repro_torch.launch.dryrun import x_depth
     runs = [("A", "paper-lm", "none", W, 12, 512, 8)]
@@ -5703,6 +6039,7 @@ def u_runs() -> list:
     runs += [(t, a, m, w, n, seq, lb) for t, a, m, w, n, seq, lb, _ in Z_RUNS]
     runs += [(t, a, m, w, n or x_depth(configs.get(a), w, m), seq, lb)
              for t, a, m, w, n, seq, lb in X_RUNS]
+    runs.append(("J1", "paper-lm", "ef_sign", W, 12, J1_SEQ, J1_LOCAL_BATCH))
     return runs
 
 
@@ -5715,19 +6052,21 @@ def phase_u1() -> list:
     for tag, arch, mode, workers, layers, seq, lb in u_runs():
         cfg = cut_depth(configs.get(arch), layers)
         t0 = time.perf_counter()
-        rc = reckon_card(cfg, trace_train(cfg, lb, seq, device="meta",
-                                          flops=False),
-                         workers=workers, mode=mode)
+        remat = U_REMAT.get(tag, "none")
+        trace = REFS.get("trace", {}).get(tag) or trace_train(
+            cfg, lb, seq, device="meta", flops=False, remat=remat)
+        rc = reckon_card(cfg, trace, workers=workers, mode=mode)
         peak = REFS["peak_GB"][tag] * 1e9
         ratio = rc["peak_bytes"] / peak
         ok = (rc["state_bytes"] <= peak
               and U_PEAK_BAND[0] <= ratio <= U_PEAK_BAND[1])
         emit({"phase": "U", "part": "U1", "run": tag, "model": arch,
               "layers": cfg.num_layers, "W": workers, "local_batch": lb,
-              "seq": seq, "sync_compression": mode,
+              "seq": seq, "sync_compression": mode, "remat": remat,
               "reckoned_GB": {k: rc[k] / 1e9 for k in (
                   "state_bytes", "activation_bytes", "logits_grad_bytes",
-                  "step_peak_bytes", "sync_peak_bytes", "peak_bytes")},
+                  "recompute_bytes", "step_peak_bytes", "sync_peak_bytes",
+                  "peak_bytes")},
               "measured_peak_GB": peak / 1e9,
               "reckoned_over_measured": ratio,
               "state_over_measured": rc["state_bytes"] / peak,
@@ -6065,6 +6404,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         laps(x_run[0])
 
+    # ---- J: the long shapes (train_4k, prefill_32k) on the card ----
+    for k, v in phase_j1(cfg, flops_peak).items():
+        launches[k] += v
+    laps("J1")
+    phase_j2()
+    laps("J2")
+
     launches.update(phase_t(cfg))
     torch.cuda.empty_cache()
     laps("T")
@@ -6158,7 +6504,7 @@ def main() -> int:
     laps("U")
 
     # launches: phases A, B, L, F, H, E, R, W, K, S, Y, V and Q (every
-    # rank; Y4 and Q3 the tree kernel form), M, D, Z, X, N, G, U and the
+    # rank; Y4 and Q3 the tree kernel form), M, D, Z, X, J1, N, G, U and the
     # noise check for the bucket kernels, T for the others; the segmented
     # sum's from phases A, B, L, F, Y and Q
     if not all(launches[k] > 0 for k in KERNELS):

@@ -210,6 +210,9 @@ class RunConfig:
     optim: OptimConfig = OptimConfig()
     controller: ControllerConfig = ControllerConfig()
     seed: int = 0
-    remat: Literal["none", "block", "full"] = "block"
+    # "block": recompute each period layer in the backward
+    # (lm.loss_fn); the reference's default is "block", the port's "none"
+    # (a kept difference: the same numbers, no recompute unless asked)
+    remat: Literal["none", "block", "full"] = "none"
     steps: int = 100
     log_every: int = 10

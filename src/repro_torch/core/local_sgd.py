@@ -158,7 +158,8 @@ from repro_torch.core.schedule import lr_at
 from repro_torch.kernels import ops as kops
 from repro_torch.models import base as mbase
 from repro_torch.optim.lars import apply_lars, apply_lars_buckets
-from repro_torch.optim.sgd import apply_sgd, apply_sgd_buckets, init_momentum
+from repro_torch.optim.sgd import (apply_sgd, apply_sgd_buckets, init_momentum,
+                                   sum_from)
 from repro_torch.telemetry import stats as tstats
 from repro_torch.utils import (tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
@@ -682,8 +683,15 @@ def pack_axes_tree(specs, layout):
 
 def _tree_sumsq_w(tree):
     """(W,) per-worker f32 sum of squares over every leaf of a stacked
-    tree, leaf after leaf."""
-    return sum(_sumsq(x, from_axis=1) for x in tree_leaves(tree))
+    tree, leaf after leaf, one reduction a worker and leaf
+    (``optim.sgd.sum_from``: the same bits whatever workers lie beside
+    it, in one process or on a rank)."""
+    return sum(sum_from(_sq(x), 1) for x in tree_leaves(tree))
+
+
+def _sq(x):
+    xf = x.float()
+    return xf * xf
 
 
 def _bucket_noise(layout, gbs, gen, *, step: int, eta: float, gamma: float):
@@ -897,7 +905,7 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                              grad_clip=opt.grad_clip, use_kernel=use_kernel,
                              leading=1)
         if telemetry:
-            usq = sum(_sumsq(a.float() - b.float(), from_axis=1)
+            usq = sum(sum_from(_sq(a.float() - b.float()), 1)
                       for a, b in zip(tree_leaves(p), tree_leaves(p0)))
             stats = tstats.accumulate_step(stats, gsq, usq)
         # every worker's values (gathered across ranks: one collective a

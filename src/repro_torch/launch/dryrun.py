@@ -43,7 +43,8 @@ Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k --device meta
     python -m repro_torch.launch.dryrun --all --device meta [--multi-pod] [--layout fsdp]
     python -m repro_torch.launch.dryrun --arch paper-lm --workers 4 \\
-        --local-batch 8 --seq 512 [--layers 2] [--sync ef_sign] --device meta
+        --local-batch 8 --seq 512 [--layers 2] [--sync ef_sign] \\
+        [--remat block] --device meta
 
 Records go to ``--out`` (default ``build/dryrun/``), one JSON file a pair.
 Without ``--device`` the trace runs on the card (and raises without one).
@@ -198,52 +199,88 @@ def _affine_in_seq(trace, seq: int) -> dict:
 
 
 def trace_train(cfg: ModelConfig, local_batch: int, seq: int, *,
-                device="meta", flops: bool = True) -> dict:
+                device="meta", flops: bool = True, remat: str = "none") -> dict:
     """One worker's loss and gradient: FLOPs, the bytes saved for the
     backward (each storage alive at the end of the forward once; the
     parameters' and the batch's left out), and the logits' gradient.
     ``flops=False`` traces the forward alone (the saved bytes are known at
     its end) and counts no FLOPs.  A model that loops once a token is
-    traced at two shorter lengths and extrapolated (``_affine_in_seq``)."""
+    traced at two shorter lengths and extrapolated (``_affine_in_seq``).
+
+    ``remat="block"`` (``lm.loss_fn``'s): the saved bytes are what the
+    outer hook sees (the ops outside the checkpointed layers) plus what
+    checkpoint keeps (each layer's input and the tensors it reads, which
+    checkpoint's own hooks hide from the outer one), and
+    ``recompute_bytes`` is the backward's transient of the replayed
+    layer: the most one period layer saves when it runs without
+    checkpoint.  The FLOPs count the replay (one more forward of the
+    period layers)."""
     if _loops_per_token(cfg, seq):
         return _affine_in_seq(lambda n: _trace_train(
-            cfg, local_batch, n, device=device, flops=flops), seq)
-    return _trace_train(cfg, local_batch, seq, device=device, flops=flops)
+            cfg, local_batch, n, device=device, flops=flops, remat=remat), seq)
+    return _trace_train(cfg, local_batch, seq, device=device, flops=flops,
+                        remat=remat)
 
 
-def _trace_train(cfg: ModelConfig, local_batch: int, seq: int, *,
-                 device="meta", flops: bool = True) -> dict:
-    device = torch.device(device)
-    params = trace_params(cfg, device)
-    batch = worker_batch(cfg, local_batch, seq, device)
+def _storages(tensors, skip: set) -> dict:
+    """{storage id: bytes} of the tensors among ``tensors`` (trees
+    allowed) whose storage is not in ``skip``."""
+    out = {}
+    for t in tree_leaves(list(tensors)):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            if st._cdata not in skip:
+                out[st._cdata] = st.nbytes()
+    return out
+
+
+def _saved_by(fn, skip: set) -> dict:
+    """{storage id: bytes} of what autograd saves while ``fn()`` runs
+    and still holds at its end, storages in ``skip`` left out."""
     refs = []
 
     def pack(t):
         refs.append(weakref.ref(t))
         return t
 
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, _storages([r() for r in refs if r() is not None], skip)
+
+
+def _trace_train(cfg: ModelConfig, local_batch: int, seq: int, *,
+                 device="meta", flops: bool = True, remat: str = "none") -> dict:
+    device = torch.device(device)
+    params = trace_params(cfg, device)
+    batch = worker_batch(cfg, local_batch, seq, device)
+    own = {t.untyped_storage()._cdata
+           for t in tree_leaves(params) + list(batch.values())}
+
     t0 = time.perf_counter()
     fc = FlopCounterMode(display=False) if flops else None
-    with fc or contextlib.nullcontext():
-        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-            loss, _ = lm.loss_fn(cfg, params, batch)
-        own = {t.untyped_storage()._cdata
-               for t in tree_leaves(params) + list(batch.values())}
-        saved = {}
-        for r in refs:
-            t = r()
-            if t is not None:
-                st = t.untyped_storage()
-                if st._cdata not in own:
-                    saved[st._cdata] = st.nbytes()
+    with fc or contextlib.nullcontext(), lm.record_remat() as layers:
+        (loss, _), saved = _saved_by(
+            lambda: lm.loss_fn(cfg, params, batch, remat=remat), own)
+        for _, args, keep in layers:
+            saved.update(_storages((args, keep), own))
         if flops:
             torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
     rows = logits_rows(batch)
-    return {**(_flops(fc) if flops else {}),
-            "saved_bytes": int(sum(saved.values())),
-            "saved_storages": len(saved),
-            "logits_grad_bytes": rows * cfg.vocab_size * 4,
-            "trace_s": time.perf_counter() - t0}
+    rec = {**(_flops(fc) if flops else {}),
+           "saved_bytes": int(sum(saved.values())),
+           "saved_storages": len(saved),
+           "logits_grad_bytes": rows * cfg.vocab_size * 4}
+    if remat == "block":
+        # each period layer once more, without checkpoint: what its replay
+        # in the backward saves beside the kept inputs
+        transient = 0
+        for fn, args, keep in layers[:len(cfg.blocks)]:
+            skip = own | set(_storages((args, keep), set()))
+            transient = max(transient, sum(_saved_by(
+                lambda: fn(*args), skip)[1].values()))
+        rec["recompute_bytes"] = int(transient)
+    rec["trace_s"] = time.perf_counter() - t0
+    return rec
 
 
 def trace_serve(cfg: ModelConfig, shape: InputShape, *, device="meta") -> dict:
@@ -296,15 +333,17 @@ def _trace_serve(cfg: ModelConfig, shape: InputShape, *, device="meta") -> dict:
 # ---------------------------------------------------------------------------
 
 def period_probe(cfg: ModelConfig, local_batch: int, seq: int, *,
-                 device="meta") -> dict:
+                 device="meta", remat: str = "none") -> dict:
     """One worker's step at 1 and 2 layer-periods (``len(cfg.blocks)``
     layers): its FLOPs and saved bytes as ``fixed + slope x (L /
-    period)`` (``roofline.probe.extrapolate``)."""
+    period)`` (``roofline.probe.extrapolate``), and under ``remat`` the
+    replayed layer's transient (the same at any depth)."""
     from repro_torch.roofline.probe import extrapolate
     period = len(cfg.blocks)
     m1, m2 = (trace_train(cfg.replace(num_layers=n), local_batch, seq,
-                          device=device) for n in (period, 2 * period))
-    return {"period": period,
+                          device=device, remat=remat)
+              for n in (period, 2 * period))
+    return {"period": period, "recompute_bytes": m1.get("recompute_bytes", 0),
             **extrapolate(m1, m2, cfg.num_layers / period,
                           ("flops", "saved_bytes"))}
 
@@ -319,20 +358,25 @@ def reckon_card(cfg: ModelConfig, trace: dict, *, workers: int,
     """One card holding all ``workers`` (``chip_smoke.py``'s phases): the
     state copies (:func:`m_reckon`) and, during a local step, one
     worker's activations and its logits' gradient (``trace``, of
-    :func:`trace_train`; the workers run one after another).  The logits' gradient is the backward's largest
-    transient: B x S x V float32 next to the saved logits (qwen3-32b's
-    152k vocabulary puts its 1-layer step at 73.9 GB against 57.2 GB of
-    state copies)."""
+    :func:`trace_train`; the workers run one after another), and under
+    ``remat="block"`` the replayed layer's transient (the trace's
+    ``recompute_bytes``).  The logits' gradient is the backward's largest
+    transient without remat: B x S x V float32 next to the saved logits
+    (qwen3-32b's 152k vocabulary puts its 1-layer step at 73.9 GB against
+    57.2 GB of state copies)."""
     m = m_reckon(cfg, workers, mode)
     t = trace
     copy = m["copy_bytes"]
-    step = m["step_copies"] * copy + t["saved_bytes"] + t["logits_grad_bytes"]
+    recompute = t.get("recompute_bytes", 0)
+    step = (m["step_copies"] * copy + t["saved_bytes"] + t["logits_grad_bytes"]
+            + recompute)
     sync = m["sync_copies"] * copy
     return {"state_bytes": m["reckoned_peak_bytes"],
             "copy_bytes": copy, "step_copies": m["step_copies"],
             "sync_copies": m["sync_copies"],
             "activation_bytes": t["saved_bytes"],
             "logits_grad_bytes": t["logits_grad_bytes"],
+            "recompute_bytes": recompute,
             "step_peak_bytes": step, "sync_peak_bytes": sync,
             "peak_bytes": max(step, sync), "fits": max(step, sync) <= HBM_BYTES,
             "flops_worker": t.get("flops")}
@@ -349,7 +393,8 @@ def card_depth(cfg: ModelConfig, *, workers: int, local_batch: int, seq: int,
     def peak(L):
         m = m_reckon(cfg.replace(num_layers=L), workers, mode)
         step = (m["step_copies"] * m["copy_bytes"]
-                + _at_depth(probe, "saved_bytes", L) + logits)
+                + _at_depth(probe, "saved_bytes", L) + logits
+                + probe.get("recompute_bytes", 0))
         return max(step, m["sync_copies"] * m["copy_bytes"])
 
     return deepest(cfg.num_layers, lambda L: peak(L) <= cap)
@@ -511,14 +556,15 @@ def dryrun_serve(arch: str, shape: InputShape, grid, *, device="meta") -> dict:
 
 def dryrun_card(arch: str, *, workers: int, local_batch: int, seq: int,
                 layers: int | None = None, mode: str = "none",
-                device="meta") -> dict:
+                remat: str = "none", device="meta") -> dict:
     """One card at ``workers`` x ``local_batch`` x ``seq`` (the phases of
-    ``chip_smoke.py``), ``arch`` cut to ``layers``."""
+    ``chip_smoke.py``), ``arch`` cut to ``layers``, under ``remat``."""
     published = configs.get(arch)
     cfg = (published if layers is None or layers >= published.num_layers
            else published.replace(num_layers=layers))
-    t = trace_train(cfg, local_batch, seq, device=device)
-    probe = period_probe(published, local_batch, seq, device=device)
+    t = trace_train(cfg, local_batch, seq, device=device, remat=remat)
+    probe = period_probe(published, local_batch, seq, device=device,
+                         remat=remat)
     rc = reckon_card(cfg, t, workers=workers, mode=mode)
     specs = lm.param_specs(cfg)
     flay = flatbuf.build_layout(mbase.abstract(specs))
@@ -526,7 +572,7 @@ def dryrun_card(arch: str, *, workers: int, local_batch: int, seq: int,
             "kind": "train", "mesh": {"card": 1}, "num_workers": workers,
             "layout": "one_card", "worker_axes": [], "layers": cfg.num_layers,
             "n_params": mbase.count_params(specs), "local_batch": local_batch,
-            "seq": seq, "sync_compression": mode,
+            "seq": seq, "sync_compression": mode, "remat": remat,
             "local_step": {"name": "local_step",
                            "flops": t["flops"] * workers,
                            "flops_worker": t["flops"],
@@ -568,6 +614,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--layers", type=int)
     ap.add_argument("--sync", default="none", choices=["none", "sign", "ef_sign"])
+    ap.add_argument("--remat", default="none", choices=["none", "block"],
+                    help="one card: recompute each layer in the backward")
     ap.add_argument("--device", help="meta | cpu | cuda (default: the card)")
     ap.add_argument("--out", default=str(OUT_DIR))
     args = ap.parse_args(argv)
@@ -579,9 +627,11 @@ def main(argv=None) -> int:
             ap.error("--workers needs --arch")
         rep = dryrun_card(args.arch, workers=args.workers,
                           local_batch=args.local_batch, seq=args.seq,
-                          layers=args.layers, mode=args.sync, device=device)
+                          layers=args.layers, mode=args.sync,
+                          remat=args.remat, device=device)
         path = record_path(out, args.arch, rep["shape"],
-                           f"card_L{rep['layers']}_{args.sync}")
+                           f"card_L{rep['layers']}_{args.sync}"
+                           + ("_remat" if args.remat == "block" else ""))
         path.write_text(json.dumps(rep, indent=1))
         pc = rep["per_card"]
         print(json.dumps({"record": str(path), "peak_GB": pc["peak_bytes"] / 1e9,

@@ -148,7 +148,7 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
                          f"MeshLayout that shards the leaves (layout=)")
 
     def loss(params, batch):
-        return lm.loss_fn(cfg, params, batch)
+        return lm.loss_fn(cfg, params, batch, remat=run.remat)
 
     telemetry = run.controller.wants_telemetry
     tree_kw = {}

@@ -17,9 +17,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.layers import (NEG_INF, apply_rope, cache_write,
-                                       causal_attention, decode_attention,
-                                       full_attention, geglu, gelu, rms_norm,
-                                       swiglu)
+                                       chunked_attention, decode_attention,
+                                       geglu, gelu, rms_norm, swiglu)
 
 
 @dataclass
@@ -32,6 +31,8 @@ class Ctx:
     emb0: Any = None                     # the embedding output (zamba2's shared-block skip)
     enc_out: Any = None                  # the encoder output (whisper's cross-attention)
     aux_losses: list = field(default_factory=list)   # MoE load-balance terms
+    block_q: int = 512                   # chunked_attention's query block
+    block_k: int = 512                   # and key block (train, prefill)
 
 
 def attn_specs(cfg: ModelConfig, *, num_heads=None, num_kv_heads=None,
@@ -81,10 +82,7 @@ def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, *, window: int = 0,
         k = apply_rope(k, ctx.positions, theta=theta)
 
     new_cache = None
-    if not causal:
-        out = full_attention(q, k, v, softcap=cfg.logit_softcap,
-                             scale=cfg.attn_scale)
-    elif ctx.mode == "decode":
+    if ctx.mode == "decode":
         write = torch.as_tensor(ctx.cache_len, device=x.device) - 1
         kc = cache_write(ctx.cache["k"], k, write)
         vc = cache_write(ctx.cache["v"], v, write)
@@ -93,8 +91,10 @@ def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, *, window: int = 0,
                                scale=cfg.attn_scale)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = causal_attention(q, k, v, window=window,
-                               softcap=cfg.logit_softcap, scale=cfg.attn_scale)
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                softcap=cfg.logit_softcap, scale=cfg.attn_scale,
+                                block_q=ctx.block_q, block_k=ctx.block_k,
+                                differentiable=ctx.mode == "train")
         if ctx.mode == "prefill":
             new_cache = {"k": k, "v": v}
     return out.reshape(B, S, H * D) @ p["wo"], new_cache
@@ -139,7 +139,9 @@ def cross_attn_apply(cfg: ModelConfig, p, x, ctx: Ctx):
             k = (enc @ p["wk"]).reshape(B_, enc.shape[1], KH, D)
             v = (enc @ p["wv"]).reshape(B_, enc.shape[1], KH, D)
             new_cache = {"xk": k, "xv": v} if ctx.mode == "prefill" else None
-        out = full_attention(q, k, v)
+        out = chunked_attention(q, k, v, causal=False, block_q=ctx.block_q,
+                                block_k=ctx.block_k,
+                                differentiable=ctx.mode == "train")
         return out.reshape(B_, S, H * D) @ p["wo"], new_cache
 
 
@@ -234,8 +236,10 @@ def mla_apply(cfg: ModelConfig, p, x, ctx: Ctx):
         k_nope = (c @ p["w_uk"]).reshape(B_, S, H, dn)
         v = (c @ p["w_uv"]).reshape(B_, S, H, dv)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B_, S, H, dr)], -1)
-        out = causal_attention(torch.cat([q_nope, q_rope], -1), k, v,
-                               scale=scale)
+        out = chunked_attention(torch.cat([q_nope, q_rope], -1), k, v,
+                                scale=scale, block_q=ctx.block_q,
+                                block_k=ctx.block_k,
+                                differentiable=ctx.mode == "train")
         if ctx.mode == "prefill":
             new_cache = {"ckv": c, "k_rope": k_rope}
     return out.reshape(B_, S, H * dv) @ p["wo"], new_cache
@@ -310,6 +314,19 @@ def record_routes():
         yield sink
     finally:
         _ROUTE_SINKS.remove(sink)
+
+
+@contextlib.contextmanager
+def routes_paused():
+    """Hide the open ``record_routes`` sinks inside the context: a layer
+    that checkpoint replays in the backward routes its tokens again, and
+    the sinks keep the forward's routes only."""
+    held = _ROUTE_SINKS[:]
+    _ROUTE_SINKS.clear()
+    try:
+        yield
+    finally:
+        _ROUTE_SINKS[:] = held
 
 
 def moe_route(cfg: ModelConfig, router, xf) -> Routing:

@@ -54,10 +54,12 @@ only: the paged engine needs a ``kv_seq`` axis on every leaf.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import blocks as B
@@ -239,18 +241,20 @@ def _unbind_stacked(stacked):
     return treedef, [leaf.unbind(0) for leaf in leaves]
 
 
-def _encode(cfg: ModelConfig, params, frames):
+def _encode(cfg: ModelConfig, params, frames, *, block_q: int = 512,
+            block_k: int = 512):
     """whisper's encoder over stubbed frame embeddings (B, Se, E): the
     ``frontend`` projection, sinusoidal positions, the encoder layers
     (pre-norm non-causal attention without RoPE, then the GELU FFN), the
-    encoder's RMS norm.  Always train mode: the encoder keeps no cache."""
+    encoder's RMS norm.  Always train mode, in a prefill too, as the
+    reference's: the encoder keeps no cache, and recomputes nothing."""
     # a profiler span: a profile books these ops and their backward to
     # the encoder
     with torch.profiler.record_function("encoder"):
         x = frames @ params["frontend"]
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      device=x.device).to(x.dtype)[None]
-        ctx = B.Ctx(mode="train")
+        ctx = B.Ctx(mode="train", block_q=block_q, block_k=block_k)
         treedef, per_layer = _unbind_stacked(params["enc"]["layers"][0])
         for g in range(cfg.encoder_layers):
             lp = tree_unflatten(treedef, [p[g] for p in per_layer])
@@ -263,10 +267,61 @@ def _encode(cfg: ModelConfig, params, frames):
         return rms_norm(x, params["enc"]["norm"], eps=cfg.norm_eps)
 
 
+# the sinks of open ``record_remat`` contexts: each gets ``(fn, args, keep)``
+# of every layer call that runs under checkpoint while it is open
+_REMAT_SINKS: list = []
+
+
+@contextlib.contextmanager
+def record_remat():
+    """Collect ``(fn, args, keep)`` of every layer that ``remat="block"``
+    runs under checkpoint inside the context, in call order: ``fn(*args)``
+    replays the layer, and ``args`` and ``keep`` (the tensors the layer
+    reads besides them) are what checkpoint keeps alive for the backward
+    (for measurement: ``launch.dryrun`` counts both)."""
+    sink: list = []
+    _REMAT_SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _REMAT_SINKS.remove(sink)
+
+
+def _remat(fn, *args, keep=()):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    autograd keeps the arguments and runs ``fn`` again in the backward.
+    The replay records no MoE routes (``blocks.record_routes`` sees each
+    layer once); its outputs, the aux loss among them, are dropped.
+    ``keep``: the tensors ``fn`` reads besides ``args``, for
+    :func:`record_remat`."""
+    for sink in _REMAT_SINKS:
+        sink.append((fn, args, keep))
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        with B.routes_paused():
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
-             cache=None, cache_len=None, prefix_embed=None, enc_frames=None):
+             cache=None, cache_len=None, prefix_embed=None, enc_frames=None,
+             remat: str = "none", block_q: int = 512, block_k: int = 512):
     """The decoder stack in any mode: (hidden (B, Np + S, E), new cache,
     aux).
+
+    ``remat="block"`` runs each layer of the period groups under
+    checkpoint (:func:`_remat`) in train mode while grad is on, as the
+    reference wraps them in ``jax.checkpoint``: the backward keeps each
+    layer's input and recomputes the layer.  The remainder layers and the
+    encoder are not wrapped (nor are the reference's); ``"none"`` and
+    ``"full"`` recompute nothing (the reference tests for ``"block"``
+    only).  ``block_q`` / ``block_k`` are the attention's blocks
+    (``layers.chunked_attention``).
 
     Train mode returns no cache; prefill stacks each block's cache over
     the repeats; decode writes the new token's entries and the new
@@ -283,7 +338,8 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
             x = torch.cat([pe, x], dim=1)
     enc_out = None
     if cfg.encoder_layers and enc_frames is not None:
-        enc_out = _encode(cfg, params, enc_frames)
+        enc_out = _encode(cfg, params, enc_frames, block_q=block_q,
+                          block_k=block_k)
     emb0 = x if _shared_block(cfg) is not None else None
     shared = params.get("shared")
     Bsz, S = x.shape[:2]
@@ -297,12 +353,15 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
               for i in range(period if n_groups else 0)]
     group_caches = [[] for _ in groups]
     aux = x.new_zeros((), dtype=torch.float32)
+    recompute = (remat == "block" and mode == "train"
+                 and torch.is_grad_enabled())
 
     def one(bd, lp, x, lc):
         x, nc, a = apply_layer(cfg, bd, lp, x,
                                B.Ctx(mode=mode, positions=positions, cache=lc,
                                      cache_len=cache_len, emb0=emb0,
-                                     enc_out=enc_out), shared)
+                                     enc_out=enc_out, block_q=block_q,
+                                     block_k=block_k), shared)
         if mode == "decode":
             # the cache contract: the caller's cache holds the new state
             for k, v in nc.items():
@@ -315,7 +374,11 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
             lp = tree_unflatten(treedef, [p[g] for p in per_layer])
             lc = (None if cache is None else
                   {k: v[g] for k, v in cache["layers"][i].items()})
-            x, nc, a = one(cfg.blocks[i], lp, x, lc)
+            if recompute:
+                x, nc, a = _remat(one, cfg.blocks[i], lp, x, lc,
+                                  keep=(positions, emb0, enc_out))
+            else:
+                x, nc, a = one(cfg.blocks[i], lp, x, lc)
             aux = aux + a
             group_caches[i].append(nc)
     rem_caches = []
@@ -334,12 +397,15 @@ def _decoder(cfg: ModelConfig, params, tokens, *, mode: str = "train",
 
 
 def forward(cfg: ModelConfig, params, tokens, *, prefix_embed=None,
-            enc_frames=None):
+            enc_frames=None, remat: str = "none", block_q: int = 512,
+            block_k: int = 512):
     """Train-mode stack: tokens (B, S) int (after ``prefix_embed`` (B, Np,
     E) when given; over the encoder output of ``enc_frames`` (B, Se, E)
-    when given) -> hidden (B, Np + S, E)."""
+    when given) -> hidden (B, Np + S, E).  ``remat``, ``block_q``,
+    ``block_k`` as in :func:`_decoder`."""
     return _decoder(cfg, params, tokens, prefix_embed=prefix_embed,
-                    enc_frames=enc_frames)[0]
+                    enc_frames=enc_frames, remat=remat, block_q=block_q,
+                    block_k=block_k)[0]
 
 
 def _head(cfg: ModelConfig, params):
@@ -376,15 +442,21 @@ def chunked_xent(cfg: ModelConfig, params, hidden, labels, *, block: int = 512):
     return total, count
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, *, remat: str = "none",
+            block_q: int = 512, block_k: int = 512):
     """batch: dict(tokens (B,S), labels (B,S)) int tensors, with
     ``prefix_embed`` (B, Np, E) or ``frames`` (B, Se, E) float tensors
     for the VLM and encoder-decoder families.  The prefix positions take
     label -1 (no loss).  Returns ``(xent + aux, metrics)`` like the
-    reference's ``loss_fn``."""
+    reference's ``loss_fn``.  ``remat="block"`` recomputes each period
+    layer in the backward (:func:`_decoder`); the port's default is
+    ``"none"``, where the reference's is ``"block"`` (a kept difference:
+    the same losses and gradients, a third more FLOPs).  ``block_q`` /
+    ``block_k``: the attention's blocks."""
     prefix = batch.get("prefix_embed")
     hidden, _, aux = _decoder(cfg, params, batch["tokens"], prefix_embed=prefix,
-                              enc_frames=batch.get("frames"))
+                              enc_frames=batch.get("frames"), remat=remat,
+                              block_q=block_q, block_k=block_k)
     labels = batch["labels"]
     if prefix is not None:
         pad = labels.new_full((labels.shape[0], prefix.shape[1]), -1)
@@ -487,7 +559,8 @@ def logits_from_hidden(cfg: ModelConfig, params, hidden):
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens, *, max_len=None, lengths=None,
-            prefix_embed=None, enc_frames=None):
+            prefix_embed=None, enc_frames=None, block_q: int = 512,
+            block_k: int = 512):
     """Forward over the prompt, building its KV cache; returns
     ``(last_logits (B, 1, V), cache)``.
 
@@ -503,11 +576,13 @@ def prefill(cfg: ModelConfig, params, tokens, *, max_len=None, lengths=None,
     prefill's cache holds Np + S positions (a ``max_len`` up to Np + S
     leaves it as it is).  ``prefix_embed`` / ``enc_frames`` as in
     :func:`forward`; the cross-attention's ``xk`` / ``xv`` keep the
-    encoder's length.
+    encoder's length.  ``block_q`` / ``block_k``: the attention's blocks
+    (its ``differentiable=False`` form; the encoder keeps train mode).
     """
     Bsz, S = tokens.shape
     hidden, cache, _ = _decoder(cfg, params, tokens, mode="prefill",
-                                prefix_embed=prefix_embed, enc_frames=enc_frames)
+                                prefix_embed=prefix_embed, enc_frames=enc_frames,
+                                block_q=block_q, block_k=block_k)
     if lengths is None:
         last = hidden[:, -1:]
     else:

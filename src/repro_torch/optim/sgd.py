@@ -35,9 +35,17 @@ def init_momentum(params):
 
 def sum_from(x, leading: int):
     """Sum of ``x`` over its dims from ``leading`` on (``x`` itself when
-    there are none: torch would read an empty ``dim`` as every dim)."""
+    there are none: torch would read an empty ``dim`` as every dim).  With
+    ``leading`` = 1 (a stacked tree's workers) one reduction a worker, so a
+    worker's sum does not depend on how many workers lie beside it (the
+    card reduces a (W, n) tensor over n in another order for another W:
+    one process and a rank holding some of its workers differ)."""
     dims = tuple(range(leading, x.dim()))
-    return x.sum(dim=dims) if dims else x
+    if not dims:
+        return x
+    if leading == 1:
+        return torch.stack([r.sum() for r in x.unbind(0)])
+    return x.sum(dim=dims)
 
 
 def _per_worker(scale, x, leading: int):

@@ -12,14 +12,17 @@ with them ``dominant``, are the card's:
     collective = moved_bytes_per_device / 450e9       [NVLink, each way]
 
 Training FLOPs = 3x forward (bwd = 2x fwd) + 1x forward again under the
-reference's block remat = 4x, kept so that the counts stay the
-reference's; the port recomputes nothing (``RunConfig.remat`` is read by
-nothing), so a port step does about 3x.  The analytic bytes assume bf16
-(``BF16``), where the port trains in float32; its bound on the card is
-the compute term at the f32 rate (``launch.mesh.PEAK_FLOPS_F32``).
-Attention counts the causal band, where the port's plain attention
-computes the whole S x S square.  MODEL_FLOPS = 6*N*D (dense) /
-6*N_active*D (MoE).
+reference's block remat = 4x, the reference's counts.  The port
+recomputes under ``RunConfig.remat="block"`` only (``lm.loss_fn``; its
+default is "none", about 3x; a replay leaves out a layer's trailing ops
+whose outputs nothing saves, checkpoint's early stop).  The analytic
+bytes assume bf16 (``BF16``), where the port trains in float32; its
+bound on the card is the compute term at the f32 rate
+(``launch.mesh.PEAK_FLOPS_F32``).  Attention counts the causal band; the
+port's blockwise attention (``models.layers.chunked_attention``) computes
+the visited 512 x 512 blocks, the whole square below 512 positions and
+the band's blocks beyond.  MODEL_FLOPS = 6*N*D (dense) / 6*N_active*D
+(MoE).
 """
 from __future__ import annotations
 

@@ -1604,3 +1604,85 @@ def test_cuda_parse_collectives_of_gloo_sync(cuda, tmp_path):
         for row in rows:
             assert row["held_equal"], row["held"]
             assert row["count"] >= 1 and row["coll_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,kh,causal,window,softcap,blk", [
+    (1024, 1024, 1, True, 0, 0.0, 256),         # 4 x 4 blocks, 10 visited
+    (1500, 1500, 12, False, 0, 0.0, 512),        # whisper's encoder: 3 x 3
+    (2048, 2048, 2, True, 512, 50.0, 512),       # a sliding layer with a cap
+])
+def test_chunked_attention_on_card_matches_cpu(cuda, sq, sk, kh, causal, window,
+                                               softcap, blk):
+    """``layers.chunked_attention`` over several blocks on the card against
+    the CPU on the same inputs, values and the differentiable form's
+    gradients (2e-5 x the largest entry: float32 sums in another order)."""
+    from repro_torch.models.layers import chunked_attention
+    gen = torch.Generator().manual_seed(sq + kh)
+    H, D = 12 if kh == 12 else 4, 64
+    q = torch.randn((1, sq, H, D), generator=gen)
+    k, v = (torch.randn((1, sk, kh, D), generator=gen) for _ in range(2))
+    ct = torch.randn((1, sq, H, D), generator=gen)
+    kw = dict(causal=causal, window=window, softcap=softcap, block_q=blk,
+              block_k=blk)
+    outs = {}
+    for dev in ("cpu", cuda):
+        ts = [t.to(dev).detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o = chunked_attention(*ts, **kw)
+        (o * ct.to(dev)).sum().backward()
+        off = chunked_attention(*(t.detach() for t in ts), differentiable=False,
+                                **kw)
+        assert torch.equal(off, o.detach())
+        outs[dev] = [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+    for a, b in zip(outs[cuda], outs["cpu"]):
+        assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 512])
+def test_chunked_attention_end_rows_equal_the_oracle_at_4096(cuda, window):
+    """Phase J2's check at 4,096 positions: the last 512 query rows of the
+    blockwise attention against ``reference_attention`` (end-aligned) on
+    those rows and the keys they reach: the last 1,024 for a window of
+    512, all of them without (2e-5 x the largest entry)."""
+    from repro_torch.models.layers import chunked_attention, reference_attention
+    gen = torch.Generator(device=cuda).manual_seed(window + 1)
+    S, H, KH, D = 4096, 4, 1, 256
+    q = torch.randn((1, S, H, D), generator=gen, device=cuda)
+    k, v = (torch.randn((1, S, KH, D), generator=gen, device=cuda)
+            for _ in range(2))
+    out = chunked_attention(q, k, v, window=window, softcap=0.0,
+                            differentiable=False)
+    keys = 2 * 512 if window else S
+    want = reference_attention(q[:, -512:], k[:, -keys:], v[:, -keys:],
+                               window=window)
+    got = out[:, -512:]
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["paper-lm", "gemma3-1b", "olmoe-1b-7b"])
+def test_remat_block_gradients_on_card_match_no_remat(cuda, arch):
+    """``lm.loss_fn(remat="block")`` on the card: the loss and every
+    gradient leaf against ``remat="none"`` within phase C's rtol 1e-4
+    (relative to each leaf's largest entry), at smoke width, 2 x 256
+    tokens over blocks of 64."""
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, tree_unflatten
+    cfg = configs.get_smoke(arch)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = mbase.materialize(lm.param_specs(cfg), gen, cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen, device=cuda)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    res = {}
+    for remat in ("none", "block"):
+        leaves, treedef = tree_flatten(params)
+        leaves = [a.clone().requires_grad_(True) for a in leaves]
+        loss, _ = lm.loss_fn(cfg, tree_unflatten(treedef, leaves), batch,
+                             remat=remat, block_q=64, block_k=64)
+        loss.backward()
+        res[remat] = (float(loss), [a.grad for a in leaves])
+    (l0, g0), (l1, g1) = res["none"], res["block"]
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    for a, b in zip(g1, g0):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -113,20 +113,22 @@ def test_softcap_matches_reference():
 @pytest.mark.parametrize("window,softcap,kh", [(16, 0.0, 1), (16, 20.0, 2),
                                                (5, 0.0, 4), (0, 20.0, 1)])
 def test_windowed_training_attention_matches_chunked(window, softcap, kh):
-    """S = 64 past the window: the plain training attention against the
-    reference's online-softmax ``chunked_attention`` over 16-wide blocks
-    (the window mask ``q - k < window`` and the causal one together)."""
+    """S = 64 past the window: the port's ``chunked_attention`` against
+    the reference's, both over 16-wide blocks (the window mask ``q - k <
+    window`` and the causal one together)."""
     rng = np.random.default_rng(2)
     q = rng.normal(size=(2, S, 4, 32)).astype(np.float32) * 2
     k = rng.normal(size=(2, S, kh, 32)).astype(np.float32) * 2
     v = rng.normal(size=(2, S, kh, 32)).astype(np.float32)
-    got = tlayers.causal_attention(_t(q), _t(k), _t(v), window=window, softcap=softcap)
+    got = tlayers.chunked_attention(_t(q), _t(k), _t(v), window=window,
+                                    softcap=softcap, block_q=16, block_k=16)
     want = jlayers.chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                      causal=True, window=window, softcap=softcap,
                                      block_q=16, block_k=16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     if window:
-        full = tlayers.causal_attention(_t(q), _t(k), _t(v), softcap=softcap)
+        full = tlayers.chunked_attention(_t(q), _t(k), _t(v), softcap=softcap,
+                                         block_q=16, block_k=16)
         assert torch.allclose(got[:, :window], full[:, :window], atol=1e-6)
         assert not torch.allclose(got[:, window:], full[:, window:], atol=1e-3)
 

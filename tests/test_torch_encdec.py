@@ -164,9 +164,10 @@ def test_gelu_ffn_is_the_tanh_form_like_the_reference():
 
 @pytest.mark.parametrize("sq,sk,h,kh", [(16, 24, 4, 4), (5, 33, 4, 2), (24, 24, 8, 1)])
 def test_noncausal_attention_matches_reference(sq, sk, h, kh):
-    """``full_attention`` against ``chunked_attention(causal=False)``
-    (blocks of 8, so the online softmax streams several key blocks) and
-    the O(S^2) oracle, with GQA, Sq != Sk and a softcap."""
+    """The port's ``chunked_attention(causal=False)`` against the
+    reference's (blocks of 8, so the online softmax streams several key
+    blocks; 5 and 33 trim them to 5 and 3) and the O(S^2) oracle, with
+    GQA, Sq != Sk and a softcap."""
     rng = np.random.default_rng(sq + sk)
     q = rng.normal(size=(2, sq, h, 32)).astype(np.float32)
     k, v = (rng.normal(size=(2, sk, kh, 32)).astype(np.float32) for _ in range(2))
@@ -174,11 +175,13 @@ def test_noncausal_attention_matches_reference(sq, sk, h, kh):
         want = jlayers.chunked_attention(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
             softcap=softcap, block_q=8, block_k=8)
-        got = tlayers.full_attention(_t(q), _t(k), _t(v), softcap=softcap)
+        got = tlayers.chunked_attention(_t(q), _t(k), _t(v), causal=False,
+                                        softcap=softcap, block_q=8, block_k=8)
         _close(got.numpy(), np.asarray(want), tol=1e-5)
     oracle = tlayers.reference_attention(_t(q), _t(k), _t(v), causal=False)
-    _close(tlayers.full_attention(_t(q), _t(k), _t(v)).numpy(), oracle.numpy(),
-           tol=1e-5)
+    _close(tlayers.chunked_attention(_t(q), _t(k), _t(v), causal=False,
+                                     block_q=8, block_k=8).numpy(),
+           oracle.numpy(), tol=1e-5)
 
 
 def test_cross_attention_train_prefill_decode_match_reference():

@@ -435,6 +435,41 @@ def test_build_train_defaults_to_the_resident_path():
     assert not tsgd.is_resident(lt.build(run).init(p0(tb)))
 
 
+def test_build_train_defaults_to_no_recompute(monkeypatch):
+    """The port's ``RunConfig.remat`` default is "none" (the reference's
+    is "block"), as is ``lm.loss_fn``'s: no recompute unless asked for.
+    ``build_train`` hands ``run.remat`` to ``lm.loss_fn``, as the
+    reference's does; "block" gives the same loss."""
+    import inspect
+
+    from repro.models import lm as jlm
+    from repro_torch.models import lm as tlm
+    assert tcb.RunConfig(model=tconfigs.get_smoke("paper-lm")).remat == "none"
+    assert jcb.RunConfig(model=jconfigs.get_smoke("paper-lm")).remat == "block"
+    assert inspect.signature(tlm.loss_fn).parameters["remat"].default == "none"
+    assert inspect.signature(jlm.loss_fn).parameters["remat"].default == "block"
+    seen = []
+    loss_fn = tlm.loss_fn
+
+    def spy(cfg, params, batch, **kw):
+        seen.append(kw.get("remat"))
+        return loss_fn(cfg, params, batch, **kw)
+
+    monkeypatch.setattr(tlm, "loss_fn", spy)
+    tok = np.arange(2 * 2 * 16).reshape(2, 2, 16) % 512
+    batch = {"tokens": tok, "labels": (tok + 1) % 512}
+    losses = []
+    for remat in ("none", "block"):
+        run = dataclasses.replace(_smoke_run(), remat=remat)
+        tb = tbuild(run, num_workers=2, device="cpu")
+        s = tb.init(tmbase.materialize(tb.specs, torch.Generator().manual_seed(0),
+                                       "cpu"))
+        seen.clear()
+        losses.append(tb.local_step(s, batch)[1]["loss"])
+        assert seen and set(seen) == {remat}
+    assert torch.equal(losses[0], losses[1])
+
+
 def test_tree_path_across_ranks_raises():
     """The tree path across ranks (``use_kernel=False``, or
     ``resident=False``) builds with whole workers a rank (S = 1): the

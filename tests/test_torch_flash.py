@@ -21,7 +21,7 @@ from repro.models.layers import reference_attention as j_reference_attention
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.models.layers import causal_attention
+from repro_torch.models.layers import chunked_attention
 from repro_torch.models.layers import reference_attention as t_reference_attention
 
 torch.set_num_threads(2)
@@ -117,10 +117,12 @@ def test_flash_result_does_not_depend_on_block_sizes():
 
 
 def test_flash_matches_training_attention():
-    """Causal, Sq == Sk, no window: the function the training path runs."""
+    """Causal, Sq == Sk, no window: the function the training path runs
+    (over blocks of 8 keys)."""
     _, (qt, kt, vt) = _qkv(4, 2, 40, 40, 4, 2, 32)
     np.testing.assert_allclose(tops.flash_attention(qt, kt, vt).numpy(),
-                               causal_attention(qt, kt, vt).numpy(),
+                               chunked_attention(qt, kt, vt, block_q=8,
+                                                 block_k=8).numpy(),
                                rtol=2e-5, atol=2e-5)
 
 

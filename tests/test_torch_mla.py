@@ -140,9 +140,10 @@ def test_causal_attention_takes_a_narrower_v():
     q = torch.from_numpy(rng.normal(size=(2, 16, 4, 48)).astype(np.float32))
     k = torch.from_numpy(rng.normal(size=(2, 16, 4, 48)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(2, 16, 4, 32)).astype(np.float32))
-    got = tlayers.causal_attention(q, k, v, scale=0.125)
+    got = tlayers.chunked_attention(q, k, v, scale=0.125, block_q=8, block_k=8)
     padded = torch.cat([v, v.new_zeros(2, 16, 4, 16)], -1)
-    want = tlayers.causal_attention(q, k, padded, scale=0.125)[..., :32]
+    want = tlayers.chunked_attention(q, k, padded, scale=0.125, block_q=8,
+                                     block_k=8)[..., :32]
     assert got.shape == (2, 16, 4, 32)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     jwant = jlayers.chunked_attention(*(jnp.asarray(a.numpy())

@@ -65,13 +65,14 @@ def test_rms_norm_and_rope_match_reference():
 
 @pytest.mark.parametrize("kh", [4, 2])
 def test_causal_attention_matches_chunked_attention(kh):
-    """Plain softmax attention vs the reference's online-softmax
-    ``chunked_attention`` over several 16-wide q/kv blocks (GQA at kh=2)."""
+    """The port's ``chunked_attention`` against the reference's, both
+    over several 16-wide q/kv blocks (GQA at kh=2)."""
     rng = np.random.default_rng(2)
     q = rng.normal(size=(2, 64, 4, 32)).astype(np.float32)
     k = rng.normal(size=(2, 64, kh, 32)).astype(np.float32)
     v = rng.normal(size=(2, 64, kh, 32)).astype(np.float32)
-    got = tlayers.causal_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    got = tlayers.chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal=True, block_q=16, block_k=16)
     want = jlayers.chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                      causal=True, block_q=16, block_k=16)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)

@@ -345,13 +345,15 @@ def test_run_manifest_fields():
 
 
 def _paper_run(cb, cfg, **ls):
+    # remat set in both packages: their defaults differ (the port's "none",
+    # the reference's "block"; ROADMAP's kept differences)
     return cb.RunConfig(
         model=cfg, shape=cb.InputShape("t", 32, 8, "train"),
         local_sgd=cb.LocalSGDConfig(local_steps=2, post_local_switch=2, **ls),
         optim=cb.OptimConfig(base_lr=0.3, base_batch=8, lr_warmup_steps=2,
                              lr_decay_steps=(4,), grad_clip=1.0),
         controller=cb.ControllerConfig(kind="noise_adaptive", patience=1),
-        steps=6)
+        steps=6, remat="none")
 
 
 @pytest.mark.parametrize("arch,ls", [

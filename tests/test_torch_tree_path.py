@@ -838,3 +838,24 @@ def test_tree_noise_is_per_worker_and_seeded(form):
     lr = float(tsgd.lr_at(run.optim, 0, global_batch=run.shape.global_batch))
     var = float((a / lr).var())
     assert abs(var / 0.05 - 1) < 0.05, var
+
+
+@pytest.mark.parametrize("workers", [1, 2, 4])
+def test_per_worker_sums_do_not_depend_on_the_workers_beside(workers):
+    """The tree path's per-worker sums (``optim.sgd.sum_from`` with one
+    leading axis: the grad clip's and LARS's norms, the telemetry's sums of
+    squares) reduce one worker at a time, so worker w's sum is the same
+    bits in a process holding W workers as on a rank holding some of them
+    (the card reduces a (W, n) tensor over n in an order that depends on
+    W), and equal to the reference's per-worker sum within rounding."""
+    rng = np.random.default_rng(workers)
+    x = torch.from_numpy(rng.normal(size=(4, 3, 1000)).astype(np.float32))
+    whole = tsgd_opt.sum_from(x, 1)
+    part = tsgd_opt.sum_from(x[4 - workers:].clone(), 1)
+    assert torch.equal(whole[4 - workers:], part)
+    assert all(torch.equal(whole[w], x[w].sum()) for w in range(4))
+    np.testing.assert_allclose(whole.numpy(), np.asarray(
+        jnp.sum(jnp.asarray(x.numpy()), axis=(1, 2))), rtol=1e-5)
+    sq = tsgd._tree_sumsq_w({"a": x, "b": x[:, 0]})
+    assert sq.shape == (4,) and torch.equal(
+        tsgd._tree_sumsq_w({"a": x[2:], "b": x[2:, 0]}), sq[2:])
