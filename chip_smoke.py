@@ -164,7 +164,7 @@ Phases:
   V        workers split over shard ranks: ``DistributedBackend(
            within_worker_size=2)``, four ``gloo`` ranks on card 0 = 2
            workers x 2 shards (rank = group * 2 + shard), paper-lm at full
-           width and ``V_LAYERS`` (2) of its 12 layers, W=2, local batch
+           width and ``V_LAYERS`` (1) of its 12 layers, W=2, local batch
            8, seq 512, 12 steps.  The layout puts the layers' and the
            embedding's leaves in a ("model",) sub-bucket (at 12 layers
            933,888 rows, 466,944 a rank) and 3 in a replicated one of
@@ -184,14 +184,24 @@ Phases:
            1e-3 (1e-2 on the fields read from ||mean x||^2, phase C's
            rule), launches per rank, the ledger's measured bytes
            (shard-local rows) and the within-worker traffic under its own
-           scope.  Rank 0 holds kernels 1-6 against their plain versions
-           on its shard-local trained buckets.  Each part: fenced step and
+           scope.  V4-V6 run the tree path (``V_BUILD``), each rank
+           holding its shard's slice of every sharded leaf: V4 its kernel
+           form under tensor parallel at V2's settings (losses, params
+           and momentum bit for bit), V5 its plain form and V6 its kernel
+           form (with the sign compressor) under FSDP at V3's, whose
+           every sync is also replayed on the ranks from the one-process
+           run's pre-sync state (``V_PINNED``: anchor and EF memory within
+           1e-6 / 1e-5 of the largest entry, no element beyond); their
+           launches a rank, row P's included, are held exactly.  Rank 0
+           holds kernels 1-6 against their plain versions on its
+           shard-local trained buckets (a tree part's slices packed into
+           its region rows).  Each part: fenced step and
            sync seconds per rank, the shard group's gathers and
            reductions fenced apart, peak memory per rank against the
            layout's reckoning.  Results in ``build/phase_v/`` (removed
            after the checks).
   Q        resizes and checkpoints across ranks (``Q_PARTS``): paper-lm
-           at full width and ``Q_LAYERS`` (2) of its 12 layers, W = 4 ->
+           at full width and ``Q_LAYERS`` (1) of its 12 layers, W = 4 ->
            2 -> 4 by ``ElasticController(
            resize_at=Q_RESIZE)``, Q1 on 2 ``gloo`` ranks x 2 workers at
            phase W's settings, Q2 on 2 worker groups x 2 FSDP shard ranks
@@ -255,8 +265,8 @@ Phases:
            logits within 1e-4 x (1 + |logit|).
   D        the dense variants at their published widths, phase A's
            settings (mean sync) at W=2, depth cut by the reckoning in
-           ``D_RUNS``: D1 gemma3-1b (6 of 26 layers: 5
-           sliding-window : 1 global, GeGLU, post-norm, scaled
+           ``D_RUNS``: D1 gemma3-1b (2 of 26 layers, both of the
+           sliding window; of 5 sliding : 1 global; GeGLU, post-norm, scaled
            embeddings, tied head; seq 1024 past its window of 512, local
            batch 4), D2
            qwen3-32b (1 layer), D3 phi4-mini-3.8b (4), D4 minitron-4b (1),
@@ -292,7 +302,7 @@ Phases:
            pool needs a kv_seq axis on every cache leaf).
   X        the encoder-decoder and prefix-token families at their
            published widths (``X_RUNS``), phase A's settings, 8 steps:
-           X1 whisper-small, all 12 + 12 layers, 8 examples of 1,500
+           X1 whisper-small, 12 encoder + 4 of 12 decoder layers, 8 examples of 1,500
            frames (the stubbed conv frontend's output) + 448 decoder
            tokens a worker, EF-sign, W=4; X2 internvl2-76b, 256 stubbed
            patch embeddings + 256 text tokens x 8, mean sync, W=1 (W=2
@@ -3706,12 +3716,16 @@ D_STEPS = 8     # phase M's count: the 4 sync steps before the post-local
 # gemma3-1b ran all 26 layers (28.0 reckoned) until the script's time
 # limit cut it to 12, two of its 5 sliding : 1 global groups (all 26 took
 # 66-70 s of the script), then to 6, one group (12 took 41-64 s; phase J
-# took the script to 1,049.8 s of its 930 s target); its window is 512, so it
+# took the script to 1,049.8 s of its 930 s target), then to 2 sliding
+# layers (6 took 48.2 s on an H100 80GB HBM3 at 700.00 W; phase V's tree
+# parts took the script to 991.8 s of that target; the global layer's
+# rope_theta_global is held against the reference on the CPU,
+# tests/test_torch_dense.py); its window is 512, so it
 # trains at seq 1024 with local batch 4 (phase A's tokens a step), and its
 # sliding layers' mask and its backward run in every step; its serving
 # prompts and its CPU forward run past the window too.  The last two
 # fields are each part's training seq and local batch.
-D_RUNS = (("D1", "gemma3-1b", 2, 6, 768, (16, 600), 768, 1024, 4),
+D_RUNS = (("D1", "gemma3-1b", 2, 2, 768, (16, 600), 768, 1024, 4),
           ("D2", "qwen3-32b", 2, 1, 256, (16, 128), 128, 512, 8),
           ("D3", "phi4-mini-3.8b", 2, 4, 256, (16, 128), 128, 512, 8),
           ("D4", "minitron-4b", 2, 1, 256, (16, 128), 128, 512, 8))
@@ -4174,14 +4188,16 @@ def phase_z(tag: str, arch: str, mode: str, workers: int, layers: int, seq: int,
 
 # phase X: the encoder-decoder and prefix-token families at their published
 # widths.  (part, arch, sync, W, layers, seq, local batch): X1 whisper-small
-# at its full 12 + 12 layers, 1,500 frames (Whisper's 30-second window
+# at its 12 encoder layers and 4 of its 12 decoder layers (all 12 took
+# 51.7 s on an H100 80GB HBM3 at 700.00 W; cut with D1 after phase V's
+# tree parts took the script to 991.8 s of its 930 s target), 1,500 frames (Whisper's 30-second window
 # after the conv stride) under 448 decoder tokens (``train_batch_shapes``),
-# EF-sign at W=4 (m_reckon: 1.11 GB a copy, 29 copies at the sync, 32.3
-# GB); X2 internvl2-76b, 256 prefix embeddings + 256 text tokens, mean
+# EF-sign at W=4 (m_reckon at 12 + 12 layers: 1.11 GB a copy, 29 copies at
+# the sync, 32.3 GB); X2 internvl2-76b, 256 prefix embeddings + 256 text tokens, mean
 # sync at W=1 (W=2 reckons 7 copies at the sync, 84.7 GB at 1 layer), its
 # depth the deepest whose reckoning stays under 72 GB (None: found by
 # ``launch.dryrun.x_depth``; 2 layers, 15.5 GB a copy, 62.1 GB).
-X_RUNS = (("X1", "whisper-small", "ef_sign", 4, 12, 1500, 8),
+X_RUNS = (("X1", "whisper-small", "ef_sign", 4, 4, 1500, 8),
           ("X2", "internvl2-76b", "none", 1, None, 512, 8))
 X_STEPS = 8                    # phase M's count
 X_PROMPTS, X_NEW = 8, 32
@@ -4893,17 +4909,33 @@ def phase_y(cfg, spec: dict | None = None) -> dict:
 # (tag, layout, sync compression, LARS, wire pack + coalesce)
 V_PARTS = (("V1", "fsdp", "none", False, False),
            ("V2", "tp", "ef_sign", False, True),
-           ("V3", "fsdp", "ef_sign", True, False))
+           ("V3", "fsdp", "ef_sign", True, False),
+           ("V4", "tp", "ef_sign", False, True),
+           ("V5", "fsdp", "ef_sign", True, False),
+           ("V6", "fsdp", "sign", True, False))
+# the tree path (DistributedBackend keywords): V4 its kernel form under
+# tensor parallel at V2's settings, V5 its plain form and V6 its kernel
+# form under FSDP at V3's (V6 with the sign compressor); each rank holds
+# its shard's slice of every sharded leaf
+V_BUILD = {"V4": dict(resident=False), "V5": dict(use_kernel=False),
+           "V6": dict(resident=False)}
+# the FSDP tree parts whose every sync is also replayed on the ranks from
+# the one-process run's own pre-sync state
+V_PINNED = ("V5", "V6")
 V_W, V_S = 2, 2
 # paper-lm's depth in phase V (and Q_LAYERS in phase Q): each part is held
-# against its own one-process run at the same depth, so 2 of the 12 layers
-# check the same sharding, syncs and sums in less of the script's time
+# against its own one-process run at the same depth, so one of the 12 layers
+# checks the same sharding, syncs and sums in less of the script's time
 # limit (12 layers: phase V 75-105 s, phase Q 189-195 s on an H100; 4
 # layers: V 42-58 s; cut to 2 when the long shapes' phase J took the
-# script to 1,049.8 s of its 930 s target)
-V_LAYERS = 2
+# script to 1,049.8 s of its 930 s target; to 1, the embedding and one
+# layer's leaves, when the tree parts V4-V6 took it to 991.8 s and, with D1
+# and X1 cut, 1,065.7 s: V 73.9 / 97.7 s, Q 90.1 / 100.7 s at 2 layers;
+# H100 80GB HBM3, 700.00 W)
+V_LAYERS = 1
 # losses against the one-process run (relative); V2 0.0 (see V_FRAC_TOL)
-V_LOSS_TOL = {"V1": 1e-4, "V2": 0.0, "V3": 1e-4}
+V_LOSS_TOL = {"V1": 1e-4, "V2": 0.0, "V3": 1e-4, "V4": 0.0, "V5": 1e-4,
+              "V6": 1e-4}
 # params rows against the one-process run: the share of elements beyond
 # 1e-4 x the largest.  V1 has no compressor: every element, momentum too,
 # within 1e-4 of the largest.  V2 (tensor parallel: every shard rank
@@ -4914,14 +4946,26 @@ V_LOSS_TOL = {"V1": 1e-4, "V2": 0.0, "V3": 1e-4}
 # Readings on an H100 80GB HBM3 at 700 W: V2 0.0 and losses 0.0 with
 # each worker's kernel grid fixed by its rows (1.99e-4 while it was sized
 # by W, 2e-3 / 2e-2 while the scatter-adds were atomic)
-V_FRAC_TOL = {"V1": 0.0, "V2": 0.0, "V3": 7e-3}
+V_FRAC_TOL = {"V1": 0.0, "V2": 0.0, "V3": 7e-3, "V4": 0.0, "V5": 7e-3,
+              "V6": 7e-3}
 
 
 def v_fields(tag: str) -> tuple:
     """The state fields whose rows part ``tag`` holds against the one
     process's: params (after the last sync every worker holds the
-    anchor), and momentum where no compressor flips a sign (V1)."""
-    return ("params", "momentum") if tag == "V1" else ("params",)
+    anchor), and momentum where no compressor flips a sign (V1) or every
+    sum adds what one process adds (V4)."""
+    return ("params", "momentum") if tag in ("V1", "V4") else ("params",)
+
+
+def v_rows(state, f: str) -> list:
+    """Field ``f`` of a state on the host, f32: its buckets, or a tree
+    state's leaves."""
+    from repro_torch.core import flatbuf
+    from repro_torch.utils import tree_leaves
+    x = getattr(state, f)
+    return [b.float().cpu() for b in (
+        x.buckets if flatbuf.is_bucket_state(x) else tree_leaves(x))]
 
 
 def v_layout(kind: str):
@@ -4941,18 +4985,21 @@ def v_part(tag: str):
 
 def v_run(tag: str, cfg, seq: int = 512, local_batch: int = 8):
     """Part ``tag``'s RunConfig: phase A's (V1), phase W's with
-    ``sync_coalesce`` (V2) or phase L's (V3) settings at W=2."""
+    ``sync_coalesce`` (V2, V4) or phase L's (V3, V5; V6 with sign) settings
+    at W=2."""
     _, _, mode, lars, wire = v_part(tag)
     return phase_run(mode, cfg, seq=seq, local_batch=local_batch, lars=lars,
                      workers=V_W, wire_pack=wire, coalesce=wire)
 
 
-def v_reckon(layout, run, wl: int, split: bool) -> dict:
+def v_reckon(layout, run, wl: int, split: bool, tree: dict | None = None) -> dict:
     """Bytes a rank holds by the layout: state (params, momentum and EF
     memory of its workers, the anchor, all on its shard's rows) and the
     whole-row buffers of a local step (the gathered params, the sharded
     leaves' copies the model reads, the gradient; FSDP also its
-    reduce-scatter's input and output)."""
+    reduce-scatter's input and output).  The tree path (``tree``: its
+    ``V_BUILD`` keywords) also makes a new params and momentum a step, and
+    its kernel form packs params, gradient and momentum into buckets."""
     ls = run.local_sgd
     held = sum(layout.bucket_local_rows(b) for b in range(layout.num_buckets))
     sharded = sum(layout.bucket_rows[b] for b in range(layout.num_buckets)
@@ -4962,16 +5009,73 @@ def v_reckon(layout, run, wl: int, split: bool) -> dict:
     state = (2 + (ls.sync_compression == "ef_sign")) * wl * held * row + \
         (ls.sync_compression != "none") * held * row
     bufs = (2 * wl * sharded + wl * whole + split * wl * (sharded + held)) * row
+    if tree is not None:
+        bufs += (2 + 3 * tree.get("use_kernel", True)) * wl * held * row
     return {"state_GB": state / 1e9, "whole_row_buffers_GB": bufs / 1e9,
             "total_GB": (state + bufs) / 1e9}
 
 
-def v_one_process(tag: str, cfg, spec: dict) -> dict:
+def v_pin(bundle, base: Path, tag: str, post: list):
+    """Part ``tag``'s one-process syncs pinned: before each, its params,
+    anchor and EF memory leaves (whole) saved to ``base/{tag}_pin{i}.pt``;
+    after it, its anchor and EF memory leaves kept on the host in
+    ``post``."""
+    import torch
+    from repro_torch.utils import tree_leaves
+    sync = bundle.sync
+
+    def pinned(state, *, plan=None, scope="global"):
+        torch.save({f: [x.cpu() for x in tree_leaves(getattr(state, f))]
+                    for f in ("params", "anchor", "ef_memory")
+                    if getattr(state, f) is not None},
+                   base / f"{tag}_pin{len(post)}.pt")
+        state = sync(state, plan=plan, scope=scope)
+        post.append({f: [x.cpu() for x in tree_leaves(getattr(state, f))]
+                     for f in ("anchor", "ef_memory")
+                     if getattr(state, f) is not None})
+        return state
+    bundle.sync = pinned
+
+
+def v_replay(bundle, state, base: Path, tag: str, r: int, dev) -> int:
+    """Every pinned sync of part ``tag`` on this rank: its part of the one
+    process's pre-sync state through the rank's sync; its anchor and EF
+    memory after it saved to ``base/{tag}_r{r}_pin{i}.pt``.  Returns the
+    number of syncs replayed."""
+    import torch
+    from repro_torch.core.local_sgd import LocalSGDState, local_state
+    from repro_torch.utils import tree_flatten, tree_leaves, tree_unflatten
+    treedef = tree_flatten(state.params)[1]
+    i = 0
+    while (base / f"{tag}_pin{i}.pt").exists():
+        pre = torch.load(base / f"{tag}_pin{i}.pt")
+        full = LocalSGDState(
+            momentum=None, global_u=None, step=state.step, rng=None,
+            stats=None,
+            **{f: (tree_unflatten(treedef, pre[f]) if f in pre else None)
+               for f in ("params", "anchor", "ef_memory")})
+        st = local_state(full, bundle.dist, dev,
+                         shard_classes=bundle.shard_classes)
+        del full, pre
+        st.stats = state.stats
+        st = bundle.sync(st, plan=bundle.sync_plan, scope="global")
+        torch.save({f: [x.cpu() for x in tree_leaves(getattr(st, f))]
+                    for f in ("anchor", "ef_memory")
+                    if getattr(st, f) is not None},
+                   base / f"{tag}_r{r}_pin{i}.pt")
+        del st
+        i += 1
+    return i
+
+
+def v_one_process(tag: str, cfg, spec: dict, base: Path) -> dict:
     """Part ``tag`` in one process (``build_train(layout=)``, both workers
-    and both shard regions on the device): the reference of the ranks'
-    run.  Keeps its losses, final buckets (on the host), the first sync's
-    packed payload of shard 0's rows (V2), and for V1 the same settings
-    on the replicated layout."""
+    and both shard regions on the device; a tree part's leaves whole): the
+    reference of the ranks' run.  Keeps its losses, final buckets or
+    leaves (on the host), the first sync's packed payload of shard 0's
+    rows (V2), for V1 the same settings on the replicated layout, and for
+    the pinned tree parts (``V_PINNED``) every sync's state before it (in
+    ``base``) and after it."""
     import torch
     from repro_torch.core import compression as comp
     from repro_torch.launch.steps import build_train
@@ -4985,7 +5089,11 @@ def v_one_process(tag: str, cfg, spec: dict) -> dict:
     lay = v_layout(kind).with_sizes({"data": V_W, "model": V_S})
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    bundle = build_train(run, num_workers=V_W, device=dev, layout=lay)
+    bundle = build_train(run, num_workers=V_W, device=dev, layout=lay,
+                         **V_BUILD.get(tag, {}))
+    post: list = []
+    if tag in V_PINNED:
+        v_pin(bundle, base, tag, post)
     first, pack = {}, comp.pack_bucket
 
     def capture(layout, b, x, *, across=None):
@@ -5001,11 +5109,10 @@ def v_one_process(tag: str, cfg, spec: dict) -> dict:
                                               tracer=tracer)
     finally:
         comp.pack_bucket = pack
-    layout = state.params.layout
+    layout = bundle.layout if tag in V_BUILD else state.params.layout
     rec = {"loss": [h["loss"] for h in hist], "comm_rounds": summ["comm_rounds"],
-           "layout": layout,
-           "rows": {f: [b.float().cpu() for b in getattr(state, f).buckets]
-                    for f in v_fields(tag)},
+           "layout": layout, "pinned_post": post,
+           "rows": {f: v_rows(state, f) for f in v_fields(tag)},
            "step_s_median": statistics.median(step_s[1:]),
            "sync_s_median": statistics.median(
                sp.dur_s for sp in tracer.spans if sp.name == "sync"),
@@ -5014,7 +5121,7 @@ def v_one_process(tag: str, cfg, spec: dict) -> dict:
            "ledger_wire_bytes": summ["ledger"]["wire_bytes"],
            "round_summary": (round_summary(state.stats) if bundle.telemetry
                              else None)}
-    if wire:
+    if wire and tag not in V_BUILD:
         rec["payload"] = torch.cat([first[b] for b in sorted(first)], dim=1)
     del state, bundle
     gc.collect()
@@ -5037,16 +5144,23 @@ def v_rank(r: int, port: int, tags: tuple, out: str, spec: dict):
     reductions fenced and timed apart; writes what it measured to
     ``out/rank{r}.json`` and its final buckets to ``out/{tag}_r{r}.pt``;
     rank 0 also holds kernels 1-6 against their plain versions on its
-    shard-local trained buckets and keeps V2's first gathered payload."""
+    shard-local trained buckets and keeps V2's first gathered payload.  A
+    tree part (``V_BUILD``) builds the tree path; rank 0 checks the kernels
+    on its slices packed into its shard's region rows (the kernel form's
+    buckets), and the pinned parts replay the one process's syncs."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.backend.distributed import DistributedBackend
+    from types import SimpleNamespace
+
+    from repro_torch.core import flatbuf
     from repro_torch.kernels import fused_bucket as fb
     from repro_torch.telemetry.stats import round_summary
     from repro_torch.telemetry.trace import Tracer
+    from repro_torch.utils import tree_leaves
 
     cfg = paper_lm(spec)
     results = {}
@@ -5059,7 +5173,8 @@ def v_rank(r: int, port: int, tags: tuple, out: str, spec: dict):
                                     local_rank=r, device=spec.get("device"),
                                     timeout_s=Y_TIMEOUT_S,
                                     within_worker_size=V_S,
-                                    layout=v_layout(kind))
+                                    layout=v_layout(kind),
+                                    **V_BUILD.get(tag, {}))
             run = v_run(tag, cfg, spec.get("seq", 512), spec.get("local_batch", 8))
             bundle = be.build(run)
             dev = bundle.device
@@ -5089,7 +5204,7 @@ def v_rank(r: int, port: int, tags: tuple, out: str, spec: dict):
                                              d.reduce_scatter_shards)
             d.all_reduce_shards = fenced("all_reduce", d.all_reduce_shards)
             first = {}
-            if wire and r == 0:
+            if wire and r == 0 and tag not in V_BUILD:
                 gather = d.gather_workers
 
                 def capture(x, *, scope, stage=None):
@@ -5105,9 +5220,11 @@ def v_rank(r: int, port: int, tags: tuple, out: str, spec: dict):
                 run, device=dev, steps=STEPS, workers=V_W, bundle=bundle,
                 tracer=tracer, backend=be)
             counts = dict(fb.LAUNCHES)
+            seg_launches = fb.PORT_LAUNCHES["segment_sum"]
             syncs = [sp.dur_s for sp in tracer.spans if sp.name == "sync"]
             led = summ["ledger"]
-            layout = state.params.layout
+            tree = tag in V_BUILD
+            layout = bundle.layout if tree else state.params.layout
             rec = {"rank": r, "device": str(dev), "group": d.layout.group,
                    "shard": d.layout.shard, "workers": list(bundle.worker_ids),
                    "loss": [h["loss"] for h in hist],
@@ -5121,29 +5238,47 @@ def v_rank(r: int, port: int, tags: tuple, out: str, spec: dict):
                                                   "measured_bytes",
                                                   "cost_sources", "topologies")},
                    "collectives": d.describe()["totals"],
-                   "held_rows": [int(b.shape[-2]) for b in state.params.buckets],
+                   "held_rows": ([list(x.shape) for x in tree_leaves(state.params)]
+                                 if tree else
+                                 [int(b.shape[-2]) for b in state.params.buckets]),
                    "peak_mem_GB": (torch.cuda.max_memory_allocated(dev) / 1e9
                                    if cuda else None),
                    "reckoned": v_reckon(layout, run, d.layout.w_local,
-                                        be.mesh_layout(V_W * V_S).batch_split() > 1),
-                   "launches": counts}
+                                        be.mesh_layout(V_W * V_S).batch_split() > 1,
+                                        V_BUILD.get(tag)),
+                   "launches": counts, "segment_sum_launches": seg_launches}
             if bundle.telemetry:
                 rec["round_summary"] = round_summary(state.stats, dist=d)
             # the rows held against the one process's: params (after the
             # last sync the anchor's copy), and V1's momentum
-            torch.save({f: [b.float().cpu() for b in getattr(state, f).buckets]
-                        for f in v_fields(tag)}, f"{out}/{tag}_r{r}.pt")
+            torch.save({f: v_rows(state, f) for f in v_fields(tag)},
+                       f"{out}/{tag}_r{r}.pt")
             if state.anchor is not None:
+                pa = ((tree_leaves(state.params), tree_leaves(state.anchor))
+                      if tree else (state.params.buckets, state.anchor.buckets))
                 rec["params_equal_anchor"] = all(
-                    torch.equal(p[w], a) for p, a in zip(state.params.buckets,
-                                                         state.anchor.buckets)
+                    torch.equal(p[w], a) for p, a in zip(*pa)
                     for w in range(p.shape[0]))
             if first:
                 torch.save(first, f"{out}/{tag}_payload.pt")
-            if r == 0 and cuda:
-                # launches of these checks are not counted: read above
-                rec["kernels_vs_plain"] = m_check_kernels(state, run, layout,
+            if r == 0 and cuda and V_BUILD.get(tag, {}).get("use_kernel", True):
+                # launches of these checks are not counted: read above.  A
+                # tree part's slices in its region rows: the kernel form's
+                # buckets on this rank
+                checked = state
+                if tree:
+                    bs = lambda t: SimpleNamespace(buckets=flatbuf.flatten(
+                        layout, t, leading=1, region=True))
+                    checked = SimpleNamespace(params=bs(state.params),
+                                              momentum=bs(state.momentum))
+                rec["kernels_vs_plain"] = m_check_kernels(checked, run, layout,
                                                           lars=True)
+                del checked
+            if tag in V_PINNED:
+                t0 = time.perf_counter()
+                rec["pinned_syncs"] = v_replay(bundle, state, Path(out), tag,
+                                               r, dev)
+                rec["pinned_replay_s"] = time.perf_counter() - t0
             results[tag] = rec
             del state, bundle
             gc.collect()
@@ -5159,6 +5294,8 @@ def v_rank(r: int, port: int, tags: tuple, out: str, spec: dict):
 def v_check(tag: str, ranks: list, ref: dict, out: Path, run) -> dict:
     """Phase V's checks of one part against its one-process run."""
     import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.models import lm
     recs = [rk[tag] for rk in ranks]
     r0 = recs[0]
     layout = ref["layout"]
@@ -5181,6 +5318,47 @@ def v_check(tag: str, ranks: list, ref: dict, out: Path, run) -> dict:
                     scale_sign_rows=syncs * nb)
     per_rank = (wl * sum(held) * 16 + wl * nseg * 4 if wire
                 else sum(held) * 128 * 4)
+    tree = tag in V_BUILD
+    seg_want = None
+    sharded = [sl for sl in layout.slots
+               if layout.bucket_shard_count(sl.bucket) > 1]
+    if tree:
+        # the tree path: its kernel form launches kernels 1-2 or 5-6 on
+        # both sub-buckets a step (LARS also a segment_sum a bucket), and
+        # the compressor's kernels on the replicated leaves' bucket of each
+        # dtype (cb; the sharded leaves take the per-leaf compressor): a
+        # row_abs_sum, a chained segment_sum and a scale_sign_rows a sync,
+        # the wire pack's row sums and segment_sum once more; the plain
+        # form none
+        kern = V_BUILD[tag].get("use_kernel", True)
+        cb = len({layout.bucket_dtypes[b] for b in range(nb)
+                  if layout.bucket_shard_count(b) == 1})
+        want = {k: 0 for k in r0["launches"]}
+        seg_want = 0
+        if kern:
+            want.update({k: STEPS * nb for k in upd})
+            seg_want = STEPS * nb if lars else 0
+            if mode != "none":
+                want.update(row_abs_sum=syncs * cb * (2 if wire else 1),
+                            scale_sign_rows=syncs * cb)
+                seg_want += syncs * cb * (2 if wire else 1)
+        cls = flatbuf.shard_classes(lm.param_specs(run.model), v_layout(
+            kind).with_sizes({"data": V_W, "model": V_S}))
+        leaf = [flatbuf.LeafShards.of(cls, s) for s in range(V_S)]
+        local = [[wl] + [d // dict(sl.shard_dims).get(j, 1)
+                         for j, d in enumerate(sl.shape)]
+                 for sl in layout.slots]
+
+    def part(f, b, y, g, s):
+        """Rank (g, s)'s part of the one-process bucket (or tree leaf) b
+        of field f: its workers' rows, its shard's region (or slice)."""
+        if f != "anchor":
+            y = y[g * wl:(g + 1) * wl]
+        if tree:
+            return leaf[s].take(b, y, 0 if f == "anchor" else 1)
+        if layout.bucket_shard_count(b) > 1:
+            y = y[..., s * held[b]:(s + 1) * held[b], :]
+        return y
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["loss"], ref["loss"]))
     # each rank's rows against the one-process buckets' matching rows
     rows_rel, frac = {}, {}
@@ -5189,11 +5367,7 @@ def v_check(tag: str, ranks: list, ref: dict, out: Path, run) -> dict:
         g, s = rk["group"], rk["shard"]
         for f, bufs in got.items():
             for b, x in enumerate(bufs):
-                y = ref["rows"][f][b]
-                if f != "anchor":
-                    y = y[g * wl:(g + 1) * wl]
-                if layout.bucket_shard_count(b) > 1:
-                    y = y[..., s * held[b]:(s + 1) * held[b], :]
+                y = part(f, b, ref["rows"][f][b], g, s)
                 scale = float(y.abs().max()) or 1e-30
                 dd = (x - y).abs()
                 key = f"{f}.{b}"
@@ -5208,16 +5382,36 @@ def v_check(tag: str, ranks: list, ref: dict, out: Path, run) -> dict:
     for g in range(P // V_S):
         a, c = (torch.load(out / f"{tag}_r{g * V_S + s}.pt")["params"]
                 for s in range(V_S))
-        rep_equal &= all(torch.equal(a[b], c[b]) for b in range(nb)
-                         if layout.bucket_shard_count(b) == 1)
+        rep_equal &= all(torch.equal(a[b], c[b]) for b in range(len(a))
+                         if (not leaf[0].sharded(b) if tree else
+                             layout.bucket_shard_count(b) == 1))
     tot = r0["collectives"]
+    # the pinned syncs: every rank's anchor and EF memory after its sync of
+    # the one process's pre-sync state, against the one process's after
+    # it: elements beyond 1e-6 x the largest (EF memory 1e-5)
+    pinned_beyond = None
+    if tag in V_PINNED:
+        pinned_beyond = 0
+        for i, want_post in enumerate(ref["pinned_post"]):
+            for rk in recs:
+                got = torch.load(out / f"{tag}_r{rk['rank']}_pin{i}.pt")
+                for f, leaves in got.items():
+                    tol = 1e-5 if f == "ef_memory" else 1e-6
+                    for b, x in enumerate(leaves):
+                        y = part(f, b, want_post[f][b], rk["group"],
+                                 rk["shard"])
+                        scale = float(y.abs().max()) or 1e-30
+                        pinned_beyond += int(((x - y).abs()
+                                              > tol * scale).sum())
+                del got
     bad = [k for k, ok in (
         ("ranks disagree", all(rc["loss"] == r0["loss"]
                                and rc["comm_rounds"] == r0["comm_rounds"]
                                and rc["ledger"] == r0["ledger"] for rc in recs)),
         ("grid", [(rc["group"], rc["shard"], rc["workers"]) for rc in recs]
          == [(p // V_S, p % V_S, [p // V_S]) for p in range(P)]),
-        ("held rows", all(rc["held_rows"] == held for rc in recs)),
+        ("held rows", all(rc["held_rows"] == (local if tree else held)
+                          for rc in recs)),
         ("params vs anchor", all(rc.get("params_equal_anchor", True)
                                  for rc in recs)),
         ("replicated copies", rep_equal),
@@ -5225,11 +5419,22 @@ def v_check(tag: str, ranks: list, ref: dict, out: Path, run) -> dict:
         ("comm rounds", r0["comm_rounds"] == ref["comm_rounds"]),
         ("rows", held_frac <= V_FRAC_TOL[tag]),
         ("measured bytes", r0["ledger"]["cost_sources"] == ["measured"]
-         and r0["ledger"]["measured_bytes"] == rounds * P * per_rank
+         and r0["ledger"]["measured_bytes"] == (
+             P * sum(v["bytes"] for k, v in tot.items()
+                     if k.endswith("/global")) if tree
+             else rounds * P * per_rank)
          and r0["ledger"]["wire_bytes"] == ref["ledger_wire_bytes"]),
         ("within", tot["all_gather/within"]["calls"] == STEPS
-         and ("reduce_scatter/within" in tot) == (kind == "fsdp")),
+         and ("reduce_scatter/within" in tot) == (kind == "fsdp")
+         and (not tree or tot["all_gather/within"]["bytes"] == STEPS * wl * 4
+              * sum(sl.size // V_S for sl in sharded))),
         ("launches", all(rc["launches"] == want for rc in recs)),
+        ("segment_sum launches", seg_want is None or all(
+            rc["segment_sum_launches"] == seg_want for rc in recs)),
+        ("pinned syncs", tag not in V_PINNED or (
+            pinned_beyond == 0 and all(rc["pinned_syncs"] == syncs
+                                       == len(ref["pinned_post"])
+                                       for rc in recs))),
         ("kernels vs plain", all(k["ok"] for k in r0.get("kernels_vs_plain", [])))
     ) if not ok]
     res = {"loss_max_rel_diff": loss_rel, "loss_tol": V_LOSS_TOL[tag],
@@ -5239,8 +5444,10 @@ def v_check(tag: str, ranks: list, ref: dict, out: Path, run) -> dict:
            "replicated_equal_across_shards": rep_equal,
            "measured_bytes_per_round": r0["ledger"]["measured_bytes"] / rounds,
            "ring_bytes_per_round_per_rank": r0["ledger"]["wire_bytes"] / rounds,
-           "launches_per_rank_want": want}
-    if wire:
+           "launches_per_rank_want": want,
+           "segment_sum_launches_per_rank_want": seg_want,
+           "pinned_syncs_beyond_tol": pinned_beyond}
+    if wire and not tree:
         got = torch.load(out / f"{tag}_payload.pt")["packed"]
         same = torch_equal(got, ref["payload"])
         res.update(payload_equal_one_process=same,
@@ -5281,19 +5488,19 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
     spec.setdefault("layers", V_LAYERS)
     published, cfg = cfg, cut_depth(cfg, spec["layers"])
     base = ROOT / "build" / "phase_v"
+    if base.exists():
+        shutil.rmtree(base)
+    base.mkdir(parents=True)
     refs = {}
     for tag, *_ in V_PARTS:
         t0 = time.perf_counter()
-        refs[tag] = v_one_process(tag, cfg, spec)
+        refs[tag] = v_one_process(tag, cfg, spec, base)
         refs[tag]["one_process_s"] = time.perf_counter() - t0
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     tags = tuple(t for t, *_ in V_PARTS)
     import torch.multiprocessing as mp
-    if base.exists():
-        shutil.rmtree(base)
-    base.mkdir(parents=True)
     t0 = time.perf_counter()
     mp.spawn(v_rank, args=(free_port(), tags, str(base), spec),
              nprocs=V_W * V_S)
@@ -5314,6 +5521,9 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
                "reduced": {"num_layers": [published.num_layers,
                                           cfg.num_layers]},
                "layout": kind,
+               "path": ("resident" if tag not in V_BUILD else
+                        "tree, plain" if V_BUILD[tag].get("use_kernel", True)
+                        is False else "tree, kernel form"),
                "W": V_W, "within_worker_size": V_S, "ranks": V_W * V_S,
                "backend": "gloo", "sync_compression": mode,
                "optimizer": run.optim.optimizer, "wire_pack": wire,
@@ -5340,6 +5550,9 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
                "ledger_ring_bytes_per_rank": r0["ledger"]["wire_bytes"],
                "collectives": r0["collectives"],
                "launches_per_rank": [rc["launches"] for rc in recs],
+               "segment_sum_launches_per_rank": [rc["segment_sum_launches"]
+                                                 for rc in recs],
+               "pinned_replay_s": [rc.get("pinned_replay_s") for rc in recs],
                "kernels_vs_plain": r0.get("kernels_vs_plain"),
                "one_process_s": ref["one_process_s"], **chk}
         emit(rec)
@@ -5348,6 +5561,8 @@ def phase_v(cfg, spec: dict | None = None) -> dict:
         for rc in recs:
             for k, v in rc["launches"].items():
                 launches[k] = launches.get(k, 0) + v
+            launches["segment_sum"] = (launches.get("segment_sum", 0)
+                                       + rc["segment_sum_launches"])
     emit({"phase": "V", "summary": True, "spawn_s": spawn_s})
     shutil.rmtree(base, ignore_errors=True)
     if bad:
@@ -5368,8 +5583,9 @@ Q_PARTS = (("Q1", 2, 1, None, "ef_sign", False, True),
 Q_BUILD = {"Q3": dict(resident=False)}
 # paper-lm's depth here (see V_LAYERS): 2 since the script's run from
 # `git archive` with phase U added took 937.7 s against its 930 s target
-# (phase Q 145.5 s of it at 4 layers; H100 80GB HBM3, 700.00 W)
-Q_LAYERS = 2
+# (phase Q 145.5 s of it at 4 layers; H100 80GB HBM3, 700.00 W); 1 since
+# the tree parts of phase V (see V_LAYERS)
+Q_LAYERS = 1
 Q_RESIZE = {2: 2, 4: 4}        # global round -> W: W=2 runs steps 2-3
 Q_CKPT_STEP = 7                # the checkpoint after round 5's sync (W=4)
 # losses against the one-process run (relative), and the params rows' share
@@ -6504,9 +6720,9 @@ def main() -> int:
     laps("U")
 
     # launches: phases A, B, L, F, H, E, R, W, K, S, Y, V and Q (every
-    # rank; Y4 and Q3 the tree kernel form), M, D, Z, X, J1, N, G, U and the
-    # noise check for the bucket kernels, T for the others; the segmented
-    # sum's from phases A, B, L, F, Y and Q
+    # rank; Y4, V4, V6 and Q3 the tree kernel form), M, D, Z, X, J1, N, G, U
+    # and the noise check for the bucket kernels, T for the others; the
+    # segmented sum's from phases A, B, L, F, Y, V and Q
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     emit({"phase": "seconds", "by_phase": laps.by_phase,

@@ -28,7 +28,10 @@ Over the rank's *shard group* (the S ranks of its worker, S > 1 only):
 :meth:`Collectives.gather_shards` (a sharded bucket's regions into its
 whole rows), :meth:`Collectives.reduce_scatter_shards` (FSDP's gradient
 sum into each rank's region), :meth:`Collectives.shard_total` (partial
-sums added in shard order).  Sub-groups are made once, in the same
+sums added in shard order), and their forms for the tree path's leaf
+slices, one collective a dtype: :meth:`Collectives.gather_leaf_shards`,
+:meth:`Collectives.reduce_scatter_leaf_shards`,
+:meth:`Collectives.all_reduce_leaves`.  Sub-groups are made once, in the same
 order on every rank (``new_group`` must be called by every rank, members
 or not), and kept by their rank tuple in a cache that outlives a resize:
 the Collectives of the new W finds its shard and worker groups there,
@@ -43,8 +46,8 @@ its measured bytes).  All ranks hand equal-shaped tensors to each sync
 collective, so the bytes handed by all ranks together are P times this
 rank's.  What the ordered mean's point-to-point sends carry is counted
 apart (``sent``).  Shard-group traffic is never counted under a sync
-stage: the local step's bucket gathers and gradient reductions under the
-scope ``"within"``, the small cross-shard sums of partials under
+stage: the local step's bucket (or leaf-slice) gathers and gradient
+reductions under the scope ``"within"``, the small cross-shard sums of partials under
 ``"shard_sums"``.
 
 The ``gloo`` backend of the torch the card runs (2.11) takes all-reduce,
@@ -375,6 +378,62 @@ class Collectives:
         for s in range(1, parts.shape[0]):
             acc = acc + parts[s]
         return acc
+
+    # -- leaf slices over the shard group (the tree path) -----------------
+    @staticmethod
+    def _by_dtype(xs):
+        """Positions of ``xs`` per dtype, in order of first appearance."""
+        groups: dict = {}
+        for i, x in enumerate(xs):
+            groups.setdefault(x.dtype, []).append(i)
+        return groups.values()
+
+    def gather_leaf_shards(self, slices, *, scope: str = "within") -> list:
+        """Each of this rank's leaf ``slices`` beside the shard group's, in
+        shard order: ``(S, *x.shape)`` each, one :meth:`gather_shards` a
+        dtype (the slices flattened and concatenated)."""
+        out: list = [None] * len(slices)
+        for idx in self._by_dtype(slices):
+            flat = torch.cat([slices[i].reshape(-1) for i in idx])
+            g = self.gather_shards(flat, scope=scope)
+            off = 0
+            for i in idx:
+                n = slices[i].numel()
+                out[i] = g[:, off:off + n].reshape(
+                    (g.shape[0],) + tuple(slices[i].shape))
+                off += n
+        return out
+
+    def reduce_scatter_leaf_shards(self, parts, *,
+                                   scope: str = "within") -> list:
+        """``parts[i]`` ``(S, *shape)``: one value's S shard pieces on this
+        rank -> this rank's piece summed over the shard group, ``shape``
+        each; one :meth:`reduce_scatter_shards` a dtype."""
+        S = self.layout.within_worker_size
+        out: list = [None] * len(parts)
+        for idx in self._by_dtype(parts):
+            x = torch.cat([parts[i].reshape(S, -1) for i in idx], dim=1)
+            r = self.reduce_scatter_shards(x, scope=scope)[0]
+            off = 0
+            for i in idx:
+                n = parts[i][0].numel()
+                out[i] = r[off:off + n].reshape(parts[i].shape[1:])
+                off += n
+        return out
+
+    def all_reduce_leaves(self, xs, *, scope: str = "within") -> list:
+        """Each of ``xs`` summed over the shard group (new tensors), one
+        :meth:`all_reduce_shards` a dtype."""
+        out: list = [None] * len(xs)
+        for idx in self._by_dtype(xs):
+            flat = self.all_reduce_shards(
+                torch.cat([xs[i].reshape(-1) for i in idx]), scope=scope)
+            off = 0
+            for i in idx:
+                n = xs[i].numel()
+                out[i] = flat[off:off + n].reshape(xs[i].shape)
+                off += n
+        return out
 
     def describe(self) -> dict:
         return {"backend": self.backend, "rank": self.rank,

@@ -25,11 +25,11 @@ Launch one process per rank, e.g.::
 
 ``use_kernel=False`` (the reference's default) builds the per-leaf tree
 path on every rank, and ``resident=False`` its tree-in/tree-out kernel
-form: each rank holds its workers' rows of the stacked trees.  It refuses
-up front: the tree path with ``within_worker_size`` > 1 (whole workers
-only), a single process (as the reference does), W not a
-multiple of the worker groups and NCCL with more ranks on a host than it
-has cards (before ``init_process_group``: :func:`check_nccl_ranks`).  It
+form: each rank holds its workers' rows of the stacked trees, and with
+``within_worker_size`` > 1 its shard's slice of every leaf the layout
+shards.  It refuses up front: a single process (as the reference does),
+W not a multiple of the worker groups and NCCL with more ranks on a host
+than it has cards (before ``init_process_group``: :func:`check_nccl_ranks`).  It
 never builds a one-process bundle under this backend's name.
 
 The worker set changes as on the other backends: :meth:`demote` /
@@ -88,16 +88,9 @@ class DistributedBackend(Backend):
         lacks are filled in at build: its worker axis gets P / S, its
         other axis S).  ``use_kernel`` and ``resident`` go to
         ``build_train`` on every build (a resize's too): ``use_kernel=False``
-        is the reference's tree path, ``resident=False`` its kernel form;
-        with ``within_worker_size`` > 1 either raises ``ValueError`` here,
-        before any collective."""
-        tree = not use_kernel or resident is False
-        if tree and int(within_worker_size) > 1:
-            raise ValueError(
-                f"DistributedBackend(use_kernel={use_kernel}, resident="
-                f"{resident}, within_worker_size={within_worker_size}): the "
-                "tree path across ranks holds whole workers; a worker split "
-                "over shard ranks runs the resident path only")
+        is the reference's tree path, ``resident=False`` its kernel form,
+        with whole workers a rank or, with ``within_worker_size`` > 1, each
+        rank holding its shard's slice of every sharded leaf."""
         super().__init__(num_workers)
         self.use_kernel = use_kernel
         self.resident = resident

@@ -13,7 +13,11 @@ scale.
 :func:`sign_compress` / :func:`ef_compress` take trees, per leaf in
 plain PyTorch (``use_kernel=False``) or packed into ``(W, rows, 128)``
 buckets, compressed by the bucket kernels and unpacked
-(``use_kernel=True``: the tree-in/tree-out kernel form).
+(``use_kernel=True``: the tree-in/tree-out kernel form).  With
+``shards`` (a ``flatbuf.LeafShards``) a sharded leaf's scale adds its
+slices' |x| partials in shard order and averages over the whole leaf,
+whether the tree holds it whole or one slice of it (then ``across``
+totals the shard group's partials).
 
 The wire format packs the signs 8 to a ``uint8`` (bit i of byte k is
 element 8k + i) beside one f32 scale per leaf: 1/32 of the f32 payload.
@@ -43,47 +47,65 @@ def _row_abs_sums(x):
     return torch.stack([r.abs().sum() for r in xf.unbind(0)])
 
 
-def leaf_abs_totals(leaves, *, across=None):
+def worker_leaf_abs_sums(leaves, *, shards=None, across=None):
+    """(n, L) f32: each of the n leading rows' (workers') sum |x| of each
+    leaf, one reduction a row; a sharded leaf's (``shards``, a
+    ``flatbuf.LeafShards``) its slices' partials added in shard order,
+    over the shard group (``across``) where this process holds a slice."""
+    return torch.stack(flatbuf.leaf_sums(
+        leaves, lambda x: x.float().abs(), lambda v: _row_abs_sums(v),
+        leading=1, shards=shards, across=across), dim=1)
+
+
+def leaf_abs_totals(leaves, *, across=None, shards=None):
     """(L,) f32: sum |x| of each of ``leaves`` over all its leading rows,
     the rows' sums added one after another in row (worker) order
-    (``kernels.ops.lead_total``).  ``across`` (a
-    ``backend.collectives.Collectives``) holds the other workers' rows on
-    other ranks: every rank's per-worker sums of every leaf are gathered
-    (one all-gather) and added in worker order, the adds one process
-    makes."""
-    per = torch.stack([_row_abs_sums(x) for x in leaves], dim=1)   # (n, L)
+    (``kernels.ops.lead_total``), a sharded leaf's row sum its slices'
+    partials in shard order first (:func:`worker_leaf_abs_sums`).
+    ``across`` (a ``backend.collectives.Collectives``) holds the other
+    workers' rows on other ranks: every rank's per-worker sums of every
+    leaf are gathered (one all-gather) and added in worker order, the adds
+    one process makes."""
+    if shards is None:
+        per = torch.stack([_row_abs_sums(x) for x in leaves], dim=1)
+    else:
+        per = worker_leaf_abs_sums(leaves, shards=shards, across=across)
     if across is not None:
         per = across.gather_workers(per, scope="compress")
     return kops.lead_total(per)
 
 
-def _leaf_count(x, across=None) -> int:
+def _leaf_count(x, across=None, factor: int = 1) -> int:
     """The element count a stacked leaf's scale averages over: all its
-    workers', every rank's too with ``across``."""
+    workers', every rank's too with ``across``, of the WHOLE leaf when
+    ``x`` is one of ``factor`` slices of it."""
     if across is None or x.dim() == 0:
-        return x.numel()
-    return x[0].numel() * across.layout.num_workers
+        return x.numel() * factor
+    return x[0].numel() * factor * across.layout.num_workers
 
 
-def sign_compress_leaf(x, *, total=None, across=None):
+def sign_compress_leaf(x, *, total=None, across=None, factor: int = 1):
     """sign(x) * mean|x| of one tensor, as f32: the 1-bit + scale
     compressor.  The |x| total is :func:`leaf_abs_totals`'s (its leading
     rows' sums in row order), or ``total`` when the caller has it; with
     ``across`` x is this rank's rows of a leaf stacked over every rank's
-    workers, and the mean runs over all of them."""
+    workers, and the mean runs over all of them; ``factor`` > 1: x is one
+    of that many slices of the leaf, and ``total`` the whole leaf's."""
     if total is None:
         total = leaf_abs_totals([x], across=across)[0]
-    return torch.sign(x.float()) * (total / _leaf_count(x, across))
+    return torch.sign(x.float()) * (total / _leaf_count(x, across, factor))
 
 
-def _sign_compress_leaves(leaves, across=None):
+def _sign_compress_leaves(leaves, across=None, shards=None):
     """:func:`sign_compress_leaf` of every leaf, their totals in one
-    gather across ranks."""
+    gather across ranks (a sharded leaf's over the whole leaf)."""
     if not leaves:
         return []
-    totals = leaf_abs_totals(leaves, across=across)
-    return [sign_compress_leaf(x, total=t, across=across)
-            for x, t in zip(leaves, totals.unbind(0))]
+    totals = leaf_abs_totals(leaves, across=across, shards=shards)
+    return [sign_compress_leaf(
+                x, total=t, across=across,
+                factor=1 if shards is None else shards.factor(i))
+            for i, (x, t) in enumerate(zip(leaves, totals.unbind(0)))]
 
 
 def worker_abs_totals(layout, b: int, x, *, across=None):
@@ -191,21 +213,23 @@ def ef_compress_buckets(layout, dbufs, ebufs, *, leading: int = 0,
     return [o[0] for o in outs], [o[1] for o in outs]
 
 
-def _sign_compress_bucketed(tree, bucketable=None, across=None):
+def _sign_compress_bucketed(tree, bucketable=None, across=None, shards=None):
     """The tree-in/tree-out kernel form on a stacked ``(W, ...)`` tree: the
     leaves packed into ``(W, rows, 128)`` buckets, one ``row_abs_sum`` +
     ``segment_sum`` + ``scale_sign_rows`` launch each (the per-leaf scales
     over all W workers; with ``across`` this rank's rows, the totals
     chained over the ranks in worker order), unpacked.  Leaves flagged
-    False in ``bucketable`` take the per-leaf compressor."""
+    False in ``bucketable`` (a sharded layout's sharded leaves) take the
+    per-leaf compressor, with ``shards`` their slices' totals."""
     leaves, treedef = tree_flatten(tree)
     flags = (tree_leaves(bucketable) if bucketable is not None
              else [True] * len(leaves))
     out: list = [None] * len(leaves)
     on = [i for i, m in enumerate(flags) if m]
     off = [i for i, m in enumerate(flags) if not m]
-    for i, v in zip(off, _sign_compress_leaves([leaves[i] for i in off],
-                                               across)):
+    for i, v in zip(off, _sign_compress_leaves(
+            [leaves[i] for i in off], across,
+            None if shards is None else shards.subset(off))):
         out[i] = v
     if on:
         sub = [leaves[i] for i in on]
@@ -219,26 +243,30 @@ def _sign_compress_bucketed(tree, bucketable=None, across=None):
 
 
 def sign_compress(tree, *, use_kernel: bool = False, bucketable=None,
-                  across=None):
+                  across=None, shards=None):
     """sign(x) * mean|x| of every leaf, as f32 (the kernel form takes the
     stacked ``(W, ...)`` delta of the tree sync).  ``across`` (a
     ``backend.collectives.Collectives``): the tree holds this rank's
-    workers, and each leaf's scale is the mean over every rank's."""
+    workers, and each leaf's scale is the mean over every rank's.
+    ``shards`` (a ``flatbuf.LeafShards``): a sharded leaf's scale adds its
+    slices' |x| partials in shard order, over the shard group where the
+    tree holds one slice, and averages over the whole leaf."""
     if use_kernel:
-        return _sign_compress_bucketed(tree, bucketable, across)
+        return _sign_compress_bucketed(tree, bucketable, across, shards)
     leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, _sign_compress_leaves(leaves, across))
+    return tree_unflatten(treedef, _sign_compress_leaves(leaves, across,
+                                                         shards))
 
 
 def ef_compress(delta, memory, *, use_kernel: bool = False, bucketable=None,
-                across=None):
+                across=None, shards=None):
     """Error-feedback compression: compress(delta + e); e' = input - output.
     Returns (compressed, new_memory), both f32, with compressed +
-    new_memory == delta + memory exactly in f32 (``across`` as in
-    :func:`sign_compress`)."""
+    new_memory == delta + memory exactly in f32 (``across``, ``shards`` as
+    in :func:`sign_compress`)."""
     inp = tree_map(lambda d, e: d.float() + e.float(), delta, memory)
     out = sign_compress(inp, use_kernel=use_kernel, bucketable=bucketable,
-                        across=across)
+                        across=across, shards=shards)
     return out, tree_map(lambda i, o: i - o, inp, out)
 
 
@@ -273,14 +301,16 @@ def _unpack_bits(packed):
     return (2.0 * bits.float() - 1.0).reshape(*packed.shape[:-1], -1)
 
 
-def pack_signs(x, axis: int = -1):
+def pack_signs(x, axis: int = -1, scale=None):
     """x: (W, *shape) -> (packed uint8 with dim ``axis`` moved last and
     8x smaller, padded to whole bytes; scale (W,) f32 = mean |x| per
-    worker).  ``axis`` must not be the worker dim."""
+    worker, or ``scale`` when the caller has it: a slice's, from the
+    whole leaf).  ``axis`` must not be the worker dim."""
     ax = axis % x.dim()
     assert ax >= 1, "cannot pack along the worker dim"
     xf = torch.movedim(x.float(), ax, -1)
-    scale = xf.abs().mean(dim=tuple(range(1, xf.dim())))
+    if scale is None:
+        scale = xf.abs().mean(dim=tuple(range(1, xf.dim())))
     pad = (-xf.shape[-1]) % 8
     if pad:
         xf = torch.nn.functional.pad(xf, (0, pad))

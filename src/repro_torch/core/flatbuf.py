@@ -36,6 +36,12 @@ rows of a grad bucket that the caller zeroed, so the gradient comes out
 as a bucket whose padding is exactly zero without a full-bucket pass per
 leaf.
 
+The tree path on a within-worker grid holds a sharded leaf as one
+shard's slice (:class:`LeafShards`): the rows the leaf takes in that
+shard's region, so ``flatten(region=True)`` packs a rank's slices into
+its region rows; :func:`leaf_sums` adds a sharded leaf's slices' partials
+in shard order.
+
 The reference's ``bucket_pspec`` (a bucket's mesh ``PartitionSpec``) has
 no counterpart: the port places shard regions on ranks itself
 (``core/local_sgd``, ``sharding.layout.WorkerLayout``).
@@ -253,58 +259,66 @@ def _from_shard_major(y, shard_dims, shape, leading: int):
     return y.permute(perm).reshape(lead + tuple(shape))
 
 
-def _regions(layout: FlatLayout, b: int, flat):
-    """A bucket's flat ``(*lead, rows * 128)`` buffer as ``(*lead, S,
-    local_rows * 128)``: shard s's region in row s (S = 1: one region)."""
-    S = layout.bucket_shard_count(b)
-    return flat.reshape(flat.shape[:-1] + (S, layout.bucket_local_rows(b) * LANE))
-
-
 def flatten(layout: FlatLayout, tree, *, leading: int = 0,
-            bucket_dtypes: Sequence[str] | None = None) -> list[torch.Tensor]:
+            bucket_dtypes: Sequence[str] | None = None,
+            region: bool = False) -> list[torch.Tensor]:
     """Pack ``tree`` (tensors) into one ``(*lead, rows, 128)`` buffer per
     bucket, shard-major for sharded sub-buckets; padding is zero.
     ``bucket_dtypes`` overrides the buffers' dtypes, keeping the layout's
-    geometry."""
+    geometry.  ``region=True`` packs one shard's region instead: ``tree``
+    holds that shard's slice of every sharded leaf (:class:`LeafShards`)
+    and a sharded bucket gets its ``local_rows``."""
     leaves = tree_leaves(tree)
     assert len(leaves) == layout.num_leaves, (len(leaves), layout.num_leaves)
     buckets = []
     for b in range(layout.num_buckets):
         dt = torch_dtype((bucket_dtypes or layout.bucket_dtypes)[b])
         S = layout.bucket_shard_count(b)
+        R = 1 if region else S
+        rows = layout.bucket_local_rows(b) * R
         slots = layout.bucket_slots(b)
         x0 = leaves[slots[0].index]
         lead = tuple(x0.shape[:leading])
-        buf = torch.zeros(lead + (layout.bucket_rows[b] * LANE,), dtype=dt,
-                          device=x0.device)
-        reg = _regions(layout, b, buf)
+        buf = torch.zeros(lead + (rows * LANE,), dtype=dt, device=x0.device)
+        reg = buf.view(lead + (R, -1))
         for s in slots:
             off = s.row_offset * LANE
             x = leaves[s.index]
-            if S > 1:
+            if R > 1:
                 x = _to_shard_major(x, s.shard_dims, leading)
-            reg[..., off:off + s.size // S] = x.reshape(lead + (S, -1))
-        buckets.append(buf.view(lead + (layout.bucket_rows[b], LANE)))
+            reg[..., off:off + s.size // S] = x.reshape(lead + (R, -1))
+        buckets.append(buf.view(lead + (rows, LANE)))
     return buckets
 
 
 def unflatten(layout: FlatLayout, buckets: Sequence[torch.Tensor], *,
-              leading: int = 0):
+              leading: int = 0, region: bool = False):
     """Inverse of :func:`flatten`: a tree with the per-leaf padding dropped
-    (VIEWS into replicated buckets, copies of sharded leaves)."""
+    (VIEWS into replicated buckets, copies of sharded leaves).  With
+    ``region=True`` the buckets hold one shard's region and a sharded
+    leaf comes back as that shard's slice (a view)."""
     assert len(buckets) == layout.num_buckets
     vals: list = [None] * layout.num_leaves
     for b, buf in enumerate(buckets):
         lead = tuple(buf.shape[:leading])
         S = layout.bucket_shard_count(b)
-        reg = _regions(layout, b, buf.reshape(lead + (-1,)))
+        R = 1 if region else S
+        reg = buf.reshape(lead + (R, -1))
         for s in layout.bucket_slots(b):
             off = s.row_offset * LANE
             seg = reg[..., off:off + s.size // S]
-            vals[s.index] = (seg.reshape(lead + s.shape) if S == 1 else
+            vals[s.index] = (seg.reshape(lead + _local_shape(s.shape,
+                                                             s.shard_dims))
+                             if R == 1 else
                              _from_shard_major(seg, s.shard_dims, s.shape,
                                                leading))
     return tree_unflatten(layout.treedef, vals)
+
+
+def _local_shape(shape, shard_dims) -> tuple:
+    """One shard's slice shape of a leaf of ``shape``."""
+    fac = dict(shard_dims)
+    return tuple(d // fac.get(i, 1) for i, d in enumerate(shape))
 
 
 class _LeafViews(torch.autograd.Function):
@@ -620,3 +634,137 @@ def shard_sum(layout: FlatLayout, b: int, part: torch.Tensor,
                              f"bucket needs the shard group to total it")
         acc = across.shard_total(acc)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf shard views (the tree path on a within-worker grid)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LeafShards:
+    """The within-worker sharding of a tree's leaves, leaf by leaf: each
+    leaf's :class:`ShardClass` (tree-flatten order) and which copy this
+    process holds: every leaf whole (``shard`` None: one process, or whole
+    workers a rank) or shard ``shard``'s SLICE of every sharded leaf (a
+    rank of a shard group; replicated leaves whole).
+
+    A leaf's slice is the rows it holds in the resident path's region
+    (:func:`_to_shard_major`): the sharded dims divided by their factors,
+    shard s's block of each, in the leaf's own dim order.  A sum over a
+    sharded leaf is its S slices' partials added in shard order
+    (:func:`leaf_totals`): the adds one process makes on the whole leaf,
+    and a rank makes with its shard group's partials."""
+    classes: tuple
+    shard: int | None = None
+
+    @classmethod
+    def of(cls, shard_classes, shard: int | None = None) -> "LeafShards":
+        return cls(tuple(c if c is not None else REPLICATED
+                         for c in tree_leaves(shard_classes, is_leaf=_is_class)),
+                   shard)
+
+    def subset(self, idx) -> "LeafShards":
+        """The sharding of the leaves at positions ``idx``, in that order."""
+        return LeafShards(tuple(self.classes[i] for i in idx), self.shard)
+
+    def sharded(self, i: int) -> bool:
+        return self.classes[i].shards > 1
+
+    def sliced(self, i: int) -> bool:
+        """True when this process holds one slice of leaf ``i``."""
+        return self.shard is not None and self.sharded(i)
+
+    def factor(self, i: int) -> int:
+        """How many slices like the one held make leaf ``i`` (1: whole)."""
+        return self.classes[i].shards if self.sliced(i) else 1
+
+    def whole_shape(self, i: int, shape) -> tuple:
+        """A leaf's per-worker shape from the ``shape`` held."""
+        if not self.sliced(i):
+            return tuple(shape)
+        fac = dict(self.classes[i].dims)
+        return tuple(d * fac.get(j, 1) for j, d in enumerate(shape))
+
+    def split(self, i: int, x, leading: int):
+        """``(*lead, S, n)``: the whole leaf ``x``'s S slices, each flattened
+        in its own element order (S = 1 for a replicated leaf)."""
+        c = self.classes[i]
+        if c.shards == 1:
+            return x.reshape(tuple(x.shape[:leading]) + (1, -1))
+        return _to_shard_major(x, c.dims, leading)
+
+    def regions(self, i: int, x, leading: int):
+        """``(*lead, R, n)``: the R slices of leaf ``i`` as this process
+        holds it (R = S of a whole sharded leaf; 1 for a slice or a
+        replicated leaf)."""
+        if self.sliced(i):
+            return x.reshape(tuple(x.shape[:leading]) + (1, -1))
+        return self.split(i, x, leading)
+
+    def take(self, i: int, x, leading: int):
+        """This process's slice of the whole leaf ``x``, a tensor of its own;
+        a replicated leaf (or one held whole) as it is."""
+        if not self.sliced(i):
+            return x
+        local = _local_shape(tuple(x.shape[leading:]), self.classes[i].dims)
+        return self.split(i, x, leading)[..., self.shard, :].reshape(
+            tuple(x.shape[:leading]) + local).clone()
+
+    def whole(self, i: int, parts, leading: int):
+        """Leaf ``i`` whole (contiguous) from its S slices ``parts`` ``(S,
+        *lead, *local)``, in shard order."""
+        c = self.classes[i]
+        local = tuple(parts.shape[1 + leading:])
+        shape = tuple(d * dict(c.dims).get(j, 1) for j, d in enumerate(local))
+        y = parts.movedim(0, leading)
+        y = y.reshape(tuple(y.shape[:leading]) + (c.shards, -1))
+        return _from_shard_major(y, c.dims, shape, leading).contiguous()
+
+
+def region_sums(xr):
+    """``(*lead, R, n)`` -> ``(*lead, R)``: one reduction a (worker, slice),
+    each over its contiguous run of n elements, so a slice's partial has
+    the same bits in one process (beside the other slices) and on a rank."""
+    rows = xr.reshape(-1, xr.shape[-1])
+    return torch.stack([r.sum() for r in rows.unbind(0)]).reshape(
+        xr.shape[:-1])
+
+
+def leaf_totals(parts, sliced, across=None):
+    """Per-leaf partials ``parts[i]`` ``(*lead, R_i)`` -> per-leaf totals
+    ``(*lead)``, the partials added in shard order.  ``sliced[i]`` marks a
+    leaf of which this process holds one slice: its partial goes through
+    ``across.shard_total`` (the shard group's partials added in shard
+    order), all such leaves in one call."""
+    out = []
+    for p in parts:
+        acc = p[..., 0]
+        for s in range(1, p.shape[-1]):
+            acc = acc + p[..., s]
+        out.append(acc)
+    idx = [i for i, m in enumerate(sliced) if m]
+    if idx:
+        if across is None:
+            raise ValueError("one slice of a sharded leaf needs the shard "
+                             "group to total it")
+        tot = across.shard_total(torch.stack([out[i] for i in idx], dim=-1))
+        for j, i in enumerate(idx):
+            out[i] = tot[..., j]
+    return out
+
+
+def leaf_sums(leaves, fn, sum_fn, *, leading: int, shards=None, across=None):
+    """Per-leaf sums ``(*lead)`` of ``fn(x)`` over each leaf (f32): an
+    unsharded leaf's by ``sum_fn`` (the caller's own reduction, so a tree
+    without shards keeps its bits), a sharded leaf's as its slices'
+    partials (:func:`region_sums`) added in shard order
+    (:func:`leaf_totals`, across the shard group for a slice)."""
+    parts = []
+    for i, x in enumerate(leaves):
+        v = fn(x)
+        if shards is not None and shards.sharded(i):
+            parts.append(region_sums(shards.regions(i, v, leading)))
+        else:
+            parts.append(sum_fn(v)[..., None])
+    return leaf_totals(parts, [shards is not None and shards.sliced(i)
+                               for i in range(len(leaves))], across)

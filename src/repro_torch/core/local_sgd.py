@@ -121,16 +121,34 @@ leaf's sign scale adds its workers' |x| sums in worker order, and
 telemetry's compression error and reference add per-worker sums in
 worker order too.
 
-Across ranks (``dist`` of whole workers: within-worker size 1; a worker
-split over shard ranks raises ``ValueError``) each rank holds its
-``W_local`` workers' rows of every stacked leaf and the single-copy
-anchor and global momentum whole.  A global or spanning block mean is
-the ordered mean of the rank's rows (per dtype bucket, or per leaf
-without ``bucket_sync``); the sign scales gather every worker's |x| sums
-(one gather a sync) or, in the kernel form, chain the segmented totals
-rank after rank; the wire pack gathers every worker's packed rows and
-scales (per bucket, or per leaf).  Metrics and per-worker telemetry are
-gathered: given equal inputs, every number is the one process's.
+Across ranks (``dist``) each rank holds its ``W_local`` workers' rows of
+every stacked leaf and the single-copy anchor and global momentum.  A
+global or spanning block mean is the ordered mean of the rank's rows
+(per dtype bucket, or per leaf without ``bucket_sync``); the sign scales
+gather every worker's |x| sums (one gather a sync) or, in the kernel
+form, chain the segmented totals rank after rank; the wire pack gathers
+every worker's packed rows and scales (per bucket, or per leaf).
+Metrics and per-worker telemetry are gathered: given equal inputs, every
+number is the one process's.
+
+On a within-worker grid (S > 1, ``shard_classes`` from the layout) a rank
+holds its shard's SLICE of every sharded leaf (``flatbuf.LeafShards``:
+the rows that leaf takes in the resident path's region), momentum, EF
+memory, anchor and global momentum too, and the replicated leaves whole.
+``local_step`` gathers the slices over the shard group (one gather a
+dtype) into whole leaves for the model; with ``batch_split`` = S (FSDP)
+the rank differentiates its 1/S of the worker's batch and the mean
+gradient is reduce-scattered into its slices (the replicated leaves'
+all-reduced), else (tensor parallel) it keeps its slices of the whole
+batch's gradient.  Every sum over a sharded leaf (the clip norm, LARS's
+layer norms, the sign and wire-pack scales, telemetry) adds its slices'
+partials in shard order (``flatbuf.leaf_sums``), across the shard group
+here and over the S slices of the whole leaf in one process with the
+same classes: the same adds.  The kernel form runs its buckets on the
+rank's region rows (``flatbuf.flatten(region=True)``); its compressor
+takes the replicated leaves' buckets and the per-leaf form for the
+sharded ones, as the reference's tree path does with ``bucketable``.
+Syncs average over the worker group (the same shard index).
 
 **A kept difference:** the reference defaults ``use_kernel`` to False
 (the tree path); the port defaults it to True (the resident path), so
@@ -255,21 +273,45 @@ def _is_region(layout, b: int, x) -> bool:
             and x.shape[-2] != layout.bucket_rows[b])
 
 
-def mean_params(state: LocalSGDState, dist=None):
+def _grid_shards(dist, shard_classes):
+    """The ``flatbuf.LeafShards`` of a tree state on ``dist``'s within-worker
+    grid (this rank's slices), None with whole workers a rank (or a
+    ``dist`` that names no worker layout)."""
+    grid = getattr(dist, "layout", None)
+    if grid is None or grid.within_worker_size == 1:
+        return None
+    if shard_classes is None:
+        raise ValueError("a tree state on a within-worker grid holds slices: "
+                         "give its leaves' sharding classes (shard_classes=, "
+                         "the bundle's)")
+    return flatbuf.LeafShards.of(shard_classes, dist.layout.shard)
+
+
+def mean_params(state: LocalSGDState, dist=None, *, shard_classes=None):
     """Single-copy tree of the worker-averaged model (eval boundary);
     across processes (``dist``, a ``backend.collectives.Collectives``)
     the mean over all W workers of every rank, a sharded bucket's shard
     regions gathered into its whole rows.  A tree state's is each leaf's
     mean over its worker dim; across processes its leaves ride dtype
     buckets through the same ordered mean (one collective a bucket; each
-    element the one process's)."""
+    element the one process's), and on a within-worker grid its slices
+    (of the leaves ``shard_classes`` shards) are gathered whole."""
     if not is_resident(state):
         if dist is None:
             return mbase.unstack_mean(state.params)
+        shards = _grid_shards(dist, shard_classes)
         layout = flatbuf.build_layout(state.params, leading=1)
-        return flatbuf.unflatten(layout, [
+        means = flatbuf.unflatten(layout, [
             dist.ordered_mean(x, scope="eval")
             for x in flatbuf.flatten(layout, state.params, leading=1)])
+        if shards is None:
+            return means
+        leaves, treedef = tree_flatten(means)
+        idx = [i for i in range(len(leaves)) if shards.sliced(i)]
+        for i, g in zip(idx, dist.gather_leaf_shards(
+                [leaves[i] for i in idx], scope="eval")):
+            leaves[i] = shards.whole(i, g, 0)
+        return tree_unflatten(treedef, leaves)
     layout = state.params.layout
     if dist is None:
         means = [b.mean(dim=0) for b in state.params.buckets]
@@ -297,7 +339,8 @@ def _group_seed(seed: int, group: int) -> int:
     return seed + 1_000_003 * group
 
 
-def gather_state(state: LocalSGDState, dist, *, device="cpu"):
+def gather_state(state: LocalSGDState, dist, *, device="cpu",
+                 shard_classes=None):
     """The whole state in the one-process layout, from every rank's rows,
     on rank 0 (on ``device``, the host by default); None on every other
     rank.  A checkpoint of a run across ranks (``fit(checkpoint_fn=)``)
@@ -314,9 +357,11 @@ def gather_state(state: LocalSGDState, dist, *, device="cpu"):
     gathered too; the generator is worker group 0's, whose stream starts
     from the run's seed as one process's does (the other groups' draws
     are not saved: ``fit`` refuses to checkpoint a noisy run over several
-    worker groups)."""
+    worker groups).  A tree state on a within-worker grid needs its
+    leaves' ``shard_classes``: its slices are assembled in shard order."""
     if not is_resident(state):
-        return _gather_tree_state(state, dist, device=device)
+        return _gather_tree_state(state, dist, device=device,
+                                  shards=_grid_shards(dist, shard_classes))
     lay, grid = state.params.layout, dist.layout
     S, G = grid.within_worker_size, grid.num_groups
     lead = dist.rank == 0
@@ -377,55 +422,83 @@ def _gather_stats(stats, dist, *, device):
         for f in dataclasses.fields(stats)})
 
 
-def _gather_tree_state(state: LocalSGDState, dist, *, device):
-    """:func:`gather_state` of a tree state (one worker group a rank): each
-    stacked field's leaves packed into dtype buckets, every bucket
-    gathered onto rank 0 on its own and unpacked there into ``(W, ...)``
-    leaves; the single-copy anchor and global momentum are rank 0's own
-    (every rank holds the same bits)."""
+def _gather_tree_state(state: LocalSGDState, dist, *, device, shards=None):
+    """:func:`gather_state` of a tree state: each field's leaves packed into
+    dtype buckets, every bucket gathered onto rank 0 on its own and
+    unpacked there; a stacked field's ``(W, ...)`` leaves in worker
+    order.  With whole workers a rank the single-copy anchor and global
+    momentum are rank 0's own (every rank holds the same bits); on a
+    within-worker grid (``shards``) a sharded leaf is assembled from its
+    shard group's slices in shard order (the single copies from worker
+    group 0's), a replicated one taken from shard 0."""
     lead = dist.rank == 0
+    grid = dist.layout
+    S, G = grid.within_worker_size, grid.num_groups
     fields = {}
     for name in _STACKED + _SINGLE:
         tree = getattr(state, name)
-        if tree is None or name in _SINGLE:
+        if tree is None or (name in _SINGLE and shards is None):
             fields[name] = (None if tree is None or not lead
                             else tree_map(lambda x: x.to(device, copy=True),
                                           tree))
             continue
-        layout = flatbuf.build_layout(tree, leading=1)
+        leading = 1 if name in _STACKED else 0
+        layout = flatbuf.build_layout(tree, leading=leading)
         out = []
-        for x in flatbuf.flatten(layout, tree, leading=1):
+        for x in flatbuf.flatten(layout, tree, leading=leading):
             parts = dist.gather_ranks(x, scope="checkpoint")
             if lead:
-                out.append(parts.reshape((-1,) + tuple(x.shape[1:]))
-                           .to(device))
+                out.append(parts.to(device))
             del parts
-        fields[name] = (flatbuf.unflatten(layout, out, leading=1) if lead
-                        else None)
+        if not lead:
+            fields[name] = None
+        elif shards is None:
+            fields[name] = flatbuf.unflatten(
+                layout, [p.reshape((-1,) + tuple(p.shape[2:])) for p in out],
+                leading=1)
+        else:
+            ranks = [tree_leaves(flatbuf.unflatten(
+                         layout, [p[r] for p in out], leading=leading))
+                     for r in range(grid.num_ranks)]
+            vals = []
+            for i in range(layout.num_leaves):
+                per = [shards.whole(i, torch.stack(
+                           [ranks[g * S + s][i] for s in range(S)]), leading)
+                       if shards.sliced(i) else ranks[g * S][i]
+                       for g in range(G if leading else 1)]
+                vals.append(torch.cat(per) if leading else per[0])
+            fields[name] = tree_unflatten(layout.treedef, vals)
     stats = _gather_stats(state.stats, dist, device=device)
     if not lead:
         return None
     return LocalSGDState(step=state.step, rng=state.rng, stats=stats, **fields)
 
 
-def state_template(state: LocalSGDState, dist, num_workers: int | None = None):
+def state_template(state: LocalSGDState, dist, num_workers: int | None = None,
+                   *, shard_classes=None):
     """A template of the whole state in the one-process layout (meta
     tensors: a restore puts them on the host) at ``num_workers`` workers
     (default the run's W), for ``checkpoint.restore_flat`` on a rank; the
     generator is this rank's.  A tree state's template is a tree of
-    ``(W, ...)`` (stacked) and single-copy leaves."""
+    ``(W, ...)`` (stacked) and single-copy leaves, whole leaves on a
+    within-worker grid (its ``shard_classes`` scale the slices up)."""
     grid = dist.layout
     W = grid.num_workers if num_workers is None else int(num_workers)
     meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    shards = None if is_resident(state) else _grid_shards(dist, shard_classes)
 
     def field(name):
         bs = getattr(state, name)
         if bs is None:
             return None
         if not flatbuf.is_bucket_state(bs):
-            return tree_map(lambda x: meta(
-                ((W,) + tuple(x.shape[1:])) if name in _STACKED
-                else tuple(x.shape), x.dtype), bs)
+            k = 1 if name in _STACKED else 0
+            leaves, treedef = tree_flatten(bs)
+            whole = (lambda i, x: tuple(x.shape[k:])) if shards is None else \
+                (lambda i, x: shards.whole_shape(i, x.shape[k:]))
+            return tree_unflatten(treedef, [
+                meta((W,) * k + whole(i, x), x.dtype)
+                for i, x in enumerate(leaves)])
         lay = bs.layout
         bufs = [meta(((W,) if name in _STACKED else ())
                      + (lay.bucket_rows[b], x.shape[-1]), x.dtype)
@@ -444,7 +517,8 @@ def state_template(state: LocalSGDState, dist, num_workers: int | None = None):
                          **{n: field(n) for n in _STACKED + _SINGLE})
 
 
-def local_state(full: LocalSGDState, dist, device) -> LocalSGDState:
+def local_state(full: LocalSGDState, dist, device, *,
+                shard_classes=None) -> LocalSGDState:
     """This rank's rows of a whole one-process state (a restored snapshot):
     its workers' rows, its shard's region of every sharded sub-bucket, on
     ``device``; the inverse of :func:`gather_state`.  Worker group 0 keeps
@@ -453,19 +527,28 @@ def local_state(full: LocalSGDState, dist, device) -> LocalSGDState:
     ``init`` seeds theirs.  A generator that has drawn (a run with gradient
     noise) is refused with ``ValueError`` where it cannot be kept as it
     is: a new stream would replay the draws.  A tree snapshot gives a
-    tree state: its workers' rows of every stacked leaf."""
+    tree state: its workers' rows of every stacked leaf, on a
+    within-worker grid its shard's slice of every leaf ``shard_classes``
+    shards."""
     grid = dist.layout
     S, si = grid.within_worker_size, grid.shard
     lo, wl = grid.worker_lo, grid.w_local
+    shards = (None if flatbuf.is_bucket_state(full.params)
+              else _grid_shards(dist, shard_classes))
 
     def own(name):
         bs = getattr(full, name)
         if bs is None:
             return None
         if not flatbuf.is_bucket_state(bs):
-            return tree_map(lambda x: (x[lo:lo + wl] if name in _STACKED
-                                       else x).to(device=device, copy=True)
-                            .contiguous(), bs)
+            k = 1 if name in _STACKED else 0
+            leaves, treedef = tree_flatten(bs)
+            if k:
+                leaves = [x[lo:lo + wl] for x in leaves]
+            if shards is not None:
+                leaves = [shards.take(i, x, k) for i, x in enumerate(leaves)]
+            return tree_unflatten(treedef, [
+                x.to(device=device, copy=True).contiguous() for x in leaves])
         lay = bs.layout
         bufs = []
         for b, x in enumerate(bs.buckets):
@@ -634,16 +717,34 @@ def bucket_worker_mean(delta, bucketable=None, *, dist=None, stage_of=None):
                                   stage=stage_of(None)))
 
 
-def _packed_mean_leaf(d, axis: int = -1, dist=None, stage=None):
+def _packed_mean_leaf(d, axis: int = -1, dist=None, stage=None, scale=None):
     """One leaf's worker mean through the 1-bit wire format, packed along
-    ``axis`` (a per-worker scale).  ``dist``: this rank's workers packed,
-    the payload and the scales all-gathered into ``(W, ...)`` (one gather
-    each), unpacked and averaged in worker order, as one process does."""
-    packed, scale = comp.pack_signs(d, axis=axis)
+    ``axis`` (a per-worker scale: mean |x|, or ``scale`` when the caller
+    has it, a slice's from its whole leaf).  ``dist``: this rank's workers
+    packed, the payload and the scales all-gathered into ``(W, ...)``
+    (one gather each), unpacked and averaged in worker order, as one
+    process does."""
+    packed, scale = comp.pack_signs(d, axis=axis, scale=scale)
     if dist is not None:
         packed = dist.gather_workers(packed, scope="global", stage=stage)
         scale = dist.gather_workers(scale, scope="global", stage=stage)
     return comp.unpack_signs(packed, scale, d.shape[1:], axis=axis).mean(dim=0)
+
+
+def _pack_scales(delta, bucketable, shards, across=None) -> dict:
+    """Leaf index -> the per-worker wire-pack scale ``(W_local,)`` of every
+    sharded leaf off the flat bus: its slices' |x| partials added in
+    shard order, over the whole leaf's elements."""
+    leaves = tree_leaves(delta)
+    flags = (tree_leaves(bucketable) if bucketable is not None
+             else [True] * len(leaves))
+    idx = [i for i, m in enumerate(flags) if not m and shards.sharded(i)]
+    if not idx:
+        return {}
+    sums = comp.worker_leaf_abs_sums([leaves[i] for i in idx],
+                                     shards=shards.subset(idx), across=across)
+    return {i: sums[:, j] / (leaves[i][0].numel() * shards.factor(i))
+            for j, i in enumerate(idx)}
 
 
 def bucket_packed_mean(delta, bucketable=None, *, flat_fn=None, leaf_fn=None,
@@ -681,12 +782,24 @@ def pack_axes_tree(specs, layout):
     return tree_map(pick, specs, is_leaf=mbase.is_spec)
 
 
-def _tree_sumsq_w(tree):
+def _tree_sumsq_w(tree, shards=None, across=None):
     """(W,) per-worker f32 sum of squares over every leaf of a stacked
     tree, leaf after leaf, one reduction a worker and leaf
     (``optim.sgd.sum_from``: the same bits whatever workers lie beside
-    it, in one process or on a rank)."""
-    return sum(sum_from(_sq(x), 1) for x in tree_leaves(tree))
+    it, in one process or on a rank); a sharded leaf's (``shards``, a
+    ``flatbuf.LeafShards``) its slices' partials added in shard order,
+    over the shard group (``across``) where the tree holds a slice."""
+    return sum(flatbuf.leaf_sums(tree_leaves(tree), _sq,
+                                 lambda v: sum_from(v, 1), leading=1,
+                                 shards=shards, across=across))
+
+
+def _tree_sumsq(tree, shards=None, across=None):
+    """f32 sum of squares over every leaf of a single-copy tree, added in
+    leaf order (a sharded leaf's as in :func:`_tree_sumsq_w`)."""
+    return sum(flatbuf.leaf_sums(tree_leaves(tree), _sq,
+                                 lambda v: v.sum(dim=tuple(range(v.dim()))),
+                                 leading=0, shards=shards, across=across))
 
 
 def _sq(x):
@@ -805,22 +918,48 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                          num_workers: int, wd_mask=None, use_kernel: bool,
                          bucket_sync: bool, bucketable=None,
                          packed_mean_fn=None, telemetry: bool = False,
-                         speculate_compression: bool = False, dist=None):
+                         speculate_compression: bool = False, dist=None,
+                         shard_classes=None, batch_split: int = 1):
     """(init, local_step, sync) of the tree path (see the module
     docstring), the port of the reference's non-resident branch of
-    ``make_local_sgd``.  ``dist`` (one worker group a rank) keeps this
-    rank's ``W / P`` workers' rows of every stacked leaf."""
+    ``make_local_sgd``.  ``dist`` keeps this rank's ``W / P`` workers'
+    rows of every stacked leaf, and on a within-worker grid (S > 1) its
+    shard's slice of every leaf ``shard_classes`` shards."""
     ls = run.local_sgd
     opt = run.optim
     W = num_workers
     global_batch = run.shape.global_batch
     wl = W if dist is None else dist.layout.w_local
     lo = 0 if dist is None else dist.layout.worker_lo
-    if dist is not None and packed_mean_fn is not None \
-            and packed_mean_fn[0] is not None:
+    S = 1 if dist is None else dist.layout.within_worker_size
+    si = 0 if dist is None else dist.layout.shard
+    if batch_split not in (1, S):
+        raise ValueError(f"batch_split={batch_split}: a worker's batch splits "
+                         f"over its S={S} shard ranks or not at all")
+    shards = None
+    if shard_classes is not None:
+        shards = flatbuf.LeafShards.of(shard_classes, si if S > 1 else None)
+        if bucketable is None:
+            bucketable = flatbuf.replicated_tree(shard_classes)
+        bad = sorted({c.shards for c in shards.classes} - {1, S})
+        if S > 1 and bad:
+            raise ValueError(f"leaves of {bad} shards: a within-worker grid of "
+                             f"{S} shard ranks holds slices of {S} only")
+    elif S > 1:
+        raise ValueError(f"a within-worker grid of {S} shard ranks needs the "
+                         "leaves' sharding classes (shard_classes=)")
+    custom_pm = packed_mean_fn is not None and packed_mean_fn[0] is not None
+    if dist is not None and custom_pm:
         raise ValueError("a custom per-leaf wire pack sees one rank's rows: "
                          "across ranks the port gathers them itself "
                          "(packed_mean_fn=(None, axes_tree))")
+    if shards is not None and custom_pm:
+        raise ValueError("a custom per-leaf wire pack cannot take the sharded "
+                         "leaves' scales: with shard_classes the port packs "
+                         "them itself (packed_mean_fn=(None, axes_tree))")
+    # this rank holds slices: the local step gathers and reduces them
+    sliced = [] if shards is None or shards.shard is None else \
+        [i for i in range(len(shards.classes)) if shards.sliced(i)]
 
     def gathered(x, scope: str):
         """Every worker's rows of a per-worker ``x`` (this rank's, in one
@@ -832,11 +971,19 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
         workers, added in worker order (the same adds on any ranks)."""
         return kops.lead_total(gathered(per, scope))
 
+    def sumsq_w(tree):
+        return _tree_sumsq_w(tree, shards, dist)
+
     def init(params_single, seed: int = 0) -> LocalSGDState:
         """Stack a single-copy param tree (tensors on the training device)
-        into this rank's copies (all W in one process); ``seed`` seeds the
-        state's generator (the gradient noise's stream; across ranks one
-        stream a worker group, from ``(seed, group)``)."""
+        into this rank's copies (all W in one process; on a within-worker
+        grid its shard's slices); ``seed`` seeds the state's generator
+        (the gradient noise's stream; across ranks one stream a worker
+        group, from ``(seed, group)``)."""
+        if sliced:
+            leaves, treedef = tree_flatten(params_single)
+            params_single = tree_unflatten(
+                treedef, [shards.take(i, x, 0) for i, x in enumerate(leaves)])
         params = stack_tree(params_single, wl)
         dev = tree_leaves(params)[0].device
         return LocalSGDState(
@@ -853,6 +1000,38 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                 seed if dist is None else _group_seed(seed, dist.layout.group)),
             stats=tstats.init_stats(wl, 1, dev) if telemetry else None)
 
+    def whole_leaves(leaves):
+        """The leaves the model reads: every slice this rank holds gathered
+        with its shard group's (one gather a dtype) into its whole leaf."""
+        if not sliced:
+            return leaves
+        out = list(leaves)
+        for i, g in zip(sliced, dist.gather_leaf_shards(
+                [leaves[i] for i in sliced])):
+            out[i] = shards.whole(i, g, 1)
+        return out
+
+    def reduce_grads(grads, shapes):
+        """Worker-stacked gradients of the whole leaves -> this rank's: with
+        a split batch (FSDP) the shard ranks' mean, reduce-scattered into
+        the slices and all-reduced for the replicated leaves (one
+        collective a dtype each), else (tensor parallel) its slices."""
+        if not sliced:
+            return grads
+        out = list(grads)
+        if batch_split == 1:
+            for i in sliced:
+                out[i] = shards.take(i, grads[i], 1)
+            return out
+        red = dist.reduce_scatter_leaf_shards(
+            [shards.split(i, grads[i], 1).transpose(0, 1) for i in sliced])
+        for i, r in zip(sliced, red):
+            out[i] = r.div_(S).reshape(shapes[i])
+        rep = [i for i in range(len(grads)) if i not in sliced]
+        for i, r in zip(rep, dist.all_reduce_leaves([grads[i] for i in rep])):
+            out[i] = r.div_(S)
+        return out
+
     def local_step(state: LocalSGDState, batch, lr_scale=None):
         """One local step of every worker (``batch``: dict of (W, B_loc,
         ...) arrays or tensors, the global batch on every rank; ``lr_scale``
@@ -864,56 +1043,73 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
             lr = lr * np.float32(lr_scale)
         if dist is not None:
             batch = _rank_rows(batch, W, lo, wl)
+            if batch_split > 1:
+                # FSDP: this shard rank's 1/S of every worker's batch
+                n = len(next(iter(batch.values()))[0])
+                if n % S:
+                    raise ValueError(f"a worker's batch of {n} does not split "
+                                     f"over its {S} shard ranks")
+                batch = {k: v[:, si * (n // S):(si + 1) * (n // S)]
+                         for k, v in batch.items()}
         batch = {k: _to_device(v, dev) for k, v in batch.items()}
+        full = whole_leaves(leaves)
         grads_w, losses, metrics_w = [], [], []
         for w in range(wl):
-            src = [x[w].detach().requires_grad_(True) for x in leaves]
+            src = [x[w].detach().requires_grad_(True) for x in full]
             loss, metrics = loss_fn(tree_unflatten(treedef, src),
                                     {k: v[w] for k, v in batch.items()})
             g = torch.autograd.grad(loss, src, allow_unused=True,
                                     materialize_grads=True)
             g = tree_unflatten(treedef, list(g))
             if opt.noise_eta > 0:
+                # drawn for the whole leaf: a worker group's draws are the
+                # one process's, and a shard rank keeps its slice of them
                 g = isotropic_noise(g, state.rng, step=state.step,
                                     eta=opt.noise_eta, gamma=opt.noise_gamma)
             grads_w.append(tree_leaves(g))
             losses.append(loss.detach())
             metrics_w.append({k: v.detach() for k, v in metrics.items()})
-        grads = tree_unflatten(treedef, [torch.stack(gs)
-                                         for gs in zip(*grads_w)])
+        del full
+        grads = tree_unflatten(treedef, reduce_grads(
+            [torch.stack(gs) for gs in zip(*grads_w)],
+            [x.shape for x in leaves]))
         del grads_w
         stats = state.stats
         if telemetry:
             # the APPLIED (post-clip) grad norm^2, from the raw norm: a
             # clip scales the whole vector, ||clip(g)||^2 = min(||g||, c)^2
-            gsq = _tree_sumsq_w(grads)
+            gsq = sumsq_w(grads)
             if opt.grad_clip and opt.optimizer != "lars":
                 gsq = torch.clamp(gsq, max=float(np.float32(opt.grad_clip) ** 2))
         p0 = state.params
+        okw = dict(wd_mask=wd_mask, use_kernel=use_kernel, leading=1,
+                   shards=shards, across=dist)
         if opt.optimizer == "lars":
             p, u = apply_lars(p0, grads, state.momentum, lr=lr,
                               trust=opt.lars_trust,
                               momentum_coef=ls.local_momentum,
                               weight_decay=opt.weight_decay,
-                              nesterov=ls.nesterov, wd_mask=wd_mask,
-                              use_kernel=use_kernel, leading=1)
+                              nesterov=ls.nesterov, **okw)
         else:
             p, u = apply_sgd(p0, grads, state.momentum, lr=lr,
                              momentum_coef=ls.local_momentum,
                              weight_decay=opt.weight_decay,
-                             nesterov=ls.nesterov, wd_mask=wd_mask,
-                             grad_clip=opt.grad_clip, use_kernel=use_kernel,
-                             leading=1)
+                             nesterov=ls.nesterov, grad_clip=opt.grad_clip,
+                             **okw)
         if telemetry:
-            usq = sum(sum_from(_sq(a.float() - b.float()), 1)
-                      for a, b in zip(tree_leaves(p), tree_leaves(p0)))
+            usq = sumsq_w([a.float() - b.float() for a, b in
+                           zip(tree_leaves(p), tree_leaves(p0))])
             stats = tstats.accumulate_step(stats, gsq, usq)
         # every worker's values (gathered across ranks: one collective a
         # step), averaged over the same W numbers as one process averages
         keys = list(metrics_w[0])
-        allv = gathered(torch.stack([
+        local = torch.stack([
             torch.stack([m[k].float() for k in keys] + [losses[i].float()])
-            for i, m in enumerate(metrics_w)]), "metrics")
+            for i, m in enumerate(metrics_w)])
+        if sliced and batch_split > 1:
+            # a worker's values: the mean over its shard ranks' halves
+            local = dist.shard_total(local, scope="metrics") / S
+        allv = gathered(local, "metrics")
         metrics = {k: allv[:, j].contiguous().mean()
                    for j, k in enumerate(keys)}
         metrics["loss"] = allv[:, -1].contiguous().mean()
@@ -930,7 +1126,8 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
         group and, at global scope, its one compressor mode (a per-bucket
         mode tuple raises ``ValueError``, as in the reference).  Across
         ranks a block inside the rank averages there, a block that spans
-        ranks and the global mean over their ordered mean."""
+        ranks and the global mean over their ordered mean (over the
+        worker group: a rank's slices with the same shard's)."""
         if plan is None:
             plan = splan.make_sync_plan(
                 flatbuf.build_layout(state.params, leading=1), num_workers=W,
@@ -968,7 +1165,7 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                 cent = tree_map(lambda a, b: a.float() - b.float(),
                                 state.params, p)
                 stats = tstats.record_sync(
-                    stats, pre_sync_sq=gathered(_tree_sumsq_w(cent),
+                    stats, pre_sync_sq=gathered(sumsq_w(cent),
                                                 "telemetry").mean(),
                     post_sync_sq=0.0)
             return LocalSGDState(params=p, momentum=state.momentum,
@@ -985,26 +1182,38 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
         ef = state.ef_memory
         err_w = ref_w = None      # per-worker compression error / reference
         diff = lambda xs, ys: tree_map(lambda x, y: x.float() - y, xs, ys)
-        ckw = dict(use_kernel=use_kernel, bucketable=bucketable, across=dist)
+        ckw = dict(use_kernel=use_kernel, bucketable=bucketable, across=dist,
+                   shards=shards)
         if mode == "sign":
             raw = delta
             delta = comp.sign_compress(delta, **ckw)
             if record:
-                err_w = _tree_sumsq_w(diff(raw, delta))
-                ref_w = _tree_sumsq_w(raw)
+                err_w = sumsq_w(diff(raw, delta))
+                ref_w = sumsq_w(raw)
         elif mode == "ef_sign":
             delta, ef = comp.ef_compress(delta, ef, **ckw)
             if record:
                 # the EF residual e' = input - output IS the error
-                err_w = _tree_sumsq_w(ef)
-                ref_w = _tree_sumsq_w(tree_map(lambda c, e: c + e, delta, ef))
+                err_w = sumsq_w(ef)
+                ref_w = sumsq_w(tree_map(lambda c, e: c + e, delta, ef))
         elif record and speculate_compression:
             cs = comp.sign_compress(delta, **ckw)
-            err_w = _tree_sumsq_w(diff(delta, cs))
-            ref_w = _tree_sumsq_w(delta)
+            err_w = sumsq_w(diff(delta, cs))
+            ref_w = sumsq_w(delta)
         if mode != "none" and ls.wire_pack:
             pm, axes_tree = packed_mean_fn or (None, None)
-            if dist is not None:
+            if shards is not None:
+                # a sharded leaf's scales come from its whole leaf: the
+                # per-leaf pack takes the leaf's index
+                axes = (tree_leaves(axes_tree) if axes_tree is not None
+                        else [-1] * len(shards.classes))
+                scales = _pack_scales(delta, bucketable, shards, dist)
+                pm = lambda d, i: _packed_mean_leaf(
+                    d, -1 if axes[i] is None else axes[i], dist, stage=0,
+                    scale=scales.get(i))
+                leaves, treedef = tree_flatten(delta)
+                axes_tree = tree_unflatten(treedef, list(range(len(leaves))))
+            elif dist is not None:
                 pm = lambda d, axis: _packed_mean_leaf(d, axis, dist, stage=0)
             if bucket_sync:
                 flat_fn = None if dist is None else (
@@ -1031,9 +1240,9 @@ def _make_tree_local_sgd(run: RunConfig, loss_fn: Callable, *,
                                   "telemetry")
                 kw = dict(comp_err_sq=er[0:1], comp_ref_sq=er[1:2])
             stats = tstats.record_sync(
-                stats, pre_sync_sq=gathered(_tree_sumsq_w(delta),
+                stats, pre_sync_sq=gathered(sumsq_w(delta),
                                             "telemetry").mean(),
-                post_sync_sq=sum(_sumsq(d) for d in tree_leaves(dbar)), **kw)
+                post_sync_sq=_tree_sumsq(dbar, shards, dist), **kw)
         gu = state.global_u
         if ls.global_momentum > 0:
             gu = tree_map(lambda ug, d: ls.global_momentum * ug + d, gu, dbar)
@@ -1081,26 +1290,16 @@ def make_local_sgd(run: RunConfig, loss_fn: Callable, *, num_workers: int,
     if resident is None:
         resident = resident_eligible(use_kernel, bucket_sync)
     if not resident:
-        if dist is not None:
-            if dist.layout.within_worker_size > 1:
-                raise ValueError(
-                    "the tree path across ranks holds whole workers: a "
-                    f"within-worker grid of {dist.layout.within_worker_size}"
-                    " shard ranks (S > 1) would need per-leaf shard gathers,"
-                    " which are not ported; use the resident path")
-            if dist.layout.num_workers != num_workers:
-                raise ValueError(f"num_workers={num_workers} disagrees with "
-                                 f"the worker layout "
-                                 f"({dist.layout.num_workers} workers)")
-        if shard_classes is not None:
-            raise ValueError("the tree path buckets on the fly and keeps no "
-                             "sharding classes: mark leaves with bucketable=")
+        if dist is not None and dist.layout.num_workers != num_workers:
+            raise ValueError(f"num_workers={num_workers} disagrees with "
+                             f"the worker layout "
+                             f"({dist.layout.num_workers} workers)")
         return _make_tree_local_sgd(
             run, loss_fn, num_workers=num_workers, wd_mask=wd_mask,
             use_kernel=use_kernel, bucket_sync=bucket_sync,
             bucketable=bucketable, packed_mean_fn=packed_mean_fn,
             telemetry=telemetry, speculate_compression=speculate_compression,
-            dist=dist)
+            dist=dist, shard_classes=shard_classes, batch_split=batch_split)
     if not (use_kernel and bucket_sync):
         raise ValueError("the resident path runs the kernels on buckets: "
                          "resident=True needs use_kernel and bucket_sync")

@@ -9,7 +9,8 @@ the reference selects with ``use_kernel=True`` — so every local step runs
 the fused SGD or LARS kernels and every sign / EF-sign sync the
 compressor kernels.  ``use_kernel=False`` builds the reference's default,
 the per-leaf tree path (``core.local_sgd``'s tree branch, plain PyTorch),
-in one process or across ranks of whole workers.  **A kept difference:** the reference's default is
+in one process or across ranks, whole workers a rank or each worker split
+over shard ranks.  **A kept difference:** the reference's default is
 ``use_kernel=False``; the port's stays True, so that no caller moves off
 the kernels without asking.  The sync plan takes the config's topology
 (``syncplan.resolve_topology``: hierarchical when ``block_steps > 1``).
@@ -55,6 +56,9 @@ class TrainBundle:
     dist: Any = None
     # sharding.layout.MeshLayout whose classes bucket the leaves, or None
     mesh_layout: Any = None
+    # its flatbuf.shard_classes of the specs (None without a layout): a
+    # tree state on a within-worker grid needs them to gather or restore
+    shard_classes: Any = None
 
     @property
     def rank(self) -> int:
@@ -101,19 +105,16 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
     ``use_kernel=False`` builds the tree path, and ``resident=False`` with
     the kernels on its tree-in/tree-out kernel form (the reference's
     ``make_local_sgd(use_kernel=True, resident=False)``); with a ``dist``
-    each rank holds its workers' rows of the stacked trees (whole workers
-    only: a within-worker grid, S > 1, raises ``ValueError`` before any
-    collective).  With a ``layout`` the tree path's sharded leaves
-    stay off the flat bus (``bucketable``) and the wire pack packs each of
-    them along its largest unsharded dim (``local_sgd.pack_axes_tree``),
-    as the reference's tree path does on a mesh."""
+    each rank holds its workers' rows of the stacked trees, and on a
+    within-worker grid (S > 1) its shard's slice of every sharded leaf
+    (``flatbuf.LeafShards``).  With a ``layout`` the tree path's sharded
+    leaves stay off the flat bus (``bucketable``), the wire pack packs
+    each of them along its largest unsharded dim
+    (``local_sgd.pack_axes_tree``), as the reference's tree path does on a
+    mesh, and every sum over a sharded leaf (the clip norm, LARS's norms,
+    the sign scales, telemetry) adds its slices' partials in shard order,
+    in one process as on the ranks."""
     tree = not use_kernel or resident is False
-    if dist is not None and tree and dist.layout.within_worker_size > 1:
-        raise ValueError(
-            "the tree path (use_kernel=False or resident=False) across ranks "
-            "holds whole workers: a within-worker grid of "
-            f"{dist.layout.within_worker_size} shard ranks (S > 1) is not "
-            "ported for it; use the resident path")
     if worker_set is not None:
         if num_workers is not None and num_workers != worker_set.num_workers:
             raise ValueError(
@@ -161,8 +162,7 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
         run, loss, num_workers=num_workers, wd_mask=wd_mask,
         telemetry=telemetry,
         speculate_compression=run.controller.wants_speculation, dist=dist,
-        shard_classes=None if tree else shard_cls,
-        batch_split=batch_split, **tree_kw)
+        shard_classes=shard_cls, batch_split=batch_split, **tree_kw)
     blayout = flatbuf.build_layout(
         mbase.abstract(specs, flatbuf.torch_dtype(cfg.param_dtype)),
         wd_mask=wd_mask, shard_classes=shard_cls)
@@ -178,7 +178,8 @@ def build_train(run: RunConfig, *, num_workers: int | None = None,
                        device=device, layout=blayout, sync_plan=plan,
                        telemetry=telemetry,
                        n_comp=1 if tree else blayout.num_buckets,
-                       worker_set=worker_set, dist=dist, mesh_layout=layout)
+                       worker_set=worker_set, dist=dist, mesh_layout=layout,
+                       shard_classes=shard_cls)
 
 
 @dataclass

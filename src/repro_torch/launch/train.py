@@ -451,7 +451,9 @@ def fit(run: RunConfig, data_iter, *, bundle=None, num_steps=None, seed=0,
                     if bundle.dist is None:
                         csp.fence(checkpoint_fn(state, t))
                     else:
-                        full = gather_state(state, bundle.dist)
+                        full = gather_state(
+                            state, bundle.dist,
+                            shard_classes=bundle.shard_classes)
                         if full is not None:
                             checkpoint_fn(full, t)
                         del full
@@ -485,7 +487,8 @@ def eval_lm(bundle, data: dict, batch: int = 8):
     cfg = bundle.cfg
 
     def fn(state):
-        params = mean_params(state, bundle.dist)
+        params = mean_params(state, bundle.dist,
+                             shard_classes=bundle.shard_classes)
         losses = []
         n = len(next(iter(data.values())))
         with torch.no_grad():

@@ -18,25 +18,47 @@ import torch
 from repro_torch.core import flatbuf
 from repro_torch.kernels import ops as kops
 from repro_torch.optim.sgd import _bucketed, _per_worker, _unbucketed, sum_from
-from repro_torch.utils import tree_map, tree_map_pairs
+from repro_torch.utils import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 def _lars_leaf(p, g, u, skip, *, lr, trust, momentum, wd, nesterov,
-               leading: int = 0):
+               leading: int = 0, norms=None):
+    """One leaf's LARS step; ``norms`` = (||p||, ||g + wd p||) per worker
+    when the caller has them (a sharded leaf's, over the whole leaf)."""
     gf = g.float()
     pf = p.float()
     if wd and not skip:
         gf = gf + wd * pf
     if not skip:  # norm/bias params use the plain LR
-        norm = lambda x: _per_worker(torch.sqrt(sum_from(x * x, leading)),
-                                     x, leading)
-        wn, gn = norm(pf), norm(gf)
+        if norms is None:
+            norm = lambda x: torch.sqrt(sum_from(x * x, leading))
+            norms = (norm(pf), norm(gf))
+        wn, gn = (_per_worker(n, pf, leading) for n in norms)
         ratio = torch.where((wn > 0) & (gn > 0), trust * wn / (gn + 1e-9), 1.0)
         gf = gf * ratio
     u_new = momentum * u.float() + gf
     step = (momentum * u_new + gf) if nesterov else u_new
     p_new = pf - float(lr) * step
     return p_new.to(p.dtype), u_new.to(u.dtype)
+
+
+def _shard_norms(params, grads, wd_mask, *, wd, leading, shards, across):
+    """Per sharded leaf (None elsewhere): (||p||, ||g + wd p||) per worker,
+    each square sum its slices' partials added in shard order, every
+    leaf's in one ``shard_total`` where the trees hold slices."""
+    ps, gs, skips = (tree_leaves(t) for t in (params, grads, wd_mask))
+    idx = [i for i in range(len(ps)) if shards.sharded(i) and not skips[i]]
+    pf = [ps[i].float() for i in idx]
+    gf = [gs[i].float() + wd * p if wd else gs[i].float()
+          for i, p in zip(idx, pf)]
+    tot = flatbuf.leaf_totals(
+        [flatbuf.region_sums(shards.regions(i, x * x, leading))
+         for i, x in zip(idx + idx, pf + gf)],
+        [shards.sliced(i) for i in idx + idx], across)
+    out: list = [None] * len(ps)
+    for j, i in enumerate(idx):
+        out[i] = (torch.sqrt(tot[j]), torch.sqrt(tot[len(idx) + j]))
+    return out
 
 
 def apply_lars_buckets(layout, pb, gb, ub, *, lr, trust: float,
@@ -98,30 +120,47 @@ def apply_lars_buckets(layout, pb, gb, ub, *, lr, trust: float,
 
 
 def _apply_lars_bucketed(params, grads, momentum, wd_mask, *, lr, trust,
-                         momentum_coef, weight_decay, nesterov, leading: int):
+                         momentum_coef, weight_decay, nesterov, leading: int,
+                         shards=None, across=None):
     """Tree-in/tree-out wrapper around :func:`apply_lars_buckets` (packs
-    and unpacks around every call)."""
-    layout, (pb, gb, ub) = _bucketed(params, grads, momentum, wd_mask, leading)
+    and unpacks around every call; ``shards`` and ``across`` as in
+    ``optim.sgd._apply_sgd_bucketed``)."""
+    layout, (pb, gb, ub) = _bucketed(params, grads, momentum, wd_mask, leading,
+                                     shards)
     apply_lars_buckets(layout, pb, gb, ub, lr=lr, trust=trust,
                        momentum_coef=momentum_coef,
-                       weight_decay=weight_decay, nesterov=nesterov)
-    return _unbucketed(layout, pb, leading), _unbucketed(layout, ub, leading)
+                       weight_decay=weight_decay, nesterov=nesterov,
+                       across=across)
+    return (_unbucketed(layout, pb, leading, shards),
+            _unbucketed(layout, ub, leading, shards))
 
 
 def apply_lars(params, grads, momentum, *, lr, trust: float,
                momentum_coef: float, weight_decay: float, nesterov: bool,
-               wd_mask=None, use_kernel: bool = False, leading: int = 0):
+               wd_mask=None, use_kernel: bool = False, leading: int = 0,
+               shards=None, across=None):
     """One LARS step on trees; returns NEW (params, momentum) trees.
-    Leaves flagged in ``wd_mask`` take neither decay nor a trust ratio."""
+    Leaves flagged in ``wd_mask`` take neither decay nor a trust ratio.
+    ``shards`` (a ``core.flatbuf.LeafShards``) and ``across``: a sharded
+    leaf's layer norms are global, its slices' partials added in shard
+    order (over the shard group where the trees hold one slice)."""
     if wd_mask is None:
         wd_mask = tree_map(lambda _: False, params)
     if use_kernel:
         return _apply_lars_bucketed(params, grads, momentum, wd_mask, lr=lr,
                                     trust=trust, momentum_coef=momentum_coef,
                                     weight_decay=weight_decay,
-                                    nesterov=nesterov, leading=leading)
-    return tree_map_pairs(
-        lambda p, g, u, s: _lars_leaf(p, g, u, s, lr=lr, trust=trust,
-                                      momentum=momentum_coef, wd=weight_decay,
-                                      nesterov=nesterov, leading=leading),
-        params, grads, momentum, wd_mask)
+                                    nesterov=nesterov, leading=leading,
+                                    shards=shards, across=across)
+    leaves, treedef = tree_flatten(params)
+    norms = (_shard_norms(params, grads, wd_mask, wd=weight_decay,
+                          leading=leading, shards=shards, across=across)
+             if shards is not None else [None] * len(leaves))
+    outs = [_lars_leaf(p, g, u, s, lr=lr, trust=trust, momentum=momentum_coef,
+                       wd=weight_decay, nesterov=nesterov, leading=leading,
+                       norms=n)
+            for p, g, u, s, n in zip(leaves, tree_leaves(grads),
+                                     tree_leaves(momentum),
+                                     tree_leaves(wd_mask), norms, strict=True)]
+    return (tree_unflatten(treedef, [o[0] for o in outs]),
+            tree_unflatten(treedef, [o[1] for o in outs]))

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.core import flatbuf
 from repro_torch.kernels import ops as kops
-from repro_torch.utils import tree_leaves, tree_map, tree_map_pairs
+from repro_torch.utils import (tree_flatten, tree_leaves, tree_map,
+                               tree_map_pairs, tree_unflatten)
 
 
 def init_momentum(params):
@@ -53,20 +54,30 @@ def _per_worker(scale, x, leading: int):
     return scale.reshape(tuple(scale.shape) + (1,) * (x.dim() - leading))
 
 
-def clip_by_global_norm(grads, max_norm: float, *, leading: int = 0):
+def clip_by_global_norm(grads, max_norm: float, *, leading: int = 0,
+                        shards=None, across=None):
     """Scale ``grads`` so that its global L2 norm (f32, over every leaf) is
     at most ``max_norm``; with ``leading`` = 1 each worker's own norm.
-    ``max_norm`` 0 returns ``grads`` itself."""
+    ``max_norm`` 0 returns ``grads`` itself.  ``shards`` (a
+    ``core.flatbuf.LeafShards``): a sharded leaf's Σg² is its slices'
+    partials added in shard order, over the shard group (``across``)
+    where ``grads`` holds one slice; the leaves' sums are added in leaf
+    order either way."""
     if not max_norm:
         return grads
     gn2 = 0.0
-    for g in tree_leaves(grads):
-        gf = g.float()
-        gn2 = gn2 + sum_from(gf * gf, leading)
+    for t in flatbuf.leaf_sums(tree_leaves(grads), lambda g: _sq(g.float()),
+                               lambda v: sum_from(v, leading),
+                               leading=leading, shards=shards, across=across):
+        gn2 = gn2 + t
     gn = torch.sqrt(gn2)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * _per_worker(scale, g, leading))
                     .to(g.dtype), grads)
+
+
+def _sq(x):
+    return x * x
 
 
 def _leaf_update(p, g, u, skip_wd, *, lr, momentum, wd, nesterov):
@@ -131,42 +142,66 @@ def apply_sgd_buckets(layout, pb, gb, ub, *, lr, momentum_coef: float,
     return pb, ub
 
 
-def _bucketed(params, grads, momentum, wd_mask, leading: int):
+def _bucketed(params, grads, momentum, wd_mask, leading: int, shards=None):
     """(layout, param, grad and momentum buckets) of the trees, each bucket
-    with a worker dim (one worker's tree gets a dim of 1)."""
-    layout = flatbuf.build_layout(params, wd_mask=wd_mask, leading=leading)
+    with a worker dim (one worker's tree gets a dim of 1).  ``shards`` (a
+    ``core.flatbuf.LeafShards``): the layout of the WHOLE leaves with their
+    sharding classes, and a tree of slices packed into its shard's region
+    rows (``flatbuf.flatten(region=True)``)."""
+    if shards is None:
+        layout = flatbuf.build_layout(params, wd_mask=wd_mask, leading=leading)
+    else:
+        leaves, treedef = tree_flatten(params)
+        whole = [torch.empty(tuple(x.shape[:leading]) + shards.whole_shape(
+                     i, x.shape[leading:]), dtype=x.dtype, device="meta")
+                 for i, x in enumerate(leaves)]
+        layout = flatbuf.build_layout(tree_unflatten(treedef, whole),
+                                      wd_mask=wd_mask, leading=leading,
+                                      shard_classes=list(shards.classes))
+    region = shards is not None and shards.shard is not None
     lift = (lambda bs: bs) if leading else (lambda bs: [b[None] for b in bs])
-    return layout, [lift(flatbuf.flatten(layout, t, leading=leading))
+    return layout, [lift(flatbuf.flatten(layout, t, leading=leading,
+                                         region=region))
                     for t in (params, grads, momentum)]
 
 
-def _unbucketed(layout, bufs, leading: int):
+def _unbucketed(layout, bufs, leading: int, shards=None):
     return flatbuf.unflatten(layout, bufs if leading else [b[0] for b in bufs],
-                             leading=leading)
+                             leading=leading,
+                             region=shards is not None and shards.shard is not None)
 
 
 def _apply_sgd_bucketed(params, grads, momentum, wd_mask, *, lr,
                         momentum_coef, weight_decay, nesterov, grad_clip,
-                        leading: int):
+                        leading: int, shards=None, across=None):
     """Tree-in/tree-out wrapper around :func:`apply_sgd_buckets`: it packs
     the three trees into buckets and unpacks the results around every
     call, which the resident path avoids.  One launch per bucket updates
-    every worker; the results are views into new buckets."""
-    layout, (pb, gb, ub) = _bucketed(params, grads, momentum, wd_mask, leading)
+    every worker; the results are views into new buckets.  With
+    ``shards`` the buckets are the sharding classes' sub-buckets, whole or
+    this rank's region (``across`` totals its sums over the shard
+    group)."""
+    layout, (pb, gb, ub) = _bucketed(params, grads, momentum, wd_mask, leading,
+                                     shards)
     apply_sgd_buckets(layout, pb, gb, ub, lr=lr, momentum_coef=momentum_coef,
                       weight_decay=weight_decay, nesterov=nesterov,
-                      grad_clip=grad_clip)
-    return _unbucketed(layout, pb, leading), _unbucketed(layout, ub, leading)
+                      grad_clip=grad_clip, across=across)
+    return (_unbucketed(layout, pb, leading, shards),
+            _unbucketed(layout, ub, leading, shards))
 
 
 def apply_sgd(params, grads, momentum, *, lr, momentum_coef: float,
               weight_decay: float, nesterov: bool, wd_mask=None,
               grad_clip: float = 0.0, use_kernel: bool = False,
-              leading: int = 0):
+              leading: int = 0, shards=None, across=None):
     """One SGD step on trees; returns NEW (params, momentum) trees, each
     leaf in its own dtype.  ``use_kernel`` picks the tree-in/tree-out
     kernel form, else the per-leaf plain form; ``leading`` as in the
-    module docstring."""
+    module docstring.  ``shards`` (a ``core.flatbuf.LeafShards``) and
+    ``across`` (the shard group's ``backend.collectives.Collectives``):
+    the trees may hold a slice of each sharded leaf, and the clip norm
+    adds the slices' partials in shard order (see
+    :func:`clip_by_global_norm`)."""
     if wd_mask is None:
         wd_mask = tree_map(lambda _: False, params)
     if use_kernel:
@@ -174,8 +209,10 @@ def apply_sgd(params, grads, momentum, *, lr, momentum_coef: float,
                                    momentum_coef=momentum_coef,
                                    weight_decay=weight_decay,
                                    nesterov=nesterov, grad_clip=grad_clip,
-                                   leading=leading)
-    grads = clip_by_global_norm(grads, grad_clip, leading=leading)
+                                   leading=leading, shards=shards,
+                                   across=across)
+    grads = clip_by_global_norm(grads, grad_clip, leading=leading,
+                                shards=shards, across=across)
 
     def upd(p, g, u, skip):
         return _leaf_update(p, g, u, skip, lr=lr, momentum=momentum_coef,

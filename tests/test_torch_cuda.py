@@ -454,6 +454,63 @@ def test_tree_kernel_form_on_card_matches_plain_form(cuda, optimizer):
 
 
 @pytest.mark.cuda
+def test_tree_kernel_form_on_shard_regions(cuda):
+    """The tree path's kernel form on a sharded layout's sub-buckets
+    (paper-lm smoke leaves under tensor parallel, S = 2 regions): one
+    process's SGD step with the grad clip over every region (``across``
+    None: one ``sq_sum`` partial a worker and region, added in shard
+    order) against the same step on the CPU, where the kernels' plain
+    versions run: 2e-6 x the largest entry, the file's update bound; one
+    launch of kernels 1-2 a sub-bucket.  Then a rank's step on one shard
+    region (its slices; no clip, so no sum crosses shards): kernel 1 gives
+    that shard's slice of the whole step bit for bit."""
+    from repro_torch.core import flatbuf
+    from repro_torch.models import lm
+    from repro_torch.optim.sgd import apply_sgd
+    from repro_torch.sharding.layout import train_layout
+    from repro_torch.utils import tree_flatten, tree_unflatten
+    W = 2
+    specs = lm.param_specs(configs.get_smoke("paper-lm"))
+    lay = train_layout(("data", "model"), worker_axes=("data",)).with_sizes(
+        {"data": W, "model": 2})
+    cls = flatbuf.shard_classes(specs, lay)
+    mask = mbase.norm_param_mask(specs)
+    gen = torch.Generator().manual_seed(3)
+    trees = [mbase.stack(mbase.materialize(specs, gen, "cpu"), W)
+             for _ in range(3)]
+    kw = dict(lr=0.05, momentum_coef=0.9, weight_decay=1e-3, nesterov=True,
+              wd_mask=mask, use_kernel=True, leading=1)
+    whole = flatbuf.LeafShards.of(cls)
+    want = apply_sgd(*trees, shards=whole, grad_clip=1.0, **kw)
+    tkb.reset_launches()
+    got = apply_sgd(*[tree_map(lambda t: t.to(cuda), t) for t in trees],
+                    shards=whole, grad_clip=1.0, **kw)
+    nb = flatbuf.build_layout(trees[0], wd_mask=mask, leading=1,
+                              shard_classes=cls).num_buckets
+    assert nb == 2
+    assert tkb.LAUNCHES["sq_sum"] == tkb.LAUNCHES["fused_sgd_bucket"] == nb
+    for a, b in zip(got, want):
+        for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]):
+            scale = float(y.abs().max()) or 1.0
+            assert float((x.cpu() - y).abs().max()) <= 2e-6 * scale
+    full = apply_sgd(*[tree_map(lambda t: t.to(cuda), t) for t in trees],
+                     shards=whole, **kw)
+    for s in range(2):
+        one = flatbuf.LeafShards.of(cls, s)
+
+        def part(t):
+            leaves, treedef = tree_flatten(t)
+            return tree_unflatten(treedef, [one.take(i, x.to(cuda), 1)
+                                            for i, x in enumerate(leaves)])
+        tkb.reset_launches()
+        reg = apply_sgd(*[part(t) for t in trees], shards=one, **kw)
+        assert tkb.LAUNCHES["fused_sgd_bucket"] == nb
+        for a, b in zip(reg, full):
+            for x, y in zip(tree_flatten(a)[0], tree_flatten(part(b))[0]):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows", [3096 + 5, 264])
 def test_cuda_kernels_across_worker_resizes(cuda, rows):
     """sq_sum and fused_sgd_bucket against their plain versions while W

@@ -472,29 +472,45 @@ def test_build_train_defaults_to_no_recompute(monkeypatch):
 
 def test_tree_path_across_ranks_raises():
     """The tree path across ranks (``use_kernel=False``, or
-    ``resident=False``) builds with whole workers a rank (S = 1): the
-    backend keeps the choice for every build, and ``build_train`` gives a
-    tree state of the rank's workers.  With workers split over shard ranks
-    (S > 1) it raises ``ValueError`` before any collective:
-    ``DistributedBackend`` at construction, ``build_train`` at once with a
-    ``dist``.  (``tests/test_torch_tree_dist.py`` trains it on ranks.)"""
+    ``resident=False``) builds with whole workers a rank (S = 1) and with
+    workers split over shard ranks (S > 1): the backend keeps the choice
+    and S for every build, and ``build_train`` gives a tree state of the
+    rank's workers, on a within-worker grid its shard's slice of every
+    leaf the layout shards.  It still raises ``ValueError`` before any
+    collective where a grid has no layout to shard the leaves by.
+    (``tests/test_torch_tree_dist.py`` and
+    ``tests/test_torch_tree_sharded_dist.py`` train it on ranks.)"""
     from types import SimpleNamespace
 
     from repro_torch.backend.distributed import DistributedBackend
-    from repro_torch.sharding.layout import WorkerLayout
+    from repro_torch.sharding.layout import WorkerLayout, train_layout
     common = dict(device="cpu", coordinator_address="localhost:1",
                   process_id=0, num_processes=2)
     be = DistributedBackend(2, use_kernel=False, **common)
     assert be.use_kernel is False and be.collectives is None
     assert DistributedBackend(2, resident=False, **common).resident is False
+    tp = train_layout(("data", "model"), worker_axes=("data",))
     for kw in (dict(use_kernel=False), dict(resident=False)):
-        with pytest.raises(ValueError, match="whole workers"):
-            DistributedBackend(4, within_worker_size=2, **kw, **common)
-        split = SimpleNamespace(layout=WorkerLayout(4, 4, 0,
+        be = DistributedBackend(4, within_worker_size=2, layout=tp, **kw,
+                                **{**common, "num_processes": 4})
+        assert (be.use_kernel, be.resident, be.within_worker_size) == (
+            kw.get("use_kernel", True), kw.get("resident"), 2)
+        assert be.mesh_layout(4).sizes == {"data": 2, "model": 2}
+        # rank 3: worker group 1, shard 1
+        split = SimpleNamespace(layout=WorkerLayout(4, 4, 3,
                                                     within_worker_size=2))
-        with pytest.raises(ValueError, match="S > 1"):
+        with pytest.raises(ValueError, match="MeshLayout"):
             tbuild(_smoke_run(), num_workers=4, device="cpu", dist=split,
                    **kw)
+        tb = tbuild(_smoke_run(), num_workers=4, device="cpu", dist=split,
+                    layout=be.mesh_layout(4), **kw)
+        p0 = tmbase.materialize(tb.specs, torch.Generator().manual_seed(0),
+                                "cpu")
+        s = tb.init(p0)
+        assert not tsgd.is_resident(s) and tb.shard_classes is not None
+        # the vocab dim of the embedding is split: shard 1's half
+        assert s.params["embed"].shape == (2, 256, 128)
+        assert torch.equal(s.params["embed"][1], p0["embed"][256:])
         whole = SimpleNamespace(layout=WorkerLayout(2, 2, 1))
         tb = tbuild(_smoke_run(), num_workers=2, device="cpu", dist=whole,
                     **kw)

@@ -184,14 +184,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_engine(configs.get_smoke("internvl2-76b"),
                      type("S", (), {"global_batch": 2, "seq_len": 16})())
     assert build_train(run, num_workers=2, device="cpu").device.type == "cpu"
-    # the tree path across ranks: its backend refuses a worker split over
-    # shard ranks before it needs a card, and builds for the card else
+    # the tree path across ranks, whole workers a rank or a worker split
+    # over shard ranks: its backend keeps the choice and builds for the
+    # card, which it needs
     from repro_torch.backend.distributed import DistributedBackend
-    with pytest.raises(ValueError, match="whole workers"):
-        DistributedBackend(4, use_kernel=False, within_worker_size=2)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        DistributedBackend(4, use_kernel=False, process_id=0,
-                           num_processes=2).rank_device()
+    be = DistributedBackend(4, use_kernel=False, within_worker_size=2)
+    assert (be.use_kernel, be.resident, be.within_worker_size) == (False,
+                                                                   None, 2)
+    for kw in (dict(within_worker_size=2), {}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DistributedBackend(4, use_kernel=False, process_id=0,
+                               num_processes=2, **kw).rank_device()
 
 
 def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):

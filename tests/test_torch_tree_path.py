@@ -769,9 +769,12 @@ def test_tree_checkpoint_reference_restores_and_packs_resident(tmp_path):
 
 def test_tree_path_refusals():
     """A per-bucket mode tuple (the reference's ValueError), compression
-    without an anchor, a compressed block sync, across ranks with workers
-    split over shard ranks (S > 1; whole workers a rank build), sharding
-    classes, and resident=True without the kernels."""
+    without an anchor, a compressed block sync, workers split over shard
+    ranks (S > 1) without the leaves' sharding classes (with them it
+    builds, and a rank holds its shard's slices; whole workers a rank
+    build too), classes of another shard count than the grid's, a custom
+    per-leaf wire pack beside sharding classes, and resident=True without
+    the kernels."""
     run = _cfg(tcb, compression="ef_sign")
     init, local_step, sync = tsgd.make_local_sgd(run, _tloss, num_workers=W,
                                                  wd_mask=WD_MASK,
@@ -799,16 +802,36 @@ def test_tree_path_refusals():
     from types import SimpleNamespace
     from repro_torch.sharding.layout import WorkerLayout
     split = SimpleNamespace(layout=WorkerLayout(W, 4, 0, within_worker_size=2))
-    with pytest.raises(ValueError, match="shard ranks"):
+    with pytest.raises(ValueError, match="sharding classes"):
         tsgd.make_local_sgd(run, _tloss, num_workers=W, use_kernel=False,
                             dist=split)
     whole = SimpleNamespace(layout=WorkerLayout(W, 2, 1))
     init2, _, _ = tsgd.make_local_sgd(run, _tloss, num_workers=W,
                                       use_kernel=False, dist=whole)
     assert init2(s.anchor).params["w1"].shape[0] == W // 2
-    with pytest.raises(ValueError, match="sharding classes"):
+    # a worker split over shard ranks builds with the leaves' classes: the
+    # rank holds its workers' rows of its shard's slice of w1 (6 = 2 x 3)
+    cls = {"w1": tflat.ShardClass(("model",), ((0, 2),)),
+           "b1": tflat.REPLICATED, "w2": tflat.REPLICATED}
+    shard1 = SimpleNamespace(layout=WorkerLayout(W, 4, 1,
+                                                 within_worker_size=2))
+    for kw in (dict(use_kernel=False), dict(resident=False)):
+        init3, _, _ = tsgd.make_local_sgd(run, _tloss, num_workers=W,
+                                          dist=shard1, shard_classes=cls,
+                                          **kw)
+        s3 = init3(s.anchor)
+        assert s3.params["w1"].shape == (W // 2, 3, 5)
+        assert torch.equal(s3.anchor["w1"], s.anchor["w1"][3:])
+        assert s3.params["w2"].shape == (W // 2, 5, 2)
+    with pytest.raises(ValueError, match="slices of 2 only"):
+        tsgd.make_local_sgd(run, _tloss, num_workers=W, use_kernel=False,
+                            dist=split, shard_classes={
+                                **cls, "w1": tflat.ShardClass(("m",),
+                                                              ((0, 3),))})
+    with pytest.raises(ValueError, match="sharded leaves' scales"):
         tsgd.make_local_sgd(run, _tloss, num_workers=W, resident=False,
-                            shard_classes={})
+                            shard_classes=cls,
+                            packed_mean_fn=(lambda d, a: d.mean(0), None))
     with pytest.raises(ValueError, match="use_kernel and bucket_sync"):
         tsgd.make_local_sgd(run, _tloss, num_workers=W, use_kernel=False,
                             resident=True)
@@ -859,3 +882,155 @@ def test_per_worker_sums_do_not_depend_on_the_workers_beside(workers):
     sq = tsgd._tree_sumsq_w({"a": x, "b": x[:, 0]})
     assert sq.shape == (4,) and torch.equal(
         tsgd._tree_sumsq_w({"a": x[2:], "b": x[2:, 0]}), sq[2:])
+
+
+# ---------------------------------------------------------------------------
+# 6. Sharded leaves in one process: the adds the ranks make
+# ---------------------------------------------------------------------------
+
+# a toy tree with two leaves sharded 2 ways (w1 on dim 0, w2 on dim 1)
+SH_CLASSES = {"b1": tflat.REPLICATED,
+              "w1": tflat.ShardClass(("model",), ((0, 2),)),
+              "w2": tflat.ShardClass(("model",), ((1, 2),))}
+SH_MASK = {"b1": True, "w1": False, "w2": False}
+
+
+def _sh_tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"b1": torch.from_numpy(rng.normal(size=(W, 6)).astype(np.float32)),
+            "w1": torch.from_numpy(rng.normal(size=(W, 8, 6)).astype(np.float32)),
+            "w2": torch.from_numpy(rng.normal(size=(W, 6, 4)).astype(np.float32))}
+
+
+def _shard_order_sums(tree, fn):
+    """Per leaf (tree-flatten order) the per-worker sum of ``fn(x)``: a
+    sharded leaf's two numpy-cut slices summed one worker at a time,
+    partials added in shard order; a replicated leaf in one reduction a
+    worker."""
+    out = []
+    for k in sorted(tree):
+        v = fn(tree[k])
+        dims = SH_CLASSES[k].dims
+        if not dims:
+            out.append(torch.stack([r.sum() for r in v.unbind(0)]))
+            continue
+        parts = [torch.from_numpy(np.ascontiguousarray(p))
+                 for p in np.split(v.numpy(), dims[0][1], axis=1 + dims[0][0])]
+        out.append(torch.stack([
+            torch.stack([p[w].reshape(-1).sum() for w in range(W)])
+            for p in parts]).T)
+        out[-1] = out[-1][:, 0] + out[-1][:, 1]
+    return out
+
+
+def test_one_process_tree_sums_sharded_leaves_in_shard_order():
+    """With sharding classes (a sized TP / FSDP layout's), the one-process
+    tree path adds every sum over a sharded leaf as its slices' partials in
+    shard order, the adds a shard group's ranks make: the clip norm, LARS's
+    layer norms, the sign scales and telemetry's sums of squares, bit for
+    bit against the same adds made here by hand; the kernel form runs the
+    classes' sharded sub-buckets (``apply_sgd_buckets`` on the whole
+    buckets' shard regions).  The results agree with the whole-leaf sums
+    (no classes) within rounding: rtol 1e-6."""
+    sh = tflat.LeafShards.of(SH_CLASSES)
+    p, g, u = _sh_tree(1), _sh_tree(2), _sh_tree(3)
+    # the clip norm
+    gn2 = 0.0
+    for t in _shard_order_sums(g, lambda x: x * x):
+        gn2 = gn2 + t
+    scale = torch.clamp(1.5 / torch.clamp(torch.sqrt(gn2), min=1e-12), max=1.0)
+    got = tsgd_opt.clip_by_global_norm(g, 1.5, leading=1, shards=sh)
+    for k in g:
+        assert torch.equal(got[k], g[k] * scale.reshape(
+            (W,) + (1,) * (g[k].dim() - 1))), k
+    # telemetry and the sign scales
+    want = _shard_order_sums(g, lambda x: x.float() * x.float())
+    assert torch.equal(tsgd._tree_sumsq_w(g, sh), sum(want))
+    tot = tcomp.leaf_abs_totals(tree_leaves(g), shards=sh)
+    want = _shard_order_sums(g, lambda x: x.abs())
+    for j, w in enumerate(want):
+        acc = w[0]
+        for i in range(1, W):                  # the workers in worker order
+            acc = acc + w[i]
+        assert torch.equal(tot[j], acc), j
+    # LARS's layer norms: the step of a sharded leaf from hand-made norms
+    kw = dict(lr=0.1, trust=0.02, momentum_coef=0.9, weight_decay=1e-2,
+              nesterov=True, wd_mask=SH_MASK, leading=1)
+    lp, lu = tlars.apply_lars(p, g, u, shards=sh, **kw)
+    pw = _shard_order_sums(p, lambda x: x * x)
+    gwd = {k: g[k] + 1e-2 * p[k] for k in g}
+    gw = _shard_order_sums(gwd, lambda x: x * x)
+    for j, k in enumerate(sorted(p)):
+        if SH_MASK[k]:
+            continue
+        np_, nu = tlars._lars_leaf(p[k], g[k], u[k], False, lr=0.1, trust=0.02,
+                                   momentum=0.9, wd=1e-2, nesterov=True,
+                                   leading=1, norms=(torch.sqrt(pw[j]),
+                                                     torch.sqrt(gw[j])))
+        assert torch.equal(lp[k], np_) and torch.equal(lu[k], nu), k
+    # both forms against the whole-leaf sums, and the kernel form on the
+    # classes' sub-buckets
+    skw = dict(lr=0.1, momentum_coef=0.9, weight_decay=1e-2, nesterov=True,
+               wd_mask=SH_MASK, grad_clip=1.5, leading=1)
+    plain = tsgd_opt.apply_sgd(p, g, u, shards=sh, **skw)
+    kern = tsgd_opt.apply_sgd(p, g, u, shards=sh, use_kernel=True, **skw)
+    ref = tsgd_opt.apply_sgd(p, g, u, **skw)
+    lay = tflat.build_layout(p, wd_mask=SH_MASK, leading=1,
+                             shard_classes=SH_CLASSES)
+    assert sorted(lay.bucket_shards) == [1, 2]
+    pb, gb, ub = (tflat.flatten(lay, t, leading=1) for t in (p, g, u))
+    tsgd_opt.apply_sgd_buckets(lay, pb, gb, ub, lr=0.1, momentum_coef=0.9,
+                               weight_decay=1e-2, nesterov=True,
+                               grad_clip=1.5)
+    byhand = tflat.unflatten(lay, pb, leading=1)
+    for k in p:
+        assert torch.equal(kern[0][k], byhand[k]), k
+        for other in (plain, ref):
+            np.testing.assert_allclose(kern[0][k].numpy(), other[0][k].numpy(),
+                                       rtol=1e-6, atol=1e-7)
+
+
+def test_leaf_count_counts_the_whole_leaf():
+    """A rank that holds one of S slices of a leaf averages its sign scale
+    over the WHOLE leaf (``_leaf_count(factor=S)``): else every sign of a
+    sharded leaf would come out S times too large.  The slice's signs then
+    equal the whole leaf's slice bit for bit."""
+    from types import SimpleNamespace
+    from repro_torch.sharding.layout import WorkerLayout
+    x = _sh_tree(4)["w1"]                          # (W, 8, 6)
+    half = x[:, 4:].clone()
+    assert tcomp._leaf_count(half, None, factor=2) == x.numel()
+    across = SimpleNamespace(layout=WorkerLayout(2 * W, 4, 2,
+                                                 within_worker_size=2))
+    assert tcomp._leaf_count(half, across, factor=2) == 8 * 6 * 2 * W
+    total = tcomp.leaf_abs_totals([x])[0]
+    whole = tcomp.sign_compress_leaf(x, total=total)
+    assert torch.equal(tcomp.sign_compress_leaf(half, total=total, factor=2),
+                       whole[:, 4:])
+    assert not torch.equal(tcomp.sign_compress_leaf(half, total=total),
+                           whole[:, 4:])
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_tree_shards_of_replicated_leaves_keep_the_bits(use_kernel):
+    """Classes that shard no leaf (a layout without sizes on the model
+    axis) change nothing: the optimizers, the compressor and telemetry give
+    the bits of the tree path without classes."""
+    sh = tflat.LeafShards.of({k: tflat.REPLICATED for k in SH_CLASSES})
+    p, g, u = _sh_tree(5), _sh_tree(6), _sh_tree(7)
+    skw = dict(lr=0.1, momentum_coef=0.9, weight_decay=1e-2, nesterov=True,
+               wd_mask=SH_MASK, grad_clip=1.5, leading=1,
+               use_kernel=use_kernel)
+    lkw = dict(lr=0.1, trust=0.02, momentum_coef=0.9, weight_decay=1e-2,
+               nesterov=True, wd_mask=SH_MASK, leading=1,
+               use_kernel=use_kernel)
+    for a, b in ((tsgd_opt.apply_sgd(p, g, u, shards=sh, **skw),
+                  tsgd_opt.apply_sgd(p, g, u, **skw)),
+                 (tlars.apply_lars(p, g, u, shards=sh, **lkw),
+                  tlars.apply_lars(p, g, u, **lkw)),
+                 ((tcomp.sign_compress(g, use_kernel=use_kernel, shards=sh),),
+                  (tcomp.sign_compress(g, use_kernel=use_kernel),))):
+        for x, y in zip(a, b):
+            for k in p:
+                assert torch.equal(x[k], y[k]), k
+    assert torch.equal(tsgd._tree_sumsq_w(g, sh), tsgd._tree_sumsq_w(g))
